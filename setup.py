@@ -27,6 +27,8 @@ setup(
     packages=find_packages(
         exclude=["tests", "tests.*", "examples", "examples.*"]
     ),
+    # the PyTorch port compiles its CUDA sources with nvcc at first use
+    package_data={"unicore_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

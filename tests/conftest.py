@@ -49,3 +49,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: heavy end-to-end test, excluded from tier-1"
     )
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips without one"
+    )
