@@ -6,7 +6,7 @@
 Phases, each printing one JSON line; any failed phase raises, so the exit
 code is non-zero:
 
-1. build — compile every kernel of the serve path from
+1. build — compile every kernel of the serve and training paths from
    ``unicore_tpu_torch/csrc/`` with ``nvcc`` for sm_90a (one process per
    source, started together).
 2. kernel — the paged-attention kernel vs its plain PyTorch version at
@@ -28,15 +28,35 @@ code is non-zero:
    full-forward greedy decode equals the engine's tokens.
 5. profile — device busy and idle time of a decode-heavy window, and
    the kernels that take the most time (``torch.profiler``).
-6. the ``kernels`` line, the card's name and power limit, and the
+6. flash — the four flash-attention kernels (forward; dk/dv, dq, dbias
+   of the backward) vs their plain versions at the BERT shapes (B=16,
+   H=12, T=512, D=64, bias [1, 12, 512, 512], 0-200 padded keys per row,
+   dropout 0.1, q/k/v read from one fused [B, T, 3, H, D] projection), in
+   fp32 (out within 1e-4, each grad within 1e-3 of its max) and bf16
+   (against the plain version in fp32 on the same bf16 values, within
+   2e-2 of each tensor's max).  Kernel times from ``torch.profiler``,
+   plain and SDPA (same bias + pad mask, forward and forward + backward)
+   times from CUDA events, beside each kernel's bound.
+7. train — the port's CLI, in process, trains a seeded random
+   ``bert_base`` (12 layers, width 768, T=512, vocab 30522) under
+   ``--bf16`` for 20 updates of batch 16 on a synthetic corpus (2,048
+   records of 128-510 Zipf(1.1) tokens, written with the port's
+   ``IndexedRecordWriter``).  The first update's masked-token loss lies in
+   9-11.5 nats and the mean of the last 5 is below it; the flash forward
+   and each backward kernel launched once per layer per update.  Reports
+   step time, samples/s and tokens/s, then the device idle share and top
+   kernels of a ``torch.profiler`` window of 3 more updates.
+8. the ``kernels`` line, the card's name and power limit, and the
    closing ``{"ok": true, ...}`` line.
 
 Exits non-zero without a card, and without the repository around it.
 """
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -46,7 +66,10 @@ PAGE_SIZE, HEADS, HEAD_DIM, BATCH, CHUNK = 16, 12, 64, 16, 32
 NUM_PAGES, CONTEXT = 512, 512
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
 TOL = 1e-4                  # fp32, summation order differs
+FLASH_B, FLASH_H, FLASH_T, FLASH_D, FLASH_P = 16, 12, 512, 64, 0.1
+TRAIN_UPDATES, TRAIN_BATCH = 20, 16
 
 
 def emit(phase, **fields):
@@ -311,6 +334,302 @@ def profile_phase(model):
                        "ms": e.self_device_time_total / 1e3} for e in top])
 
 
+def flash_operands(rng, dtype):
+    """Operands of one attention layer of the BERT training path: q/k/v
+    as the fused projection's strided views, the batch-broadcast rel-pos
+    bias, 0-200 padded keys per row, per-row dropout seeds, and dO."""
+    B, H, T, D = FLASH_B, FLASH_H, FLASH_T, FLASH_D
+
+    def dev(a):
+        return torch.from_numpy(a).cuda().to(dtype)
+
+    qkv = dev(rng.standard_normal((B, T, 3, H, D), dtype=np.float32))
+    q, k, v = qkv.unbind(2)
+    bias = dev(rng.standard_normal((1, H, T, T), dtype=np.float32))
+    npad = rng.integers(0, 201, size=B)
+    pad = np.zeros((B, T), np.int32)
+    for b in range(B):
+        pad[b, T - npad[b]:] = 1
+    seed = rng.integers(-2 ** 31, 2 ** 31 - 1, size=B).astype(np.int32)
+    dout = dev(rng.standard_normal((B, T, H, D), dtype=np.float32))
+    return (q, k, v, bias, torch.from_numpy(pad).cuda(),
+            torch.from_numpy(seed).cuda(), dout, npad)
+
+
+def flash_bounds(npad, itemsize):
+    """{kernel: (bound_ms, bound_by)}: each kernel's operations on the
+    keys this run's data leaves unpadded (a padded key adds exactly
+    nothing to any output) over the tensor-core rate of its operand type,
+    against the bytes of its inputs read once and outputs written once."""
+    B, H, T, D = FLASH_B, FLASH_H, FLASH_T, FLASH_D
+    pairs = H * T * int((T - npad).sum())       # unpadded (q, k) pairs
+    rate = BF16_FLOP_PER_S if itemsize == 2 else FP32_FLOP_PER_S
+    act = B * T * H * D * itemsize              # one of q, k, v, dO, out
+    rows = B * H * T * 4                        # one of lse, delta
+    bias = H * T * T * itemsize
+    small = B * T * 4 + B * 4                   # pad, seeds
+    work = {  # kernel: (flops per unpadded pair / D, bytes)
+        "flash_fwd": (4, 4 * act + bias + small + rows),
+        "flash_dkdv": (8, 6 * act + bias + small + 2 * rows),
+        "flash_dq": (6, 5 * act + bias + small + 2 * rows),
+        "flash_dbias": (4, 4 * act + bias + small + 2 * rows + H * T * T * 4),
+    }
+    out = {}
+    for name, (per_pair, nbytes) in work.items():
+        t_ops = per_pair * pairs * D / rate
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def kernel_times_ms(fn, flush, names, iters=10):
+    """Mean device time of each named kernel over ``iters`` calls of
+    ``fn`` (``torch.profiler``; L2 flushed before each call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for name in names:
+            if f"{name}_kernel" in e.key:
+                times[name] = e.self_device_time_total / 1e3 / e.count
+    missing = [n for n in names if n not in times]
+    if missing:
+        raise AssertionError(f"profiler saw no device time for {missing}")
+    return times
+
+
+def flash_phase(flush):
+    """The flash kernels vs their plain versions at the BERT shapes, in
+    fp32 and bf16; returns {dtype: report}."""
+    import torch.nn.functional as F
+
+    from unicore_tpu_torch.ops import flash_attention as fa
+
+    scale = FLASH_D ** -0.5
+    names = ("flash_fwd", "flash_dkdv", "flash_dq", "flash_dbias")
+    reports = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        rng = np.random.default_rng(512)
+        q, k, v, bias, pad, seed, dout, npad = flash_operands(rng, dtype)
+        geom = fa.geometry(FLASH_T, FLASH_T, bias)
+        f32 = [x.float() for x in (q, k, v, bias, dout)]
+        args = (pad, FLASH_P, seed, False, scale, geom)
+
+        def kernel_fwd():
+            return fa.flash_fwd_cuda(q, k, v, bias, *args)
+
+        def plain_fwd():
+            return fa.flash_fwd_plain(*f32[:4], *args)
+
+        out_k, lse_k = kernel_fwd()
+        out_p, lse_p = plain_fwd()
+        # both backward versions get the plain forward's lse and delta
+        delta = (f32[4] * out_p).sum(dim=-1).transpose(1, 2).contiguous()
+
+        def kernel_bwd():
+            return fa.flash_bwd_cuda(q, k, v, bias, *args, lse_p, delta,
+                                     dout, True)
+
+        def plain_bwd():
+            return fa.flash_bwd_plain(*f32[:4], *args, lse_p, delta, f32[4],
+                                      True)
+
+        got, want = kernel_bwd(), plain_bwd()
+        torch.cuda.synchronize()
+        fp32 = dtype == torch.float32
+        errs = {}
+        for name, g, w in zip(("out", "lse", "dq", "dk", "dv", "dbias"),
+                              (out_k, lse_k) + got, (out_p, lse_p) + want):
+            g, w = g.float(), w.float()
+            if not (torch.isfinite(g).all() and torch.isfinite(w).all()):
+                raise AssertionError(f"{dtype} {name}: non-finite values")
+            err = float((g - w).abs().max())
+            scale_w = float(w.abs().max())
+            if name in ("out", "lse"):
+                tol = TOL if fp32 else 2e-2 * scale_w
+            else:
+                tol = (1e-3 if fp32 else 2e-2) * scale_w
+            if err > tol:
+                raise AssertionError(
+                    f"{dtype} {name}: max |kernel - plain| {err} > {tol}")
+            errs[name] = err
+
+        def kernels():
+            kernel_fwd()
+            kernel_bwd()
+
+        ms = kernel_times_ms(kernels, flush, names)
+        # SDPA with the same bias + pad mask and dropout rate: the library
+        # yardstick (the port never calls it)
+        qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        mask = (bias + torch.where(pad[:, None, None, :] > 0, -1e30, 0.0)
+                .to(dtype))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, dropout_p=FLASH_P, scale=scale)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(), (qh, kh, vh), dout.transpose(1, 2))
+
+        bounds = flash_bounds(npad, q.element_size())
+        report = {
+            "dtype": str(dtype).replace("torch.", ""),
+            "max_abs_err": errs,
+            "kernels": {n: {"ms": ms[n], "bound_ms": bounds[n][0],
+                            "bound_by": bounds[n][1]} for n in names},
+            "plain_fwd_ms": time_ms(plain_fwd, flush, iters=10),
+            "plain_bwd_ms": time_ms(plain_bwd, flush, iters=10),
+            "sdpa_fwd_ms": time_ms(sdpa, flush, iters=20),
+            "sdpa_fwd_bwd_ms": time_ms(sdpa_fwd_bwd, flush, iters=20),
+            "padded_keys": int(npad.sum()),
+        }
+        emit("flash", **report)
+        reports[report["dtype"]] = report
+        del q, k, v, bias, dout, f32, out_p, lse_p, got, want, mask
+        torch.cuda.empty_cache()
+    return reports
+
+
+def write_corpus(path, rng):
+    """dict.txt whose dictionary, with the task's five specials, has
+    30,522 entries, and 2,048 train records of 128-510 tokens drawn from
+    a Zipf(1.1) law over the words (plus 64 valid records)."""
+    from unicore_tpu_torch.data import IndexedRecordWriter
+
+    n_words = 30522 - 5
+    words = [f"w{i}" for i in range(n_words)]
+    with open(os.path.join(path, "dict.txt"), "w") as f:
+        f.writelines(f"{w} {n_words - i}\n" for i, w in enumerate(words))
+    p = np.arange(1, n_words + 1, dtype=np.float64) ** -1.1
+    p /= p.sum()
+    for split, n in (("train", 2048), ("valid", 64)):
+        lengths = rng.integers(128, 511, size=n)
+        ids = rng.choice(n_words, size=int(lengths.sum()), p=p)
+        with IndexedRecordWriter(os.path.join(path, f"{split}.rec")) as w:
+            start = 0
+            for n_tok in lengths:
+                w.write([words[i] for i in ids[start:start + n_tok]])
+                start += n_tok
+
+
+def train_phase():
+    """The port's CLI trains full-width bert_base under --bf16; returns
+    the flash launch counts of its 20 updates."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from unicore_tpu_torch import trainer as trainer_mod
+    from unicore_tpu_torch.cli.train import cli_main
+    from unicore_tpu_torch.ops import flash_attention as fa
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_corpus(tmp, np.random.default_rng(2048))
+        corpus_s = time.perf_counter() - t0
+        logdir = os.path.join(tmp, "log")
+        step_s = []
+        train_step = trainer_mod.Trainer.train_step
+
+        def timed(self, samples):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = train_step(self, samples)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            return out
+
+        trainer_mod.Trainer.train_step = timed
+        for name in fa.launches:
+            fa.launches[name] = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            loop = cli_main([
+                tmp, "--user-dir",
+                os.path.join(here, "unicore_tpu_torch", "examples", "bert"),
+                "--task", "bert", "--loss", "masked_lm", "--arch",
+                "bert_base", "--pre-tokenized", "--optimizer", "adam",
+                "--adam-betas", "(0.9, 0.98)", "--adam-eps", "1e-6",
+                "--clip-norm", "1.0", "--lr-scheduler", "polynomial_decay",
+                "--lr", "1e-4", "--warmup-updates", "4",
+                "--total-num-update", str(TRAIN_UPDATES),
+                "--batch-size", str(TRAIN_BATCH), "--update-freq", "1",
+                "--seed", "1", "--bf16", "--max-update", str(TRAIN_UPDATES),
+                "--log-interval", "1", "--log-format", "none",
+                "--tensorboard-logdir", logdir, "--disable-validation",
+                "--num-workers", "0", "--no-save",
+            ])
+        finally:
+            trainer_mod.Trainer.train_step = train_step
+        run_s = time.perf_counter() - t0
+        launches = dict(fa.launches)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        with open(os.path.join(logdir, "train_inner.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        nats = [r["loss"] * np.log(2) for r in records]  # logged in bits
+        layers = loop.trainer.model.encoder_layers
+        if len(nats) != TRAIN_UPDATES or not np.isfinite(nats).all():
+            raise AssertionError(f"losses {nats}")
+        if not 9.0 <= nats[0] <= 11.5:
+            raise AssertionError(f"first loss {nats[0]} nats not in 9-11.5")
+        if not np.mean(nats[-5:]) < nats[0]:
+            raise AssertionError(f"loss did not fall: {nats}")
+        want = layers * TRAIN_UPDATES
+        if any(launches[n] != want for n in launches):
+            raise AssertionError(f"flash launches {launches}, want {want} "
+                                 f"each ({layers} layers x {TRAIN_UPDATES} "
+                                 "updates)")
+        warm = np.array(step_s[2:])
+        med_s = float(np.median(warm))
+        emit("train", model="bert_base", dtype="bf16", batch=TRAIN_BATCH,
+             seq_len=512, updates=TRAIN_UPDATES, corpus_s=corpus_s,
+             run_s=run_s, losses_nats=[round(x, 4) for x in nats],
+             first_loss_nats=nats[0], last5_mean_nats=float(np.mean(nats[-5:])),
+             step_ms_median=med_s * 1e3, step_ms_all=[s * 1e3 for s in step_s],
+             samples_per_s=TRAIN_BATCH / med_s,
+             tokens_per_s=TRAIN_BATCH * 512 / med_s, peak_mem_gb=peak_gb,
+             launches=launches)
+
+        # where a step's time goes: 3 more updates under the profiler
+        trainer = loop.trainer
+        itr = trainer.get_train_iterator(epoch=2).next_epoch_itr()
+        batches = [next(itr) for _ in range(3)]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for b in batches:
+                trainer.train_step([b])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+        emit("train_profile", window="3 updates, batch 16 x 512, bf16",
+             wall_ms=wall_ms, device_busy_ms=busy_ms,
+             device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
+             kernel_launches=sum(e.count for e in kernels),
+             top_kernels=[{"name": e.key[:80], "count": e.count,
+                           "ms": e.self_device_time_total / 1e3}
+                          for e in top])
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -320,7 +639,7 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    report = build.build(["paged_attention"])
+    report = build.build(["paged_attention", "flash_attention"])
     emit("build", kernels={
         name: {"seconds": r["seconds"],
                "ptxas": [ln.strip() for ln in r["log"].splitlines()
@@ -328,12 +647,17 @@ def main():
         for name, r in report.items()})
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     cases = kernel_phase(pa, flush)
-    del flush
     model, first, second, results, launches = serve_phase(pa)
     solo_phase(model, first, second, results)
     profile_phase(model)
+    del model
+    torch.cuda.empty_cache()
+    flash = flash_phase(flush)
+    del flush
+    torch.cuda.empty_cache()
+    train_launches = train_phase()
     decode = cases["decode"]
-    print(json.dumps({"kernels": [{
+    rows = [{
         "name": "ragged_paged_attention",
         "route": "cuda",
         "source": "unicore_tpu_torch/csrc/paged_attention.cu",
@@ -344,7 +668,39 @@ def main():
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
         "library_ms": decode["library_ms"],
         "cases": cases,
-    }]}), flush=True)
+    }]
+    # the training path runs bf16: its numbers lead, fp32 rides along
+    main_case = flash["bfloat16"]
+    replaces = {
+        "flash_fwd": "unicore_tpu/ops/pallas/flash_attention.py:121",
+        "flash_dkdv": "unicore_tpu/ops/pallas/flash_attention.py:164",
+        "flash_dq": "unicore_tpu/ops/pallas/flash_attention.py:164",
+        "flash_dbias": "unicore_tpu/ops/pallas/flash_attention.py:164",
+    }
+    errs = {"flash_fwd": ("out",), "flash_dkdv": ("dk", "dv"),
+            "flash_dq": ("dq",), "flash_dbias": ("dbias",)}
+    for name in replaces:
+        fwd = name == "flash_fwd"
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "unicore_tpu_torch/csrc/flash_attention.cu",
+            "replaces": replaces[name],
+            "launches": train_launches[name],
+            "max_abs_err": max(main_case["max_abs_err"][e]
+                               for e in errs[name]),
+            "ms": main_case["kernels"][name]["ms"],
+            # the plain backward computes all three passes at once
+            "plain_ms": main_case["plain_fwd_ms" if fwd else "plain_bwd_ms"],
+            "bound_ms": main_case["kernels"][name]["bound_ms"],
+            "bound_by": main_case["kernels"][name]["bound_by"],
+            "library_ms": main_case["sdpa_fwd_ms"] if fwd else None,
+            "cases": {dt: {
+                "ms": c["kernels"][name]["ms"],
+                "bound_ms": c["kernels"][name]["bound_ms"],
+                "max_abs_err": max(c["max_abs_err"][e] for e in errs[name]),
+            } for dt, c in flash.items()},
+        })
+    print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

@@ -28,7 +28,7 @@ setup(
         exclude=["tests", "tests.*", "examples", "examples.*"]
     ),
     # the PyTorch port compiles its CUDA sources with nvcc at first use
-    package_data={"unicore_tpu_torch": ["csrc/*.cu"]},
+    package_data={"unicore_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

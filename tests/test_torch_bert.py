@@ -1,0 +1,224 @@
+"""The port's BERT (unicore_tpu_torch/examples/bert, modules/
+transformer_encoder.py, losses/masked_lm.py, ops/fused_cross_entropy.py,
+ops/dropout.py, data/) against the JAX package on the same weights and
+inputs: the fused-head features, the logits, the slot picks, the
+masked-LM loss and its gradients, the weight conversion round trip, the
+two BERT tasks' batches from one corpus, and the dropout's rate and
+scale.
+
+Tiny config (V = 29 + specials, D = 32, H = 4, F = 64, L = 2), fp32,
+dropout 0; every input comes from a seeded numpy RNG and goes to both
+packages.  Values within 1e-4, indices exactly."""
+
+import os
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from unicore_tpu_torch.examples.bert.convert import state_dict_from_flax
+from unicore_tpu_torch.examples.bert.model import BertModel
+
+V, PAD, D, H, F, L = 33, 1, 32, 4, 64, 2
+
+
+def make_pair(post_ln, capacity=0.25, max_seq_len=128):
+    """(flax model, flax params, port model) with identical weights; the
+    flax init is perturbed by seeded noise so no LayerNorm scale, bias or
+    the padding row is trivially 1 or 0."""
+    from examples.bert.model import BertModel as FlaxBert
+
+    kw = dict(vocab_size=V, padding_idx=PAD, encoder_layers=L,
+              encoder_embed_dim=D, encoder_ffn_embed_dim=F,
+              encoder_attention_heads=H, emb_dropout=0.0, dropout=0.0,
+              attention_dropout=0.0, activation_dropout=0.0,
+              max_seq_len=max_seq_len, post_ln=post_ln,
+              masked_loss_capacity=capacity)
+    fmodel = FlaxBert(**kw)
+    params = fmodel.init(jax.random.PRNGKey(0),
+                         jnp.full((1, 8), 5, jnp.int32))["params"]
+    nrng = np.random.RandomState(1)
+    params = jax.tree_util.tree_map(
+        lambda p: np.asarray(p) + np.float32(0.05) * nrng.randn(
+            *p.shape).astype(np.float32), params)
+    model = BertModel(**kw)
+    model.load_state_dict(state_dict_from_flax(params), strict=True)
+    return fmodel, params, model.eval()
+
+
+def make_sample(rng, bsz, seq, mask_frac=0.2):
+    toks = rng.randint(4, V, size=(bsz, seq)).astype(np.int64)
+    toks[0, seq - seq // 4:] = PAD  # row 0 right-padded
+    target = np.full((bsz, seq), PAD, dtype=np.int64)
+    pick = rng.rand(bsz, seq) < mask_frac
+    pick[toks == PAD] = False
+    target[pick] = rng.randint(4, V, size=int(pick.sum()))
+    return {"net_input": {"src_tokens": toks}, "target": target}
+
+
+@pytest.mark.parametrize("post_ln", [True, False])
+@pytest.mark.parametrize("seq", [16, 128])
+def test_model_matches_flax(rng, post_ln, seq):
+    """T = 16 takes the materialized attention, T = 128 the plain flash
+    (the port always takes flash where it is eligible; the JAX model runs
+    its reference path on the CPU): fused-head features, logits, and the
+    slot picks."""
+    fmodel, params, model = make_pair(post_ln)
+    sample = make_sample(rng, 3, seq)
+    toks = sample["net_input"]["src_tokens"]
+    masked = sample["target"] != PAD
+    apply = jax.jit(fmodel.apply, static_argnames="fused_head")
+    want = apply({"params": params}, jnp.asarray(toks),
+                 masked_tokens=jnp.asarray(masked), fused_head=True)
+    want_logits = apply({"params": params}, jnp.asarray(toks),
+                        masked_tokens=jnp.asarray(masked))["logits"]
+    with torch.no_grad():
+        got = model(torch.from_numpy(toks), torch.from_numpy(masked),
+                    fused_head=True)
+        got_logits = model(torch.from_numpy(toks),
+                           torch.from_numpy(masked))["logits"]
+    np.testing.assert_array_equal(got["slot_index"].numpy(),
+                                  np.asarray(want["slot_index"]))
+    np.testing.assert_array_equal(got["slot_valid"].numpy(),
+                                  np.asarray(want["slot_valid"]))
+    np.testing.assert_allclose(got["features"].numpy(),
+                               np.asarray(want["features"]), atol=1e-4,
+                               rtol=0)
+    np.testing.assert_allclose(got_logits.numpy(), np.asarray(want_logits),
+                               atol=1e-4, rtol=0)
+
+
+def test_state_dict_round_trips_through_bert_rules():
+    from unicore_tpu.tools.convert_torch_checkpoint import arch_flax_params
+
+    _, params, model = make_pair(post_ln=True)
+    sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    back, unused = arch_flax_params("bert", sd, heads=H)
+    assert unused == []
+    flat_a = jax.tree_util.tree_leaves_with_path(params)
+    flat_b = jax.tree_util.tree_leaves_with_path(back)
+    assert [p for p, _ in flat_a] == [p for p, _ in flat_b]
+    for (path, a), (_, b) in zip(flat_a, flat_b):
+        np.testing.assert_array_equal(np.asarray(a), b, err_msg=str(path))
+
+
+def _loss_task(fused):
+    args = SimpleNamespace(fused_lm_head="on" if fused else "off",
+                           fused_ce_chunk=16 if fused else 0)
+    return SimpleNamespace(dictionary=SimpleNamespace(pad=lambda: PAD),
+                           args=args)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_masked_lm_loss_and_grads_match_jax(rng, fused):
+    """The loss and every parameter's gradient within 1e-4 relative (of
+    each tensor's largest gradient); the fused case forces 16-row chunks
+    so the chunked head is the one compared."""
+    from unicore_tpu.losses.masked_lm import MaskedLMLoss as FlaxLoss
+    from unicore_tpu_torch.losses.masked_lm import MaskedLMLoss
+
+    fmodel, params, model = make_pair(post_ln=True)
+    sample = make_sample(rng, 2, 64)
+    floss = FlaxLoss(_loss_task(fused))
+    jsample = jax.tree_util.tree_map(jnp.asarray, sample)
+
+    def f(p):
+        loss, ss, _ = floss.forward(fmodel, p, jsample, is_training=False)
+        return loss, ss
+
+    (want_loss, want_ss), want_grads = jax.jit(jax.value_and_grad(
+        f, has_aux=True))(params)
+    loss, ss, _ = MaskedLMLoss(_loss_task(fused))(
+        model, jax.tree_util.tree_map(torch.from_numpy, sample))
+    loss.backward()
+    assert float(ss) == float(want_ss)
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-4)
+    want_sd = state_dict_from_flax(jax.device_get(want_grads))
+    for name, p in model.named_parameters():
+        w = want_sd[name].numpy()
+        np.testing.assert_allclose(p.grad.numpy(), w, rtol=0,
+                                   atol=1e-4 * max(np.abs(w).max(), 1e-6),
+                                   err_msg=name)
+
+
+def test_slots_pick_masked_positions_low_index_first():
+    model = BertModel(vocab_size=V, padding_idx=PAD, encoder_layers=1,
+                      encoder_embed_dim=D, encoder_ffn_embed_dim=F,
+                      encoder_attention_heads=H, max_seq_len=64,
+                      masked_loss_capacity=0.25)
+    masked = torch.zeros(4, 64, dtype=torch.bool)
+    masked[1, 3] = masked[0, 60] = masked[3, 0] = True
+    index, valid = model.slots(masked)
+    assert index.shape == (128,)
+    assert index[:3].tolist() == [60, 67, 192]
+    assert index[3:6].tolist() == [0, 1, 2]
+    assert valid.sum() == 3 and valid[:3].all()
+
+
+def write_corpus(path, n_train=24, n_valid=8, seed=0):
+    from unicore_tpu_torch.data import IndexedRecordWriter
+
+    rng = np.random.RandomState(seed)
+    words = ["tok%d" % i for i in range(40)]
+    with open(os.path.join(path, "dict.txt"), "w") as f:
+        f.writelines(f"{w} 1\n" for w in words)
+    for split, n in (("train", n_train), ("valid", n_valid)):
+        with IndexedRecordWriter(os.path.join(path, split + ".rec")) as w:
+            for _ in range(n):
+                w.write(list(rng.choice(words, size=rng.randint(6, 24))))
+
+
+def test_bert_tasks_make_equal_batches(tmp_path):
+    """The two packages' BERT tasks on one corpus and seed: the same
+    padded ``src_tokens``/``target`` batches in the same order, over two
+    epochs (the masks are redrawn each epoch)."""
+    from examples.bert.task import BertTask as FlaxTask
+    from unicore_tpu.data import Dictionary as FlaxDictionary
+    from unicore_tpu_torch.data import Dictionary
+    from unicore_tpu_torch.examples.bert.task import BertTask
+
+    write_corpus(str(tmp_path))
+    args = SimpleNamespace(data=str(tmp_path), seed=3, max_seq_len=32,
+                           mask_prob=0.15, leave_unmasked_prob=0.1,
+                           random_token_prob=0.1, pre_tokenized=True)
+    dict_path = os.path.join(str(tmp_path), "dict.txt")
+    ftask = FlaxTask(args, FlaxDictionary.load(dict_path))
+    task = BertTask(args, Dictionary.load(dict_path))
+    for t in (ftask, task):
+        t.load_dataset("train")
+    fitr = ftask.get_batch_iterator(ftask.dataset("train"), batch_size=4,
+                                    seed=3, epoch=1)
+    itr = task.get_batch_iterator(task.dataset("train"), batch_size=4,
+                                  seed=3, epoch=1)
+    for _ in range(2):
+        want = list(fitr.next_epoch_itr(shuffle=True))
+        got = list(itr.next_epoch_itr(shuffle=True))
+        assert len(got) == len(want) == 6
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g["net_input"]["src_tokens"],
+                                          w["net_input"]["src_tokens"])
+            np.testing.assert_array_equal(g["target"], w["target"])
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.3])
+def test_dropout_rate_and_scale_match_reference(rate):
+    """Parity by rate and scale, not by bits: the keep probability is the
+    reference's q/256 and survivors scale by 256/q exactly."""
+    from unicore_tpu.ops.dropout import dropout as jax_dropout
+    from unicore_tpu_torch.ops.dropout import dropout
+
+    x = torch.ones(256, 1024)
+    got = dropout(x, rate, torch.Generator().manual_seed(0))
+    want = np.asarray(jax_dropout(jnp.ones((256, 1024)), rate,
+                                  jax.random.PRNGKey(0)))
+    q = round((1 - rate) * 256)
+    assert set(np.unique(got.numpy())) == set(np.unique(want)) == {
+        0.0, np.float32(256.0 / q)}
+    keep = float((got > 0).float().mean())
+    assert abs(keep - q / 256) < 0.005
+    assert abs(float((want > 0).mean()) - q / 256) < 0.005
+    with pytest.raises(ValueError, match="not representable"):
+        dropout(x, 1e-4, None, strict=True)

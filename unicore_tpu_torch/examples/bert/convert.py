@@ -1,0 +1,42 @@
+"""Carry the JAX package's BERT weights into the port.
+
+:func:`state_dict_from_flax` is the inverse of the JAX package's
+``BERT_RULES`` (``unicore_tpu/tools/convert_torch_checkpoint.py``): it
+turns a flax ``BertModel`` param tree (nested dict of arrays) into the
+port's ``state_dict`` under the reference torch names, so the same
+weights run in both packages.  The tied LM projection has no tensor of
+its own, as in the reference.
+"""
+
+from ..lm.convert import _qkv_weight, apply_rules
+
+_L = r"sentence_encoder/layers_(\d+)"
+_RULES = [
+    (r"embed_tokens/embedding", "embed_tokens.weight", None),
+    (r"embed_positions", "embed_positions.weight", None),
+    (r"sentence_encoder/(emb_layer_norm|final_layer_norm)/(weight|bias)",
+     "sentence_encoder.{0}.{1}", None),
+    (r"sentence_encoder/relative_attention_bias/weight",
+     "sentence_encoder.relative_attention_bias.weight", None),
+    (_L + r"/self_attn/in_proj/kernel",
+     "sentence_encoder.layers.{0}.self_attn.in_proj.weight", _qkv_weight),
+    (_L + r"/self_attn/in_proj/bias",
+     "sentence_encoder.layers.{0}.self_attn.in_proj.bias",
+     lambda b: b.reshape(-1)),
+    (_L + r"/(self_attn/out_proj|fc1|fc2)/kernel",
+     "sentence_encoder.layers.{0}.{1}.weight", lambda k: k.T),
+    (_L + r"/(self_attn/out_proj|fc1|fc2)/bias",
+     "sentence_encoder.layers.{0}.{1}.bias", None),
+    (_L + r"/(self_attn_layer_norm|final_layer_norm)/(weight|bias)",
+     "sentence_encoder.layers.{0}.{1}.{2}", None),
+    (r"lm_head/dense/kernel", "lm_head.dense.weight", lambda k: k.T),
+    (r"lm_head/dense/bias", "lm_head.dense.bias", None),
+    (r"lm_head/layer_norm/(weight|bias)", "lm_head.layer_norm.{0}", None),
+    (r"lm_head/bias", "lm_head.bias", None),
+]
+
+
+def state_dict_from_flax(params):
+    """Flax ``BertModel`` params -> the port's ``state_dict`` (float32 CPU
+    tensors).  Raises on a parameter no rule maps."""
+    return apply_rules(params, _RULES)

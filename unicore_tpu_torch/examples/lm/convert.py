@@ -52,10 +52,17 @@ def state_dict_from_flax(params):
     """Flax ``TransformerLMModel`` params -> the port's ``state_dict``
     (float32 CPU tensors).  Raises on a parameter no rule maps: a weight
     the port would silently drop is a different model."""
+    return apply_rules(params, _RULES)
+
+
+def apply_rules(params, rules):
+    """A flax param tree through an ordered ``(flax path regex, torch name
+    template, transform)`` table -> a ``state_dict`` of float32 tensors;
+    the first matching rule wins, and a param no rule maps raises."""
     sd = {}
     for path, value in _flatten(params):
         key = "/".join(path)
-        for pattern, template, transform in _RULES:
+        for pattern, template, transform in rules:
             m = re.fullmatch(pattern, key)
             if m is None:
                 continue

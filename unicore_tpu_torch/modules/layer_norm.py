@@ -3,8 +3,9 @@
 
 The JAX package has no Pallas LayerNorm — XLA's fusion is its fast path —
 so the port's is ``F.layer_norm`` computed in fp32 and cast back.  (The
-JAX reference applies the affine params in the input dtype; on the fp32
-serve path the two are the same.)"""
+JAX reference applies the affine params in the input dtype; the port
+applies them in fp32 too — the params may be a bf16 compute copy — and
+on an fp32 path the two are the same.)"""
 
 import torch
 import torch.nn.functional as F
@@ -21,5 +22,5 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x):
-        return F.layer_norm(x.float(), x.shape[-1:], self.weight,
-                            self.bias, self.eps).to(x.dtype)
+        return F.layer_norm(x.float(), x.shape[-1:], self.weight.float(),
+                            self.bias.float(), self.eps).to(x.dtype)

@@ -1,10 +1,19 @@
 """Self multi-head attention (counterpart of ``SelfMultiheadAttention``
 in ``unicore_tpu/modules/multihead_attention.py``).
 
-Two paths, as the JAX module's decoder uses them:
+Three paths:
 
-- the plain causal full forward (no ``paged``): einsum + fp32 softmax
-  over the whole sequence — the oracle the serve engine is held against;
+- the training path (``causal=False``): key padding mask and additive
+  ``attn_bias`` (batch-broadcast ``[1, H|1, T|1, T]``, or the reference's
+  ``[B*H, T, T]``), attention dropout drawn from ``generator``.  Shapes
+  that :func:`~unicore_tpu_torch.ops.flash_attention.eligible` admits
+  take flash (the CUDA kernels on the card, their plain version on the
+  CPU); others take the materialized einsum + softmax + dropout on the
+  CPU, and raise ``NotImplementedError`` on the card, where that path
+  runs the ``softmax_dropout`` kernel, not ported yet (ROADMAP.md B3);
+- the plain causal full forward (``causal=True``, no ``paged``): einsum
+  + fp32 softmax over the whole sequence — the decoder's oracle, which
+  the serve engine is held against;
 - the paged decode path (``paged`` given): this step's k/v are written
   into the layer's pool pages at ``paged.slot_mapping`` (in place), then
   each row attends the pages its table names through
@@ -14,21 +23,76 @@ Parameter names follow the reference torch model (``in_proj``,
 ``out_proj``): ``in_proj`` is ``Linear(D, 3D)`` whose output features are
 laid out q-block, k-block, v-block, each ``[H, Dh]`` — the JAX package's
 ``DenseGeneral`` kernel ``[D, 3, H, Dh]`` is ``in_proj.weight.T``
-reshaped.  The cross-attention module and the dense ``_decode_attend``
-cache are not ported yet.
+reshaped.  The cross-attention module, ``return_attn``, packed
+``segment_ids`` and the dense ``_decode_attend`` cache are not ported yet.
 """
 
 import torch
 from torch import nn
 
+from ..ops.flash_attention import eligible, flash_attention
 from ..ops.paged_attention import ragged_paged_attention
 from ..utils import causal_iota_mask
 from .rotary import apply_rotary_qk
 
 
+def _canon_bias(bias, bsz, num_heads):
+    """Accept [B*H, q, k] (reference convention) or anything broadcastable
+    to [B, H, q, k]."""
+    if bias is None:
+        return None
+    if bias.dim() == 3 and bias.shape[0] == bsz * num_heads:
+        return bias.reshape(bsz, num_heads, bias.shape[1], bias.shape[2])
+    return bias
+
+
+def _padding_bias(key_padding_mask):
+    """[B, S] mask (True/1 = pad) -> additive fp32 [B, 1, 1, S] -inf bias."""
+    return torch.zeros(key_padding_mask.shape, dtype=torch.float32,
+                       device=key_padding_mask.device).masked_fill(
+        key_padding_mask.bool(), float("-inf"))[:, None, None, :]
+
+
+def _attend(q, k, v, scaling, dropout, key_padding_mask, bias, training,
+            generator):
+    """Core non-causal attention, q/k/v [B, T, H, D] -> [B, T, H, D]."""
+    bias4 = bias
+    if bias4 is not None and bias4.dim() < 4:
+        bias4 = bias4.reshape((1,) * (4 - bias4.dim()) + tuple(bias4.shape))
+    qs = (q.shape[0], q.shape[2], q.shape[1], q.shape[3])
+    ks = (k.shape[0], k.shape[2], k.shape[1], k.shape[3])
+    if eligible(qs, ks, None if bias4 is None else tuple(bias4.shape)):
+        return flash_attention(
+            q, k, v, bias=bias4, key_padding_mask=key_padding_mask,
+            dropout_prob=dropout, generator=generator, is_training=training,
+            scale=scaling)
+    if q.device.type != "cpu":
+        raise NotImplementedError(
+            f"attention at q {qs}, bias "
+            f"{None if bias4 is None else tuple(bias4.shape)} is not flash "
+            "eligible; the materialized path's softmax_dropout kernel is "
+            "not ported to the card yet (ROADMAP.md B3)")
+    dtype = q.dtype
+    s = torch.einsum("bqhd,bkhd->bhqk", q * scaling, k)
+    if key_padding_mask is not None:
+        s = s + _padding_bias(key_padding_mask).to(dtype)
+    x = s.float()
+    if bias is not None:
+        x = x + bias.float()
+    probs = torch.softmax(x, dim=-1).to(dtype)
+    if training and dropout > 0.0:
+        if generator is None:
+            raise ValueError("attention dropout needs a generator")
+        keep = 1.0 - dropout
+        mask = torch.rand(probs.shape, generator=generator,
+                          device=probs.device) < keep
+        probs = torch.where(mask, probs / keep, torch.zeros_like(probs))
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
 class SelfMultiheadAttention(nn.Module):
-    def __init__(self, embed_dim, num_heads, bias=True, scaling_factor=1.0,
-                 rotary=False, rotary_base=10000.0):
+    def __init__(self, embed_dim, num_heads, dropout=0.0, bias=True,
+                 scaling_factor=1.0, rotary=False, rotary_base=10000.0):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} is not divisible by "
@@ -36,19 +100,23 @@ class SelfMultiheadAttention(nn.Module):
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
+        self.dropout = dropout
         self.scaling = (self.head_dim * scaling_factor) ** -0.5
         self.rotary = rotary
         self.rotary_base = rotary_base
         self.in_proj = nn.Linear(embed_dim, 3 * embed_dim, bias=bias)
         self.out_proj = nn.Linear(embed_dim, embed_dim, bias=bias)
 
-    def forward(self, query, key_padding_mask=None, positions=None,
-                paged=None, kv=None):
+    def forward(self, query, key_padding_mask=None, attn_bias=None,
+                causal=False, generator=None, positions=None, paged=None,
+                kv=None):
         """``query`` [B, T, D].  ``key_padding_mask`` [B, T] (True/1 =
-        pad) applies to the full forward only; the paged path drops it,
-        as the JAX decoder does.  ``positions`` [B, T] global positions
-        (-1 = padded column) are required with ``paged``, together with
-        this layer's ``kv = (k_pages, v_pages)`` pools."""
+        pad) applies to the full forwards only; the paged path drops it,
+        as the JAX decoder does.  Dropout is on in training mode and
+        draws from ``generator`` (on ``query``'s device).  ``positions``
+        [B, T] global positions (-1 = padded column) are required with
+        ``paged``, together with this layer's ``kv = (k_pages,
+        v_pages)`` pools."""
         bsz, tgt_len, _ = query.shape
         qkv = self.in_proj(query).view(bsz, tgt_len, 3, self.num_heads,
                                        self.head_dim)
@@ -56,15 +124,20 @@ class SelfMultiheadAttention(nn.Module):
         if self.rotary:
             q, k = apply_rotary_qk(q, k, base=self.rotary_base,
                                    positions=positions)
-        if paged is None:
-            o = self._causal_attend(q, k, v, key_padding_mask)
-        else:
+        if paged is not None:
             if positions is None or kv is None:
                 raise ValueError(
                     "paged decode needs positions= ([B, T] global "
                     "positions of the current tokens) and kv= (this "
                     "layer's pools)")
             o = self._paged_attend(q, k, v, paged, positions, kv)
+        elif causal:
+            o = self._causal_attend(q, k, v, key_padding_mask)
+        else:
+            o = _attend(q, k, v, self.scaling, self.dropout,
+                        key_padding_mask,
+                        _canon_bias(attn_bias, bsz, self.num_heads),
+                        self.training, generator)
         return self.out_proj(o.reshape(bsz, tgt_len, self.embed_dim))
 
     def _causal_attend(self, q, k, v, key_padding_mask):
@@ -88,3 +161,4 @@ class SelfMultiheadAttention(nn.Module):
             q.contiguous(), k_pages, v_pages, paged.page_table, positions,
             paged.lengths, page_size=paged.page_size, scale=self.scaling,
         )
+

@@ -34,7 +34,7 @@ class TransformerDecoderLayer(nn.Module):
         x = self.self_attn(
             self.self_attn_layer_norm(x),
             key_padding_mask=None if paged is not None else padding_mask,
-            positions=positions, paged=paged, kv=kv,
+            causal=True, positions=positions, paged=paged, kv=kv,
         )
         x = residual + x
         residual = x

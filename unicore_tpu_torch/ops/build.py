@@ -5,12 +5,14 @@ shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds), for ``sm_90a``.  Builds happen at first use, never at
 import — the package imports on machines without ``nvcc`` — and land in
 ``build/unicore_tpu_torch/`` at the repository root, named by a digest
-of the source so an edited kernel never loads a stale library.
+of the source and of every ``csrc/`` header it includes, so an edited
+kernel or header never loads a stale library.
 """
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -41,10 +43,30 @@ def _nvcc():
     )
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources(name):
+    """``csrc/<name>.cu`` and every header of ``csrc/`` it includes,
+    directly or through another header, in the order first reached."""
+    todo, seen = [CSRC / f"{name}.cu"], []
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = CSRC / inc.decode()
+            if dep.exists():
+                todo.append(dep)
+    return seen
+
+
 def library_path(name):
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names):

@@ -1,0 +1,15 @@
+"""Optimizer registry of the port, keyed by ``--optimizer``."""
+
+from ..registry import setup_registry
+from .unicore_optimizer import UnicoreOptimizer
+
+build_optimizer_, register_optimizer, OPTIMIZER_REGISTRY = setup_registry(
+    "--optimizer", base_class=UnicoreOptimizer, default="adam", required=True)
+
+
+def build_optimizer(args, params):
+    return build_optimizer_(args, params)
+
+
+from . import adam  # noqa: E402,F401  (registers "adam")
+from . import lr_scheduler  # noqa: E402,F401

@@ -1,0 +1,15 @@
+"""LR-scheduler registry of the port, keyed by ``--lr-scheduler``."""
+
+from ...registry import setup_registry
+from .unicore_lr_scheduler import UnicoreLRScheduler
+
+build_lr_scheduler_, register_lr_scheduler, LR_SCHEDULER_REGISTRY = (
+    setup_registry("--lr-scheduler", base_class=UnicoreLRScheduler,
+                   default="fixed"))
+
+
+def build_lr_scheduler(args, optimizer, total_train_steps):
+    return build_lr_scheduler_(args, optimizer, total_train_steps)
+
+
+from . import fixed_schedule, polynomial_decay_schedule  # noqa: E402,F401

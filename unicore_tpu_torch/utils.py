@@ -1,5 +1,9 @@
 """Helpers shared by the port's modules (the subset of
-``unicore_tpu/utils.py`` the serve slice needs)."""
+``unicore_tpu/utils.py`` the serve and training slices need)."""
+
+import importlib
+import sys
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -29,3 +33,42 @@ def causal_iota_mask(tq, tk, neg=-1e30, device=None):
     cols = torch.arange(tk, device=device)[None, :]
     return torch.zeros(tq, tk, device=device).masked_fill(
         cols > rows + (tk - tq), neg)
+
+
+def eval_bool(x, default=False):
+    """Parse a boolean-ish CLI value by text matching (never ``eval``):
+    ``"false"``/``"False"``/``"0"`` all mean False; unknown text falls
+    back to ``default``."""
+    if x is None:
+        return default
+    if isinstance(x, bool):
+        return x
+    s = str(x).strip().lower()
+    if s in ("true", "t", "yes", "y", "1"):
+        return True
+    if s in ("false", "f", "no", "n", "0", ""):
+        return False
+    return default
+
+
+def import_user_module(user_dir):
+    """Import the ``--user-dir`` plugin so its registrations run.  A
+    directory inside this package imports under its dotted name (so its
+    relative imports resolve and it registers once); any other directory
+    imports as a top-level module from its parent."""
+    if user_dir is None:
+        return
+    path = Path(user_dir).resolve()
+    if not path.exists():
+        raise FileNotFoundError(str(path))
+    pkg = Path(__file__).resolve().parent
+    if path == pkg or pkg in path.parents:
+        rel = path.relative_to(pkg.parent)
+        importlib.import_module(".".join(rel.parts))
+        return
+    if path.name not in sys.modules:
+        sys.path.insert(0, str(path.parent))
+        try:
+            importlib.import_module(path.name)
+        finally:
+            sys.path.pop(0)
