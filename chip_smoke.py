@@ -46,8 +46,36 @@ code is non-zero:
    and each backward kernel launched once per layer per update.  Reports
    step time, samples/s and tokens/s, then the device idle share and top
    kernels of a ``torch.profiler`` window of 3 more updates.
-8. the ``kernels`` line, the card's name and power limit, and the
-   closing ``{"ok": true, ...}`` line.
+8. flash_multiblock — the same four kernels at the shapes the JAX
+   package sends to its multi-block kernels (rows 2 and 4-7 of the TPU
+   kernel table): T=1024 without a bias (one key block: the joint
+   dq/dk/dv backward) and T=2048 with a [1, H, T, T] bias (two-pass
+   dq, dk/dv and the dbias pass), bf16, dropout 0.1, against the plain
+   version and SDPA.
+9. softmax_dropout — the forward and backward kernels vs their plain
+   versions at the Evoformer's three attention shapes (row with pair
+   bias [1, 128, 8, 256, 256], column [1, 256, 8, 128, 128], triangle
+   [1, 256, 4, 256, 256]; mask [1, G, 1, 1, K] fp32, bias [1, 1, H, Q,
+   K]), dropout 0.1, fp32 (within 1e-5) and bf16 (within 2e-2 of each
+   tensor's max), equal keep patterns; times beside the bytes bound,
+   the plain version and ``torch.softmax`` of the pre-added scores (and
+   its backward) — not the same function, no dropout.
+10. rounding — the fp32 -> bf16 stochastic-rounding kernel vs its plain
+   version, bit for bit, on both reference layouts (r_blk 8 and 256), a
+   size that is not a multiple of 1024, NaN and ±Inf; the mean of 2^24
+   draws of one value within 3 sigma of it; times beside the bound.
+11. evoformer_train — the port's CLI, in process, trains a seeded random
+   ``evoformer_base`` (8 blocks, c_m 256, c_z 128, 8 MSA and 4 pair
+   heads) on S=128 MSA rows x R=256 residues under ``--bf16 --bf16-sr
+   --optim-bf16-moments`` with dropout 0.1: 10 updates of batch 1 on 8
+   records written by the port's ``make_data``.  Every loss finite, the
+   mean of the last 3 below the first; softmax_dropout forward and
+   backward 32 launches per update each, rounding 3 launches per
+   parameter leaf per update, flash none.  Reports step time, residue
+   pairs/s and peak memory, then the idle share and top kernels of a
+   ``torch.profiler`` window of 2 more updates.
+12. the ``kernels`` line (rows 1-11 of the TPU kernel table), the card's
+   name and power limit, and the closing ``{"ok": true, ...}`` line.
 
 Exits non-zero without a card, and without the repository around it.
 """
@@ -334,18 +362,20 @@ def profile_phase(model):
                        "ms": e.self_device_time_total / 1e3} for e in top])
 
 
-def flash_operands(rng, dtype):
+def flash_operands(rng, dtype, shape=(FLASH_B, FLASH_H, FLASH_T, FLASH_D),
+                   with_bias=True):
     """Operands of one attention layer of the BERT training path: q/k/v
     as the fused projection's strided views, the batch-broadcast rel-pos
     bias, 0-200 padded keys per row, per-row dropout seeds, and dO."""
-    B, H, T, D = FLASH_B, FLASH_H, FLASH_T, FLASH_D
+    B, H, T, D = shape
 
     def dev(a):
         return torch.from_numpy(a).cuda().to(dtype)
 
     qkv = dev(rng.standard_normal((B, T, 3, H, D), dtype=np.float32))
     q, k, v = qkv.unbind(2)
-    bias = dev(rng.standard_normal((1, H, T, T), dtype=np.float32))
+    bias = (dev(rng.standard_normal((1, H, T, T), dtype=np.float32))
+            if with_bias else None)
     npad = rng.integers(0, 201, size=B)
     pad = np.zeros((B, T), np.int32)
     for b in range(B):
@@ -356,17 +386,18 @@ def flash_operands(rng, dtype):
             torch.from_numpy(seed).cuda(), dout, npad)
 
 
-def flash_bounds(npad, itemsize):
+def flash_bounds(npad, itemsize, shape=(FLASH_B, FLASH_H, FLASH_T, FLASH_D),
+                 with_bias=True):
     """{kernel: (bound_ms, bound_by)}: each kernel's operations on the
     keys this run's data leaves unpadded (a padded key adds exactly
     nothing to any output) over the tensor-core rate of its operand type,
     against the bytes of its inputs read once and outputs written once."""
-    B, H, T, D = FLASH_B, FLASH_H, FLASH_T, FLASH_D
+    B, H, T, D = shape
     pairs = H * T * int((T - npad).sum())       # unpadded (q, k) pairs
     rate = BF16_FLOP_PER_S if itemsize == 2 else FP32_FLOP_PER_S
     act = B * T * H * D * itemsize              # one of q, k, v, dO, out
     rows = B * H * T * 4                        # one of lse, delta
-    bias = H * T * T * itemsize
+    bias = H * T * T * itemsize if with_bias else 0
     small = B * T * 4 + B * 4                   # pad, seeds
     work = {  # kernel: (flops per unpadded pair / D, bytes)
         "flash_fwd": (4, 4 * act + bias + small + rows),
@@ -504,6 +535,281 @@ def flash_phase(flush):
     return reports
 
 
+# (name, (B, H, T, D), with a [1, H, T, T] bias): T=1024 has one key
+# block in the reference's geometry (its joint dq/dk/dv backward), T=2048
+# with a bias two (its two-pass dq and dk/dv and the dbias pass)
+MB_CASES = (("t1024_nobias", (4, 12, 1024, 64), False),
+            ("t2048_bias", (2, 12, 2048, 64), True))
+
+
+def flash_multiblock_phase(flush):
+    """The flash kernels at the shapes that take the JAX package's
+    multi-block kernels (rows 2 and 4-7), bf16, dropout 0.1; returns
+    {case: report}."""
+    import torch.nn.functional as F
+
+    from unicore_tpu_torch.ops import flash_attention as fa
+
+    reports = {}
+    for name, shape, with_bias in MB_CASES:
+        B, H, T, D = shape
+        rng = np.random.default_rng(T)
+        q, k, v, bias, pad, seed, dout, npad = flash_operands(
+            rng, torch.bfloat16, shape, with_bias)
+        geom = fa.geometry(T, T, bias)
+        n_q, n_k = T // geom[0], T // geom[1]
+        # the JAX backward's routing (ops/pallas/flash_attention.py:870-896)
+        joint = n_k == 1 and n_q > 1 and 2 * T * D * 4 <= (6 << 20)
+        if n_q == 1 or joint == with_bias:
+            raise AssertionError(f"{name}: reference blocks {geom} do not "
+                                 "take the multi-block kernels meant")
+        scale = D ** -0.5
+        f32 = [None if x is None else x.float() for x in (q, k, v, bias,
+                                                          dout)]
+        args = (pad, FLASH_P, seed, False, scale, geom)
+
+        def kernel_fwd():
+            return fa.flash_fwd_cuda(q, k, v, bias, *args)
+
+        def plain_fwd():
+            return fa.flash_fwd_plain(*f32[:4], *args)
+
+        out_k, lse_k = kernel_fwd()
+        out_p, lse_p = plain_fwd()
+        delta = (f32[4] * out_p).sum(dim=-1).transpose(1, 2).contiguous()
+
+        def kernel_bwd():
+            return fa.flash_bwd_cuda(q, k, v, bias, *args, lse_p, delta,
+                                     dout, with_bias)
+
+        def plain_bwd():
+            return fa.flash_bwd_plain(*f32[:4], *args, lse_p, delta, f32[4],
+                                      with_bias)
+
+        got, want = kernel_bwd(), plain_bwd()
+        torch.cuda.synchronize()
+        errs = {}
+        for what, g, w in zip(("out", "lse", "dq", "dk", "dv", "dbias"),
+                              (out_k, lse_k) + got, (out_p, lse_p) + want):
+            if w is None:
+                continue
+            g, w = g.float(), w.float()
+            if not (torch.isfinite(g).all() and torch.isfinite(w).all()):
+                raise AssertionError(f"{name} {what}: non-finite values")
+            err, tol = float((g - w).abs().max()), 2e-2 * float(w.abs().max())
+            if err > tol:
+                raise AssertionError(
+                    f"{name} {what}: max |kernel - plain| {err} > {tol}")
+            errs[what] = err
+        names = ("flash_fwd", "flash_dkdv", "flash_dq") + (
+            ("flash_dbias",) if with_bias else ())
+        ms = kernel_times_ms(lambda: (kernel_fwd(), kernel_bwd()), flush,
+                             names, iters=5)
+        qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        mask = torch.where(pad[:, None, None, :] > 0, -1e30, 0.0).to(
+            torch.bfloat16)
+        if with_bias:
+            mask = bias + mask
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, dropout_p=FLASH_P, scale=scale)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(), (qh, kh, vh), dout.transpose(1, 2))
+
+        bounds = flash_bounds(npad, 2, shape, with_bias)
+        report = {
+            "shape": {"B": B, "H": H, "T": T, "D": D, "bias": with_bias},
+            "reference_blocks": list(geom), "joint_backward": joint,
+            "max_abs_err": errs,
+            "kernels": {n: {"ms": ms[n], "bound_ms": bounds[n][0],
+                            "bound_by": bounds[n][1]} for n in names},
+            "plain_fwd_ms": time_ms(plain_fwd, flush, iters=3),
+            "plain_bwd_ms": time_ms(plain_bwd, flush, iters=3),
+            "sdpa_fwd_ms": time_ms(sdpa, flush, iters=10),
+            "sdpa_fwd_bwd_ms": time_ms(sdpa_fwd_bwd, flush, iters=10),
+            "padded_keys": int(npad.sum()),
+        }
+        emit("flash_multiblock", case=name, **report)
+        reports[name] = report
+        del q, k, v, bias, dout, f32, out_p, lse_p, got, want, mask
+        torch.cuda.empty_cache()
+    return reports
+
+
+# the Evoformer's attention shapes at S=128, R=256 (c_m 256 over 8 heads,
+# c_z 128 over 4): (name, x [1, G, H, Q, K], with the pair bias)
+SD_P = 0.1
+SD_CASES = (("row", (1, 128, 8, 256, 256), True),
+            ("column", (1, 256, 8, 128, 128), False),
+            ("triangle", (1, 256, 4, 256, 256), True))
+
+
+def softmax_dropout_phase(flush):
+    """The softmax_dropout kernels vs their plain versions at the
+    Evoformer shapes, fp32 and bf16; returns {dtype: {case: report}}."""
+    from unicore_tpu_torch.ops import softmax_dropout as sd
+
+    reports = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).replace("torch.", "")
+        reports[dt] = {}
+        for name, shape, with_bias in SD_CASES:
+            gen = torch.Generator(device="cuda").manual_seed(len(name))
+            _, G, H, Q, K = shape
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            # the MSA / pair mask: a random tail of keys per group, -1e9
+            valid = torch.randint(K // 2, K + 1, (G,), generator=gen,
+                                  device="cuda")
+            cols = torch.arange(K, device="cuda")
+            mask = torch.where(cols[None, :] < valid[:, None], 0.0,
+                               -1e9).reshape(1, G, 1, 1, K)
+            bias = (torch.randn((1, 1, H, Q, K), generator=gen,
+                                device="cuda").to(dtype)
+                    if with_bias else None)
+            q_blk = sd.pick_q_blk_for(x, mask, bias)
+            seed = torch.tensor([1234567], dtype=torch.int32, device="cuda")
+
+            def kernel_fwd():
+                return sd.softmax_dropout_fwd_cuda(x, mask, bias, SD_P, seed,
+                                                   q_blk, True)
+
+            def plain_fwd():
+                return sd.softmax_dropout_fwd_plain(x, mask, bias, SD_P,
+                                                    seed, q_blk, True)
+
+            (out_k, sm_k), (out_p, sm_p) = kernel_fwd(), plain_fwd()
+
+            def kernel_bwd():
+                return sd.softmax_dropout_bwd_cuda(g, sm_k, SD_P, seed,
+                                                   q_blk)
+
+            def plain_bwd():
+                return sd.softmax_dropout_bwd_plain(g, sm_p, SD_P, seed,
+                                                    q_blk)
+
+            dx_k, dx_p = kernel_bwd(), plain_bwd()
+            torch.cuda.synchronize()
+            if not torch.equal(out_k == 0, out_p == 0):
+                n = int(((out_k == 0) != (out_p == 0)).sum())
+                raise AssertionError(f"{dt} {name}: keep patterns differ "
+                                     f"at {n} elements")
+            pairs = [("out", out_k, out_p), ("softmax", sm_k, sm_p),
+                     ("dx", dx_k, dx_p)]
+            if with_bias:
+                pairs.append(("dbias", sd._reduce_to(dx_k, bias.shape,
+                                                     bias.dtype),
+                              sd._reduce_to(dx_p, bias.shape, bias.dtype)))
+            errs = {}
+            for what, a, b in pairs:
+                a, b = a.float(), b.float()
+                if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+                    raise AssertionError(f"{dt} {name} {what}: non-finite")
+                err = float((a - b).abs().max())
+                tol = (1e-5 if dtype == torch.float32
+                       else 2e-2 * float(b.abs().max()))
+                if err > tol:
+                    raise AssertionError(f"{dt} {name} {what}: max |kernel "
+                                         f"- plain| {err} > {tol}")
+                errs[what] = err
+            ms = kernel_times_ms(
+                lambda: (kernel_fwd(), kernel_bwd()), flush,
+                ("softmax_dropout_fwd", "softmax_dropout_bwd"), iters=10)
+            # the library yardstick: torch's softmax of the scores with
+            # mask and bias already added, and its backward — not the same
+            # function (no dropout, no fused adds); the port never calls it
+            pre = x.float() + mask
+            if with_bias:
+                pre = pre + bias.float()
+            pre = pre.to(dtype)
+            y_lib = torch.softmax(pre, dim=-1)
+            nbytes = {"fwd": (3 * x.numel() * x.element_size()
+                              + mask.numel() * 4
+                              + (bias.numel() * bias.element_size()
+                                 if with_bias else 0)),
+                      "bwd": 3 * x.numel() * x.element_size()}
+            report = {
+                "shape": list(shape), "q_blk": q_blk, "max_abs_err": errs,
+                "dropped_share": float((out_k == 0).float().mean()),
+                "fwd_ms": ms["softmax_dropout_fwd"],
+                "bwd_ms": ms["softmax_dropout_bwd"],
+                "bound_fwd_ms": nbytes["fwd"] / HBM_BYTES_PER_S * 1e3,
+                "bound_bwd_ms": nbytes["bwd"] / HBM_BYTES_PER_S * 1e3,
+                "plain_fwd_ms": time_ms(plain_fwd, flush, iters=3),
+                "plain_bwd_ms": time_ms(plain_bwd, flush, iters=3),
+                "library_fwd_ms": time_ms(
+                    lambda: torch.softmax(pre, dim=-1), flush, iters=10),
+                "library_bwd_ms": time_ms(
+                    lambda: torch._softmax_backward_data(g, y_lib, -1,
+                                                         dtype),
+                    flush, iters=10),
+            }
+            emit("softmax_dropout", dtype=dt, case=name, **report)
+            reports[dt][name] = report
+            del x, g, mask, bias, out_k, sm_k, out_p, sm_p, dx_k, dx_p
+            del pre, y_lib, pairs
+            torch.cuda.empty_cache()
+    return reports
+
+
+# (name, elements): Evoformer leaves (65,536: r_blk 8; 262,144, the
+# largest leaf: r_blk 256), a size not a multiple of 1024, and 16M
+SR_SIZES = (("leaf_65536", 1 << 16), ("leaf_262144", 1 << 18),
+            ("odd_1000003", 1000003), ("large_16777216", 1 << 24))
+
+
+def rounding_phase(flush):
+    """The stochastic-rounding kernel vs its plain version, bit for bit,
+    and the mean of 2^24 draws of one value; returns {case: report}."""
+    from unicore_tpu_torch.ops import rounding as sr
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    seed = torch.tensor([-987654], dtype=torch.int32, device="cuda")
+    cases = {}
+    for name, n in SR_SIZES:
+        x = (torch.randn(n, generator=gen, device="cuda")
+             * torch.exp(4 * torch.randn(n, generator=gen, device="cuda")))
+        x[:6] = torch.tensor([float("nan"), -float("nan"), float("inf"),
+                              -float("inf"), 0.0, -0.0], device="cuda")
+        got = sr.fp32_to_bf16_sr_cuda(x, seed)
+        want = sr.fp32_to_bf16_sr_plain(x, seed)
+        torch.cuda.synchronize()
+        diff = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+        if diff:
+            raise AssertionError(f"rounding {name}: {diff} elements differ "
+                                 "from the plain version")
+        ms = kernel_times_ms(lambda: sr.fp32_to_bf16_sr_cuda(x, seed),
+                             flush, ("fp32_to_bf16_sr",), iters=20)
+        cases[name] = {
+            "n": n, "r_blk": sr.pick_layout(n)[1], "mismatches": diff,
+            "ms": ms["fp32_to_bf16_sr"],
+            "bound_ms": 6 * n / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "plain_ms": time_ms(lambda: sr.fp32_to_bf16_sr_plain(x, seed),
+                                flush, iters=5),
+            "library_ms": None,
+        }
+        emit("rounding", case=name, **cases[name])
+    # unbiased: the mean of 2^24 draws of one value lies within 3 sigma
+    x0 = 1.2345678
+    xs = torch.full((1 << 24,), x0, device="cuda")
+    mean = float(sr.fp32_to_bf16_sr_cuda(xs, seed).double().mean())
+    x32 = float(np.float32(x0))
+    lo = float(torch.tensor(x32).view(torch.int32).bitwise_and(
+        -65536).view(torch.float32))
+    ulp = 2.0 ** -7                    # bf16 spacing in [1, 2)
+    p_up = (x32 - lo) / ulp
+    sigma = ulp * np.sqrt(p_up * (1 - p_up) / xs.numel())
+    if abs(mean - x32) > 3 * sigma:
+        raise AssertionError(f"SR mean {mean} of {x32}: off by "
+                             f"{abs(mean - x32) / sigma:.2f} sigma")
+    emit("rounding_mean", value=x32, draws=xs.numel(), mean=mean,
+         sigma=sigma, off_sigmas=abs(mean - x32) / sigma)
+    return cases
+
+
 def write_corpus(path, rng):
     """dict.txt whose dictionary, with the task's five specials, has
     30,522 entries, and 2,048 train records of 128-510 tokens drawn from
@@ -630,6 +936,223 @@ def train_phase():
     return launches
 
 
+EVO_UPDATES, EVO_S, EVO_R = 10, 128, 256
+
+
+def evoformer_train_phase():
+    """The port's CLI trains full-width evoformer_base under --bf16
+    --bf16-sr --optim-bf16-moments; returns the launch counts of its 10
+    updates."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from unicore_tpu_torch import trainer as trainer_mod
+    from unicore_tpu_torch.cli.train import cli_main
+    from unicore_tpu_torch.examples.evoformer.make_data import write_corpus
+    from unicore_tpu_torch.ops import flash_attention as fa
+    from unicore_tpu_torch.ops import rounding as sr
+    from unicore_tpu_torch.ops import softmax_dropout as sd
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_corpus(tmp, n_res=EVO_R, n_seqs=EVO_S, train=8, valid=1,
+                     seed=7)
+        corpus_s = time.perf_counter() - t0
+        logdir = os.path.join(tmp, "log")
+        step_s = []
+        train_step = trainer_mod.Trainer.train_step
+
+        def timed(self, samples):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = train_step(self, samples)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            return out
+
+        trainer_mod.Trainer.train_step = timed
+        for counts in (fa.launches, sd.launches, sr.launches):
+            for name in counts:
+                counts[name] = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            loop = cli_main([
+                tmp, "--user-dir",
+                os.path.join(here, "unicore_tpu_torch", "examples",
+                             "evoformer"),
+                "--task", "evoformer", "--loss", "evoformer_mse", "--arch",
+                "evoformer_base", "--bf16", "--bf16-sr",
+                "--optim-bf16-moments", "--dropout", "0.1",
+                "--optimizer", "adam", "--adam-betas", "(0.9, 0.98)",
+                "--lr", "2e-3", "--clip-norm", "1.0", "--lr-scheduler",
+                "fixed", "--batch-size", "1", "--update-freq", "1",
+                "--seed", "1", "--max-update", str(EVO_UPDATES),
+                "--log-interval", "1", "--log-format", "none",
+                "--tensorboard-logdir", logdir, "--disable-validation",
+                "--required-batch-size-multiple", "1", "--num-workers", "0",
+                "--no-save",
+            ])
+        finally:
+            trainer_mod.Trainer.train_step = train_step
+        run_s = time.perf_counter() - t0
+        launches = {**sd.launches, **sr.launches,
+                    "flash": sum(fa.launches.values())}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        with open(os.path.join(logdir, "train_inner.jsonl")) as f:
+            losses = [json.loads(line)["loss"] for line in f]
+        trainer = loop.trainer
+        blocks = trainer.model.evoformer_layers
+        leaves = len(list(trainer.model.parameters()))
+        if len(losses) != EVO_UPDATES or not np.isfinite(losses).all():
+            raise AssertionError(f"losses {losses}")
+        if not np.mean(losses[-3:]) < losses[0]:
+            raise AssertionError(f"loss did not fall: {losses}")
+        want = {"softmax_dropout_fwd": 4 * blocks * EVO_UPDATES,
+                "softmax_dropout_bwd": 4 * blocks * EVO_UPDATES,
+                # the SR sync of every leaf, and both moments of every leaf
+                "fp32_to_bf16_sr": 3 * leaves * EVO_UPDATES, "flash": 0}
+        if launches != want:
+            raise AssertionError(f"launches {launches}, want {want}")
+        med_s = float(np.median(step_s[2:]))
+        emit("evoformer_train", model="evoformer_base", dtype="bf16",
+             flags="--bf16 --bf16-sr --optim-bf16-moments --dropout 0.1",
+             msa_rows=EVO_S, residues=EVO_R, batch=1, blocks=blocks,
+             parameters=sum(p.numel() for p in trainer.model.parameters()),
+             parameter_leaves=leaves, updates=EVO_UPDATES,
+             corpus_s=corpus_s, run_s=run_s, losses_mse=losses,
+             first_loss=losses[0], last3_mean=float(np.mean(losses[-3:])),
+             step_ms_median=med_s * 1e3, step_ms_all=[s * 1e3 for s in step_s],
+             residue_pairs_per_s=EVO_R * EVO_R / med_s, peak_mem_gb=peak_gb,
+             launches=launches)
+
+        # where a step's time goes: 2 more updates under the profiler
+        itr = trainer.get_train_iterator(epoch=3).next_epoch_itr()
+        batches = [next(itr) for _ in range(2)]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for b in batches:
+                trainer.train_step([b])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+        emit("evoformer_profile",
+             window="2 updates, S=128 x R=256, bf16, SR",
+             wall_ms=wall_ms, device_busy_ms=busy_ms,
+             device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
+             kernel_launches=sum(e.count for e in kernels),
+             top_kernels=[{"name": e.key[:80], "count": e.count,
+                           "ms": e.self_device_time_total / 1e3}
+                          for e in top])
+    return launches
+
+
+PALLAS = "unicore_tpu/ops/pallas/"
+
+
+def flash_row(row, name, replaces, case, launches, fwd_kernel):
+    """A kernels-line row of a flash kernel from one case's report."""
+    errs = {"flash_fwd": ("out",), "flash_dkdv": ("dk", "dv"),
+            "flash_dq": ("dq",), "flash_dbias": ("dbias",)}[name]
+    kern = case["kernels"][name]
+    return {
+        "row": row, "name": name, "route": "cuda",
+        "source": "unicore_tpu_torch/csrc/flash_attention.cu",
+        "replaces": PALLAS + replaces, "launches": launches,
+        "max_abs_err": max(case["max_abs_err"][e] for e in errs),
+        "ms": kern["ms"],
+        # the plain backward computes all three passes at once
+        "plain_ms": case["plain_fwd_ms" if fwd_kernel else "plain_bwd_ms"],
+        "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
+        # no library call computes a backward pass alone
+        "library_ms": case["sdpa_fwd_ms"] if fwd_kernel else None,
+        "sdpa_fwd_bwd_ms": case["sdpa_fwd_bwd_ms"],
+    }
+
+
+def kernels_line(cases, serve_launches, flash, multiblock, train_launches,
+                 sd, sr, evo_launches):
+    """One row per TPU kernel of the table in PERF.md (rows 1-11); a row
+    realized by two CUDA kernels (4, 8) has one entry for each.  A flash
+    row's launches count its CUDA kernel on the BERT training path."""
+    decode = cases["decode"]
+    rows = [{
+        "row": 1, "name": "ragged_paged_attention", "route": "cuda",
+        "source": "unicore_tpu_torch/csrc/paged_attention.cu",
+        "replaces": PALLAS + "paged_attention.py:65",
+        "launches": serve_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+        "ms": decode["ms"], "plain_ms": decode["plain_ms"],
+        "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
+        "library_ms": decode["library_ms"], "cases": cases,
+    }]
+    # the training path runs bf16: its numbers lead, fp32 rides along
+    hb, joint, two_pass = (flash["bfloat16"], multiblock["t1024_nobias"],
+                           multiblock["t2048_bias"])
+    table = (  # row, kernel, replaces (file:line of the body), case
+        (2, "flash_fwd", "flash_attention.py:241", two_pass),
+        (3, "flash_fwd", "flash_attention.py:121", hb),
+        (4, "flash_dkdv", "flash_attention.py:406", joint),
+        (4, "flash_dq", "flash_attention.py:406", joint),
+        (5, "flash_dq", "flash_attention.py:362", two_pass),
+        (6, "flash_dkdv", "flash_attention.py:298", two_pass),
+        (7, "flash_dbias", "flash_attention.py:488", two_pass),
+        (8, "flash_dkdv", "flash_attention.py:164", hb),
+        (8, "flash_dq", "flash_attention.py:164", hb),
+        (8, "flash_dbias", "flash_attention.py:164", hb))
+    for row, name, replaces, case in table:
+        entry = flash_row(row, name, replaces, case, train_launches[name],
+                          name == "flash_fwd")
+        if case is hb:
+            entry["cases"] = {dt: {
+                "ms": c["kernels"][name]["ms"],
+                "bound_ms": c["kernels"][name]["bound_ms"],
+            } for dt, c in flash.items()}
+        else:
+            entry["shape"] = case["shape"]
+        rows.append(entry)
+    # softmax_dropout: the bf16 triangle attention (the largest) leads
+    main = sd["bfloat16"]["triangle"]
+    for row, kind, body, errs in ((9, "fwd", ":64", ("out", "softmax")),
+                                  (10, "bwd", ":87", ("dx", "dbias"))):
+        name = f"softmax_dropout_{kind}"
+        rows.append({
+            "row": row, "name": name, "route": "cuda",
+            "source": "unicore_tpu_torch/csrc/softmax_dropout.cu",
+            "replaces": PALLAS + "softmax_dropout.py" + body,
+            "launches": evo_launches[name],
+            "max_abs_err": max(c["max_abs_err"].get(e, 0.0)
+                               for c in sd["bfloat16"].values()
+                               for e in errs),
+            "ms": main[f"{kind}_ms"], "plain_ms": main[f"plain_{kind}_ms"],
+            "bound_ms": main[f"bound_{kind}_ms"], "bound_by": "bytes",
+            # torch's softmax (backward) of pre-added scores: no dropout
+            "library_ms": main[f"library_{kind}_ms"],
+            "cases": {f"{dt}/{case}": {
+                "ms": r[f"{kind}_ms"], "bound_ms": r[f"bound_{kind}_ms"],
+                "plain_ms": r[f"plain_{kind}_ms"],
+                "library_ms": r[f"library_{kind}_ms"]}
+                for dt, by_case in sd.items() for case, r in by_case.items()},
+        })
+    leaf = sr["leaf_262144"]
+    rows.append({
+        "row": 11, "name": "fp32_to_bf16_sr", "route": "cuda",
+        "source": "unicore_tpu_torch/csrc/rounding.cu",
+        "replaces": PALLAS + "rounding.py:34",
+        "launches": evo_launches["fp32_to_bf16_sr"],
+        "max_abs_err": 0.0,  # bit for bit (the phase raises otherwise)
+        "ms": leaf["ms"], "plain_ms": leaf["plain_ms"],
+        "bound_ms": leaf["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "cases": sr,
+    })
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -639,7 +1162,8 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    report = build.build(["paged_attention", "flash_attention"])
+    report = build.build(["paged_attention", "flash_attention",
+                          "softmax_dropout", "rounding"])
     emit("build", kernels={
         name: {"seconds": r["seconds"],
                "ptxas": [ln.strip() for ln in r["log"].splitlines()
@@ -653,53 +1177,16 @@ def main():
     del model
     torch.cuda.empty_cache()
     flash = flash_phase(flush)
+    multiblock = flash_multiblock_phase(flush)
+    sd = softmax_dropout_phase(flush)
+    sr = rounding_phase(flush)
     del flush
     torch.cuda.empty_cache()
     train_launches = train_phase()
-    decode = cases["decode"]
-    rows = [{
-        "name": "ragged_paged_attention",
-        "route": "cuda",
-        "source": "unicore_tpu_torch/csrc/paged_attention.cu",
-        "replaces": "unicore_tpu/ops/pallas/paged_attention.py:65",
-        "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
-        "ms": decode["ms"], "plain_ms": decode["plain_ms"],
-        "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
-        "library_ms": decode["library_ms"],
-        "cases": cases,
-    }]
-    # the training path runs bf16: its numbers lead, fp32 rides along
-    main_case = flash["bfloat16"]
-    replaces = {
-        "flash_fwd": "unicore_tpu/ops/pallas/flash_attention.py:121",
-        "flash_dkdv": "unicore_tpu/ops/pallas/flash_attention.py:164",
-        "flash_dq": "unicore_tpu/ops/pallas/flash_attention.py:164",
-        "flash_dbias": "unicore_tpu/ops/pallas/flash_attention.py:164",
-    }
-    errs = {"flash_fwd": ("out",), "flash_dkdv": ("dk", "dv"),
-            "flash_dq": ("dq",), "flash_dbias": ("dbias",)}
-    for name in replaces:
-        fwd = name == "flash_fwd"
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": "unicore_tpu_torch/csrc/flash_attention.cu",
-            "replaces": replaces[name],
-            "launches": train_launches[name],
-            "max_abs_err": max(main_case["max_abs_err"][e]
-                               for e in errs[name]),
-            "ms": main_case["kernels"][name]["ms"],
-            # the plain backward computes all three passes at once
-            "plain_ms": main_case["plain_fwd_ms" if fwd else "plain_bwd_ms"],
-            "bound_ms": main_case["kernels"][name]["bound_ms"],
-            "bound_by": main_case["kernels"][name]["bound_by"],
-            "library_ms": main_case["sdpa_fwd_ms"] if fwd else None,
-            "cases": {dt: {
-                "ms": c["kernels"][name]["ms"],
-                "bound_ms": c["kernels"][name]["bound_ms"],
-                "max_abs_err": max(c["max_abs_err"][e] for e in errs[name]),
-            } for dt, c in flash.items()},
-        })
+    torch.cuda.empty_cache()
+    evo_launches = evoformer_train_phase()
+    rows = kernels_line(cases, launches, flash, multiblock, train_launches,
+                        sd, sr, evo_launches)
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,0 +1,289 @@
+"""Fused softmax + dropout of the PyTorch port (unicore_tpu_torch/ops/
+softmax_dropout.py, csrc/softmax_dropout.cu) against the JAX package's
+Pallas kernel (``unicore_tpu.ops.pallas.softmax_dropout.softmax_dropout``,
+run in interpret mode on the CPU, called directly as tests/test_pallas.py
+does), on the seed the JAX function draws from its key.
+
+With dropout on, the zeros of out (the keep pattern) must be equal
+exactly.  Tolerances: fp32 — out 1e-6, dx and dbias 1e-5 (both sides
+exact fp32, exp and summation order differ); bf16 — 1e-2 of each
+tensor's max (a bf16 ulp at 1 is 7.8e-3: both sides round the same fp32
+value, which may sit on either side of a rounding boundary).  Where a card
+is present, the CUDA kernels vs the plain version.
+
+The JAX side is imported inside the tests, so that the card-only cases
+can run where JAX is not installed."""
+
+import numpy as np
+import pytest
+import torch
+
+from unicore_tpu_torch.ops import softmax_dropout as sd
+
+# name: (x shape, mask shape, bias shape)
+CASES = {
+    "bert_4d": ((2, 3, 16, 128), (2, 1, 1, 128), (1, 3, 16, 128)),
+    "bert_bias_only": ((2, 3, 16, 256), None, (1, 3, 16, 256)),
+    "tri_mask_g11k_bias_11hqk": ((2, 3, 4, 16, 128), (2, 3, 1, 1, 128),
+                                 (1, 1, 4, 16, 128)),
+    "tri_mask_gh1k_bias_1ghqk": ((2, 3, 4, 16, 128), (2, 3, 4, 1, 128),
+                                 (1, 3, 4, 16, 128)),
+    "rows_in_two_blocks": ((1, 32, 8192), (1, 1, 8192), None),
+}
+DTYPES = {"float32": (np.float32, 1e-6, 1e-5), "bfloat16": (None, 1e-2, 1e-2)}
+
+
+def make_case(name, dtype):
+    xs, ms, bs = CASES[name]
+    rng = np.random.RandomState(sorted(CASES).index(name))
+    x = rng.randn(*xs).astype(np.float32)
+    mask = None if ms is None else (
+        (rng.rand(*ms) > 0.3).astype(np.float32) - 1.0) * 1e4
+    bias = None if bs is None else rng.randn(*bs).astype(np.float32)
+    w = rng.randn(*xs).astype(np.float32)
+    if dtype == "bfloat16":  # both sides see the same bf16 values
+        x, bias = (None if a is None else
+                   torch.from_numpy(a).bfloat16().float().numpy()
+                   for a in (x, bias))
+    return x, mask, bias, w
+
+
+def jax_run(case, dtype, p, key_seed):
+    """out, dx, dbias (fp32 numpy) and the seed the JAX function drew."""
+    import jax
+    import jax.numpy as jnp
+
+    from unicore_tpu.ops.pallas import softmax_dropout as jsd
+
+    x, mask, bias, w = case
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    key = jax.random.PRNGKey(key_seed)
+    xj = jnp.asarray(x, jdt)
+    mj = None if mask is None else jnp.asarray(mask)
+    bj = None if bias is None else jnp.asarray(bias, jdt)
+
+    def f(xx, bb):
+        out = jsd.softmax_dropout(xx, p, rng=key, is_training=True, mask=mj,
+                                  bias=bb)
+        return jnp.sum(out.astype(jnp.float32) * w), out
+
+    argnums = (0,) if bias is None else (0, 1)
+    (_, out), grads = jax.value_and_grad(f, argnums=argnums, has_aux=True)(
+        xj, bj)
+    seed = int(jax.random.randint(key, (1,), 0, 2 ** 31 - 1,
+                                  dtype=jnp.int32)[0])
+    f32 = lambda a: np.asarray(a.astype(jnp.float32))  # noqa: E731
+    return (f32(out), f32(grads[0]),
+            None if bias is None else f32(grads[1]), seed)
+
+
+def port_run(case, dtype, p, seed, device="cpu"):
+    x, mask, bias, w = case
+    dt = getattr(torch, dtype)
+    xt = torch.tensor(x, dtype=dt, device=device, requires_grad=True)
+    mt = None if mask is None else torch.tensor(mask, device=device)
+    bt = None if bias is None else torch.tensor(bias, dtype=dt, device=device,
+                                                requires_grad=True)
+    out = sd.softmax_dropout(xt, p, mask=mt, bias=bt, seed=seed)
+    (out.float() * torch.from_numpy(w).to(device)).sum().backward()
+    f32 = lambda t: t.detach().float().cpu().numpy()  # noqa: E731
+    return f32(out), f32(xt.grad), None if bt is None else f32(bt.grad)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_matches_jax_kernel(name, dtype, p):
+    case = make_case(name, dtype)
+    want_out, want_dx, want_db, seed = jax_run(case, dtype, p, 3)
+    got_out, got_dx, got_db = port_run(case, dtype, p, seed)
+    if p > 0:
+        np.testing.assert_array_equal(got_out == 0, want_out == 0)
+        assert 0.05 < (want_out == 0).mean() < 0.5
+    _, tol_out, tol_grad = DTYPES[dtype]
+    scale = (lambda a: 1.0) if dtype == "float32" else (
+        lambda a: float(np.abs(a).max()))
+    np.testing.assert_allclose(got_out, want_out, rtol=0,
+                               atol=tol_out * scale(want_out))
+    np.testing.assert_allclose(got_dx, want_dx, rtol=0,
+                               atol=tol_grad * scale(want_dx))
+    if want_db is not None:
+        np.testing.assert_allclose(got_db, want_db, rtol=0,
+                                   atol=tol_grad * scale(want_db))
+
+
+def test_pick_q_blk_matches_jax():
+    import jax.numpy as jnp
+
+    from unicore_tpu.ops.pallas import softmax_dropout as jsd
+
+    for q in (1, 8, 16, 24, 100, 128, 256, 512, 2048):
+        for k in (128, 256, 1024, 4096, 8192):
+            for jdt, tdt in ((jnp.float32, torch.float32),
+                             (jnp.bfloat16, torch.bfloat16)):
+                for m, b in ((None, None), (1, None), (None, 1), (1, 1)):
+                    xj = jnp.zeros((1, q, k), jdt)
+                    xt = torch.zeros((1, q, k), dtype=tdt)
+                    want = jsd._pick_q_blk_for(xj, m, b)
+                    assert sd.pick_q_blk_for(xt, m, b) == want, (q, k, jdt)
+
+
+def test_eligibility_copies_the_reference():
+    import jax.numpy as jnp
+
+    from unicore_tpu.ops.softmax_dropout import _pallas_eligible
+
+    shapes = [((2, 16, 128), None, None), ((2, 16, 100), None, None),
+              ((2, 16, 8320), None, None), ((2, 16, 256), (2, 1, 1), None),
+              ((2, 16, 256), None, (1, 16, 256)), ((128,), None, None)]
+    for xs, ms, bs in shapes:
+        ops = [None if s is None else jnp.zeros(s) for s in (ms, bs)]
+        tops = [None if s is None else torch.zeros(s) for s in (ms, bs)]
+        assert sd.eligible(torch.zeros(xs), *tops) == _pallas_eligible(
+            jnp.zeros(xs), *ops), xs
+
+
+def test_keep_mask_follows_the_program_grid():
+    """Rows of q_blk share one program; the program id runs over (lead
+    dims..., row block), and the index is block-local."""
+    from unicore_tpu_torch.ops import prng
+
+    seed = torch.tensor([-5], dtype=torch.int32)
+    keep = sd.keep_mask(seed, (2, 3, 32, 128), 16, 0.9)
+    for lead in range(6):
+        for blk in range(2):
+            want = prng.keep_mask(-5 + lead * 2 + blk, (16, 128), 0.9)
+            got = keep.reshape(6, 2, 16, 128)[lead, blk]
+            assert torch.equal(got, want)
+
+
+def test_generator_draws_the_seed_and_eval_is_deterministic():
+    x = torch.randn(2, 8, 128)
+    run = lambda s: sd.softmax_dropout(  # noqa: E731
+        x, 0.3, generator=torch.Generator().manual_seed(s))
+    assert torch.equal(run(1), run(1))
+    assert not torch.equal(run(1), run(2))
+    off = sd.softmax_dropout(x, 0.3, is_training=False)
+    torch.testing.assert_close(off, torch.softmax(x, -1), rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="generator"):
+        sd.softmax_dropout(x, 0.3)
+
+
+def attention_case(rng, bsz=2, t=128, d=32, heads=4):
+    query = rng.randn(bsz, t, d).astype(np.float32)
+    pad = np.zeros((bsz, t), np.int32)
+    pad[1, -30:] = 1
+    # a per-batch [B*H, T, T] bias: flash does not take it
+    bias = rng.randn(bsz * heads, t, t).astype(np.float32)
+    return query, pad, bias
+
+
+def test_self_attention_materialized_path_matches_jax():
+    """``SelfMultiheadAttention`` at a shape flash does not take goes the
+    JAX module's materialized way — pad added to the scores, then
+    softmax_dropout with the bias — and equals it at dropout 0: out and
+    the query and bias grads within 1e-5 of each tensor's max."""
+    import jax
+    import jax.numpy as jnp
+
+    from unicore_tpu.modules.multihead_attention import \
+        SelfMultiheadAttention as FlaxAttention
+    from unicore_tpu_torch.examples.lm.convert import _qkv_weight
+    from unicore_tpu_torch.modules import SelfMultiheadAttention
+
+    rng = np.random.RandomState(9)
+    query, pad, bias = attention_case(rng)
+    d, heads = query.shape[-1], 4
+    fmod = FlaxAttention(d, heads, dropout=0.0)
+    params = fmod.init(jax.random.PRNGKey(1), jnp.asarray(query),
+                       jnp.asarray(pad), jnp.asarray(bias))["params"]
+    w = rng.randn(*query.shape).astype(np.float32)
+
+    def loss(qq, bb):
+        out = fmod.apply({"params": params}, qq, jnp.asarray(pad), bb)
+        return jnp.sum(out * w), out
+
+    (_, want), (want_dq, want_db) = jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True)(jnp.asarray(query),
+                                            jnp.asarray(bias))
+    port = SelfMultiheadAttention(d, heads, dropout=0.0)
+    port.load_state_dict({
+        "in_proj.weight": torch.from_numpy(np.array(_qkv_weight(
+            np.asarray(params["in_proj"]["kernel"])))),
+        "in_proj.bias": torch.from_numpy(
+            np.array(params["in_proj"]["bias"]).reshape(-1)),
+        "out_proj.weight": torch.from_numpy(
+            np.asarray(params["out_proj"]["kernel"]).T.copy()),
+        "out_proj.bias": torch.from_numpy(
+            np.array(params["out_proj"]["bias"])),
+    })
+    qt = torch.tensor(query, requires_grad=True)
+    bt = torch.tensor(bias, requires_grad=True)
+    got = port(qt, torch.from_numpy(pad), bt)
+    (got * torch.from_numpy(w)).sum().backward()
+    for g, x in ((got.detach(), want), (qt.grad, want_dq),
+                 (bt.grad, want_db)):
+        x = np.asarray(x)
+        np.testing.assert_allclose(g.numpy(), x, rtol=0,
+                                   atol=1e-5 * np.abs(x).max())
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_kernels_match_plain_on_card(cuda, name, dtype):
+    """The CUDA forward and backward vs the plain version on the same
+    values at dropout 0.1: equal keep patterns; fp32 within 1e-5, bf16
+    within 2e-2 of each tensor's max."""
+    case = make_case(name, dtype)
+    before = dict(sd.launches)
+    got = port_run(case, dtype, 0.1, 12345, cuda)
+    torch.cuda.synchronize()
+    assert sd.launches["softmax_dropout_fwd"] == before[
+        "softmax_dropout_fwd"] + 1
+    assert sd.launches["softmax_dropout_bwd"] == before[
+        "softmax_dropout_bwd"] + 1
+    want = port_run(case, dtype, 0.1, 12345)
+    np.testing.assert_array_equal(got[0] == 0, want[0] == 0)
+    for g, w in zip(got, want):
+        if w is None:
+            continue
+        tol = 1e-5 if dtype == "float32" else 2e-2 * np.abs(w).max()
+        np.testing.assert_allclose(g, w, rtol=0, atol=tol)
+
+
+@pytest.mark.gpu
+def test_ineligible_shapes_raise_on_card(cuda):
+    with pytest.raises(NotImplementedError, match="multiple of 128"):
+        sd.softmax_dropout(torch.zeros(2, 8, 100, device=cuda), 0.0)
+
+
+@pytest.mark.gpu
+def test_self_attention_launches_the_kernel_on_card(cuda):
+    """On the card the materialized path launches the softmax_dropout
+    forward and backward once each per call, within 1e-4 of the CPU."""
+    from unicore_tpu_torch.modules import SelfMultiheadAttention
+
+    rng = np.random.RandomState(9)
+    query, pad, bias = attention_case(rng)
+    port = SelfMultiheadAttention(query.shape[-1], 4, dropout=0.0)
+    want = port(torch.from_numpy(query), torch.from_numpy(pad),
+                torch.from_numpy(bias))
+    port = port.to(cuda)
+    qt = torch.tensor(query, device=cuda, requires_grad=True)
+    before = dict(sd.launches)
+    got = port(qt, torch.from_numpy(pad).to(cuda),
+               torch.from_numpy(bias).to(cuda))
+    got.sum().backward()
+    torch.cuda.synchronize()
+    assert {k: sd.launches[k] - before[k] for k in before} == {
+        "softmax_dropout_fwd": 1, "softmax_dropout_bwd": 1}
+    np.testing.assert_allclose(got.detach().cpu().numpy(),
+                               want.detach().numpy(), rtol=0, atol=1e-4)

@@ -8,9 +8,10 @@ Three paths:
   ``[B*H, T, T]``), attention dropout drawn from ``generator``.  Shapes
   that :func:`~unicore_tpu_torch.ops.flash_attention.eligible` admits
   take flash (the CUDA kernels on the card, their plain version on the
-  CPU); others take the materialized einsum + softmax + dropout on the
-  CPU, and raise ``NotImplementedError`` on the card, where that path
-  runs the ``softmax_dropout`` kernel, not ported yet (ROADMAP.md B3);
+  CPU); others take the materialized path as the JAX package does: the
+  key padding added to the scores, then
+  :func:`~unicore_tpu_torch.ops.softmax_dropout.softmax_dropout` with the
+  bias (its kernel on the card, its plain version on the CPU);
 - the plain causal full forward (``causal=True``, no ``paged``): einsum
   + fp32 softmax over the whole sequence — the decoder's oracle, which
   the serve engine is held against;
@@ -32,6 +33,7 @@ from torch import nn
 
 from ..ops.flash_attention import eligible, flash_attention
 from ..ops.paged_attention import ragged_paged_attention
+from ..ops.softmax_dropout import softmax_dropout
 from ..utils import causal_iota_mask
 from .rotary import apply_rotary_qk
 
@@ -66,27 +68,11 @@ def _attend(q, k, v, scaling, dropout, key_padding_mask, bias, training,
             q, k, v, bias=bias4, key_padding_mask=key_padding_mask,
             dropout_prob=dropout, generator=generator, is_training=training,
             scale=scaling)
-    if q.device.type != "cpu":
-        raise NotImplementedError(
-            f"attention at q {qs}, bias "
-            f"{None if bias4 is None else tuple(bias4.shape)} is not flash "
-            "eligible; the materialized path's softmax_dropout kernel is "
-            "not ported to the card yet (ROADMAP.md B3)")
-    dtype = q.dtype
     s = torch.einsum("bqhd,bkhd->bhqk", q * scaling, k)
     if key_padding_mask is not None:
-        s = s + _padding_bias(key_padding_mask).to(dtype)
-    x = s.float()
-    if bias is not None:
-        x = x + bias.float()
-    probs = torch.softmax(x, dim=-1).to(dtype)
-    if training and dropout > 0.0:
-        if generator is None:
-            raise ValueError("attention dropout needs a generator")
-        keep = 1.0 - dropout
-        mask = torch.rand(probs.shape, generator=generator,
-                          device=probs.device) < keep
-        probs = torch.where(mask, probs / keep, torch.zeros_like(probs))
+        s = s + _padding_bias(key_padding_mask).to(q.dtype)
+    probs = softmax_dropout(s, dropout, is_training=training, bias=bias,
+                            generator=generator)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 

@@ -236,9 +236,8 @@ def _check(q, k, v, bias, pad, seed, causal):
         raise NotImplementedError(
             f"flash attention on the card takes eligible shapes only (q "
             f"{qs}, k {ks}, bias "
-            f"{None if bias is None else tuple(bias.shape)}); the "
-            "materialized path's softmax_dropout kernel is not ported yet "
-            "(ROADMAP.md B3)")
+            f"{None if bias is None else tuple(bias.shape)}); callers take "
+            "other shapes through the materialized softmax_dropout path")
     if d > MAX_KERNEL_HEAD_DIM:
         raise NotImplementedError(
             f"head_dim {d} > {MAX_KERNEL_HEAD_DIM}: the flash kernels hold "

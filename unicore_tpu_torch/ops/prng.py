@@ -44,6 +44,14 @@ def random_bits(seed, idx):
     return mix((idx + _mul32(seed, GOLDEN)) & MASK32)
 
 
+def draw_seeds(generator, shape):
+    """int32 seeds in [0, 2^31 - 1) of ``shape`` from ``generator``, on
+    its device (a CUDA generator never syncs with the host) — the range
+    the JAX package draws its kernel seeds from."""
+    return torch.randint(0, 2 ** 31 - 1, shape, generator=generator,
+                         device=generator.device, dtype=torch.int32)
+
+
 def keep_threshold(keep_prob):
     """The uint32 threshold below which an element is kept, as the JAX
     ``keep_mask`` computes it."""

@@ -1,0 +1,353 @@
+"""Fused bias + mask + softmax + dropout: the CUDA kernels' wrappers, their
+plain versions, and the autograd function that ties them together.
+
+Replaces the Pallas TPU kernels of ``unicore_tpu/ops/pallas/
+softmax_dropout.py`` (``_fwd_kernel``, ``_bwd_kernel``) behind the JAX
+package's ``ops.softmax_dropout``:
+
+    out = dropout(softmax(x + mask + bias))
+
+in fp32 whatever x's type, with out (and, for the backward, the softmax)
+in x's type.  mask and bias are additive and broadcast against x,
+including the 5-D Evoformer contracts (mask ``[b, g, 1, 1, k]`` /
+``[b, g, h, 1, k]``, bias ``[1, 1, h, q, k]`` / ``[1, g, h, q, k]``).  The
+kernels are ``unicore_tpu_torch/csrc/softmax_dropout.cu``; the dropout
+bits are ``csrc/prng.cuh``.
+
+Bound on the card: bytes (a row-local pass over memory; see the source's
+note).
+
+Dropout masks are the JAX kernel's bit for bit: element (lead..., r, c)
+keeps iff its counter-hash bits under ``seed + pid`` at index
+``(r % q_blk)·k + c`` fall below ``keep_prob·2^32``, where pid is the
+row-major linear index over (lead dims..., r // q_blk) and q_blk is the
+reference's row block (:func:`pick_q_blk_for`).  The backward recomputes
+the mask from the same seed instead of storing it.
+
+Dispatch is by the tensor's device: a CPU tensor takes the plain version
+(the tests' path), a CUDA tensor launches the kernels or raises
+(:class:`~unicore_tpu_torch.ops.build.KernelError`, or
+``NotImplementedError`` for a shape the JAX package's eligibility rule
+refuses).  There is no fallback from a kernel to the plain version.  The
+JAX package's autotuner, timed probe and "eager" crossover are TPU
+dispatch and are not ported.
+"""
+
+import ctypes
+import functools
+
+import torch
+
+from . import build, prng
+
+MAX_K = 8192
+MAX_KERNEL_DIMS = 5
+_DTYPES = (torch.float32, torch.bfloat16)
+
+# launches per kernel, counted where each wrapper launches its kernel
+launches = {"softmax_dropout_fwd": 0, "softmax_dropout_bwd": 0}
+
+
+def pick_q_blk(q, k, n_streams=4, itemsize=4):
+    """The reference's row block (a copy of its ``_pick_q_blk``): the
+    largest of 256, 128, ..., 8, 1 that divides q within a 6 MB budget of
+    ``2 · n_streams`` blocks of ``q_blk x k``.  The port's kernels work
+    row by row; this block only fixes the dropout masks."""
+    budget_bytes = 6 << 20
+    denom = max(1, 2 * n_streams * k * itemsize)
+    blk = min(q, max(8, budget_bytes // denom))
+    for cand in (256, 128, 64, 32, 16, 8, 1):
+        if cand <= blk and q % cand == 0:
+            return cand
+    return 1
+
+
+def pick_q_blk_for(x, mask, bias):
+    """The one row block of a call, forward and backward alike (a copy of
+    the reference's ``_pick_q_blk_for``): streams counted for the
+    grad-mode forward — x, out, the saved softmax, plus mask and bias."""
+    n_streams = 3 + (mask is not None) + (bias is not None)
+    return pick_q_blk(x.shape[-2], x.shape[-1], n_streams=n_streams,
+                      itemsize=x.element_size())
+
+
+def canon(x, mask, bias):
+    """Pad mask and bias to x's rank with leading 1s (the reference's
+    ``_canon``)."""
+    def pad(a):
+        if a is None:
+            return None
+        return a.reshape((1,) * (x.dim() - a.dim()) + tuple(a.shape))
+
+    return pad(mask), pad(bias)
+
+
+def eligible(x, mask, bias):
+    """Whether the kernels take these shapes — a copy of the reference's
+    ``_pallas_eligible``: k a multiple of 128 up to 8192, and no operand
+    broadcast over k."""
+    k = x.shape[-1]
+    if not (k % 128 == 0 and k <= MAX_K and x.dim() >= 2):
+        return False
+    return all(op is None or op.shape[-1] == k for op in (mask, bias))
+
+
+# ---------------------------------------------------------------- plain --
+
+def keep_mask(seed, shape, q_blk, keep_prob):
+    """Boolean keep mask of the reference's kernel for an x of ``shape``
+    and a one-element int32 ``seed``."""
+    *lead, q, k = shape
+    dev = seed.device
+    n_lead = 1
+    for s in lead:
+        n_lead *= s
+    lin = torch.arange(n_lead, dtype=torch.int64, device=dev).reshape(
+        tuple(lead) + (1, 1))
+    r = torch.arange(q, dtype=torch.int64, device=dev)[:, None]
+    c = torch.arange(k, dtype=torch.int64, device=dev)[None, :]
+    pid = lin * (q // q_blk) + r // q_blk                     # [..., q, 1]
+    bits = prng.random_bits(seed.reshape(()).long() + pid,
+                            (r % q_blk) * k + c)
+    return bits < prng.keep_threshold(keep_prob)
+
+
+def softmax_dropout_fwd_plain(x, mask, bias, dropout_prob, seed, q_blk,
+                              save_softmax):
+    """The forward kernel's function in plain PyTorch: ``(out, softmax or
+    None)``, both in x's dtype."""
+    z = x.float()
+    if mask is not None:
+        z = z + mask.float()
+    if bias is not None:
+        z = z + bias.float()
+    e = torch.exp(z - z.amax(dim=-1, keepdim=True))
+    y = e / e.sum(dim=-1, keepdim=True)
+    sm = y.to(x.dtype) if save_softmax else None
+    if dropout_prob > 0.0:
+        keep_prob = 1.0 - dropout_prob
+        keep = keep_mask(seed, tuple(y.shape), q_blk, keep_prob)
+        y = torch.where(keep, y * (1.0 / keep_prob), 0.0)
+    return y.to(x.dtype), sm
+
+
+def softmax_dropout_bwd_plain(g, sm, dropout_prob, seed, q_blk):
+    """The backward kernel's function in plain PyTorch: dx in the saved
+    softmax's dtype."""
+    g = g.float()
+    y = sm.float()
+    if dropout_prob > 0.0:
+        keep_prob = 1.0 - dropout_prob
+        keep = keep_mask(seed, tuple(y.shape), q_blk, keep_prob)
+        g = torch.where(keep, g * (1.0 / keep_prob), 0.0)
+    dx = y * (g - (g * y).sum(dim=-1, keepdim=True))
+    return dx.to(sm.dtype)
+
+
+# --------------------------------------------------------------- kernels --
+
+class _Params(ctypes.Structure):
+    """``SoftmaxDropoutParams`` of the CUDA source, field for field."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in
+                 ("x", "mask", "bias", "seed", "out", "sm", "g", "dx")]
+                + [(n, ctypes.c_longlong * 4) for n in ("sx", "smk", "sb")]
+                + [("rows", ctypes.c_longlong)]
+                + [(n, ctypes.c_int) for n in
+                   ("L1", "L2", "Q", "K", "mask_bf16", "bias_bf16",
+                    "dropout", "q_blk")]
+                + [("inv_keep", ctypes.c_float),
+                   ("keep_thresh", ctypes.c_uint32)])
+
+
+@functools.cache
+def _entry(name):
+    fn = getattr(build.load("softmax_dropout"),
+                 f"unicore_softmax_dropout_{name}")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p]
+    return fn
+
+
+def _launch(name, params, bf16, device):
+    fn = _entry(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(ctypes.byref(params), int(bf16), stream)
+    if err:
+        raise build.KernelError(
+            f"softmax_dropout kernel {name} launch failed: CUDA error {err}")
+    launches[f"softmax_dropout_{name}"] += 1
+
+
+def _lead5(shape):
+    """A shape of rank <= 5 with leading 1s up to rank 5."""
+    return (1,) * (MAX_KERNEL_DIMS - len(shape)) + tuple(shape)
+
+
+def _bcast_strides(op, x_shape5, name):
+    """Strides of a broadcast operand over (L0, L1, L2, Q), 0 on a
+    broadcast dim, and the operand with a unit last dim."""
+    if op.stride(-1) != 1:
+        op = op.contiguous()
+    shape5 = _lead5(op.shape)
+    strides5 = (0,) * (MAX_KERNEL_DIMS - op.dim()) + tuple(op.stride())
+    out = []
+    for d in range(4):
+        if shape5[d] == x_shape5[d]:
+            out.append(strides5[d] if shape5[d] != 1 else 0)
+        elif shape5[d] == 1:
+            out.append(0)
+        else:
+            raise ValueError(f"softmax_dropout {name} {tuple(op.shape)} does "
+                             f"not broadcast against x {x_shape5}")
+    return op, out
+
+
+def _params(q, k, rows, dropout_prob, seed, q_blk):
+    prm = _Params()
+    prm.seed = seed.data_ptr()
+    prm.rows, prm.Q, prm.K, prm.q_blk = rows, q, k, q_blk
+    prm.dropout = int(dropout_prob > 0.0)
+    keep_prob = 1.0 - dropout_prob
+    prm.inv_keep = 1.0 / keep_prob if dropout_prob > 0.0 else 1.0
+    prm.keep_thresh = prng.keep_threshold(keep_prob)
+    return prm
+
+
+def _check(x, mask, bias, seed):
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"softmax_dropout kernels take float32 or bfloat16 "
+                        f"x, got {x.dtype}")
+    for op in (mask, bias, seed):
+        if op is not None and op.device != x.device:
+            raise ValueError(f"all operands must be on {x.device}, got one "
+                             f"on {op.device}")
+    if not eligible(x, mask, bias) or x.dim() > MAX_KERNEL_DIMS:
+        raise NotImplementedError(
+            f"softmax_dropout on the card takes k a multiple of 128 up to "
+            f"{MAX_K}, no operand broadcast over k and at most "
+            f"{MAX_KERNEL_DIMS} dims; got x {tuple(x.shape)}, mask "
+            f"{None if mask is None else tuple(mask.shape)}, bias "
+            f"{None if bias is None else tuple(bias.shape)}")
+
+
+def softmax_dropout_fwd_cuda(x, mask, bias, dropout_prob, seed, q_blk,
+                             save_softmax):
+    """Launch the forward kernel: ``(out, softmax or None)`` as
+    :func:`softmax_dropout_fwd_plain`.  x is read by strides (a unit last
+    dim, else one contiguous copy); mask and bias by strides with 0 on
+    their broadcast dims."""
+    _check(x, mask, bias, seed)
+    if x.stride(-1) != 1:
+        x = x.contiguous()
+    x5 = _lead5(x.shape)
+    q, k = x5[3], x5[4]
+    rows = x.numel() // k
+    prm = _params(q, k, rows, dropout_prob, seed, q_blk)
+    prm.x = x.data_ptr()
+    sx = (0,) * (MAX_KERNEL_DIMS - x.dim()) + tuple(x.stride())
+    prm.sx[:] = sx[:4]
+    prm.L1, prm.L2 = x5[1], x5[2]
+    held = []  # converted operands, alive until the launch is queued
+    for name, field, op in (("mask", "smk", mask), ("bias", "sb", bias)):
+        if op is None:
+            continue
+        if op.dtype not in _DTYPES:
+            op = op.float()
+        op, strides = _bcast_strides(op, x5, name)
+        held.append(op)
+        setattr(prm, name, op.data_ptr())
+        getattr(prm, field)[:] = strides
+        setattr(prm, f"{name}_bf16", int(op.dtype == torch.bfloat16))
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    sm = torch.empty_like(out) if save_softmax else None
+    prm.out = out.data_ptr()
+    prm.sm = sm.data_ptr() if sm is not None else None
+    _launch("fwd", prm, x.dtype == torch.bfloat16, x.device)
+    return out, sm
+
+
+def softmax_dropout_bwd_cuda(g, sm, dropout_prob, seed, q_blk):
+    """Launch the backward kernel: dx as :func:`softmax_dropout_bwd_plain`
+    (g in the softmax's dtype, both made contiguous)."""
+    g = g.to(sm.dtype).contiguous()
+    sm = sm.contiguous()
+    q, k = sm.shape[-2], sm.shape[-1]
+    dx = torch.empty_like(sm)
+    prm = _params(q, k, sm.numel() // k, dropout_prob, seed, q_blk)
+    prm.g, prm.sm, prm.dx = g.data_ptr(), sm.data_ptr(), dx.data_ptr()
+    _launch("bwd", prm, sm.dtype == torch.bfloat16, sm.device)
+    return dx
+
+
+# -------------------------------------------------------------- autograd --
+
+def _on(x, plain, cuda):
+    if x.device.type == "cpu":
+        return plain
+    if x.device.type == "cuda":
+        return cuda
+    raise ValueError(f"softmax_dropout has no path for {x.device}")
+
+
+def _reduce_to(dx, shape, dtype):
+    """dx summed in fp32 over the dims an operand of ``shape`` broadcasts,
+    cast to dx's dtype (the reference's ``reduce_to``), then to the
+    operand's ``dtype``."""
+    axes = [i for i, (s, xs) in enumerate(zip(shape, dx.shape))
+            if s == 1 and xs != 1]
+    r = dx.sum(dim=axes, keepdim=True, dtype=torch.float32) if axes \
+        else dx.float()
+    return r.reshape(shape).to(dx.dtype).to(dtype)
+
+
+class _SoftmaxDropout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mask, bias, dropout_prob, seed, q_blk, save):
+        fwd = _on(x, softmax_dropout_fwd_plain, softmax_dropout_fwd_cuda)
+        out, sm = fwd(x, mask, bias, dropout_prob, seed, q_blk, save)
+        ctx.save_for_backward(sm, seed)
+        ctx.args = (dropout_prob, q_blk,
+                    None if mask is None else (mask.shape, mask.dtype),
+                    None if bias is None else (bias.shape, bias.dtype))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        sm, seed = ctx.saved_tensors
+        if sm is None:
+            raise RuntimeError("softmax_dropout: the forward ran without "
+                               "grad mode and saved no softmax")
+        dropout_prob, q_blk, mask_meta, bias_meta = ctx.args
+        bwd = _on(sm, softmax_dropout_bwd_plain, softmax_dropout_bwd_cuda)
+        dx = bwd(g, sm, dropout_prob, seed, q_blk)
+        grads = [dx if ctx.needs_input_grad[0] else None]
+        for i, meta in ((1, mask_meta), (2, bias_meta)):
+            grads.append(_reduce_to(dx, *meta)
+                         if meta is not None and ctx.needs_input_grad[i]
+                         else None)
+        return (*grads, None, None, None, None)
+
+
+def softmax_dropout(x, dropout_prob, is_training=True, mask=None, bias=None,
+                    generator=None, seed=None):
+    """``dropout(softmax(x + mask + bias))`` over x's last dim (the JAX
+    package's ``softmax_dropout`` minus ``return_softmax`` and the
+    autotuner's ``q_blk``).  With dropout on, the int32 seed is ``seed``
+    when given, else drawn from ``generator``."""
+    mask, bias = canon(x, mask, bias)
+    p = float(dropout_prob) if is_training else 0.0
+    if p > 0.0:
+        if seed is None:
+            if generator is None:
+                raise ValueError("softmax_dropout: a generator or seed is "
+                                 "required when training with dropout")
+            seed = prng.draw_seeds(generator, (1,))
+        seed = torch.as_tensor(seed, dtype=torch.int32).reshape(1).to(
+            x.device)
+    else:
+        seed = torch.zeros((1,), dtype=torch.int32, device=x.device)
+    save = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, mask, bias))
+    return _SoftmaxDropout.apply(x, mask, bias, p, seed,
+                                 pick_q_blk_for(x, mask, bias), save)

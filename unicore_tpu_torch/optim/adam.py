@@ -1,12 +1,17 @@
 """AdamW (counterpart of ``unicore_tpu/optim/adam.py``): decoupled weight
-decay, fp32 moments, the JAX package's update bit of arithmetic for bit
-of arithmetic —
+decay and the JAX package's update —
 
     m = b1 m + (1 - b1) g;  v = b2 v + (1 - b2) g^2
     p -= lr sqrt(bc2) / bc1 * m / (sqrt(v) + eps sqrt(bc2)) + lr wd p
 
-— run as multi-tensor (``torch._foreach_*``) ops over every parameter at
-once, in place.  ``--optim-bf16-moments`` is not ported (ROADMAP.md B4).
+With fp32 moments (the default) it runs as multi-tensor
+(``torch._foreach_*``) ops over every parameter at once, in place.
+``--optim-bf16-moments`` stores m and v in bf16: the update math still
+runs in fp32 (the moments upcast on entry, the step uses the fp32 m and
+v), and the new moments re-quantize by stochastic rounding
+(:func:`~unicore_tpu_torch.optim.fp16_optimizer.cast_moments`) under a
+distinct seed per (leaf, moment), drawn from the generator the trainer
+passes to :meth:`UnicoreAdam.step` — two rounding launches per leaf.
 """
 
 import ast
@@ -14,7 +19,9 @@ import math
 
 import torch
 
+from ..ops.prng import draw_seeds
 from . import register_optimizer
+from .fp16_optimizer import cast_moments
 from .unicore_optimizer import UnicoreOptimizer
 
 
@@ -28,10 +35,15 @@ class UnicoreAdam(UnicoreOptimizer):
         self.beta1, self.beta2 = float(betas[0]), float(betas[1])
         self.eps = float(getattr(args, "adam_eps", 1e-8))
         self.weight_decay = float(getattr(args, "weight_decay", 0.0))
+        self.moments_dtype = (torch.bfloat16
+                              if getattr(args, "optim_bf16_moments", False)
+                              else torch.float32)
+        self.moments_rounding = str(
+            getattr(args, "optim_bf16_moments_rounding", None) or "sr")
         self.step_count = 0
-        self.exp_avg = [torch.zeros_like(p, dtype=torch.float32)
+        self.exp_avg = [torch.zeros_like(p, dtype=self.moments_dtype)
                         for p in self.params]
-        self.exp_avg_sq = [torch.zeros_like(p, dtype=torch.float32)
+        self.exp_avg_sq = [torch.zeros_like(p, dtype=self.moments_dtype)
                            for p in self.params]
 
     @classmethod
@@ -43,20 +55,43 @@ class UnicoreAdam(UnicoreOptimizer):
         parser.add_argument("--weight-decay", "--wd", default=0.0,
                             type=float, metavar="WD", help="weight decay")
 
+    @property
+    def wants_update_rng(self):
+        return (self.moments_dtype != torch.float32
+                and self.moments_rounding == "sr")
+
     @torch.no_grad()
-    def step(self):
+    def step(self, generator=None):
         b1, b2, lr, wd = self.beta1, self.beta2, self._lr, self.weight_decay
         self.step_count += 1
         bc1 = 1.0 - b1 ** self.step_count
         bc2 = 1.0 - b2 ** self.step_count
         grads = [p.grad.float() for p in self.params]
-        torch._foreach_mul_(self.exp_avg, b1)
-        torch._foreach_add_(self.exp_avg, grads, alpha=1.0 - b1)
-        torch._foreach_mul_(self.exp_avg_sq, b2)
-        torch._foreach_addcmul_(self.exp_avg_sq, grads, grads, value=1.0 - b2)
-        denom = torch._foreach_sqrt(self.exp_avg_sq)
+        store = self.moments_dtype != torch.float32
+        # math in fp32 whatever the store type
+        m = [x.float() for x in self.exp_avg] if store else self.exp_avg
+        v = [x.float() for x in self.exp_avg_sq] if store else self.exp_avg_sq
+        torch._foreach_mul_(m, b1)
+        torch._foreach_add_(m, grads, alpha=1.0 - b1)
+        torch._foreach_mul_(v, b2)
+        torch._foreach_addcmul_(v, grads, grads, value=1.0 - b2)
+        denom = torch._foreach_sqrt(v)
         torch._foreach_add_(denom, self.eps * math.sqrt(bc2))
         if wd != 0.0:
             torch._foreach_mul_(self.params, 1.0 - lr * wd)
-        torch._foreach_addcdiv_(self.params, self.exp_avg, denom,
+        torch._foreach_addcdiv_(self.params, m, denom,
                                 value=-lr * math.sqrt(bc2) / bc1)
+        if not store:
+            return
+        seeds = None
+        if self.moments_rounding == "sr":
+            if generator is None:
+                raise ValueError("bf16 moments with stochastic rounding "
+                                 "need a generator for their seeds")
+            seeds = draw_seeds(generator, (len(self.params), 2))
+        for i in range(len(self.params)):
+            for j, (new, old) in enumerate(((m[i], self.exp_avg[i]),
+                                            (v[i], self.exp_avg_sq[i]))):
+                cast_moments(new, self.moments_dtype,
+                             seed=None if seeds is None else seeds[i, j],
+                             rounding=self.moments_rounding, out=old)

@@ -1,0 +1,55 @@
+"""Mixed-precision casts of the port (counterpart of
+``unicore_tpu/optim/fp16_optimizer.py``).
+
+- :func:`sync_master_to_model` casts the fp32 master parameters into the
+  bf16 compute copy, with stochastic rounding under ``--bf16-sr`` — one
+  seed per leaf, drawn on the card.  The JAX package applies the SR cast
+  inside the differentiated loss with a straight-through gradient; the
+  port casts the compute copy before the forward and folds the copy's
+  gradients into the master gradients as identity (the trainer's
+  ``_fold_compute_grads``), which is the same gradient.
+- :func:`cast_moments` casts one fp32 optimizer-moment leaf to its store
+  type: stochastic rounding for bf16 by default (an unbiased EMA), or
+  round-to-nearest when asked for explicitly.
+"""
+
+import torch
+
+from ..ops.prng import draw_seeds
+from ..ops.rounding import fp32_to_bf16_sr
+
+
+@torch.no_grad()
+def sync_master_to_model(master, model, generator=None):
+    """Copy the fp32 ``master`` tensors into the ``model`` tensors (the
+    compute copy), in place.  With ``generator`` and a bf16 copy, each
+    leaf is stochastically rounded under its own seed; else the copy
+    rounds to nearest."""
+    if generator is None or not model or model[0].dtype != torch.bfloat16:
+        torch._foreach_copy_(model, master)
+        return
+    seeds = draw_seeds(generator, (len(master),))
+    for i, (m, c) in enumerate(zip(master, model)):
+        fp32_to_bf16_sr(m, seeds[i], out=c)
+
+
+def cast_moments(x, dtype, seed=None, rounding="sr", out=None):
+    """Cast one fp32 moment leaf to its store ``dtype`` (into ``out`` when
+    given).  bf16 with ``rounding="sr"`` rounds stochastically under the
+    int32 ``seed``; another store type has no stochastic rounding and
+    raises rather than hand back the biased round-to-nearest the caller
+    asked to avoid."""
+    if dtype == torch.float32 or x.dtype == dtype:
+        return x if out is None else out.copy_(x)
+    if rounding == "sr":
+        if dtype != torch.bfloat16:
+            raise NotImplementedError(
+                f"stochastic rounding is implemented for bf16 moment stores "
+                f"only (got {dtype}); use rounding=\"nearest\" explicitly "
+                "if bias is acceptable")
+        if seed is None:
+            raise ValueError("stochastically-rounded moment casts need a "
+                             "seed (the trainer passes a generator when the "
+                             "optimizer wants one)")
+        return fp32_to_bf16_sr(x, seed, out=out)
+    return x.to(dtype) if out is None else out.copy_(x)

@@ -1,6 +1,6 @@
 """Command-line options of the port's trainer (the subset of
-``unicore_tpu/options.py`` the BERT path reads, with the same names and
-defaults, plus ``--device``).
+``unicore_tpu/options.py`` the BERT and Evoformer paths read, with the
+same names and defaults, plus ``--device``).
 
 Flags of the JAX trainer that this slice does not port still parse, so
 that a reference command line reaches :func:`~unicore_tpu_torch.trainer.
@@ -59,7 +59,9 @@ def get_training_parser(input_args=None):
     g.add_argument("--bf16", action="store_true",
                    help="bf16 forward/backward over fp32 master params")
     g.add_argument("--fp16", action="store_true")
-    g.add_argument("--bf16-sr", action="store_true")
+    g.add_argument("--bf16-sr", action="store_true",
+                   help="stochastic rounding on the fp32-master -> bf16 "
+                        "param copy, fresh seeds every micro-batch")
     g.add_argument("--ema-decay", default=-1.0, type=float)
     g.add_argument("--task", default="bert",
                    choices=sorted(tasks.TASK_REGISTRY))
@@ -99,7 +101,13 @@ def get_training_parser(input_args=None):
     g.add_argument("--lr", default="0.25", type=eval_str_list_float)
     g.add_argument("--fused-lm-head", default="on", choices=["on", "off"])
     g.add_argument("--fused-ce-chunk", default=0, type=int)
-    g.add_argument("--optim-bf16-moments", action="store_true")
+    g.add_argument("--optim-bf16-moments", action="store_true",
+                   help="store the Adam moments in bf16; the update math "
+                        "stays fp32")
+    g.add_argument("--optim-bf16-moments-rounding", default="sr",
+                   choices=["sr", "nearest"],
+                   help="rounding of the bf16 moment store: stochastic "
+                        "(unbiased, the default) or round-to-nearest")
     g.add_argument("--checkpoint-activations", action="store_true")
 
     g = p.add_argument_group("checkpoint")

@@ -11,8 +11,12 @@ without a loss scaler, the step raises ``FloatingPointError``.
 
 ``--bf16`` keeps fp32 master parameters and runs forward and backward on
 a bf16 copy of the model refreshed from them before each update (the
-reference casts its fp32 params to bf16 for each micro-batch's forward);
-the copy's gradients fold into the fp32 master gradients.
+reference casts its fp32 params to bf16 for each micro-batch's forward;
+round-to-nearest gives the same copy each time); the copy's gradients
+fold into the fp32 master gradients.  ``--bf16-sr`` refreshes the copy
+by stochastic rounding before every micro-batch instead, with fresh
+seeds, as the reference's step does; ``--optim-bf16-moments`` stores
+Adam's moments in bf16, re-quantized by stochastic rounding.
 
 Flags of the JAX trainer this slice does not port raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` item
@@ -28,6 +32,7 @@ import torch
 from .device import resolve_device
 from .logging import metrics
 from .optim import build_optimizer
+from .optim.fp16_optimizer import sync_master_to_model
 from .optim.lr_scheduler import build_lr_scheduler
 
 logger = logging.getLogger(__name__)
@@ -35,8 +40,6 @@ logger = logging.getLogger(__name__)
 # (attribute, value meaning "off", flag, ROADMAP.md item)
 UNPORTED = (
     ("fp16", False, "--fp16", "A6"),
-    ("bf16_sr", False, "--bf16-sr", "B4"),
-    ("optim_bf16_moments", False, "--optim-bf16-moments", "B4"),
     ("ema_decay", -1.0, "--ema-decay", "A7"),
     ("zero1", False, "--zero1", "A8"),
     ("comms_overlap", False, "--comms-overlap", "A8"),
@@ -84,11 +87,24 @@ class Trainer:
         else:
             self.compute_model = copy.deepcopy(self.model).to(
                 self.compute_dtype)
+        self.bf16_sr = bool(getattr(args, "bf16_sr", False))
+        if self.bf16_sr and self.compute_dtype != torch.bfloat16:
+            raise ValueError(
+                "--bf16-sr requires --bf16 (stochastic rounding applies to "
+                "the fp32->bf16 master->model cast only)")
         self.clip_norm = float(getattr(args, "clip_norm", 0.0) or 0.0)
         self.seed = int(getattr(args, "seed", 1))
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.seed)
         self.optimizer = build_optimizer(args, list(self.model.parameters()))
+        if (getattr(args, "optim_bf16_moments", False)
+                and getattr(self.optimizer, "moments_dtype", torch.float32)
+                == torch.float32):
+            # a flag the optimizer ignores must not pass as a silent no-op
+            raise NotImplementedError(
+                "--optim-bf16-moments is implemented by the adam optimizer "
+                f"only; --optimizer {getattr(args, 'optimizer', '?')} keeps "
+                "full-precision state")
         self.total_train_steps = getattr(args, "max_update", 0) or None
         self.lr_scheduler = build_lr_scheduler(args, self.optimizer,
                                                self.total_train_steps)
@@ -97,12 +113,14 @@ class Trainer:
 
     # -- one update --------------------------------------------------------
 
-    def _sync_compute_params(self):
+    def _sync_compute_params(self, stochastic=False):
+        """Refresh the compute copy from the master params: round to
+        nearest, or stochastically with fresh seeds."""
         if self.compute_model is self.model:
             return
-        with torch.no_grad():
-            torch._foreach_copy_(list(self.compute_model.parameters()),
-                                 list(self.model.parameters()))
+        sync_master_to_model(list(self.model.parameters()),
+                             list(self.compute_model.parameters()),
+                             self.generator if stochastic else None)
 
     def _fold_compute_grads(self):
         """Add the compute copy's gradients into the fp32 master grads."""
@@ -126,12 +144,15 @@ class Trainer:
         one-element list."""
         self.compute_model.train()
         self.optimizer.set_lr(self.lr_scheduler.step_update(self._num_updates))
-        self._sync_compute_params()
+        if not self.bf16_sr:
+            self._sync_compute_params()
         for p in self.model.parameters():
             p.grad = None
         sample_size = torch.zeros((), device=self.device)
         logs = {}
         for sample in samples:
+            if self.bf16_sr:
+                self._sync_compute_params(stochastic=True)
             sample = _to_device(sample, self.device)
             loss, ss, log = self.loss(self.compute_model, sample,
                                       generator=self.generator)
@@ -155,7 +176,10 @@ class Trainer:
             raise FloatingPointError(
                 f"Non-finite gradients detected (grad norm {grad_norm}); "
                 "the update was skipped")
-        self.optimizer.step()
+        if getattr(self.optimizer, "wants_update_rng", False):
+            self.optimizer.step(generator=self.generator)
+        else:
+            self.optimizer.step()
         self.set_num_updates(self._num_updates + 1)
         logging_outputs = [logs]
         self._reduce_and_log_stats(logging_outputs, float(sample_size),
