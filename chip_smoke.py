@@ -8,7 +8,8 @@ code is non-zero:
 
 1. build — compile every kernel of the serve and training paths from
    ``unicore_tpu_torch/csrc/`` with ``nvcc`` for sm_90a (one process per
-   source, started together).
+   source — paged attention, the flash forward and fp32 backward, the
+   bf16 flash backward, softmax_dropout, rounding — started together).
 2. kernel — the paged-attention kernel vs its plain PyTorch version at
    the serve path's shapes (B=16, H=12, D=64, page size 16, fp32): pure
    decode (T=1), full prefill chunks (T=32) and a mixed batch with -1
@@ -28,30 +29,37 @@ code is non-zero:
    full-forward greedy decode equals the engine's tokens.
 5. profile — device busy and idle time of a decode-heavy window, and
    the kernels that take the most time (``torch.profiler``).
-6. flash — the four flash-attention kernels (forward; dk/dv, dq, dbias
-   of the backward) vs their plain versions at the BERT shapes (B=16,
-   H=12, T=512, D=64, bias [1, 12, 512, 512], 0-200 padded keys per row,
-   dropout 0.1, q/k/v read from one fused [B, T, 3, H, D] projection), in
-   fp32 (out within 1e-4, each grad within 1e-3 of its max) and bf16
-   (against the plain version in fp32 on the same bf16 values, within
-   2e-2 of each tensor's max).  Kernel times from ``torch.profiler``,
-   plain and SDPA (same bias + pad mask, forward and forward + backward)
-   times from CUDA events, beside each kernel's bound.
+6. flash — the flash-attention kernels vs their plain versions at the
+   BERT shapes (B=16, H=12, T=512, D=64, bias [1, 12, 512, 512], 0-200
+   padded keys per row, dropout 0.1, q/k/v read from one fused
+   [B, T, 3, H, D] projection): the forward, and the backward — in bf16
+   the two tensor-core kernels (dk/dv; dq with the dbias partials), in
+   fp32 the three fp32 kernels (dk/dv, dq, dbias).  The forward against
+   the plain forward on fp32 copies (out within 1e-4 in fp32, 2e-2 of its
+   max in bf16); the backward against the plain backward on the same
+   tensors, which in bf16 rounds p_drop and dS as the kernels do (each
+   grad within 1e-3 of its max in fp32, 2e-2 in bf16); two backward calls
+   bit for bit.  Kernel times from ``torch.profiler`` beside each
+   kernel's bound and achieved TFLOP/s on unpadded pairs, the backward
+   kernels' sum beside the bound of the whole backward; the wrapper's
+   whole backward, plain and SDPA (same bias + pad mask, forward and
+   forward + backward) times from CUDA events.
 7. train — the port's CLI, in process, trains a seeded random
    ``bert_base`` (12 layers, width 768, T=512, vocab 30522) under
    ``--bf16`` for 20 updates of batch 16 on a synthetic corpus (2,048
    records of 128-510 Zipf(1.1) tokens, written with the port's
    ``IndexedRecordWriter``).  The first update's masked-token loss lies in
    9-11.5 nats and the mean of the last 5 is below it; the flash forward
-   and each backward kernel launched once per layer per update.  Reports
-   step time, samples/s and tokens/s, then the device idle share and top
-   kernels of a ``torch.profiler`` window of 3 more updates.
-8. flash_multiblock — the same four kernels at the shapes the JAX
-   package sends to its multi-block kernels (rows 2 and 4-7 of the TPU
-   kernel table): T=1024 without a bias (one key block: the joint
-   dq/dk/dv backward) and T=2048 with a [1, H, T, T] bias (two-pass
-   dq, dk/dv and the dbias pass), bf16, dropout 0.1, against the plain
-   version and SDPA.
+   and the two bf16 backward kernels launched once per layer per update,
+   the fp32 backward kernels never.  Reports step time, samples/s and
+   tokens/s, then the device idle share and top kernels of a
+   ``torch.profiler`` window of 3 more updates.
+8. flash_multiblock — the same checks at the shapes the JAX package
+   sends to its multi-block kernels (rows 2 and 4-7 of the TPU kernel
+   table): T=1024 without a bias (one key block: the joint dq/dk/dv
+   backward) and T=2048 with a [1, H, T, T] bias (two-pass dq, dk/dv and
+   the dbias pass), bf16, dropout 0.1, against the plain version and
+   SDPA.
 9. softmax_dropout — the forward and backward kernels vs their plain
    versions at the Evoformer's three attention shapes (row with pair
    bias [1, 128, 8, 256, 256], column [1, 256, 8, 128, 128], triangle
@@ -74,8 +82,10 @@ code is non-zero:
    parameter leaf per update, flash none.  Reports step time, residue
    pairs/s and peak memory, then the idle share and top kernels of a
    ``torch.profiler`` window of 2 more updates.
-12. the ``kernels`` line (rows 1-11 of the TPU kernel table), the card's
-   name and power limit, and the closing ``{"ok": true, ...}`` line.
+12. the ``kernels`` line (rows 1-11 of the TPU kernel table; the bf16
+   backward rows carry the row's whole backward time beside the bound of
+   the backward as one function), the card's name and power limit, and
+   the closing ``{"ok": true, ...}`` line.
 
 Exits non-zero without a card, and without the repository around it.
 """
@@ -98,6 +108,7 @@ BF16_FLOP_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
 TOL = 1e-4                  # fp32, summation order differs
 FLASH_B, FLASH_H, FLASH_T, FLASH_D, FLASH_P = 16, 12, 512, 64, 0.1
 TRAIN_UPDATES, TRAIN_BATCH = 20, 16
+TRAIN_FLASH = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
 
 
 def emit(phase, **fields):
@@ -386,12 +397,21 @@ def flash_operands(rng, dtype, shape=(FLASH_B, FLASH_H, FLASH_T, FLASH_D),
             torch.from_numpy(seed).cuda(), dout, npad)
 
 
-def flash_bounds(npad, itemsize, shape=(FLASH_B, FLASH_H, FLASH_T, FLASH_D),
-                 with_bias=True):
-    """{kernel: (bound_ms, bound_by)}: each kernel's operations on the
-    keys this run's data leaves unpadded (a padded key adds exactly
+# the backward kernels of each operand type: bf16 (the training path)
+# takes the two tensor-core kernels, fp32 the three fp32 FMA kernels
+BWD_KERNELS = {torch.float32: ("flash_dkdv", "flash_dq", "flash_dbias"),
+               torch.bfloat16: ("flash_bwd_dkdv", "flash_bwd_dq")}
+
+
+def flash_bounds(npad, itemsize, shape, with_bias):
+    """{kernel: (bound_ms, bound_by, flops)}: each kernel's operations on
+    the keys this run's data leaves unpadded (a padded key adds exactly
     nothing to any output) over the tensor-core rate of its operand type,
-    against the bytes of its inputs read once and outputs written once."""
+    against the bytes of its inputs read once and outputs written once.
+    dbias counts once, as one fp32 [H, T, T]: the bf16 dq kernel's
+    per-group partials are its design, not the function's output.
+    ``backward`` is the whole backward as one function: 10 units of
+    flops per unpadded pair and D, q/k/v/dO read once."""
     B, H, T, D = shape
     pairs = H * T * int((T - npad).sum())       # unpadded (q, k) pairs
     rate = BF16_FLOP_PER_S if itemsize == 2 else FP32_FLOP_PER_S
@@ -399,18 +419,22 @@ def flash_bounds(npad, itemsize, shape=(FLASH_B, FLASH_H, FLASH_T, FLASH_D),
     rows = B * H * T * 4                        # one of lse, delta
     bias = H * T * T * itemsize if with_bias else 0
     small = B * T * 4 + B * 4                   # pad, seeds
+    dbias = H * T * T * 4 if with_bias else 0   # one fp32 [H, T, T]
     work = {  # kernel: (flops per unpadded pair / D, bytes)
         "flash_fwd": (4, 4 * act + bias + small + rows),
         "flash_dkdv": (8, 6 * act + bias + small + 2 * rows),
         "flash_dq": (6, 5 * act + bias + small + 2 * rows),
-        "flash_dbias": (4, 4 * act + bias + small + 2 * rows + H * T * T * 4),
+        "flash_dbias": (4, 4 * act + bias + small + 2 * rows + dbias),
+        "flash_bwd_dkdv": (8, 6 * act + bias + small + 2 * rows),
+        "flash_bwd_dq": (6, 5 * act + bias + small + 2 * rows + dbias),
+        "backward": (10, 7 * act + bias + small + 2 * rows + dbias),
     }
     out = {}
     for name, (per_pair, nbytes) in work.items():
-        t_ops = per_pair * pairs * D / rate
-        t_bytes = nbytes / HBM_BYTES_PER_S
+        flops = per_pair * pairs * D
+        t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
         out[name] = (max(t_ops, t_bytes) * 1e3,
-                     "operations" if t_ops >= t_bytes else "bytes")
+                     "operations" if t_ops >= t_bytes else "bytes", flops)
     return out
 
 
@@ -441,97 +465,130 @@ def kernel_times_ms(fn, flush, names, iters=10):
     return times
 
 
-def flash_phase(flush):
-    """The flash kernels vs their plain versions at the BERT shapes, in
-    fp32 and bf16; returns {dtype: report}."""
+def flash_case(flush, dtype, shape, with_bias, rng, iters):
+    """The flash kernels of one call vs their plain versions: the forward
+    against the plain forward on fp32 copies of the operands (within 1e-4
+    in fp32, 2e-2 of each tensor's max in bf16), the backward against the
+    plain backward on the operands themselves — in bf16 it rounds p_drop
+    and dS as the kernels do — both fed the plain forward's lse and delta
+    (each grad within 1e-3 of its max in fp32, 2e-2 in bf16); two backward
+    calls bit for bit; kernel times (``torch.profiler``) beside their
+    bounds, the plain versions' and SDPA's (same bias + pad mask, dropout
+    rate; a yardstick the port never calls).  ``iters``: kernel, plain and
+    SDPA timing iterations."""
     import torch.nn.functional as F
 
     from unicore_tpu_torch.ops import flash_attention as fa
 
-    scale = FLASH_D ** -0.5
-    names = ("flash_fwd", "flash_dkdv", "flash_dq", "flash_dbias")
+    B, H, T, D = shape
+    q, k, v, bias, pad, seed, dout, npad = flash_operands(rng, dtype, shape,
+                                                          with_bias)
+    geom = fa.geometry(T, T, bias)
+    scale = D ** -0.5
+    f32 = [None if x is None else x.float() for x in (q, k, v, bias, dout)]
+    args = (pad, FLASH_P, seed, False, scale, geom)
+
+    def kernel_fwd():
+        return fa.flash_fwd_cuda(q, k, v, bias, *args)
+
+    def plain_fwd():
+        return fa.flash_fwd_plain(*f32[:4], *args)
+
+    out_k, lse_k = kernel_fwd()
+    out_p, lse_p = plain_fwd()
+    delta = (f32[4] * out_p).sum(dim=-1).transpose(1, 2).contiguous()
+
+    def kernel_bwd():
+        return fa.flash_bwd_cuda(q, k, v, bias, *args, lse_p, delta, dout,
+                                 with_bias)
+
+    def plain_bwd():
+        return fa.flash_bwd_plain(q, k, v, bias, *args, lse_p, delta, dout,
+                                  with_bias)
+
+    got, again, want = kernel_bwd(), kernel_bwd(), plain_bwd()
+    torch.cuda.synchronize()
+    for what, a, b in zip(("dq", "dk", "dv", "dbias"), got, again):
+        if a is not None and not torch.equal(a, b):
+            raise AssertionError(f"{dtype} {shape}: two backward calls "
+                                 f"differ in {what}")
+    fp32 = dtype == torch.float32
+    errs = {}
+    for what, g, w in zip(("out", "lse", "dq", "dk", "dv", "dbias"),
+                          (out_k, lse_k) + got, (out_p, lse_p) + want):
+        if w is None:
+            continue
+        g, w = g.float(), w.float()
+        if not (torch.isfinite(g).all() and torch.isfinite(w).all()):
+            raise AssertionError(f"{dtype} {shape} {what}: non-finite values")
+        err = float((g - w).abs().max())
+        scale_w = float(w.abs().max())
+        if what in ("out", "lse"):
+            tol = TOL if fp32 else 2e-2 * scale_w
+        else:
+            tol = (1e-3 if fp32 else 2e-2) * scale_w
+        if err > tol:
+            raise AssertionError(f"{dtype} {shape} {what}: max |kernel - "
+                                 f"plain| {err} > {tol}")
+        errs[what] = err
+    bwd = tuple(n for n in BWD_KERNELS[dtype]
+                if with_bias or n != "flash_dbias")
+    kernel_iters, plain_iters, sdpa_iters = iters
+    ms = kernel_times_ms(lambda: (kernel_fwd(), kernel_bwd()), flush,
+                         ("flash_fwd",) + bwd, kernel_iters)
+    qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    mask = torch.where(pad[:, None, None, :] > 0, -1e30, 0.0).to(dtype)
+    if with_bias:
+        mask = bias + mask
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, dropout_p=FLASH_P, scale=scale)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), (qh, kh, vh), dout.transpose(1, 2))
+
+    groups = None if fp32 else fa.pick_groups(B, T, H, D, with_bias)
+    bounds = flash_bounds(npad, q.element_size(), shape, with_bias)
+    report = {
+        "dtype": str(dtype).replace("torch.", ""),
+        "shape": {"B": B, "H": H, "T": T, "D": D, "bias": with_bias},
+        "reference_blocks": list(geom), "dq_groups": groups,
+        "max_abs_err": errs, "bwd_bit_identical": True,
+        "kernels": {n: {"ms": ms[n], "bound_ms": bounds[n][0],
+                        "bound_by": bounds[n][1],
+                        # on the unpadded pairs the bound counts
+                        "tflops": bounds[n][2] / ms[n] / 1e9}
+                    for n in ms},
+        "bwd_kernels_ms": sum(ms[n] for n in bwd),
+        # the least time of the whole backward, beside bwd_kernels_ms
+        "bwd_bound_ms": bounds["backward"][0],
+        "bwd_bound_by": bounds["backward"][1],
+        # the wrapper's whole backward: the kernels, the dbias partials'
+        # sum and the allocations (CUDA events)
+        "bwd_call_ms": time_ms(kernel_bwd, flush, iters=kernel_iters),
+        "plain_fwd_ms": time_ms(plain_fwd, flush, iters=plain_iters),
+        "plain_bwd_ms": time_ms(plain_bwd, flush, iters=plain_iters),
+        "sdpa_fwd_ms": time_ms(sdpa, flush, iters=sdpa_iters),
+        "sdpa_fwd_bwd_ms": time_ms(sdpa_fwd_bwd, flush, iters=sdpa_iters),
+        "padded_keys": int(npad.sum()),
+    }
+    del q, k, v, bias, dout, f32, out_p, lse_p, got, again, want, mask
+    torch.cuda.empty_cache()
+    return report
+
+
+def flash_phase(flush):
+    """The flash kernels vs their plain versions at the BERT shapes, in
+    fp32 and bf16; returns {dtype: report}."""
     reports = {}
     for dtype in (torch.float32, torch.bfloat16):
-        rng = np.random.default_rng(512)
-        q, k, v, bias, pad, seed, dout, npad = flash_operands(rng, dtype)
-        geom = fa.geometry(FLASH_T, FLASH_T, bias)
-        f32 = [x.float() for x in (q, k, v, bias, dout)]
-        args = (pad, FLASH_P, seed, False, scale, geom)
-
-        def kernel_fwd():
-            return fa.flash_fwd_cuda(q, k, v, bias, *args)
-
-        def plain_fwd():
-            return fa.flash_fwd_plain(*f32[:4], *args)
-
-        out_k, lse_k = kernel_fwd()
-        out_p, lse_p = plain_fwd()
-        # both backward versions get the plain forward's lse and delta
-        delta = (f32[4] * out_p).sum(dim=-1).transpose(1, 2).contiguous()
-
-        def kernel_bwd():
-            return fa.flash_bwd_cuda(q, k, v, bias, *args, lse_p, delta,
-                                     dout, True)
-
-        def plain_bwd():
-            return fa.flash_bwd_plain(*f32[:4], *args, lse_p, delta, f32[4],
-                                      True)
-
-        got, want = kernel_bwd(), plain_bwd()
-        torch.cuda.synchronize()
-        fp32 = dtype == torch.float32
-        errs = {}
-        for name, g, w in zip(("out", "lse", "dq", "dk", "dv", "dbias"),
-                              (out_k, lse_k) + got, (out_p, lse_p) + want):
-            g, w = g.float(), w.float()
-            if not (torch.isfinite(g).all() and torch.isfinite(w).all()):
-                raise AssertionError(f"{dtype} {name}: non-finite values")
-            err = float((g - w).abs().max())
-            scale_w = float(w.abs().max())
-            if name in ("out", "lse"):
-                tol = TOL if fp32 else 2e-2 * scale_w
-            else:
-                tol = (1e-3 if fp32 else 2e-2) * scale_w
-            if err > tol:
-                raise AssertionError(
-                    f"{dtype} {name}: max |kernel - plain| {err} > {tol}")
-            errs[name] = err
-
-        def kernels():
-            kernel_fwd()
-            kernel_bwd()
-
-        ms = kernel_times_ms(kernels, flush, names)
-        # SDPA with the same bias + pad mask and dropout rate: the library
-        # yardstick (the port never calls it)
-        qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_()
-                      for x in (q, k, v))
-        mask = (bias + torch.where(pad[:, None, None, :] > 0, -1e30, 0.0)
-                .to(dtype))
-
-        def sdpa():
-            return F.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=mask, dropout_p=FLASH_P, scale=scale)
-
-        def sdpa_fwd_bwd():
-            torch.autograd.grad(sdpa(), (qh, kh, vh), dout.transpose(1, 2))
-
-        bounds = flash_bounds(npad, q.element_size())
-        report = {
-            "dtype": str(dtype).replace("torch.", ""),
-            "max_abs_err": errs,
-            "kernels": {n: {"ms": ms[n], "bound_ms": bounds[n][0],
-                            "bound_by": bounds[n][1]} for n in names},
-            "plain_fwd_ms": time_ms(plain_fwd, flush, iters=10),
-            "plain_bwd_ms": time_ms(plain_bwd, flush, iters=10),
-            "sdpa_fwd_ms": time_ms(sdpa, flush, iters=20),
-            "sdpa_fwd_bwd_ms": time_ms(sdpa_fwd_bwd, flush, iters=20),
-            "padded_keys": int(npad.sum()),
-        }
+        report = flash_case(flush, dtype, (FLASH_B, FLASH_H, FLASH_T,
+                                           FLASH_D), True,
+                            np.random.default_rng(512), (10, 10, 20))
         emit("flash", **report)
         reports[report["dtype"]] = report
-        del q, k, v, bias, dout, f32, out_p, lse_p, got, want, mask
-        torch.cuda.empty_cache()
     return reports
 
 
@@ -546,96 +603,23 @@ def flash_multiblock_phase(flush):
     """The flash kernels at the shapes that take the JAX package's
     multi-block kernels (rows 2 and 4-7), bf16, dropout 0.1; returns
     {case: report}."""
-    import torch.nn.functional as F
-
     from unicore_tpu_torch.ops import flash_attention as fa
 
     reports = {}
     for name, shape, with_bias in MB_CASES:
-        B, H, T, D = shape
-        rng = np.random.default_rng(T)
-        q, k, v, bias, pad, seed, dout, npad = flash_operands(
-            rng, torch.bfloat16, shape, with_bias)
-        geom = fa.geometry(T, T, bias)
+        T, D = shape[2], shape[3]
+        geom = fa.pick_blocks(T, T, 2 if with_bias else 0)
         n_q, n_k = T // geom[0], T // geom[1]
         # the JAX backward's routing (ops/pallas/flash_attention.py:870-896)
         joint = n_k == 1 and n_q > 1 and 2 * T * D * 4 <= (6 << 20)
         if n_q == 1 or joint == with_bias:
             raise AssertionError(f"{name}: reference blocks {geom} do not "
                                  "take the multi-block kernels meant")
-        scale = D ** -0.5
-        f32 = [None if x is None else x.float() for x in (q, k, v, bias,
-                                                          dout)]
-        args = (pad, FLASH_P, seed, False, scale, geom)
-
-        def kernel_fwd():
-            return fa.flash_fwd_cuda(q, k, v, bias, *args)
-
-        def plain_fwd():
-            return fa.flash_fwd_plain(*f32[:4], *args)
-
-        out_k, lse_k = kernel_fwd()
-        out_p, lse_p = plain_fwd()
-        delta = (f32[4] * out_p).sum(dim=-1).transpose(1, 2).contiguous()
-
-        def kernel_bwd():
-            return fa.flash_bwd_cuda(q, k, v, bias, *args, lse_p, delta,
-                                     dout, with_bias)
-
-        def plain_bwd():
-            return fa.flash_bwd_plain(*f32[:4], *args, lse_p, delta, f32[4],
-                                      with_bias)
-
-        got, want = kernel_bwd(), plain_bwd()
-        torch.cuda.synchronize()
-        errs = {}
-        for what, g, w in zip(("out", "lse", "dq", "dk", "dv", "dbias"),
-                              (out_k, lse_k) + got, (out_p, lse_p) + want):
-            if w is None:
-                continue
-            g, w = g.float(), w.float()
-            if not (torch.isfinite(g).all() and torch.isfinite(w).all()):
-                raise AssertionError(f"{name} {what}: non-finite values")
-            err, tol = float((g - w).abs().max()), 2e-2 * float(w.abs().max())
-            if err > tol:
-                raise AssertionError(
-                    f"{name} {what}: max |kernel - plain| {err} > {tol}")
-            errs[what] = err
-        names = ("flash_fwd", "flash_dkdv", "flash_dq") + (
-            ("flash_dbias",) if with_bias else ())
-        ms = kernel_times_ms(lambda: (kernel_fwd(), kernel_bwd()), flush,
-                             names, iters=5)
-        qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_()
-                      for x in (q, k, v))
-        mask = torch.where(pad[:, None, None, :] > 0, -1e30, 0.0).to(
-            torch.bfloat16)
-        if with_bias:
-            mask = bias + mask
-
-        def sdpa():
-            return F.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=mask, dropout_p=FLASH_P, scale=scale)
-
-        def sdpa_fwd_bwd():
-            torch.autograd.grad(sdpa(), (qh, kh, vh), dout.transpose(1, 2))
-
-        bounds = flash_bounds(npad, 2, shape, with_bias)
-        report = {
-            "shape": {"B": B, "H": H, "T": T, "D": D, "bias": with_bias},
-            "reference_blocks": list(geom), "joint_backward": joint,
-            "max_abs_err": errs,
-            "kernels": {n: {"ms": ms[n], "bound_ms": bounds[n][0],
-                            "bound_by": bounds[n][1]} for n in names},
-            "plain_fwd_ms": time_ms(plain_fwd, flush, iters=3),
-            "plain_bwd_ms": time_ms(plain_bwd, flush, iters=3),
-            "sdpa_fwd_ms": time_ms(sdpa, flush, iters=10),
-            "sdpa_fwd_bwd_ms": time_ms(sdpa_fwd_bwd, flush, iters=10),
-            "padded_keys": int(npad.sum()),
-        }
+        report = flash_case(flush, torch.bfloat16, shape, with_bias,
+                            np.random.default_rng(T), (5, 3, 10))
+        report["joint_backward"] = joint
         emit("flash_multiblock", case=name, **report)
         reports[name] = report
-        del q, k, v, bias, dout, f32, out_p, lse_p, got, want, mask
-        torch.cuda.empty_cache()
     return reports
 
 
@@ -895,10 +879,13 @@ def train_phase():
             raise AssertionError(f"first loss {nats[0]} nats not in 9-11.5")
         if not np.mean(nats[-5:]) < nats[0]:
             raise AssertionError(f"loss did not fall: {nats}")
-        want = layers * TRAIN_UPDATES
-        if any(launches[n] != want for n in launches):
+        # once per layer per update: the forward and the bf16 backward's
+        # two kernels; the fp32 backward's three never
+        want = {n: layers * TRAIN_UPDATES if n in TRAIN_FLASH else 0
+                for n in launches}
+        if launches != want:
             raise AssertionError(f"flash launches {launches}, want {want} "
-                                 f"each ({layers} layers x {TRAIN_UPDATES} "
+                                 f"({layers} layers x {TRAIN_UPDATES} "
                                  "updates)")
         warm = np.array(step_s[2:])
         med_s = float(np.median(warm))
@@ -1055,24 +1042,33 @@ def evoformer_train_phase():
 PALLAS = "unicore_tpu/ops/pallas/"
 
 
-def flash_row(row, name, replaces, case, launches, fwd_kernel):
+def flash_row(row, name, replaces, case, launches):
     """A kernels-line row of a flash kernel from one case's report."""
-    errs = {"flash_fwd": ("out",), "flash_dkdv": ("dk", "dv"),
-            "flash_dq": ("dq",), "flash_dbias": ("dbias",)}[name]
+    fwd = name == "flash_fwd"
+    errs = {"flash_fwd": ("out",), "flash_bwd_dkdv": ("dk", "dv"),
+            "flash_bwd_dq": ("dq", "dbias")}[name]
     kern = case["kernels"][name]
-    return {
+    entry = {
         "row": row, "name": name, "route": "cuda",
-        "source": "unicore_tpu_torch/csrc/flash_attention.cu",
+        "source": "unicore_tpu_torch/csrc/" + (
+            "flash_attention.cu" if fwd else "flash_attention_bwd.cu"),
         "replaces": PALLAS + replaces, "launches": launches,
-        "max_abs_err": max(case["max_abs_err"][e] for e in errs),
+        "max_abs_err": max(case["max_abs_err"][e] for e in errs
+                           if e in case["max_abs_err"]),
         "ms": kern["ms"],
-        # the plain backward computes all three passes at once
-        "plain_ms": case["plain_fwd_ms" if fwd_kernel else "plain_bwd_ms"],
+        # the plain backward computes every gradient at once
+        "plain_ms": case["plain_fwd_ms" if fwd else "plain_bwd_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
         # no library call computes a backward pass alone
-        "library_ms": case["sdpa_fwd_ms"] if fwd_kernel else None,
+        "library_ms": case["sdpa_fwd_ms"] if fwd else None,
         "sdpa_fwd_bwd_ms": case["sdpa_fwd_bwd_ms"],
+        "tflops": kern["tflops"], "shape": case["shape"],
     }
+    if not fwd:  # the row's whole backward: every kernel beside one bound
+        entry["bwd_kernels_ms"] = case["bwd_kernels_ms"]
+        entry["bwd_bound_ms"] = case["bwd_bound_ms"]
+        entry["bwd_bound_by"] = case["bwd_bound_by"]
+    return entry
 
 
 def kernels_line(cases, serve_launches, flash, multiblock, train_launches,
@@ -1097,24 +1093,22 @@ def kernels_line(cases, serve_launches, flash, multiblock, train_launches,
     table = (  # row, kernel, replaces (file:line of the body), case
         (2, "flash_fwd", "flash_attention.py:241", two_pass),
         (3, "flash_fwd", "flash_attention.py:121", hb),
-        (4, "flash_dkdv", "flash_attention.py:406", joint),
-        (4, "flash_dq", "flash_attention.py:406", joint),
-        (5, "flash_dq", "flash_attention.py:362", two_pass),
-        (6, "flash_dkdv", "flash_attention.py:298", two_pass),
-        (7, "flash_dbias", "flash_attention.py:488", two_pass),
-        (8, "flash_dkdv", "flash_attention.py:164", hb),
-        (8, "flash_dq", "flash_attention.py:164", hb),
-        (8, "flash_dbias", "flash_attention.py:164", hb))
+        (4, "flash_bwd_dkdv", "flash_attention.py:406", joint),
+        (4, "flash_bwd_dq", "flash_attention.py:406", joint),
+        (5, "flash_bwd_dq", "flash_attention.py:362", two_pass),
+        (6, "flash_bwd_dkdv", "flash_attention.py:298", two_pass),
+        (7, "flash_bwd_dq", "flash_attention.py:488", two_pass),
+        (8, "flash_bwd_dkdv", "flash_attention.py:164", hb),
+        (8, "flash_bwd_dq", "flash_attention.py:164", hb))
     for row, name, replaces, case in table:
-        entry = flash_row(row, name, replaces, case, train_launches[name],
-                          name == "flash_fwd")
-        if case is hb:
-            entry["cases"] = {dt: {
-                "ms": c["kernels"][name]["ms"],
-                "bound_ms": c["kernels"][name]["bound_ms"],
-            } for dt, c in flash.items()}
-        else:
-            entry["shape"] = case["shape"]
+        entry = flash_row(row, name, replaces, case, train_launches[name])
+        if case is hb:  # the fp32 kernels at the same shape
+            fp32 = flash["float32"]["kernels"]
+            keep = (("flash_fwd",) if name == "flash_fwd"
+                    else BWD_KERNELS[torch.float32])
+            entry["fp32"] = {n: {"ms": fp32[n]["ms"],
+                                 "bound_ms": fp32[n]["bound_ms"]}
+                             for n in keep}
         rows.append(entry)
     # softmax_dropout: the bf16 triangle attention (the largest) leads
     main = sd["bfloat16"]["triangle"]
@@ -1163,7 +1157,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     report = build.build(["paged_attention", "flash_attention",
-                          "softmax_dropout", "rounding"])
+                          "flash_attention_bwd", "softmax_dropout",
+                          "rounding"])
     emit("build", kernels={
         name: {"seconds": r["seconds"],
                "ptxas": [ln.strip() for ln in r["log"].splitlines()

@@ -1,10 +1,13 @@
-// Flash attention forward and backward, fp32 math, for Hopper (sm_90a).
+// Flash attention forward (fp32 and bf16) and fp32 backward, fp32 math on
+// the CUDA cores, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of unicore_tpu/ops/pallas/
 // flash_attention.py: the forward (_fwd_hb_kernel, single block, and
-// _fwd_kernel, multi-block) and the backward (_bwd_hb_kernel, fused
-// single block; _joint_bwd_kernel, _dq_kernel, _dkv_kernel and
-// _dbias_kernel, multi-block).  For batch row b, head h, query r and key c
+// _fwd_kernel, multi-block) and, for fp32 operands, the backward
+// (_bwd_hb_kernel, fused single block; _joint_bwd_kernel, _dq_kernel,
+// _dkv_kernel and _dbias_kernel, multi-block).  The bf16 backward, the
+// training path, is flash_attention_bwd.cu on the tensor cores.  For
+// batch row b, head h, query r and key c
 //
 //   s[r,c]  = scale * <q[b,r,h,:], k[b,c,h,:]> + bias[h,r,c]
 //             + (pad[b,c] > 0 ? -1e30 : 0) + (causal && c > r ? -1e30 : 0)
@@ -27,8 +30,9 @@
 // dv are contiguous [B, T, H, D]; lse and delta [B, H, Tq] fp32; bias
 // [1, 1|H, 1|Tq, Tk] (fp32 or bf16) by strides, 0 on a broadcast dim; pad
 // [B, Tk] int32; seed [B] int32; dbias [H, Tq, Tk] fp32, summed over the
-// batch in a fixed order (no atomics).  Operands are float or bf16,
-// templated; all math is fp32; outputs are in the operand type.
+// batch in a fixed order (no atomics).  The forward's operands are float
+// or bf16, templated; the backward's float; all math is fp32; outputs are
+// in the operand type.
 //
 // Design: four kernels over 64 x 64 tiles staged in shared memory, 256
 // threads, each thread owning a 4 x 4 block of the score tile and a
@@ -41,45 +45,17 @@
 //
 // Bound: arithmetic.  At the BERT shapes (T = 512, D = 64) the forward
 // needs 4 B H T^2 D flops and the backward 10 B H T^2 D (this design does
-// 18: dq and dbias recompute s and dP), against 989 TFLOP/s of bf16 tensor
-// cores or 67 TFLOP/s of fp32.  This first design leaves the tensor cores
-// idle; wgmma/mma operands, TMA staging and one fused backward pass are
-// later work.
+// 18: dq and dbias recompute s and dP), against 67 TFLOP/s of fp32 on the
+// CUDA cores (TF32 tensor cores would change what fp32 means) or, for the
+// bf16 forward, 989 TFLOP/s of bf16 tensor cores, which this design leaves
+// idle: mma operands and TMA staging for the forward are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_params.cuh"
 #include "prng.cuh"
-
-// Mirrored field by field by _Params in ops/flash_attention.py: the
-// 8-byte fields first, then the 4-byte ones.
-struct FlashParams {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* bias;
-  const int* pad;
-  const int* seed;
-  void* out;
-  float* lse;
-  const void* dout;
-  const float* delta;
-  void* dq;
-  void* dk;
-  void* dv;
-  float* dbias;
-  long long sq_b, sq_t, sq_h;
-  long long sk_b, sk_t, sk_h;
-  long long sv_b, sv_t, sv_h;
-  long long sd_b, sd_t, sd_h;
-  long long sb_h, sb_q;
-  int B, H, Tq, Tk, D;
-  int bias_bf16, causal, dropout;
-  int geo_bq, geo_bk, geo_ni, geo_nj;
-  float scale, inv_keep;
-  uint32_t keep_thresh;
-};
 
 namespace {
 
@@ -521,38 +497,34 @@ inline size_t dq_smem(int D) {
   return static_cast<size_t>(kBQ + kBK) * 2 * (D + 1) + kBQ * kLdS + 2 * kBQ;
 }
 
-template <typename K>
-int launch(K kernel, dim3 grid, size_t smem_floats, const FlashParams& p,
-           cudaStream_t stream) {
-  const size_t bytes = smem_floats * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<grid, kThreads, bytes, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+inline int launch_kernel(void (*kernel)(FlashParams), dim3 grid,
+                         size_t smem_floats, const FlashParams& p,
+                         cudaStream_t stream) {
+  return flash_launch(kernel, grid, kThreads, smem_floats * sizeof(float), p,
+                      stream);
 }
 
 template <typename T, int kD>
 int fwd(const FlashParams& p, cudaStream_t st) {
-  return launch(flash_fwd_kernel<T, kD>, dim3(p.Tq / kBQ, p.H, p.B),
+  return launch_kernel(flash_fwd_kernel<T, kD>, dim3(p.Tq / kBQ, p.H, p.B),
                 fwd_smem(p.D), p, st);
 }
 
 template <typename T, int kD>
 int dkdv(const FlashParams& p, cudaStream_t st) {
-  return launch(flash_dkdv_kernel<T, kD>, dim3(p.Tk / kBK, p.H, p.B),
+  return launch_kernel(flash_dkdv_kernel<T, kD>, dim3(p.Tk / kBK, p.H, p.B),
                 dkdv_smem(p.D), p, st);
 }
 
 template <typename T, int kD>
 int dq(const FlashParams& p, cudaStream_t st) {
-  return launch(flash_dq_kernel<T, kD>, dim3(p.Tq / kBQ, p.H, p.B),
+  return launch_kernel(flash_dq_kernel<T, kD>, dim3(p.Tq / kBQ, p.H, p.B),
                 dq_smem(p.D), p, st);
 }
 
 template <typename T, int kD>
 int dbias(const FlashParams& p, cudaStream_t st) {
-  return launch(flash_dbias_kernel<T>, dim3(p.Tk / kBK, p.Tq / kBQ, p.H),
+  return launch_kernel(flash_dbias_kernel<T>, dim3(p.Tk / kBK, p.Tq / kBQ, p.H),
                 dq_smem(p.D), p, st);
 }
 
@@ -560,21 +532,25 @@ int dbias(const FlashParams& p, cudaStream_t st) {
 
 // Launch on `stream`; each returns cudaGetLastError() (0 on success).
 // The caller checks types, shapes and strides, and guarantees Tq and Tk
-// are multiples of 64 and 8 <= D <= 128 with D % 8 == 0.
-#define UNICORE_FLASH_ENTRY(NAME)                                            \
+// are multiples of 64 and 8 <= D <= 128 with D % 8 == 0.  The forward
+// takes fp32 and bf16 operands; these backward kernels fp32 only (the
+// bf16 backward is flash_attention_bwd.cu).
+#define UNICORE_FLASH_ENTRY(NAME, WITH_BF16)                                 \
   extern "C" int unicore_flash_##NAME(const FlashParams* p, int bf16,        \
                                       void* stream) {                        \
     if (p->B == 0 || p->H == 0 || p->Tq == 0 || p->Tk == 0) return 0;        \
-    if (p->D <= 0 || p->D > 128)                                             \
+    if (p->D <= 0 || p->D > 128 || (bf16 && !WITH_BF16))                     \
       return static_cast<int>(cudaErrorInvalidValue);                        \
     cudaStream_t st = static_cast<cudaStream_t>(stream);                     \
-    if (bf16)                                                                \
-      return p->D <= 64 ? NAME<__nv_bfloat16, 64>(*p, st)                    \
-                        : NAME<__nv_bfloat16, 128>(*p, st);                  \
+    if constexpr (WITH_BF16) {                                               \
+      if (bf16)                                                              \
+        return p->D <= 64 ? NAME<__nv_bfloat16, 64>(*p, st)                  \
+                          : NAME<__nv_bfloat16, 128>(*p, st);                \
+    }                                                                        \
     return p->D <= 64 ? NAME<float, 64>(*p, st) : NAME<float, 128>(*p, st);  \
   }
 
-UNICORE_FLASH_ENTRY(fwd)
-UNICORE_FLASH_ENTRY(dkdv)
-UNICORE_FLASH_ENTRY(dq)
-UNICORE_FLASH_ENTRY(dbias)
+UNICORE_FLASH_ENTRY(fwd, true)
+UNICORE_FLASH_ENTRY(dkdv, false)
+UNICORE_FLASH_ENTRY(dq, false)
+UNICORE_FLASH_ENTRY(dbias, false)

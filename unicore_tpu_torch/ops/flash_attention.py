@@ -5,14 +5,17 @@ Replaces the Pallas TPU kernels of ``unicore_tpu/ops/pallas/
 flash_attention.py`` — the single-block head-batched forward and fused
 backward (``_fwd_hb_kernel``, ``_bwd_hb_kernel``) that BERT at T = 512
 takes, and the multi-block forward and dq/dkv/joint/dbias passes of
-longer sequences.  The kernels are ``unicore_tpu_torch/csrc/
-flash_attention.cu`` (four of them: the forward, and the dk/dv, dq and
-dbias passes of the backward); the dropout bits are ``csrc/prng.cuh``.
+longer sequences.  The kernels: ``unicore_tpu_torch/csrc/
+flash_attention.cu`` holds the forward (fp32 and bf16) and the fp32
+backward (dk/dv, dq and dbias passes, fp32 FMA on the CUDA cores);
+``csrc/flash_attention_bwd.cu`` the bf16 backward, the training path, in
+two tensor-core kernels (dk/dv; dq with the dbias partials of a batch
+group).  Both share ``csrc/flash_params.cuh``; the dropout bits are
+``csrc/prng.cuh``.
 
 Bound on the card: arithmetic.  The forward needs 4·B·H·Tq·Tk·D flops and
 the backward 10·B·H·Tq·Tk·D, against the bf16 tensor-core rate for bf16
-operands and the fp32 rate for fp32 ones; the first kernels run fp32 FMA
-on the CUDA cores (see the source's note).
+operands and the fp32 rate for fp32 ones (see the sources' notes).
 
 Semantics are the JAX function's, including its dropout masks bit for
 bit: element (b, h, r, c) keeps iff its counter-hash bits under seed
@@ -38,9 +41,17 @@ NEG_INF = -1e30
 MAX_KERNEL_HEAD_DIM = 128
 _DTYPES = (torch.float32, torch.bfloat16)
 
-# launches per kernel, counted where each wrapper launches its kernel
+# launches per kernel, counted where each wrapper launches its kernel:
+# the forward; the fp32 backward's three kernels; the bf16 backward's two
 launches = {"flash_fwd": 0, "flash_dkdv": 0, "flash_dq": 0,
-            "flash_dbias": 0}
+            "flash_dbias": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+
+# the bf16 backward's tiling (csrc/flash_attention_bwd.cu): 64-row tiles,
+# D zero-filled to 32, 64 or 128, at most 32 batch rows a dq group
+BWD_TILE, BWD_MAX_ROWS = 64, 32
+SMS = 132                    # H100 SXM
+SMEM_BLOCK = 232448          # shared memory one block may use
+SMEM_SM = 233472             # of an SM, 1 KB of it reserved per block
 
 
 def eligible(q_shape, k_shape, bias_shape):
@@ -151,7 +162,9 @@ def flash_bwd_plain(q, k, v, bias, pad, dropout_prob, seed, causal, scale,
     """The backward kernels' function in plain PyTorch: ``(dq, dk, dv,
     dbias_full)`` with dbias_full the batch-summed [H, Tq, Tk] fp32 (or
     None).  p is recomputed from ``lse``; dP is masked and scaled as p
-    was; dS = p·(dP − delta) with the undropped p."""
+    was; dS = p·(dP − delta) with the undropped p.  For operands narrower
+    than fp32 the products see p_drop and dS rounded to the operand type,
+    and dbias sums the fp32 dS, where the reference casts."""
     s = _scores(q, k, bias, pad, causal, scale)
     p = torch.exp(s - lse[..., None])
     do = dout.float()
@@ -164,11 +177,58 @@ def flash_bwd_plain(q, k, v, bias, pad, dropout_prob, seed, causal, scale,
         p_drop = torch.where(keep, p * (1.0 / keep_prob), 0.0)
         dp = torch.where(keep, dp * (1.0 / keep_prob), 0.0)
     ds = p * (dp - delta[..., None])
-    dv = torch.einsum("bhqk,bqhd->bkhd", p_drop, do)
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    p_mm, ds_mm = p_drop, ds
+    if q.dtype != torch.float32:
+        p_mm, ds_mm = p_drop.to(q.dtype).float(), ds.to(q.dtype).float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p_mm, do)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds_mm, k.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds_mm, q.float()) * scale
     dbias = ds.sum(dim=0) if want_dbias else None
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
+
+
+def group_rows(bsz, groups):
+    """The batch rows of each dq group of the bf16 backward: group g takes
+    rows g·B/G up to (g+1)·B/G (integer division), as the kernel does."""
+    return [range(g * bsz // groups, (g + 1) * bsz // groups)
+            for g in range(groups)]
+
+
+def sum_partials(parts):
+    """The batch-summed dbias from the dq kernel's per-group partials
+    [G, H, Tq, Tk]: the groups added in index order (no atomics)."""
+    return parts[0] if parts.shape[0] == 1 else parts.sum(dim=0)
+
+
+def _bwd_head_dim(d):
+    return 32 if d <= 32 else 64 if d <= 64 else 128
+
+
+def dq_smem_bytes(d, rows):
+    """Dynamic shared memory of the bf16 dq kernel (its ``dq_smem``):
+    double-buffered k and v tiles and pad, and for each batch row of the
+    group its q and dO tiles, lse, delta and fp32 dq accumulator."""
+    ld = _bwd_head_dim(d) + 8
+    tile = BWD_TILE * ld * 2
+    return (4 * tile + 2 * BWD_TILE * 4
+            + rows * (2 * tile + BWD_TILE * ld * 4 + 2 * BWD_TILE * 4))
+
+
+def pick_groups(bsz, tq, heads, d, want_dbias):
+    """Batch groups G of the bf16 dq kernel (grid: query tiles x heads x
+    G).  Without a bias gradient G = B, one row a block.  With it, enough
+    groups that the grid fills every SM twice, and few enough rows a group
+    that two blocks fit an SM's shared memory (one, where a single row's
+    accumulator already does not)."""
+    if not want_dbias:
+        return bsz
+    fill = -(-2 * SMS // ((tq // BWD_TILE) * heads))
+    two = SMEM_SM // 2 - 1024
+    budget = two if dq_smem_bytes(d, 1) <= two else SMEM_BLOCK
+    rows = 1
+    while rows < BWD_MAX_ROWS and dq_smem_bytes(d, rows + 1) <= budget:
+        rows += 1
+    return max(1, min(bsz, max(fill, -(-bsz // rows))))
 
 
 # --------------------------------------------------------------- kernels --
@@ -178,11 +238,11 @@ _PTRS = ("q", "k", "v", "bias", "pad", "seed", "out", "lse", "dout",
 _STRIDES = ("sq_b", "sq_t", "sq_h", "sk_b", "sk_t", "sk_h", "sv_b", "sv_t",
             "sv_h", "sd_b", "sd_t", "sd_h", "sb_h", "sb_q")
 _INTS = ("B", "H", "Tq", "Tk", "D", "bias_bf16", "causal", "dropout",
-         "geo_bq", "geo_bk", "geo_ni", "geo_nj")
+         "geo_bq", "geo_bk", "geo_ni", "geo_nj", "groups")
 
 
 class _Params(ctypes.Structure):
-    """``FlashParams`` of the CUDA source, field for field."""
+    """``FlashParams`` of ``csrc/flash_params.cuh``, field for field."""
     _fields_ = ([(n, ctypes.c_void_p) for n in _PTRS]
                 + [(n, ctypes.c_longlong) for n in _STRIDES]
                 + [(n, ctypes.c_int) for n in _INTS]
@@ -192,17 +252,25 @@ class _Params(ctypes.Structure):
 
 @functools.cache
 def _entry(name):
-    fn = getattr(build.load("flash_attention"), f"unicore_flash_{name}")
+    """``unicore_flash_<name>(params, bf16, stream)`` of flash_attention.cu,
+    or ``unicore_flash_<name>(params, stream)`` of flash_attention_bwd.cu
+    for the ``bwd_*`` kernels."""
+    bwd = name.startswith("bwd_")
+    lib = build.load("flash_attention_bwd" if bwd else "flash_attention")
+    fn = getattr(lib, f"unicore_flash_{name}")
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.POINTER(_Params)]
+                   + ([] if bwd else [ctypes.c_int]) + [ctypes.c_void_p])
     return fn
 
 
-def _launch(name, params, bf16, device):
+def _launch(name, params, device, *flags):
+    """Launch kernel ``name`` on the device's current stream; ``flags``:
+    the bf16 flag of the flash_attention.cu entries, none for bwd_*."""
     fn = _entry(name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(ctypes.byref(params), int(bf16), stream)
+        err = fn(ctypes.byref(params), *flags, stream)
     if err:
         raise build.KernelError(
             f"flash attention kernel {name} launch failed: CUDA error {err}")
@@ -211,6 +279,17 @@ def _launch(name, params, bf16, device):
 
 def _last_dim_unit(x):
     return x if x.stride(-1) == 1 else x.contiguous()
+
+
+def _aligned(x, strided=False):
+    """``x`` as the bf16 backward's 16-byte copies read it: its address,
+    and with ``strided`` the strides of every dim but the last, multiples
+    of 16 bytes; a tensor that is not gets a contiguous copy."""
+    step = 16 // x.element_size()
+    if x.data_ptr() % 16 == 0 and (not strided or all(
+            s % step == 0 for s in x.stride()[:-1])):
+        return x
+    return x.contiguous() if not x.is_contiguous() else x.clone()
 
 
 def _check(q, k, v, bias, pad, seed, causal):
@@ -297,19 +376,30 @@ def flash_fwd_cuda(q, k, v, bias, pad, dropout_prob, seed, causal, scale,
     lse = torch.empty((bsz, heads, tq), dtype=torch.float32, device=q.device)
     prm = _params(q, k, v, bias, pad, seed, dropout_prob, causal, scale, geom)
     prm.out, prm.lse = out.data_ptr(), lse.data_ptr()
-    _launch("fwd", prm, q.dtype == torch.bfloat16, q.device)
+    _launch("fwd", prm, q.device, int(q.dtype == torch.bfloat16))
     return out, lse
 
 
 def flash_bwd_cuda(q, k, v, bias, pad, dropout_prob, seed, causal, scale,
                    geom, lse, delta, dout, want_dbias):
-    """Launch the backward kernels (dk/dv, dq, and dbias when asked):
-    ``(dq, dk, dv, dbias_full)`` as :func:`flash_bwd_plain`."""
+    """Launch the backward kernels: ``(dq, dk, dv, dbias_full)`` as
+    :func:`flash_bwd_plain`.  bf16 operands take the two tensor-core
+    kernels (dk/dv; dq with the per-group dbias partials, summed here),
+    fp32 ones the three fp32 kernels (dk/dv, dq, and dbias when asked)."""
     _check(q, k, v, bias, pad, seed, causal)
     q, k, v, bias, pad, seed = _operands(q, k, v, bias, pad, seed)
     dout = _last_dim_unit(dout.to(q.dtype))
     lse, delta = lse.contiguous(), delta.contiguous()
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        q, k, v, dout = (_aligned(x, strided=True) for x in (q, k, v, dout))
+        lse, delta = _aligned(lse), _aligned(delta)
+        if pad is not None:
+            pad = _aligned(pad)
+        if bias is not None:
+            bias = _aligned(bias)
     bsz, tq, heads, d = q.shape
+    tk = k.shape[1]
     dq = torch.empty((bsz, tq, heads, d), dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
@@ -318,15 +408,24 @@ def flash_bwd_cuda(q, k, v, bias, pad, dropout_prob, seed, causal, scale,
                                     dout.data_ptr())
     prm.sd_b, prm.sd_t, prm.sd_h = dout.stride()[:3]
     prm.dq, prm.dk, prm.dv = dq.data_ptr(), dk.data_ptr(), dv.data_ptr()
-    bf16 = q.dtype == torch.bfloat16
-    _launch("dkdv", prm, bf16, q.device)
-    _launch("dq", prm, bf16, q.device)
+    if bf16:
+        prm.groups = pick_groups(bsz, tq, heads, d, want_dbias)
+        parts = None
+        if want_dbias:
+            parts = torch.empty((prm.groups, heads, tq, tk),
+                                dtype=torch.float32, device=q.device)
+            prm.dbias = parts.data_ptr()
+        _launch("bwd_dkdv", prm, q.device)
+        _launch("bwd_dq", prm, q.device)
+        return dq, dk, dv, None if parts is None else sum_partials(parts)
+    _launch("dkdv", prm, q.device, 0)
+    _launch("dq", prm, q.device, 0)
     dbias = None
     if want_dbias:
-        dbias = torch.empty((heads, tq, k.shape[1]), dtype=torch.float32,
+        dbias = torch.empty((heads, tq, tk), dtype=torch.float32,
                             device=q.device)
         prm.dbias = dbias.data_ptr()
-        _launch("dbias", prm, bf16, q.device)
+        _launch("dbias", prm, q.device, 0)
     return dq, dk, dv, dbias
 
 
