@@ -507,8 +507,8 @@ def test_model_launches_softmax_dropout_per_attention_on_card(cuda):
 @pytest.mark.gpu
 def test_group_flash_takes_the_flash_kernels_on_card(cuda):
     """From T = 512 the grouped attention launches the flash forward on
-    the card, within 2e-2 of the max of the plain version's fp32 result
-    on the same bf16 values."""
+    the card (for bf16 operands the tensor-core forward), within 2e-2 of
+    the max of the plain version's fp32 result on the same bf16 values."""
     from unicore_tpu_torch.ops import flash_attention as fa
 
     rng = np.random.RandomState(1)
@@ -521,10 +521,10 @@ def test_group_flash_takes_the_flash_kernels_on_card(cuda):
     args = (mask, 0.0, False, None, 32 ** -0.5)
     want = pt.group_flash_attention(q.float(), k.float(), v.float(),
                                     bias.float(), *args)
-    before = fa.launches["flash_fwd"]
+    before = fa.launches["flash_fwd_bf16"]
     got = pt.group_flash_attention(q.to(cuda), k.to(cuda), v.to(cuda),
                                    bias.to(cuda), mask.to(cuda), *args[1:])
     torch.cuda.synchronize()
-    assert fa.launches["flash_fwd"] == before + 1
+    assert fa.launches["flash_fwd_bf16"] == before + 1
     np.testing.assert_allclose(got.float().cpu().numpy(), want.numpy(),
                                rtol=0, atol=2e-2 * float(want.abs().max()))

@@ -1,13 +1,14 @@
 """Flash attention of the PyTorch port (unicore_tpu_torch/ops/
-flash_attention.py, csrc/flash_attention.cu, csrc/flash_attention_bwd.cu,
-csrc/flash_params.cuh, csrc/prng.cuh) against the JAX package: the
-counter-hash bits of ``ops/prng.py`` vs the JAX ``random_bits``/
-``keep_mask`` bit for bit, and the plain flash forward and backward vs the
+flash_attention.py, csrc/flash_attention.cu, csrc/flash_attention_fwd.cu,
+csrc/flash_attention_bwd.cu, csrc/mma_bf16.cuh, csrc/flash_params.cuh,
+csrc/prng.cuh) against the JAX package: the counter-hash bits of
+``ops/prng.py`` vs the JAX ``random_bits``/``keep_mask`` bit for bit,
+and the plain flash forward and backward vs the
 Pallas ``_flash`` run in interpret mode on the same per-row seeds — so
 with dropout on, agreement within the tolerances is itself the proof that
-the two draw the same masks.  The host side of the bf16 backward (the
-parameter struct, the batch groups, the dbias partials) on the CPU; where
-a card is present, the CUDA kernels vs the plain version.
+the two draw the same masks.  The host side of the bf16 kernels (the
+parameter struct, shared memory, the batch groups, the dbias partials) on
+the CPU; where a card is present, the CUDA kernels vs the plain version.
 
 fp32, B = 2.  Tolerances as tests/test_flash_attention.py: forward atol
 2e-5, grads atol 5e-4 (both sides exact fp32, summation order differs).
@@ -195,8 +196,9 @@ def test_plain_bf16_rounds_where_the_reference_rounds(name):
     only rounding is p_drop's — agrees bit for bit with the interpret-mode
     kernel in all but a few elements (before the rounding was added, 30-41%
     of dv's elements differed).  Every tensor within 1e-2 of its max: bf16
-    outputs, and the plain forward keeps p·V in fp32 where the reference
-    rounds p, which moves out, delta and so dq and dk by an ulp."""
+    outputs; the plain forward rounds p before p·V as the reference does
+    (see test_plain_bf16_out_rounds_p_where_the_reference_does), and the
+    remaining ulps come from fp32 summation order."""
     H, D, bias_kind, pad_kind, causal, p = CASES[name]
     case = make_case(np.random.RandomState(3), 2, 128, H, D, bias_kind,
                      pad_kind)
@@ -210,6 +212,35 @@ def test_plain_bf16_rounds_where_the_reference_rounds(name):
         np.testing.assert_allclose(g, w, atol=1e-2 * np.abs(w).max(), rtol=0,
                                    err_msg=gname)
     assert (got_grads[2] != want_grads[2]).mean() < 0.01
+
+
+@pytest.mark.parametrize("name", ["bias_full_pad_drop",
+                                  "bias_heads1_pad_drop", "causal_drop",
+                                  "bias_row_drop", "multiblock"])
+def test_plain_bf16_out_rounds_p_where_the_reference_does(name,
+                                                          monkeypatch):
+    """bf16 operands with dropout: the plain forward rounds the dropped p
+    to bf16 before p·V, under the running max of the reference's key
+    blocks, so its out equals the interpret-mode kernel's in all but
+    under 0.1% of elements (with p·V in fp32, 35-42% differed; rounding
+    under the global max alone left 16% of the multi-block case).
+    "multiblock": T = 256 with both block picks pinned to (128, 128)."""
+    if name == "multiblock":
+        import unicore_tpu.ops.pallas.flash_attention as jfa
+
+        for mod, attr in ((jfa, "_pick_blocks"), (fa, "pick_blocks")):
+            monkeypatch.setattr(mod, attr,
+                                lambda tq, tk, bias_itemsize=0: (128, 128))
+        case = make_case(np.random.RandomState(11), 2, 256, 2, 32, "full",
+                         "tail")
+        D, causal, p = 32, False, 0.1
+    else:
+        H, D, bias_kind, pad_kind, causal, p = CASES[name]
+        case = make_case(np.random.RandomState(3), 2, 128, H, D, bias_kind,
+                         pad_kind)
+    want_out, _ = jax_flash(case, p, causal, D ** -0.5, "bfloat16")
+    got_out, _ = port_flash(case, p, causal, D ** -0.5, dtype=torch.bfloat16)
+    assert (got_out != want_out).mean() < 1e-3
 
 
 def test_params_mirror_the_header():
@@ -239,6 +270,20 @@ def test_params_mirror_the_header():
     assert got == fields
     assert ctypes.sizeof(fa._Params) == sum(ctypes.sizeof(t)
                                             for _, t in fields)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_forward_shared_memory_fits(d):
+    """The bf16 forward's shared memory (``fwd_smem`` of
+    csrc/flash_attention_fwd.cu) fits one block for every bias type, and
+    up to D = 64 two blocks share an SM even with an fp32 bias; at BERT's
+    shape (D 64, bf16 bias) four do."""
+    for item in (0, 2, 4):
+        assert fa.fwd_smem_bytes(d, item) <= fa.SMEM_BLOCK
+        if d <= 64:
+            assert 2 * (fa.fwd_smem_bytes(d, item) + 1024) <= fa.SMEM_SM
+    assert fa.fwd_smem_bytes(64, 2) == 4 * 64 * 72 * 2 + 2 * 64 * 144 + 512
+    assert 4 * (fa.fwd_smem_bytes(64, 2) + 1024) <= fa.SMEM_SM
 
 
 @pytest.mark.parametrize("bsz", [1, 2, 3, 5, 7, 16, 17, 31])
@@ -361,14 +406,21 @@ def test_library_name_digests_included_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "CSRC", csrc)
     assert [p.name for p in build.sources("flash_attention")] == [
         "flash_attention.cu", "flash_params.cuh", "prng.cuh"]
-    assert [p.name for p in build.sources("flash_attention_bwd")] == [
-        "flash_attention_bwd.cu", "flash_params.cuh", "prng.cuh"]
-    flash, paged = (build.library_path(n)
-                    for n in ("flash_attention", "paged_attention"))
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        assert [p.name for p in build.sources(name)] == [
+            f"{name}.cu", "flash_params.cuh", "mma_bf16.cuh", "prng.cuh"]
+    names = ("flash_attention", "flash_attention_fwd", "flash_attention_bwd",
+             "paged_attention")
+    before = {n: build.library_path(n) for n in names}
+    header = csrc / "mma_bf16.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    after = {n: build.library_path(n) for n in names}
+    assert [n for n in names if after[n] != before[n]] == [
+        "flash_attention_fwd", "flash_attention_bwd"]
     header = csrc / "prng.cuh"
     header.write_text(header.read_text() + "// edited\n")
-    assert build.library_path("flash_attention") != flash
-    assert build.library_path("paged_attention") == paged
+    assert build.library_path("flash_attention") != before["flash_attention"]
+    assert build.library_path("paged_attention") == before["paged_attention"]
 
 
 def test_package_data_ships_every_kernel_source():
@@ -421,12 +473,12 @@ CARD_CASES = {
 @pytest.mark.parametrize("name", sorted(CARD_CASES))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernels_match_plain_on_card(cuda, name, dtype, monkeypatch):
-    """The CUDA kernels vs the plain version on the same values: the
-    forward, and the backward — two tensor-core kernels for bf16 (dk/dv;
-    dq with dbias), three fp32 ones (dk/dv, dq, dbias) for fp32.  fp32
-    within 1e-4 (out) and 1e-3 of each grad's max; bf16 against the plain
-    version on the same bf16 tensors, which rounds p_drop and dS as the
-    kernels do, within 2e-2 of each tensor's max."""
+    """The CUDA kernels vs the plain version on the same values: for bf16
+    the tensor-core forward and backward (dk/dv; dq with dbias), for fp32
+    the fp32 forward and backward (dk/dv, dq, dbias).  fp32 within 1e-4
+    (out) and 1e-3 of each grad's max; bf16 against the plain version on
+    the same bf16 tensors, which rounds p, p_drop and dS as the kernels
+    do, within 2e-2 of each tensor's max."""
     B, T, H, D, bias_kind, pad_kind, causal, p, packed = CARD_CASES[name]
     if packed:
         monkeypatch.setattr(fa, "SMS", 1)
@@ -437,7 +489,8 @@ def test_kernels_match_plain_on_card(cuda, name, dtype, monkeypatch):
     got_out, got_grads = port_flash(case, p, causal, D ** -0.5, cuda, dt)
     torch.cuda.synchronize()
     bf16 = dtype == "bfloat16"
-    want = {"flash_fwd": 1, "flash_bwd_dkdv": int(bf16),
+    want = {"flash_fwd": int(not bf16), "flash_fwd_bf16": int(bf16),
+            "flash_bwd_dkdv": int(bf16),
             "flash_bwd_dq": int(bf16), "flash_dkdv": int(not bf16),
             "flash_dq": int(not bf16),
             "flash_dbias": int(not bf16 and bias_kind is not None)}
@@ -473,6 +526,35 @@ def test_bf16_backward_is_bit_identical_on_card(cuda, packed, monkeypatch):
     torch.cuda.synchronize()
     for name, a, b in zip(("dq", "dk", "dv", "dbias"), first, second):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["bias_full_pad_drop", "causal_drop",
+                                  "d128", "b5"])
+def test_bf16_forward_is_bit_identical_on_card(cuda, name):
+    """Two bf16 forward calls on the same inputs give the same bits, and
+    the lse within 2e-4 of the plain version's."""
+    B, T, H, D, bias_kind, pad_kind, causal, p, _ = CARD_CASES[name]
+    q, k, v, _, bias, pad, seed = make_case(np.random.RandomState(13), B, T,
+                                            H, D, bias_kind, pad_kind)
+    def dev(x):
+        return None if x is None else torch.from_numpy(x).to(cuda)
+
+    q, k, v = (dev(x).to(torch.bfloat16) for x in (q, k, v))
+    bias = None if bias is None else dev(bias).to(torch.bfloat16)
+    pad, seed = dev(pad), dev(seed)
+    geom = fa.geometry(T, T, bias)
+    args = (pad, p, seed, causal, D ** -0.5, geom)
+    first = fa.flash_fwd_cuda(q, k, v, bias, *args)
+    second = fa.flash_fwd_cuda(q, k, v, bias, *args)
+    torch.cuda.synchronize()
+    for what, a, b in zip(("out", "lse"), first, second):
+        assert torch.equal(a, b), what
+    _, lse = fa.flash_fwd_plain(q.cpu(), k.cpu(), v.cpu(),
+                                None if bias is None else bias.cpu(),
+                                None if pad is None else pad.cpu(), p,
+                                seed.cpu(), causal, D ** -0.5, geom)
+    torch.testing.assert_close(first[1].cpu(), lse, rtol=0, atol=2e-4)
 
 
 @pytest.mark.gpu

@@ -169,6 +169,32 @@ def test_generator_draws_the_seed_and_eval_is_deterministic():
         sd.softmax_dropout(x, 0.3)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_operands_are_16_byte_aligned(dtype):
+    """The forward's operands as its 16-byte runs read them: an aligned
+    tensor, a broadcast operand and a view of every other row pass as
+    they are; a view offset by one element (its address off 16 bytes) is
+    copied, with the same values."""
+    x = torch.randn(2, 4, 128).to(dtype)
+    mask = torch.zeros(2, 1, 128)
+    bias = torch.randn(1, 4, 128).to(dtype)
+    got_x, sx, ops = sd.fwd_operands(x, mask, bias)
+    assert got_x is x and sx == [0, 0, 512, 128]
+    assert [(n, op is src, st) for (n, op, st), src in zip(ops, (mask, bias))
+            ] == [("mask", True, [0, 0, 128, 0]),
+                  ("bias", True, [0, 0, 0, 128])]
+    rows = torch.randn(2, 8, 128).to(dtype)[:, ::2]
+    got_x, sx, _ = sd.fwd_operands(rows, None, None)
+    assert got_x is rows and sx == [0, 0, 1024, 256]
+    off = torch.randn(2 * 4 * 128 + 1).to(dtype)[1:].view(2, 4, 128)
+    off_mask = torch.zeros(2 * 128 + 1)[1:].view(2, 1, 128)
+    got_x, sx, ops = sd.fwd_operands(off, off_mask, None)
+    for got, src in ((got_x, off), (ops[0][1], off_mask)):
+        assert got.data_ptr() != src.data_ptr() and got.data_ptr() % 16 == 0
+        assert torch.equal(got, src)
+    assert sx == [0, 0, 512, 128]
+
+
 def attention_case(rng, bsz=2, t=128, d=32, heads=4):
     query = rng.randn(bsz, t, d).astype(np.float32)
     pad = np.zeros((bsz, t), np.int32)
@@ -257,6 +283,37 @@ def test_kernels_match_plain_on_card(cuda, name, dtype):
             continue
         tol = 1e-5 if dtype == "float32" else 2e-2 * np.abs(w).max()
         np.testing.assert_allclose(g, w, rtol=0, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("k", [128, 1024, 2048])
+def test_forward_matches_plain_on_card(cuda, k, dtype):
+    """The forward kernel vs the plain version at K = 128 (four lanes a
+    bf16 row), 1024 (a warp) and 2048 (a block), with a bf16 mask and an
+    fp32 bias whatever x's type, and 210 rows (not a multiple of a
+    block's rows): equal keep patterns; out and the softmax within 1e-5
+    (fp32) or 2e-2 of each tensor's max (bf16)."""
+    gen = torch.Generator().manual_seed(k)
+    x = torch.randn((2, 3, 5, 7, k), generator=gen).to(getattr(torch, dtype))
+    mask = (((torch.rand((2, 3, 1, 1, k), generator=gen) > 0.2).float() - 1.0)
+            * 1e4).bfloat16()
+    bias = torch.randn((1, 1, 5, 7, k), generator=gen)
+    seed = torch.tensor([777], dtype=torch.int32)
+    q_blk = sd.pick_q_blk_for(x, mask, bias)
+    want = sd.softmax_dropout_fwd_plain(x, mask, bias, 0.1, seed, q_blk, True)
+    before = sd.launches["softmax_dropout_fwd"]
+    got = sd.softmax_dropout_fwd_cuda(
+        *(t.to(cuda) for t in (x, mask, bias)), 0.1, seed.to(cuda), q_blk,
+        True)
+    torch.cuda.synchronize()
+    assert sd.launches["softmax_dropout_fwd"] == before + 1
+    got = [t.cpu().float() for t in got]
+    want = [t.float() for t in want]
+    assert torch.equal(got[0] == 0, want[0] == 0)
+    for g, w in zip(got, want):
+        tol = 1e-5 if dtype == "float32" else 2e-2 * float(w.abs().max())
+        torch.testing.assert_close(g, w, rtol=0, atol=tol)
 
 
 @pytest.mark.gpu

@@ -1,13 +1,13 @@
-// Flash attention forward (fp32 and bf16) and fp32 backward, fp32 math on
+// Flash attention forward and backward for fp32 operands, fp32 math on
 // the CUDA cores, for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernels of unicore_tpu/ops/pallas/
-// flash_attention.py: the forward (_fwd_hb_kernel, single block, and
-// _fwd_kernel, multi-block) and, for fp32 operands, the backward
+// Replaces, for fp32 operands, the Pallas TPU kernels of
+// unicore_tpu/ops/pallas/flash_attention.py: the forward (_fwd_hb_kernel,
+// single block, and _fwd_kernel, multi-block) and the backward
 // (_bwd_hb_kernel, fused single block; _joint_bwd_kernel, _dq_kernel,
-// _dkv_kernel and _dbias_kernel, multi-block).  The bf16 backward, the
-// training path, is flash_attention_bwd.cu on the tensor cores.  For
-// batch row b, head h, query r and key c
+// _dkv_kernel and _dbias_kernel, multi-block).  bf16 operands, the
+// training path, take the tensor cores: flash_attention_fwd.cu and
+// flash_attention_bwd.cu.  For batch row b, head h, query r and key c
 //
 //   s[r,c]  = scale * <q[b,r,h,:], k[b,c,h,:]> + bias[h,r,c]
 //             + (pad[b,c] > 0 ? -1e30 : 0) + (causal && c > r ? -1e30 : 0)
@@ -30,9 +30,9 @@
 // dv are contiguous [B, T, H, D]; lse and delta [B, H, Tq] fp32; bias
 // [1, 1|H, 1|Tq, Tk] (fp32 or bf16) by strides, 0 on a broadcast dim; pad
 // [B, Tk] int32; seed [B] int32; dbias [H, Tq, Tk] fp32, summed over the
-// batch in a fixed order (no atomics).  The forward's operands are float
-// or bf16, templated; the backward's float; all math is fp32; outputs are
-// in the operand type.
+// batch in a fixed order (no atomics).  Operands, math and outputs are
+// fp32 (the kernels are templated on the operand type; only float is
+// instantiated).
 //
 // Design: four kernels over 64 x 64 tiles staged in shared memory, 256
 // threads, each thread owning a 4 x 4 block of the score tile and a
@@ -46,9 +46,7 @@
 // Bound: arithmetic.  At the BERT shapes (T = 512, D = 64) the forward
 // needs 4 B H T^2 D flops and the backward 10 B H T^2 D (this design does
 // 18: dq and dbias recompute s and dP), against 67 TFLOP/s of fp32 on the
-// CUDA cores (TF32 tensor cores would change what fp32 means) or, for the
-// bf16 forward, 989 TFLOP/s of bf16 tensor cores, which this design leaves
-// idle: mma operands and TMA staging for the forward are later work.
+// CUDA cores (TF32 tensor cores would change what fp32 means).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -531,26 +529,18 @@ int dbias(const FlashParams& p, cudaStream_t st) {
 }  // namespace
 
 // Launch on `stream`; each returns cudaGetLastError() (0 on success).
-// The caller checks types, shapes and strides, and guarantees Tq and Tk
-// are multiples of 64 and 8 <= D <= 128 with D % 8 == 0.  The forward
-// takes fp32 and bf16 operands; these backward kernels fp32 only (the
-// bf16 backward is flash_attention_bwd.cu).
-#define UNICORE_FLASH_ENTRY(NAME, WITH_BF16)                                 \
-  extern "C" int unicore_flash_##NAME(const FlashParams* p, int bf16,        \
-                                      void* stream) {                        \
+// The caller checks types, shapes and strides, and guarantees fp32
+// operands, Tq and Tk multiples of 64 and 8 <= D <= 128 with D % 8 == 0.
+#define UNICORE_FLASH_ENTRY(NAME)                                            \
+  extern "C" int unicore_flash_##NAME(const FlashParams* p, void* stream) {  \
     if (p->B == 0 || p->H == 0 || p->Tq == 0 || p->Tk == 0) return 0;        \
-    if (p->D <= 0 || p->D > 128 || (bf16 && !WITH_BF16))                     \
+    if (p->D <= 0 || p->D > 128)                                             \
       return static_cast<int>(cudaErrorInvalidValue);                        \
     cudaStream_t st = static_cast<cudaStream_t>(stream);                     \
-    if constexpr (WITH_BF16) {                                               \
-      if (bf16)                                                              \
-        return p->D <= 64 ? NAME<__nv_bfloat16, 64>(*p, st)                  \
-                          : NAME<__nv_bfloat16, 128>(*p, st);                \
-    }                                                                        \
     return p->D <= 64 ? NAME<float, 64>(*p, st) : NAME<float, 128>(*p, st);  \
   }
 
-UNICORE_FLASH_ENTRY(fwd, true)
-UNICORE_FLASH_ENTRY(dkdv, false)
-UNICORE_FLASH_ENTRY(dq, false)
-UNICORE_FLASH_ENTRY(dbias, false)
+UNICORE_FLASH_ENTRY(fwd)
+UNICORE_FLASH_ENTRY(dkdv)
+UNICORE_FLASH_ENTRY(dq)
+UNICORE_FLASH_ENTRY(dbias)

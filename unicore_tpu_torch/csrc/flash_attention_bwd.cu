@@ -38,14 +38,17 @@
 // documented for the elementwise step (positions, dropout bits), and no
 // descriptor or swizzle layout has to be right on a card nobody can debug
 // on; its ceiling on H100 is about two thirds of wgmma's 989 TFLOP/s.
-// Tiles arrive by 16-byte cp.async, double-buffered: the next tile is in
-// flight while this one is computed.  dk/dv stages the bias tile the same
-// way (it reads it transposed, a gather from device memory otherwise);
-// dq, its shared memory spent on the dq accumulators, loads each thread's
-// bias pairs of a key tile into registers once for the group's rows.  q, k, v and dO are read by strides
-// (the fused [B, T, 3, H, D] projection needs no copy); rows sit in
-// shared memory with D zero-filled up to 32, 64 or 128 plus 16 bytes of
-// pad, so ldmatrix's eight rows fall in distinct banks.
+// The building blocks (the PTX wrappers, the fragment map, the tile
+// layout, the dropout bits and the skip rule) are mma_bf16.cuh, shared
+// with the forward.  Tiles arrive by 16-byte cp.async, double-buffered:
+// the next tile is in flight while this one is computed.  dk/dv stages
+// the bias tile the same way (it reads it transposed, a gather from
+// device memory otherwise); dq, its shared memory spent on the dq
+// accumulators, loads each thread's bias pairs of a key tile into
+// registers once for the group's rows.  q, k, v and dO are read by
+// strides (the fused [B, T, 3, H, D] projection needs no copy); rows sit
+// in shared memory with D zero-filled up to 32, 64 or 128 plus 16 bytes
+// of pad, so ldmatrix's eight rows fall in distinct banks.
 //   flash_bwd_dkdv: grid (key tile, h, b); K and V stay, a loop over
 //     query tiles recomputes S^T = K Q^T and dP^T = V dO^T, forms p_drop
 //     and dS, and accumulates dV += P_drop^T dO and dK += dS^T Q.
@@ -75,168 +78,12 @@
 #include <stdint.h>
 
 #include "flash_params.cuh"
+#include "mma_bf16.cuh"
 #include "prng.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kTile = 64;   // query and key rows of a tile
-constexpr int kWarps = 4;   // 16 rows of the tile each
-constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxRows = 32;  // batch rows of a dq group
-constexpr float kNeg = -1e30f;  // the TPU kernels' NEG_INF
-constexpr unsigned kFull = 0xffffffffu;
-
-// ------------------------------------------------------------- PTX ----
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most one committed group is in flight.
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a * b: a 16 x 16 (row), b 16 x 8 (col), bf16; c fp32.  Not
-// volatile: a pure function of its operands, free to be scheduled.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats as a bf16 pair (round to nearest even), lo in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// ----------------------------------------------------------- tiles ----
-
-// Rows [row0, row0 + 64) of head h, batch row b of a [B, T, H, D] bf16
-// tensor read by strides, into dst[64][kD + 8] by 16-byte cp.async.
-template <int kD>
-__device__ __forceinline__ void load_tile(bf16* dst, const void* src,
-                                          long long sb, long long st,
-                                          long long sh, int b, int h,
-                                          int row0, int D) {
-  const bf16* base = static_cast<const bf16*>(src) + b * sb + h * sh +
-                     static_cast<long long>(row0) * st;
-  const int chunks = D >> 3;
-  for (int i = threadIdx.x; i < kTile * chunks; i += kThreads) {
-    const int r = i / chunks, c = i - r * chunks;
-    cp_async16(dst + r * (kD + 8) + c * 8, base + r * st + c * 8);
-  }
-}
-
-// 64 consecutive 4-byte values (lse, delta or pad of a tile's rows).
-__device__ __forceinline__ void load_row64(void* dst, const void* src) {
-  if (threadIdx.x < 16)
-    cp_async16(static_cast<char*>(dst) + 16 * threadIdx.x,
-               static_cast<const char*>(src) + 16 * threadIdx.x);
-}
-
-// Zero columns [D, kD) of a tile: they enter the products over d, and
-// cp.async never writes them.
-template <int kD>
-__device__ __forceinline__ void zero_cols(bf16* tile, int D) {
-  const int w = kD - D;
-  for (int i = threadIdx.x; i < kTile * w; i += kThreads) {
-    const int r = i / w;
-    tile[r * (kD + 8) + D + (i - r * w)] = __float2bfloat16(0.f);
-  }
-}
-
-// ------------------------------------------------------ elementwise ----
-
-// The bias rows [q0, q0 + 64) x keys [k0, k0 + 64) of head h into
-// dst[64][64 * item + 16 bytes] by 16-byte cp.async (16 bytes of pad: the
-// transposed reads of dk/dv fall in distinct banks).
-__device__ __forceinline__ void load_bias(char* dst, const FlashParams& p,
-                                          int h, int q0, int k0) {
-  const int item = p.bias_bf16 ? 2 : 4, chunks = 4 * item;
-  const int ld = kTile * item + 16;
-  const char* base = static_cast<const char*>(p.bias) +
-                     (h * p.sb_h + q0 * p.sb_q + k0) * item;
-  for (int i = threadIdx.x; i < kTile * chunks; i += kThreads) {
-    const int r = i / chunks, c = i - r * chunks;
-    cp_async16(dst + r * ld + c * 16, base + r * p.sb_q * item + c * 16);
-  }
-}
-
-// Element (r, c) of a bias tile staged by load_bias.
-__device__ __forceinline__ float bias_smem(const char* tile, int is_bf16,
-                                           int r, int c) {
-  return is_bf16 ? __bfloat162float(reinterpret_cast<const bf16*>(
-                       tile + r * (2 * kTile + 16))[c])
-                 : reinterpret_cast<const float*>(
-                       tile + r * (4 * kTile + 16))[c];
-}
-
-// bias[h, r, c] and bias[h, r, c + 1], c even.
-__device__ __forceinline__ float2 bias2_at(const FlashParams& p, int h, int r,
-                                           int c) {
-  const long long off = h * p.sb_h + r * p.sb_q + c;
-  if (p.bias_bf16)
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-        static_cast<const bf16*>(p.bias) + off));
-  return *reinterpret_cast<const float2*>(static_cast<const float*>(p.bias) +
-                                          off);
-}
-
-// The dropout stream of one 64 x 64 tile (q0, k0): element (rl, cl) of
-// the tile is kept iff mix32(base + rl * gbk + cl + seed * golden) < thresh.
-struct DropTile {
-  uint32_t seedmul, base, gbk;
-};
-
-__device__ __forceinline__ DropTile drop_tile(const FlashParams& p,
-                                              uint32_t seed_b, int h, int q0,
-                                              int k0) {
-  const int i = q0 / p.geo_bq, j = k0 / p.geo_bk;
-  const uint32_t seed =
-      seed_b + static_cast<uint32_t>((h * p.geo_ni + i) * p.geo_nj + j);
-  return {seed * 0x9E3779B9u,
-          static_cast<uint32_t>((q0 - i * p.geo_bq) * p.geo_bk +
-                                (k0 - j * p.geo_bk)),
-          static_cast<uint32_t>(p.geo_bk)};
-}
-
-__device__ __forceinline__ bool kept(const FlashParams& p, const DropTile& d,
-                                     int rl, int cl) {
-  return unicore_mix32(d.base + static_cast<uint32_t>(rl) * d.gbk +
-                       static_cast<uint32_t>(cl) + d.seedmul) < p.keep_thresh;
-}
 
 // p_drop and dS of one element from its raw dot products <q, k> and
 // <dO, v> and the score's added terms (bias, pad, causal: added in the
@@ -262,28 +109,6 @@ __device__ __forceinline__ Grad element(const FlashParams& p, float dot,
   return {pd, pr * (g - delta)};
 }
 
-// Whether a skip is exact in batch row b: every query admits an unpadded
-// key (non-causal: some key is unpadded; causal: key 0 is).  Uniform over
-// the warp.
-__device__ bool row_may_skip(const FlashParams& p, int b) {
-  if (p.pad == nullptr) return true;
-  const int* row = p.pad + static_cast<long long>(b) * p.Tk;
-  if (p.causal) return row[0] <= 0;
-  bool any = false;
-  for (int c = threadIdx.x & 31; c < p.Tk; c += 32) any |= row[c] <= 0;
-  return __any_sync(kFull, any);
-}
-
-// Whether keys [k0, k0 + 64) of batch row b are all padded.  Uniform over
-// the warp.
-__device__ __forceinline__ bool tile_padded(const FlashParams& p, int b,
-                                            int k0) {
-  if (p.pad == nullptr) return false;
-  const int* row = p.pad + static_cast<long long>(b) * p.Tk + k0;
-  const int lane = threadIdx.x & 31;
-  return __all_sync(kFull, row[lane] > 0 && row[lane + 32] > 0);
-}
-
 // ---------------------------------------------------------- kernels ----
 
 // At most 168 registers for D <= 64, so that three blocks share an SM.
@@ -301,7 +126,7 @@ __global__ void __launch_bounds__(kThreads, kD <= 64 ? 3 : 1)
   float* lse_s = reinterpret_cast<float*>(do_s + 2 * kElems);  // [2][64]
   float* dl_s = lse_s + 2 * kTile;                              // [2][64]
   char* bias_s = reinterpret_cast<char*>(dl_s + 2 * kTile);     // [2][tile]
-  const int bias_tile = kTile * (kTile * (p.bias_bf16 ? 2 : 4) + 16);
+  const int bias_tile = bias_tile_bytes(p.bias_bf16);
 
   const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -483,9 +308,7 @@ __global__ void __launch_bounds__(kThreads)
   // (key tile, row) pairs in order, key tile outer; skipped pairs add 0
   auto skipped = [&](int pair) {
     const int kt = pair / rows, r = pair - kt * rows;
-    if (!((may_skip >> r) & 1u)) return false;
-    if (p.causal && kt * kTile > q0) return true;
-    return tile_padded(p, b_lo + r, kt * kTile);
+    return tile_skipped(p, (may_skip >> r) & 1u, b_lo + r, q0, kt * kTile);
   };
   auto next_live = [&](int pair) {
     do {
@@ -694,8 +517,7 @@ __global__ void __launch_bounds__(kThreads)
 // Dynamic shared memory of each kernel, in bytes; ops/flash_attention.py
 // repeats dq_smem to pick the batch groups.
 size_t dkdv_smem(int kD, const FlashParams& p) {
-  const size_t bias =
-      p.bias ? 2 * kTile * (kTile * (p.bias_bf16 ? 2 : 4) + 16) : 0;
+  const size_t bias = p.bias ? 2 * bias_tile_bytes(p.bias_bf16) : 0;
   return 6 * kTile * (kD + 8) * sizeof(bf16) + 4 * kTile * sizeof(float) +
          bias;
 }
@@ -722,24 +544,10 @@ int dq(const FlashParams& p, cudaStream_t st) {
                                dq_smem(kD, rows), p, st);
 }
 
-bool aligned16(const void* x) {
-  return (reinterpret_cast<uintptr_t>(x) & 15u) == 0;
-}
-
 // What the kernels assume and the caller guarantees; checked again here.
 bool takes(const FlashParams& p) {
-  const long long strides[] = {p.sq_b, p.sq_t, p.sq_h, p.sk_b, p.sk_t, p.sk_h,
-                               p.sv_b, p.sv_t, p.sv_h, p.sd_b, p.sd_t, p.sd_h};
-  for (long long s : strides)
-    if (s % 8 != 0) return false;
-  const void* tiles[] = {p.q,   p.k,     p.v,   p.dout,
-                         p.lse, p.delta, p.pad, p.bias};
-  for (const void* x : tiles)
-    if (!aligned16(x)) return false;
-  return p.D >= 8 && p.D <= 128 && p.D % 8 == 0 && p.Tq % kTile == 0 &&
-         p.Tk % kTile == 0 && p.geo_bq > 0 && p.geo_bq % kTile == 0 &&
-         p.geo_bk > 0 && p.geo_bk % kTile == 0 && p.groups >= 1 &&
-         p.groups <= p.B && (p.B + p.groups - 1) / p.groups <= kMaxRows &&
+  return takes_tiles(p) && p.groups >= 1 && p.groups <= p.B &&
+         (p.B + p.groups - 1) / p.groups <= kMaxRows &&
          (p.dbias != nullptr || p.groups == p.B);
 }
 

@@ -25,21 +25,30 @@
 // a unit last dim; a broadcast dim of mask or bias has stride 0, which
 // covers the Evoformer contracts (mask [B, G, 1, 1, K], bias
 // [1|B, 1|G, H, Q, K]) and BERT's [1, B, H, T, T] (a 4-D call gets a
-// leading 1).  mask and bias are fp32 or bf16 each; x is templated.
-// out, sm, g and dx are contiguous [rows, K].
+// leading 1).  x is fp32 or bf16, mask and bias fp32 or bf16 each: the
+// forward takes all three types as template parameters.  out, sm, g and
+// dx are contiguous [rows, K].
 //
-// Design: each row is owned by one warp when K <= 1024 (K / 32 values per
-// lane, in registers) and by one block of 256 threads up to K = 8192;
-// the row's max and sum reduce by warp shuffles (and shared memory across
-// the block's warps).  A lane reads columns lane, lane + 32, ... so a
-// warp's loads are contiguous.
+// Design.  Each row is owned by lanes of one warp when K <= 1024 and by
+// one block of 256 threads up to K = 8192, its values in registers; the
+// row's max and sum reduce by warp shuffles (and shared memory across the
+// block's warps).  The forward moves runs of 16 bytes: a lane owns runs
+// of 16 / sizeof(x) contiguous columns, runs lane, lane + kTPR, ... so a
+// row's accesses are contiguous, and every load and store of x, out and
+// sm is one 16-byte access; mask and bias are read over the same columns
+// in their own types.  Up to K = 1024 a lane owns 4 runs (32 bf16 values:
+// 4 lanes a row of 128, 32 a row of 1024), enough work to amortize the
+// row's index arithmetic and reductions.  The caller gives an operand
+// whose address or strides are not multiples of 16 bytes a contiguous
+// copy; the entry checks it.  The backward reads and writes element by
+// element (lane, lane + 32, ...).
 //
 // Bound: bytes.  The forward reads x and writes out and sm (6 bytes an
 // element in bf16, plus the mask and bias at their own sizes); the
 // backward reads g and sm and writes dx.  Against 3.35 TB/s that is
 // ~0.12 ms for each pass of the Evoformer triangle attention
-// ([1, 256, 4, 256, 256] bf16).  This first design makes 2-byte loads in
-// bf16; vector loads are later work.
+// ([1, 256, 4, 256, 256] bf16).  The exp and the counter hash of each
+// element take instruction slots the 16-byte accesses leave free.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,11 +80,13 @@ struct SoftmaxDropoutParams {
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+__device__ __forceinline__ float to_float(bf16 x) {
   return __bfloat162float(x);
 }
 
@@ -86,25 +97,76 @@ __device__ __forceinline__ float from_float<float>(float x) {
   return x;
 }
 template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+__device__ __forceinline__ bf16 from_float<bf16>(float x) {
   return __float2bfloat16(x);
 }
 
-__device__ __forceinline__ float load_any(const void* p, long long off,
-                                          int bf16) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[off])
-              : static_cast<const float*>(p)[off];
+// N contiguous elements at p as floats, by 16-byte loads (one 8-byte
+// load for four bf16 values).
+template <int N>
+__device__ __forceinline__ void load_run(const float* p, float (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p + i);
+    v[i] = x.x;
+    v[i + 1] = x.y;
+    v[i + 2] = x.z;
+    v[i + 3] = x.w;
+  }
 }
 
-// Reduce over the kTPR threads that own a row: one warp, or the block.
+template <int N>
+__device__ __forceinline__ void load_run(const bf16* p, float (&v)[N]) {
+  static_assert(N == 4 || N % 8 == 0, "runs of 4 or of 8k bf16 values");
+  uint32_t w[N / 2];
+  if constexpr (N == 4) {
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    w[0] = x.x;
+    w[1] = x.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < N / 2; i += 4) {
+      const uint4 x = *reinterpret_cast<const uint4*>(p + 2 * i);
+      w[i] = x.x;
+      w[i + 1] = x.y;
+      w[i + 2] = x.z;
+      w[i + 3] = x.w;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const float2 f =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+// A run of 16 bytes (4 fp32 or 8 bf16 values) in one store.
+__device__ __forceinline__ void store_run(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store_run(bf16* p, const float (&v)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&b);
+  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Reduce over the kTPR threads that own a row: an aligned group of a
+// warp's lanes, a warp, or the block.
 template <int kTPR, bool kMax>
 __device__ __forceinline__ float row_reduce(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
+  for (int o = (kTPR < 32 ? kTPR : 32) / 2; o > 0; o >>= 1) {
     const float w = __shfl_xor_sync(kFull, v, o);
     v = kMax ? fmaxf(v, w) : v + w;
   }
-  if (kTPR == 32) return v;
+  if (kTPR <= 32) return v;
   __shared__ float red[kThreads / 32];
   __syncthreads();  // the previous reduction's readers are done
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
@@ -139,64 +201,104 @@ __device__ __forceinline__ bool keep(const SoftmaxDropoutParams& p,
   return unicore_random_bits(seed, idx) < p.keep_thresh;
 }
 
-template <typename T, int kTPR, int kNPT>
+// The forward over runs of kV = 16 / sizeof(T) columns: each of a row's
+// kTPR threads owns kNV runs, run i at columns (i * kTPR + lane) * kV.
+// Threads past the last row compute on the last row and store nothing,
+// so a row of a few lanes never leaves its warp's shuffles.  The row's
+// coordinates take 32-bit divisions (rows < 2^31, checked by the entry):
+// at a few runs a thread they cost as many instructions as the row's
+// arithmetic.
+template <typename T, typename MaskT, typename BiasT, int kTPR, int kNV>
 __global__ void __launch_bounds__(kThreads)
     softmax_dropout_fwd_kernel(const SoftmaxDropoutParams p) {
-  const long long row = my_row<kTPR>(p);
-  if (row < 0) return;  // the row's whole warp (or block) leaves together
+  constexpr int kV = 16 / sizeof(T);
+  const long long row0 =
+      static_cast<long long>(blockIdx.x) * (kThreads / kTPR) +
+      threadIdx.x / kTPR;
+  const bool live = row0 < p.rows;
+  const long long row = live ? row0 : p.rows - 1;
   const int lane = threadIdx.x % kTPR;
   const int K = p.K;
   // (l0, l1, l2, r) of the row
-  const long long lead = row / p.Q;
-  const int r = static_cast<int>(row - lead * p.Q);
-  const int l2 = static_cast<int>(lead % p.L2);
-  const long long t = lead / p.L2;
-  const int l1 = static_cast<int>(t % p.L1);
-  const long long l0 = t / p.L1;
+  const unsigned lead = static_cast<unsigned>(row) / static_cast<unsigned>(p.Q);
+  const unsigned r = static_cast<unsigned>(row) - lead * p.Q;
+  const unsigned t = lead / static_cast<unsigned>(p.L2);
+  const unsigned l2 = lead - t * p.L2;
+  const unsigned l0 = t / static_cast<unsigned>(p.L1);
+  const unsigned l1 = t - l0 * p.L1;
   const T* x = static_cast<const T*>(p.x) + l0 * p.sx[0] + l1 * p.sx[1] +
                l2 * p.sx[2] + r * p.sx[3];
-  const long long mo =
-      l0 * p.smk[0] + l1 * p.smk[1] + l2 * p.smk[2] + r * p.smk[3];
-  const long long bo = l0 * p.sb[0] + l1 * p.sb[1] + l2 * p.sb[2] + r * p.sb[3];
+  const MaskT* mask =
+      p.mask ? static_cast<const MaskT*>(p.mask) + l0 * p.smk[0] +
+                   l1 * p.smk[1] + l2 * p.smk[2] + r * p.smk[3]
+             : nullptr;
+  const BiasT* bias = p.bias ? static_cast<const BiasT*>(p.bias) +
+                                   l0 * p.sb[0] + l1 * p.sb[1] +
+                                   l2 * p.sb[2] + r * p.sb[3]
+                             : nullptr;
 
-  float v[kNPT];
+  float v[kNV][kV];  // z = x + mask + bias, then exp(z - max)
   float mx = -INFINITY;
 #pragma unroll
-  for (int i = 0; i < kNPT; ++i) {
-    const int c = i * kTPR + lane;
-    v[i] = -INFINITY;
-    if (c < K) {
-      float z = to_float(x[c]);
-      if (p.mask) z += load_any(p.mask, mo + c, p.mask_bf16);
-      if (p.bias) z += load_any(p.bias, bo + c, p.bias_bf16);
-      v[i] = z;
-      mx = fmaxf(mx, z);
+  for (int i = 0; i < kNV; ++i) {
+    const int c = (i * kTPR + lane) * kV;
+    if (c >= K) continue;
+    load_run(x + c, v[i]);
+    if (mask) {
+      float m[kV];
+      load_run(mask + c, m);
+#pragma unroll
+      for (int e = 0; e < kV; ++e) v[i][e] += m[e];
     }
+    if (bias) {
+      float bb[kV];
+      load_run(bias + c, bb);
+#pragma unroll
+      for (int e = 0; e < kV; ++e) v[i][e] += bb[e];
+    }
+#pragma unroll
+    for (int e = 0; e < kV; ++e) mx = fmaxf(mx, v[i][e]);
   }
   mx = row_reduce<kTPR, true>(mx);
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < kNPT; ++i) {
-    const int c = i * kTPR + lane;
-    if (c < K) {
-      v[i] = expf(v[i] - mx);
-      s += v[i];
+  for (int i = 0; i < kNV; ++i) {
+    if ((i * kTPR + lane) * kV >= K) continue;
+#pragma unroll
+    for (int e = 0; e < kV; ++e) {
+      v[i][e] = expf(v[i][e] - mx);
+      s += v[i][e];
     }
   }
   s = row_reduce<kTPR, false>(s);
-  const uint32_t seed = p.dropout ? row_seed(p, row) : 0u;
+  if (!live) return;
+  // seed + pid, pid over (lead..., r / q_blk), mod 2^32 (row_seed)
+  const unsigned q_blk = static_cast<unsigned>(p.q_blk);
+  const unsigned rb = r / q_blk;
+  const uint32_t seed =
+      p.dropout ? static_cast<uint32_t>(p.seed[0]) +
+                      lead * (static_cast<unsigned>(p.Q) / q_blk) + rb
+                : 0u;
+  const uint32_t idx0 = (r - rb * q_blk) * static_cast<uint32_t>(K);
   T* out = static_cast<T*>(p.out) + row * K;
   T* sm = p.sm ? static_cast<T*>(p.sm) + row * K : nullptr;
+  const float inv_s = 1.f / s;
 #pragma unroll
-  for (int i = 0; i < kNPT; ++i) {
-    const int c = i * kTPR + lane;
-    if (c < K) {
-      const float y = v[i] / s;
-      if (sm) sm[c] = from_float<T>(y);
-      float o = y;
-      if (p.dropout) o = keep(p, seed, r, c) ? y * p.inv_keep : 0.f;
-      out[c] = from_float<T>(o);
+  for (int i = 0; i < kNV; ++i) {
+    const int c = (i * kTPR + lane) * kV;
+    if (c >= K) continue;
+    float y[kV], o[kV];
+#pragma unroll
+    for (int e = 0; e < kV; ++e) {
+      y[e] = v[i][e] * inv_s;
+      o[e] = y[e];
+      if (p.dropout)
+        o[e] = unicore_random_bits(seed, idx0 + c + e) < p.keep_thresh
+                   ? y[e] * p.inv_keep
+                   : 0.f;
     }
+    if (sm) store_run(sm + c, y);
+    store_run(out + c, o);
   }
 }
 
@@ -235,48 +337,125 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int kTPR, int kNPT>
-int launch(const SoftmaxDropoutParams& p, bool fwd, cudaStream_t st) {
+// Launch `kernel` over the rows, kThreads / kTPR rows a block.
+template <int kTPR>
+int launch_rows(void (*kernel)(SoftmaxDropoutParams),
+                const SoftmaxDropoutParams& p, cudaStream_t st) {
   const long long rows_per_block = kThreads / kTPR;
   const long long blocks = (p.rows + rows_per_block - 1) / rows_per_block;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  if (fwd)
-    softmax_dropout_fwd_kernel<T, kTPR, kNPT>
-        <<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(p);
-  else
-    softmax_dropout_bwd_kernel<T, kTPR, kNPT>
-        <<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(p);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The work split of a row of K: a warp with K / 32 values a lane up to
-// K = 1024, then a block of 256 threads.
-template <typename T>
-int dispatch(const SoftmaxDropoutParams& p, bool fwd, cudaStream_t st) {
-  const int K = p.K;
-  if (K <= 128) return launch<T, 32, 4>(p, fwd, st);
-  if (K <= 256) return launch<T, 32, 8>(p, fwd, st);
-  if (K <= 512) return launch<T, 32, 16>(p, fwd, st);
-  if (K <= 1024) return launch<T, 32, 32>(p, fwd, st);
-  if (K <= 2048) return launch<T, kThreads, 8>(p, fwd, st);
-  if (K <= 4096) return launch<T, kThreads, 16>(p, fwd, st);
-  if (K <= 8192) return launch<T, kThreads, 32>(p, fwd, st);
+template <typename T, typename MaskT, typename BiasT, int kTPR, int kNV>
+int fwd_split(const SoftmaxDropoutParams& p, cudaStream_t st) {
+  return launch_rows<kTPR>(
+      softmax_dropout_fwd_kernel<T, MaskT, BiasT, kTPR, kNV>, p, st);
+}
+
+template <typename T, int kTPR, int kNPT>
+int bwd_split(const SoftmaxDropoutParams& p, cudaStream_t st) {
+  return launch_rows<kTPR>(softmax_dropout_bwd_kernel<T, kTPR, kNPT>, p, st);
+}
+
+// The forward's work split of a row of K = nv runs of kV columns: up to
+// K = 1024, 4 to 32 lanes of a warp with 4 runs each (8 for an fp32 row
+// of 1024), then a block of 256 threads.  Only the splits that a K which
+// is a multiple of 128 can reach are instantiated.
+template <typename T, typename MaskT, typename BiasT>
+int fwd_dispatch(const SoftmaxDropoutParams& p, cudaStream_t st) {
+  constexpr int kV = 16 / sizeof(T);
+  const int nv = p.K / kV;
+  if (p.K <= 1024) {
+    if constexpr (kV == 8) {
+      if (nv <= 16) return fwd_split<T, MaskT, BiasT, 4, 4>(p, st);
+    }
+    if (nv <= 32) return fwd_split<T, MaskT, BiasT, 8, 4>(p, st);
+    if (nv <= 64) return fwd_split<T, MaskT, BiasT, 16, 4>(p, st);
+    if (nv <= 128) return fwd_split<T, MaskT, BiasT, 32, 4>(p, st);
+    if constexpr (kV == 4) return fwd_split<T, MaskT, BiasT, 32, 8>(p, st);
+  }
+  if constexpr (kV == 8) {
+    if (nv <= 256) return fwd_split<T, MaskT, BiasT, kThreads, 1>(p, st);
+  }
+  if (nv <= 512) return fwd_split<T, MaskT, BiasT, kThreads, 2>(p, st);
+  if (nv <= 1024) return fwd_split<T, MaskT, BiasT, kThreads, 4>(p, st);
+  if constexpr (kV == 4) {
+    if (nv <= 2048) return fwd_split<T, MaskT, BiasT, kThreads, 8>(p, st);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-int entry(const SoftmaxDropoutParams* p, int bf16, bool fwd, void* stream) {
+template <typename T, typename MaskT>
+int fwd_bias_type(const SoftmaxDropoutParams& p, cudaStream_t st) {
+  return p.bias_bf16 ? fwd_dispatch<T, MaskT, bf16>(p, st)
+                     : fwd_dispatch<T, MaskT, float>(p, st);
+}
+
+template <typename T>
+int fwd(const SoftmaxDropoutParams& p, cudaStream_t st) {
+  return p.mask_bf16 ? fwd_bias_type<T, bf16>(p, st)
+                     : fwd_bias_type<T, float>(p, st);
+}
+
+// The backward's work split of a row of K: a warp with K / 32 values a
+// lane up to K = 1024, then a block of 256 threads.
+template <typename T>
+int bwd(const SoftmaxDropoutParams& p, cudaStream_t st) {
+  const int K = p.K;
+  if (K <= 128) return bwd_split<T, 32, 4>(p, st);
+  if (K <= 256) return bwd_split<T, 32, 8>(p, st);
+  if (K <= 512) return bwd_split<T, 32, 16>(p, st);
+  if (K <= 1024) return bwd_split<T, 32, 32>(p, st);
+  if (K <= 2048) return bwd_split<T, kThreads, 8>(p, st);
+  if (K <= 4096) return bwd_split<T, kThreads, 16>(p, st);
+  if (K <= 8192) return bwd_split<T, kThreads, 32>(p, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+bool aligned16(const void* x) {
+  return (reinterpret_cast<uintptr_t>(x) & 15u) == 0;
+}
+
+// What the forward's 16-byte runs assume and the caller guarantees: each
+// operand's address, and its strides over (L0, L1, L2, Q), multiples of
+// 16 bytes; K a multiple of 128.
+bool fwd_takes(const SoftmaxDropoutParams& p, int x_item) {
+  const struct {
+    const void* ptr;
+    const long long* strides;
+    int item;
+  } ops[] = {{p.x, p.sx, x_item},
+             {p.mask, p.smk, p.mask_bf16 ? 2 : 4},
+             {p.bias, p.sb, p.bias_bf16 ? 2 : 4}};
+  for (const auto& op : ops) {
+    if (!aligned16(op.ptr)) return false;
+    for (int d = 0; d < 4; ++d)
+      if (op.ptr && (op.strides[d] * op.item) % 16 != 0) return false;
+  }
+  return p.K % 128 == 0 && p.rows < (1LL << 31) && aligned16(p.out) &&
+         aligned16(p.sm);
+}
+
+int entry(const SoftmaxDropoutParams* p, int is_bf16, bool forward,
+          void* stream) {
   if (p->rows == 0) return 0;
   if (p->K <= 0 || p->Q <= 0 || p->q_blk <= 0 || p->Q % p->q_blk)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(*p, fwd, st)
-              : dispatch<float>(*p, fwd, st);
+  if (!forward) return is_bf16 ? bwd<bf16>(*p, st) : bwd<float>(*p, st);
+  if (!fwd_takes(*p, is_bf16 ? 2 : 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return is_bf16 ? fwd<bf16>(*p, st) : fwd<float>(*p, st);
 }
 
 }  // namespace
 
-// Launch on `stream`; each returns cudaGetLastError() (0 on success).
-// The caller checks types, shapes and strides, and guarantees K <= 8192.
+// Launch on `stream`; each returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for parameters the kernels do not take.  The
+// caller checks types and shapes, guarantees K <= 8192, and for the
+// forward 16-byte aligned operands.
 extern "C" int unicore_softmax_dropout_fwd(const SoftmaxDropoutParams* p,
                                            int bf16, void* stream) {
   return entry(p, bf16, true, stream);

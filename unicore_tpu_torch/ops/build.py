@@ -18,6 +18,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "unicore_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -102,6 +104,17 @@ def build(names):
     if failed:
         raise KernelError("kernel build failed:\n" + "\n".join(failed))
     return report
+
+
+def aligned16(x, strided=False):
+    """``x`` as the kernels' 16-byte copies read it: its address, and
+    with ``strided`` the strides of every dim but the last, multiples of
+    16 bytes; a tensor that is not gets a contiguous copy."""
+    step = 16 // x.element_size()
+    if x.data_ptr() % 16 == 0 and (not strided or all(
+            s % step == 0 for s in x.stride()[:-1])):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def load(name):

@@ -5,13 +5,14 @@ Replaces the Pallas TPU kernels of ``unicore_tpu/ops/pallas/
 flash_attention.py`` — the single-block head-batched forward and fused
 backward (``_fwd_hb_kernel``, ``_bwd_hb_kernel``) that BERT at T = 512
 takes, and the multi-block forward and dq/dkv/joint/dbias passes of
-longer sequences.  The kernels: ``unicore_tpu_torch/csrc/
-flash_attention.cu`` holds the forward (fp32 and bf16) and the fp32
-backward (dk/dv, dq and dbias passes, fp32 FMA on the CUDA cores);
-``csrc/flash_attention_bwd.cu`` the bf16 backward, the training path, in
-two tensor-core kernels (dk/dv; dq with the dbias partials of a batch
-group).  Both share ``csrc/flash_params.cuh``; the dropout bits are
-``csrc/prng.cuh``.
+longer sequences.  The kernels: for bf16 operands, the training path,
+``unicore_tpu_torch/csrc/flash_attention_fwd.cu`` holds the tensor-core
+forward and ``csrc/flash_attention_bwd.cu`` the tensor-core backward in
+two kernels (dk/dv; dq with the dbias partials of a batch group), both
+built from ``csrc/mma_bf16.cuh``; for fp32 operands
+``csrc/flash_attention.cu`` holds the forward and the backward (dk/dv,
+dq and dbias passes, fp32 FMA on the CUDA cores).  All share
+``csrc/flash_params.cuh``; the dropout bits are ``csrc/prng.cuh``.
 
 Bound on the card: arithmetic.  The forward needs 4·B·H·Tq·Tk·D flops and
 the backward 10·B·H·Tq·Tk·D, against the bf16 tensor-core rate for bf16
@@ -42,12 +43,14 @@ MAX_KERNEL_HEAD_DIM = 128
 _DTYPES = (torch.float32, torch.bfloat16)
 
 # launches per kernel, counted where each wrapper launches its kernel:
-# the forward; the fp32 backward's three kernels; the bf16 backward's two
+# the fp32 forward and backward (three kernels); the bf16 forward and
+# backward (two kernels)
 launches = {"flash_fwd": 0, "flash_dkdv": 0, "flash_dq": 0,
-            "flash_dbias": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+            "flash_dbias": 0, "flash_fwd_bf16": 0, "flash_bwd_dkdv": 0,
+            "flash_bwd_dq": 0}
 
-# the bf16 backward's tiling (csrc/flash_attention_bwd.cu): 64-row tiles,
-# D zero-filled to 32, 64 or 128, at most 32 batch rows a dq group
+# the bf16 kernels' tiling (csrc/mma_bf16.cuh): 64-row tiles, D
+# zero-filled to 32, 64 or 128; at most 32 batch rows a dq group
 BWD_TILE, BWD_MAX_ROWS = 64, 32
 SMS = 132                    # H100 SXM
 SMEM_BLOCK = 232448          # shared memory one block may use
@@ -140,20 +143,47 @@ def _scores(q, k, bias, pad, causal, scale):
 def flash_fwd_plain(q, k, v, bias, pad, dropout_prob, seed, causal, scale,
                     geom):
     """The forward kernel's function in plain PyTorch: ``(out [B, Tq, H,
-    D] in q's dtype, lse [B, H, Tq] fp32)``.  ``l`` sums the undropped p;
-    only the p·V product sees the mask and the 1/keep_prob scale."""
+    D] in q's dtype, lse [B, H, Tq] fp32)``.  ``l`` sums the undropped
+    fp32 p; only the p·V product sees the mask and the 1/keep_prob scale.
+    For operands narrower than fp32 that product sees p rounded to v's
+    dtype, where the reference casts (its ``p_use.astype(v.dtype)``).
+
+    Keys go in the reference's key blocks (``geom[1]``) with its online
+    rescale: block j's p is ``exp(s - m_j)`` under the running max m_j,
+    so p is rounded where the multi-block reference rounds it.  With one
+    key block (BERT's T = 512) this is the single-pass softmax."""
     s = _scores(q, k, bias, pad, causal, scale)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    l_safe = torch.where(l == 0.0, 1.0, l)
+    keep = None
     if dropout_prob > 0.0:
         keep_prob = 1.0 - dropout_prob
         keep = keep_mask(seed, q.shape[2], q.shape[1], k.shape[1], geom,
                          keep_prob)
-        p = torch.where(keep, p * (1.0 / keep_prob), 0.0)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
-    out = out / l_safe.permute(0, 2, 1, 3)
+    vf = v.float()
+    m = l = acc = None
+    for j0 in range(0, k.shape[1], geom[1]):
+        sj = s[..., j0:j0 + geom[1]]
+        m_new = sj.amax(dim=-1, keepdim=True)
+        if m is not None:
+            m_new = torch.maximum(m, m_new)
+        p = torch.exp(sj - m_new)
+        if keep is not None:
+            p_use = torch.where(keep[..., j0:j0 + geom[1]],
+                                p * (1.0 / keep_prob), 0.0)
+        else:
+            p_use = p
+        if v.dtype != torch.float32:
+            p_use = p_use.to(v.dtype).float()
+        pv = torch.einsum("bhqk,bkhd->bhqd", p_use,
+                          vf[:, j0:j0 + geom[1]])
+        if m is None:
+            l, acc = p.sum(dim=-1, keepdim=True), pv
+        else:
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1, keepdim=True)
+            acc = acc * corr + pv
+        m = m_new
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    out = (acc / l_safe).permute(0, 2, 1, 3)
     return out.to(q.dtype), (m + torch.log(l_safe))[..., 0]
 
 
@@ -204,6 +234,16 @@ def _bwd_head_dim(d):
     return 32 if d <= 32 else 64 if d <= 64 else 128
 
 
+def fwd_smem_bytes(d, bias_itemsize):
+    """Dynamic shared memory of the bf16 forward kernel (its ``fwd_smem``):
+    double-buffered k and v tiles (the q tile shares stage 1's k), bias
+    tiles of ``bias_itemsize``-byte elements (0: no bias) and pad."""
+    ld = _bwd_head_dim(d) + 8
+    bias = (2 * BWD_TILE * (BWD_TILE * bias_itemsize + 16)
+            if bias_itemsize else 0)
+    return 4 * BWD_TILE * ld * 2 + bias + 2 * BWD_TILE * 4
+
+
 def dq_smem_bytes(d, rows):
     """Dynamic shared memory of the bf16 dq kernel (its ``dq_smem``):
     double-buffered k and v tiles and pad, and for each batch row of the
@@ -250,27 +290,29 @@ class _Params(ctypes.Structure):
                    ("keep_thresh", ctypes.c_uint32)])
 
 
+# the source of each kernel's entry: the bf16 forward and backward on the
+# tensor cores, the fp32 kernels on the CUDA cores
+_SOURCES = {"fwd_bf16": "flash_attention_fwd",
+            "bwd_dkdv": "flash_attention_bwd",
+            "bwd_dq": "flash_attention_bwd"}
+
+
 @functools.cache
 def _entry(name):
-    """``unicore_flash_<name>(params, bf16, stream)`` of flash_attention.cu,
-    or ``unicore_flash_<name>(params, stream)`` of flash_attention_bwd.cu
-    for the ``bwd_*`` kernels."""
-    bwd = name.startswith("bwd_")
-    lib = build.load("flash_attention_bwd" if bwd else "flash_attention")
+    """``unicore_flash_<name>(params, stream)`` of its source."""
+    lib = build.load(_SOURCES.get(name, "flash_attention"))
     fn = getattr(lib, f"unicore_flash_{name}")
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.POINTER(_Params)]
-                   + ([] if bwd else [ctypes.c_int]) + [ctypes.c_void_p])
+    fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
     return fn
 
 
-def _launch(name, params, device, *flags):
-    """Launch kernel ``name`` on the device's current stream; ``flags``:
-    the bf16 flag of the flash_attention.cu entries, none for bwd_*."""
+def _launch(name, params, device):
+    """Launch kernel ``name`` on the device's current stream."""
     fn = _entry(name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(ctypes.byref(params), *flags, stream)
+        err = fn(ctypes.byref(params), stream)
     if err:
         raise build.KernelError(
             f"flash attention kernel {name} launch failed: CUDA error {err}")
@@ -279,17 +321,6 @@ def _launch(name, params, device, *flags):
 
 def _last_dim_unit(x):
     return x if x.stride(-1) == 1 else x.contiguous()
-
-
-def _aligned(x, strided=False):
-    """``x`` as the bf16 backward's 16-byte copies read it: its address,
-    and with ``strided`` the strides of every dim but the last, multiples
-    of 16 bytes; a tensor that is not gets a contiguous copy."""
-    step = 16 // x.element_size()
-    if x.data_ptr() % 16 == 0 and (not strided or all(
-            s % step == 0 for s in x.stride()[:-1])):
-        return x
-    return x.contiguous() if not x.is_contiguous() else x.clone()
 
 
 def _check(q, k, v, bias, pad, seed, causal):
@@ -365,18 +396,34 @@ def _operands(q, k, v, bias, pad, seed):
     return q, k, v, bias, pad, seed.to(torch.int32).contiguous()
 
 
+def _tiles_aligned(q, k, v, bias, pad, dout=None):
+    """The bf16 kernels' operands as their 16-byte copies read them."""
+    q, k, v = (build.aligned16(x, strided=True) for x in (q, k, v))
+    if dout is not None:
+        dout = build.aligned16(dout, strided=True)
+    if pad is not None:
+        pad = build.aligned16(pad)
+    if bias is not None:
+        bias = build.aligned16(bias, strided=True)
+    return q, k, v, bias, pad, dout
+
+
 def flash_fwd_cuda(q, k, v, bias, pad, dropout_prob, seed, causal, scale,
                    geom):
     """Launch the forward kernel: ``(out, lse)`` as
-    :func:`flash_fwd_plain`."""
+    :func:`flash_fwd_plain`.  bf16 operands take the tensor-core kernel,
+    fp32 ones the fp32 kernel."""
     _check(q, k, v, bias, pad, seed, causal)
     q, k, v, bias, pad, seed = _operands(q, k, v, bias, pad, seed)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        q, k, v, bias, pad, _ = _tiles_aligned(q, k, v, bias, pad)
     bsz, tq, heads, d = q.shape
     out = torch.empty((bsz, tq, heads, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((bsz, heads, tq), dtype=torch.float32, device=q.device)
     prm = _params(q, k, v, bias, pad, seed, dropout_prob, causal, scale, geom)
     prm.out, prm.lse = out.data_ptr(), lse.data_ptr()
-    _launch("fwd", prm, q.device, int(q.dtype == torch.bfloat16))
+    _launch("fwd_bf16" if bf16 else "fwd", prm, q.device)
     return out, lse
 
 
@@ -392,12 +439,8 @@ def flash_bwd_cuda(q, k, v, bias, pad, dropout_prob, seed, causal, scale,
     lse, delta = lse.contiguous(), delta.contiguous()
     bf16 = q.dtype == torch.bfloat16
     if bf16:
-        q, k, v, dout = (_aligned(x, strided=True) for x in (q, k, v, dout))
-        lse, delta = _aligned(lse), _aligned(delta)
-        if pad is not None:
-            pad = _aligned(pad)
-        if bias is not None:
-            bias = _aligned(bias)
+        q, k, v, bias, pad, dout = _tiles_aligned(q, k, v, bias, pad, dout)
+        lse, delta = build.aligned16(lse), build.aligned16(delta)
     bsz, tq, heads, d = q.shape
     tk = k.shape[1]
     dq = torch.empty((bsz, tq, heads, d), dtype=q.dtype, device=q.device)
@@ -418,14 +461,14 @@ def flash_bwd_cuda(q, k, v, bias, pad, dropout_prob, seed, causal, scale,
         _launch("bwd_dkdv", prm, q.device)
         _launch("bwd_dq", prm, q.device)
         return dq, dk, dv, None if parts is None else sum_partials(parts)
-    _launch("dkdv", prm, q.device, 0)
-    _launch("dq", prm, q.device, 0)
+    _launch("dkdv", prm, q.device)
+    _launch("dq", prm, q.device)
     dbias = None
     if want_dbias:
         dbias = torch.empty((heads, tq, tk), dtype=torch.float32,
                             device=q.device)
         prm.dbias = dbias.data_ptr()
-        _launch("dbias", prm, q.device, 0)
+        _launch("dbias", prm, q.device)
     return dq, dk, dv, dbias
 
 

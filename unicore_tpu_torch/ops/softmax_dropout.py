@@ -185,10 +185,12 @@ def _lead5(shape):
 
 
 def _bcast_strides(op, x_shape5, name):
-    """Strides of a broadcast operand over (L0, L1, L2, Q), 0 on a
-    broadcast dim, and the operand with a unit last dim."""
+    """Strides of an operand over (L0, L1, L2, Q), 0 on a dim of size 1,
+    and the operand as the forward's 16-byte runs read it
+    (:func:`~unicore_tpu_torch.ops.build.aligned16`)."""
     if op.stride(-1) != 1:
         op = op.contiguous()
+    op = build.aligned16(op, strided=True)
     shape5 = _lead5(op.shape)
     strides5 = (0,) * (MAX_KERNEL_DIMS - op.dim()) + tuple(op.stride())
     out = []
@@ -231,33 +233,40 @@ def _check(x, mask, bias, seed):
             f"{None if bias is None else tuple(bias.shape)}")
 
 
+def fwd_operands(x, mask, bias):
+    """x, mask and bias as the forward kernel reads them: ``(x, x's
+    strides over (L0, L1, L2, Q), [(name, operand, strides), ...])``.
+    Each operand fp32 or bf16, with a unit last dim, its address and
+    strides multiples of 16 bytes (else a contiguous copy), strides 0 on
+    dims of size 1 (mask and bias: on their broadcast dims)."""
+    x, sx = _bcast_strides(x, _lead5(x.shape), "x")
+    ops = []
+    for name, op in (("mask", mask), ("bias", bias)):
+        if op is None:
+            continue
+        if op.dtype not in _DTYPES:
+            op = op.float()
+        ops.append((name, *_bcast_strides(op, _lead5(x.shape), name)))
+    return x, sx, ops
+
+
 def softmax_dropout_fwd_cuda(x, mask, bias, dropout_prob, seed, q_blk,
                              save_softmax):
     """Launch the forward kernel: ``(out, softmax or None)`` as
-    :func:`softmax_dropout_fwd_plain`.  x is read by strides (a unit last
-    dim, else one contiguous copy); mask and bias by strides with 0 on
-    their broadcast dims."""
+    :func:`softmax_dropout_fwd_plain`, the operands as
+    :func:`fwd_operands` gives them."""
     _check(x, mask, bias, seed)
-    if x.stride(-1) != 1:
-        x = x.contiguous()
+    x, sx, ops = fwd_operands(x, mask, bias)
     x5 = _lead5(x.shape)
     q, k = x5[3], x5[4]
     rows = x.numel() // k
     prm = _params(q, k, rows, dropout_prob, seed, q_blk)
     prm.x = x.data_ptr()
-    sx = (0,) * (MAX_KERNEL_DIMS - x.dim()) + tuple(x.stride())
-    prm.sx[:] = sx[:4]
+    prm.sx[:] = sx
     prm.L1, prm.L2 = x5[1], x5[2]
-    held = []  # converted operands, alive until the launch is queued
-    for name, field, op in (("mask", "smk", mask), ("bias", "sb", bias)):
-        if op is None:
-            continue
-        if op.dtype not in _DTYPES:
-            op = op.float()
-        op, strides = _bcast_strides(op, x5, name)
-        held.append(op)
+    for name, op, strides in ops:  # ops stays alive until the launch
         setattr(prm, name, op.data_ptr())
-        getattr(prm, field)[:] = strides
+        getattr(prm, {"mask": "smk", "bias": "sb"}[name])[:] = strides
         setattr(prm, f"{name}_bf16", int(op.dtype == torch.bfloat16))
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     sm = torch.empty_like(out) if save_softmax else None
