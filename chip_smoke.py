@@ -45,7 +45,8 @@ code is non-zero:
    beside the bound of the whole backward; the wrapper's whole backward,
    plain and SDPA (same bias + pad mask and dropout, forward and forward
    + backward, pinned to its memory-efficient backend, TF32 off) times
-   from CUDA events.
+   from CUDA events; beside them SDPA with its default backend (named)
+   and pinned to cuDNN attention, or cuDNN's refusal of the call.
 7. train — the port's CLI, in process, trains a seeded random
    ``bert_base`` (12 layers, width 768, T=512, vocab 30522) under
    ``--bf16`` for 20 updates of batch 16 on a synthetic corpus (2,048
@@ -53,7 +54,8 @@ code is non-zero:
    ``IndexedRecordWriter``).  The first update's masked-token loss lies in
    9-11.5 nats and the mean of the last 5 is below it; the three bf16
    flash kernels (forward, dk/dv, dq) launched once per layer per update,
-   the fp32 flash kernels never.  Reports step time, samples/s and
+   the fp32 flash kernels never, softmax_dropout's plain route never.
+   Reports step time, samples/s and
    tokens/s, then the device idle share and top kernels of a
    ``torch.profiler`` window of 3 more updates.
 8. flash_multiblock — the same checks at the shapes the JAX package
@@ -62,29 +64,42 @@ code is non-zero:
    backward) and T=2048 with a [1, H, T, T] bias (two-pass dq, dk/dv and
    the dbias pass), bf16, dropout 0.1, against the plain version and
    SDPA.
-9. softmax_dropout — the forward and backward kernels vs their plain
+9. head — the BERT masked-LM head at bert_base's shape (2,048 slots x
+   768, tied vocab 30,522, bias, bf16): the chunked cross-entropy's fp32
+   product of bf16 operands, the kernels it ran, the nll within 1e-3
+   nats of the fp32 product, its forward + backward time beside the
+   same head with each product rounded to bf16 first.
+10. softmax_dropout — the forward and backward kernels vs their plain
    versions at the Evoformer's three attention shapes (row with pair
    bias [1, 128, 8, 256, 256], column [1, 256, 8, 128, 128], triangle
    [1, 256, 4, 256, 256]; mask [1, G, 1, 1, K] fp32, bias [1, 1, H, Q,
    K]), dropout 0.1, fp32 (within 1e-5) and bf16 (within 2e-2 of each
    tensor's max), equal keep patterns; times beside the bytes bound,
    the plain version and ``torch.softmax`` of the pre-added scores (and
-   its backward) — not the same function, no dropout.
-10. rounding — the fp32 -> bf16 stochastic-rounding kernel vs its plain
-   version, bit for bit, on both reference layouts (r_blk 8 and 256), a
-   size that is not a multiple of 1024, NaN and ±Inf; the mean of 2^24
-   draws of one value within 3 sigma of it; times beside the bound.
-11. evoformer_train — the port's CLI, in process, trains a seeded random
+   its backward) — not the same function, no dropout.  Then
+   softmax_dropout_route: an Evoformer row attention at R = 200 (off the
+   kernels' grid) takes the reference's jnp route, the plain version on
+   the card, counted apart from the kernels, equal to the CPU.
+11. rounding — the fp32 -> bf16 stochastic-rounding kernel (one launch
+   over a table of tensors) vs its plain version, bit for bit, on both
+   reference layouts (r_blk 8 and 256), a size that is not a multiple of
+   1024, NaN and ±Inf; the mean of 2^24 draws of one value within 3
+   sigma of it; then the table of every evoformer_base leaf under its
+   own seed, bit for bit per-leaf plain, timed in one launch against
+   its bound and against one single-entry launch a leaf; times beside
+   the bound.
+12. evoformer_train — the port's CLI, in process, trains a seeded random
    ``evoformer_base`` (8 blocks, c_m 256, c_z 128, 8 MSA and 4 pair
    heads) on S=128 MSA rows x R=256 residues under ``--bf16 --bf16-sr
    --optim-bf16-moments`` with dropout 0.1: 10 updates of batch 1 on 8
    records written by the port's ``make_data``.  Every loss finite, the
    mean of the last 3 below the first; softmax_dropout forward and
-   backward 32 launches per update each, rounding 3 launches per
-   parameter leaf per update, flash none.  Reports step time, residue
-   pairs/s and peak memory, then the idle share and top kernels of a
-   ``torch.profiler`` window of 2 more updates.
-12. the ``kernels`` line (rows 1-11 of the TPU kernel table; the bf16
+   backward 32 launches per update each and its plain route never,
+   rounding one table launch per 800 entries of the SR sync and of the
+   moments (3 per update for 688 leaves), flash none.  Reports step
+   time, residue pairs/s and peak memory, then the idle share and top
+   kernels of a ``torch.profiler`` window of 2 more updates.
+13. the ``kernels`` line (rows 1-11 of the TPU kernel table; the bf16
    backward rows carry the row's whole backward time beside the bound of
    the backward as one function), the card's name and power limit, and
    the closing ``{"ok": true, ...}`` line.
@@ -473,6 +488,33 @@ def kernel_times_ms(fn, flush, names, iters=10):
     return times
 
 
+def sdpa_yardsticks(sdpa, sdpa_fwd_bwd, operands, flush, iters):
+    """SDPA on the same call with its default backend (named as
+    ``torch._fused_sdp_choice`` picks it) and pinned to cuDNN attention,
+    forward and forward + backward; where cuDNN refuses this bias,
+    padding and dropout, its refusal instead of times."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qh, kh, vh, mask, scale = operands
+    names = {int(v.value): k for k, v in SDPBackend.__members__.items()}
+    choice = int(torch._fused_sdp_choice(qh, kh, vh, mask, FLASH_P, False,
+                                         scale=scale))
+    out = {"default": {"backend": names.get(choice, str(choice)),
+                       "fwd_ms": time_ms(sdpa, flush, iters=iters),
+                       "fwd_bwd_ms": time_ms(sdpa_fwd_bwd, flush,
+                                             iters=iters)}}
+    with sdpa_kernel(SDPBackend.CUDNN_ATTENTION):
+        try:  # the yardstick's own dispatch: cuDNN may refuse the call
+            sdpa_fwd_bwd()
+        except RuntimeError as e:
+            out["cudnn"] = {"refused": str(e).strip().splitlines()[0][:200]}
+        else:
+            out["cudnn"] = {"fwd_ms": time_ms(sdpa, flush, iters=iters),
+                            "fwd_bwd_ms": time_ms(sdpa_fwd_bwd, flush,
+                                                  iters=iters)}
+    return out
+
+
 def flash_case(flush, dtype, shape, with_bias, rng, iters):
     """The flash kernels of one call vs their plain versions on the same
     tensors — in bf16 the plain versions round p, p_drop and dS as the
@@ -572,6 +614,8 @@ def flash_case(flush, dtype, shape, with_bias, rng, iters):
         sdpa_ms = {"sdpa_fwd_ms": time_ms(sdpa, flush, iters=sdpa_iters),
                    "sdpa_fwd_bwd_ms": time_ms(sdpa_fwd_bwd, flush,
                                               iters=sdpa_iters)}
+    sdpa_ms["sdpa_other"] = sdpa_yardsticks(
+        sdpa, sdpa_fwd_bwd, (qh, kh, vh, mask, scale), flush, sdpa_iters)
     report = {
         "dtype": str(dtype).replace("torch.", ""),
         "shape": {"B": B, "H": H, "T": T, "D": D, "bias": with_bias},
@@ -761,6 +805,57 @@ def softmax_dropout_phase(flush):
     return reports
 
 
+def softmax_dropout_route_case(flush):
+    """An Evoformer row attention at R = 200 (keys off the kernels' 128
+    grid), bf16, mask and pair bias, dropout 0.1, through the public
+    ``softmax_dropout`` with autograd: the reference's dispatch sends it
+    to its jnp path, so the card runs the plain version as torch ops —
+    counted in ``plain_route`` (forward and backward once each), no
+    kernel launched — and it equals the same call on the CPU (equal keep
+    pattern; out, dx and dbias within 1e-2 of each tensor's max)."""
+    from unicore_tpu_torch.ops import softmax_dropout as sd
+
+    shape = (1, 16, 8, 200, 200)
+    gen = torch.Generator(device="cuda").manual_seed(200)
+    x = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    mask = torch.where(torch.rand((1, 16, 1, 1, 200), generator=gen,
+                                  device="cuda") > 0.1, 0.0, -1e9)
+    bias = torch.randn((1, 1, 8, 200, 200), generator=gen,
+                       device="cuda").bfloat16()
+    g = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    def run(x, mask, bias, g):
+        x, bias = (t.detach().requires_grad_() for t in (x, bias))
+        out = sd.softmax_dropout(x, SD_P, mask=mask, bias=bias, seed=4242)
+        return (out, *torch.autograd.grad(out, (x, bias), g))
+
+    if sd.route(x, mask, bias) != "plain":
+        raise AssertionError("k = 200 must take the plain route")
+    before = dict(sd.launches), dict(sd.plain_route)
+    got = run(x, mask, bias, g)
+    torch.cuda.synchronize()
+    ran = {n: (sd.launches[n] - before[0][n], sd.plain_route[n] - before[1][n])
+           for n in sd.launches}
+    if ran != {"softmax_dropout_fwd": (0, 1), "softmax_dropout_bwd": (0, 1)}:
+        raise AssertionError(f"(launches, plain route) {ran}")
+    want = run(*(t.cpu() for t in (x, mask, bias, g)))
+    if not torch.equal(got[0].cpu() == 0, want[0] == 0):
+        raise AssertionError("plain route: keep patterns differ from CPU")
+    errs = {}
+    for what, a, b in zip(("out", "dx", "dbias"), got, want):
+        a, b = a.detach().float().cpu(), b.detach().float()
+        err = float((a - b).abs().max())
+        if not (torch.isfinite(a).all() and err <= 1e-2 * float(
+                b.abs().max())):
+            raise AssertionError(f"plain route {what}: max |card - cpu| "
+                                 f"{err}")
+        errs[what] = err
+    return {"shape": list(shape), "route": "plain", "calls": ran,
+            "max_abs_err": errs,
+            "fwd_bwd_ms": time_ms(lambda: run(x, mask, bias, g), flush,
+                                  iters=5)}
+
+
 # (name, elements): Evoformer leaves (65,536: r_blk 8; 262,144, the
 # largest leaf: r_blk 256), a size not a multiple of 1024, and 16M
 SR_SIZES = (("leaf_65536", 1 << 16), ("leaf_262144", 1 << 18),
@@ -813,7 +908,140 @@ def rounding_phase(flush):
                              f"{abs(mean - x32) / sigma:.2f} sigma")
     emit("rounding_mean", value=x32, draws=xs.numel(), mean=mean,
          sigma=sigma, off_sigmas=abs(mean - x32) / sigma)
+    cases["table"] = rounding_table_case(flush)
+    emit("rounding", case="table", **cases["table"])
     return cases
+
+
+def evoformer_leaf_sizes():
+    """The parameter leaves' sizes of the smoke's ``evoformer_base`` (8
+    blocks, c_m 256, c_z 128, 8 MSA and 4 pair heads; the corpus's 8
+    MSA letters and 8 pair bins), in the trainer's order."""
+    from unicore_tpu_torch.examples.evoformer.model import EvoformerModel
+
+    with torch.device("meta"):
+        model = EvoformerModel(8, 8, evoformer_layers=8, msa_embed_dim=256,
+                               pair_embed_dim=128, msa_attention_heads=8,
+                               pair_attention_heads=4, opm_hidden_dim=16)
+    return [p.numel() for p in model.parameters()]
+
+
+def rounding_table_case(flush):
+    """The optimizer's SR sync at ``evoformer_base``: every leaf in one
+    table launch, bit for bit the per-leaf plain version under each
+    leaf's seed; its time beside the bytes bound and beside the old
+    design, one single-entry launch a leaf over the same leaves, both
+    measured here (device time by the profiler, the call's whole time
+    by CUDA events)."""
+    from unicore_tpu_torch.ops import prng
+    from unicore_tpu_torch.ops import rounding as sr
+
+    sizes = evoformer_leaf_sizes()
+    gen = torch.Generator(device="cuda").manual_seed(688)
+    xs = [torch.randn(n, generator=gen, device="cuda") for n in sizes]
+    xs[0][:4] = torch.tensor([float("nan"), float("inf"), -float("inf"),
+                              -0.0], device="cuda")
+    seeds = prng.draw_seeds(gen, (len(sizes),))
+    outs = [torch.empty(n, dtype=torch.bfloat16, device="cuda")
+            for n in sizes]
+    before = sr.launches["fp32_to_bf16_sr"]
+    sr.fp32_to_bf16_sr_multi(xs, seeds, outs)
+    table_launches = sr.launches["fp32_to_bf16_sr"] - before
+    want = [torch.empty_like(o) for o in outs]
+    sr.fp32_to_bf16_sr_multi_plain(xs, seeds, want)
+    torch.cuda.synchronize()
+    diff = sum(int((a.view(torch.int16) != b.view(torch.int16)).sum())
+               for a, b in zip(outs, want))
+    if diff:
+        raise AssertionError(f"rounding table: {diff} elements differ from "
+                             "the per-leaf plain version")
+
+    def table():
+        sr.fp32_to_bf16_sr_multi(xs, seeds, outs)
+
+    def per_leaf():
+        for i, (x, out) in enumerate(zip(xs, outs)):
+            sr.fp32_to_bf16_sr_cuda(x, seeds[i:i + 1], out)
+
+    def device_ms(fn, launches, iters):
+        """Device time of the kernel's ``launches`` in one call of fn."""
+        return launches * kernel_times_ms(fn, flush, ("fp32_to_bf16_sr",),
+                                          iters)["fp32_to_bf16_sr"]
+
+    n = sum(sizes)
+    return {
+        "leaves": len(sizes), "n": n, "mismatches": diff,
+        "launches_per_call": table_launches,
+        "ms": device_ms(table, table_launches, 20),
+        "bound_ms": 6 * n / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "per_leaf_launches_ms": device_ms(per_leaf, len(sizes), 3),
+        "call_ms": time_ms(table, flush, iters=20),
+        "per_leaf_call_ms": time_ms(per_leaf, flush, iters=3),
+        "plain_ms": time_ms(lambda: sr.fp32_to_bf16_sr_multi_plain(
+            xs, seeds, want), flush, iters=2),
+        "library_ms": None,
+    }
+
+
+HEAD_N, HEAD_D, HEAD_V = 2048, 768, 30522
+
+
+def head_phase(flush):
+    """The BERT masked-LM head at ``bert_base``'s shape under ``--bf16``
+    (2,048 slots, width 768, tied [30,522, 768] embedding, a bias): the
+    chunked cross-entropy forms each chunk's logits and dk as an fp32
+    product of the bf16 operands.  Reports the kernels that product ran
+    on the card, checks the per-row nll within 1e-3 nats of the fp32
+    product of the same values (TF32 off), and times the head's forward
+    and backward beside the same head with each product rounded to bf16
+    first (the head before that repair)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from unicore_tpu_torch.ops import fused_cross_entropy as fce
+
+    gen = torch.Generator(device="cuda").manual_seed(HEAD_V)
+    f = torch.randn((HEAD_N, HEAD_D), generator=gen,
+                    device="cuda").bfloat16()
+    k = (0.05 * torch.randn((HEAD_V, HEAD_D), generator=gen,
+                            device="cuda")).bfloat16()
+    b = (0.1 * torch.randn(HEAD_V, generator=gen, device="cuda")).bfloat16()
+    t = torch.randint(0, HEAD_V, (HEAD_N,), generator=gen, device="cuda")
+    w = (torch.rand(HEAD_N, generator=gen, device="cuda") < 0.6).float()
+    chunk = fce._resolve_chunk(HEAD_N, HEAD_V)
+    if chunk is None:
+        raise AssertionError("the BERT head must take the chunked path")
+    params = [a.requires_grad_() for a in (f, k, b)]
+
+    def head():
+        nll = fce.fused_linear_cross_entropy(f, k, t, bias=b, tied=True)
+        return (nll, *torch.autograd.grad((nll * w).sum(), params))
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        product = fce.mm32(f[:chunk].detach(), k.detach().t())
+        torch.cuda.synchronize()
+    kernels = sorted({e.key[:100] for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA})
+    if product.dtype != torch.float32:
+        raise AssertionError(f"mm32 gave {product.dtype}")
+    nll = head()[0].detach()
+    logits = f.detach().float() @ k.detach().float().t() + b.detach().float()
+    want = torch.logsumexp(logits, -1) - logits.gather(-1, t[:, None])[:, 0]
+    err = float((nll - want).abs().max())
+    if not (torch.isfinite(nll).all() and err <= 1e-3):
+        raise AssertionError(f"head nll off the fp32 product by {err}")
+    report = {"rows": HEAD_N, "width": HEAD_D, "vocab": HEAD_V,
+              "chunk": chunk, "product": "torch.mm(out_dtype=torch.float32)",
+              "product_kernels": kernels, "max_abs_err_nll": err,
+              "fwd_bwd_ms": time_ms(head, flush, iters=10)}
+    mm32 = fce.mm32
+    fce.mm32 = lambda a, c: (a @ c).float()  # rounded to bf16 first
+    try:
+        report["rounded_products_fwd_bwd_ms"] = time_ms(head, flush,
+                                                        iters=10)
+    finally:
+        fce.mm32 = mm32
+    return report
 
 
 def write_corpus(path, rng):
@@ -847,6 +1075,7 @@ def train_phase():
     from unicore_tpu_torch import trainer as trainer_mod
     from unicore_tpu_torch.cli.train import cli_main
     from unicore_tpu_torch.ops import flash_attention as fa
+    from unicore_tpu_torch.ops import softmax_dropout as sd
 
     here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as tmp:
@@ -866,8 +1095,9 @@ def train_phase():
             return out
 
         trainer_mod.Trainer.train_step = timed
-        for name in fa.launches:
-            fa.launches[name] = 0
+        for counts in (fa.launches, sd.plain_route):
+            for name in counts:
+                counts[name] = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         try:
@@ -890,6 +1120,9 @@ def train_phase():
             trainer_mod.Trainer.train_step = train_step
         run_s = time.perf_counter() - t0
         launches = dict(fa.launches)
+        if any(sd.plain_route.values()):
+            raise AssertionError(f"softmax_dropout took the plain route on "
+                                 f"the card: {sd.plain_route}")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         with open(os.path.join(logdir, "train_inner.jsonl")) as f:
             records = [json.loads(line) for line in f]
@@ -981,7 +1214,8 @@ def evoformer_train_phase():
             return out
 
         trainer_mod.Trainer.train_step = timed
-        for counts in (fa.launches, sd.launches, sr.launches):
+        for counts in (fa.launches, sd.launches, sd.plain_route,
+                       sr.launches):
             for name in counts:
                 counts[name] = 0
         torch.cuda.reset_peak_memory_stats()
@@ -1007,21 +1241,31 @@ def evoformer_train_phase():
             trainer_mod.Trainer.train_step = train_step
         run_s = time.perf_counter() - t0
         launches = {**sd.launches, **sr.launches,
-                    "flash": sum(fa.launches.values())}
+                    "flash": sum(fa.launches.values()),
+                    "softmax_dropout_plain_route": sum(
+                        sd.plain_route.values())}
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         with open(os.path.join(logdir, "train_inner.jsonl")) as f:
             losses = [json.loads(line)["loss"] for line in f]
         trainer = loop.trainer
         blocks = trainer.model.evoformer_layers
-        leaves = len(list(trainer.model.parameters()))
+        sizes = [p.numel() for p in trainer.model.parameters()]
+        leaves = len(sizes)
+        if sizes != evoformer_leaf_sizes():
+            raise AssertionError("the trainer's leaves are not the rounding "
+                                 "phase's table")
         if len(losses) != EVO_UPDATES or not np.isfinite(losses).all():
             raise AssertionError(f"losses {losses}")
         if not np.mean(losses[-3:]) < losses[0]:
             raise AssertionError(f"loss did not fall: {losses}")
+        cap = sr.capacity()
         want = {"softmax_dropout_fwd": 4 * blocks * EVO_UPDATES,
                 "softmax_dropout_bwd": 4 * blocks * EVO_UPDATES,
-                # the SR sync of every leaf, and both moments of every leaf
-                "fp32_to_bf16_sr": 3 * leaves * EVO_UPDATES, "flash": 0}
+                # a table launch per capacity's worth of entries: the SR
+                # sync of every leaf, then both moments of every leaf
+                "fp32_to_bf16_sr": (-(-leaves // cap) + -(-2 * leaves // cap))
+                * EVO_UPDATES,
+                "flash": 0, "softmax_dropout_plain_route": 0}
         if launches != want:
             raise AssertionError(f"launches {launches}, want {want}")
         med_s = float(np.median(step_s[2:]))
@@ -1086,6 +1330,7 @@ def flash_row(row, name, replaces, case, launches):
         "library_ms": case["sdpa_fwd_ms"] if fwd else None,
         "sdpa_fwd_bwd_ms": case["sdpa_fwd_bwd_ms"],
         "sdpa_backend": case["sdpa_backend"],
+        "sdpa_other": case["sdpa_other"],
         "tflops": kern["tflops"], "shape": case["shape"],
     }
     if not fwd:  # the row's whole backward: every kernel beside one bound
@@ -1157,16 +1402,18 @@ def kernels_line(cases, serve_launches, flash, multiblock, train_launches,
                 "library_ms": r[f"library_{kind}_ms"]}
                 for dt, by_case in sd.items() for case, r in by_case.items()},
         })
-    leaf = sr["leaf_262144"]
+    # the SR sync of every evoformer_base leaf in one table launch
+    table = sr["table"]
     rows.append({
         "row": 11, "name": "fp32_to_bf16_sr", "route": "cuda",
         "source": "unicore_tpu_torch/csrc/rounding.cu",
         "replaces": PALLAS + "rounding.py:34",
         "launches": evo_launches["fp32_to_bf16_sr"],
         "max_abs_err": 0.0,  # bit for bit (the phase raises otherwise)
-        "ms": leaf["ms"], "plain_ms": leaf["plain_ms"],
-        "bound_ms": leaf["bound_ms"], "bound_by": "bytes",
-        "library_ms": None, "cases": sr,
+        "ms": table["ms"], "plain_ms": table["plain_ms"],
+        "bound_ms": table["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "per_leaf_launches_ms": table["per_leaf_launches_ms"], "cases": sr,
     })
     return rows
 
@@ -1197,7 +1444,9 @@ def main():
     torch.cuda.empty_cache()
     flash = flash_phase(flush)
     multiblock = flash_multiblock_phase(flush)
+    emit("head", **head_phase(flush))
     sd = softmax_dropout_phase(flush)
+    emit("softmax_dropout_route", **softmax_dropout_route_case(flush))
     sr = rounding_phase(flush)
     del flush
     torch.cuda.empty_cache()

@@ -222,3 +222,58 @@ def test_dropout_rate_and_scale_match_reference(rate):
     assert abs(float((want > 0).mean()) - q / 256) < 0.005
     with pytest.raises(ValueError, match="not representable"):
         dropout(x, 1e-4, None, strict=True)
+
+
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("path", ["chunked", "unfused"])
+def test_bf16_head_rounds_where_the_reference_rounds(path, tied):
+    """bf16 [512, 256] features against a [256, 4096] kernel (or its tied
+    [4096, 256] transpose) with a bias: the per-row nll within 1e-3 nats
+    of the reference's own function — chunks of 128 with fp32 logits and
+    an fp32 weight gradient (``_chunked_nll``), or the unfused head's
+    bf16 logits with the bias added in bf16 (``linear_nll_reference``).
+    Grads under a per-row cotangent, each bf16, within 1e-2 of each
+    tensor's max (a bf16 ulp there is 7.8e-3 of it): both sides form the
+    same products and sums in another order, and round d(logits) and
+    each grad to bf16, where an fp32 last bit may cross a boundary.  The
+    unfused bias's within 2e-2: there the reference sums 512 rows of bf16
+    d(logits) in XLA's bf16 reduction, off the exact sum by up to 1.1% of
+    its max at these inputs, where torch accumulates in fp32 and rounds
+    once (0.2% off)."""
+    from unicore_tpu.ops import fused_cross_entropy as jfce
+    from unicore_tpu_torch.ops import fused_cross_entropy as fce
+
+    rng = np.random.RandomState(4096 + tied)
+    n, d, v, chunk = 512, 256, 4096, 128
+    f = rng.randn(n, d).astype(np.float32)
+    k = (0.2 * rng.randn(*((v, d) if tied else (d, v)))).astype(np.float32)
+    b = rng.randn(v).astype(np.float32)
+    t = rng.randint(0, v, n).astype(np.int32)
+    g = rng.rand(n).astype(np.float32)
+
+    def jax_head(f, k, b):
+        if path == "chunked":
+            return jfce._chunked_nll(chunk, tied, f, k, b, jnp.asarray(t))
+        return jfce.linear_nll_reference(f, k, jnp.asarray(t), bias=b,
+                                         tied=tied)
+
+    jargs = [jnp.asarray(a, jnp.bfloat16) for a in (f, k, b)]
+    want, vjp = jax.vjp(jax_head, *jargs)
+    want_grads = vjp(jnp.asarray(g))
+    targs = [torch.from_numpy(a).bfloat16().requires_grad_()
+             for a in (f, k, b)]
+    got = fce.fused_linear_cross_entropy(
+        targs[0], targs[1], torch.from_numpy(t), bias=targs[2], tied=tied,
+        chunk_size=chunk if path == "chunked" else None)
+    if path == "unfused":  # 512 x 4096 fp32 logits: under the fuse size
+        assert fce._resolve_chunk(n, v) is None
+    got.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=0, atol=1e-3)
+    for name, a, w in zip(("features", "kernel", "bias"), targs,
+                          want_grads):
+        w = np.asarray(w.astype(jnp.float32))
+        assert a.grad.dtype == torch.bfloat16
+        tol = 2e-2 if (path, name) == ("unfused", "bias") else 1e-2
+        np.testing.assert_allclose(a.grad.float().numpy(), w, rtol=0,
+                                   atol=tol * np.abs(w).max(), err_msg=name)

@@ -331,6 +331,71 @@ def test_bf16_sr_trajectory_near_jax_trainer():
     assert all(m.dtype == torch.bfloat16 for m in trainer.optimizer.exp_avg)
 
 
+@torch.no_grad()
+def per_leaf_sync(master, model, generator=None):
+    """The SR sync as one launch a leaf (the design before the
+    multi-tensor launch), kept as the trajectory's pin."""
+    from unicore_tpu_torch.ops.prng import draw_seeds
+    from unicore_tpu_torch.ops.rounding import fp32_to_bf16_sr
+
+    if generator is None or not model or model[0].dtype != torch.bfloat16:
+        torch._foreach_copy_(model, master)
+        return
+    seeds = draw_seeds(generator, (len(master),))
+    for i, (m, c) in enumerate(zip(master, model)):
+        fp32_to_bf16_sr(m, seeds[i], out=c)
+
+
+def per_leaf_moments(self, m, v, generator):
+    """Adam's bf16 moment stores as two launches a leaf, as above."""
+    from unicore_tpu_torch.ops.prng import draw_seeds
+    from unicore_tpu_torch.ops.rounding import fp32_to_bf16_sr
+
+    seeds = draw_seeds(generator, (len(self.params), 2))
+    for i in range(len(self.params)):
+        for j, (new, old) in enumerate(((m[i], self.exp_avg[i]),
+                                        (v[i], self.exp_avg_sq[i]))):
+            fp32_to_bf16_sr(new, seeds[i, j], out=old)
+
+
+def test_multi_tensor_sr_keeps_the_per_leaf_trajectory(monkeypatch):
+    """``--bf16 --bf16-sr --optim-bf16-moments``: the SR sync and the
+    moment stores as one multi-tensor call each give, bit for bit, the
+    losses, master weights, compute copy and moments of the per-leaf
+    calls over 3 updates from the same weights and batches."""
+    from unicore_tpu_torch.logging import metrics
+    from unicore_tpu_torch.optim.adam import UnicoreAdam
+    from unicore_tpu_torch.tasks import UnicoreTask
+
+    args = make_args(bf16=True, bf16_sr=True, optim_bf16_moments=True)
+    batches = make_batches(6)
+    runs = []
+    for per_leaf in (False, True):
+        with monkeypatch.context() as mp:
+            if per_leaf:
+                mp.setattr(port_trainer, "sync_master_to_model",
+                           per_leaf_sync)
+                mp.setattr(UnicoreAdam, "_store_moments", per_leaf_moments)
+            torch.manual_seed(0)
+            task = UnicoreTask(args)
+            trainer = port_trainer.Trainer(
+                args, task, EvoformerModel(8, 8, **TINY),
+                EvoformerMSELoss(task), device="cpu")
+            metrics.reset()
+            losses = [float(trainer.train_step(batches[2 * u:2 * u + 2])[0][
+                "loss"]) for u in range(3)]
+            opt = trainer.optimizer
+            runs.append((losses, [t.detach().clone() for t in (
+                *trainer.model.parameters(),
+                *trainer.compute_model.parameters(), *opt.exp_avg,
+                *opt.exp_avg_sq)]))
+    (got, got_t), (want, want_t) = runs
+    assert got == want and np.isfinite(got).all()
+    assert len(got_t) == len(want_t)
+    for a, b in zip(got_t, want_t):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 def test_sr_sync_draws_fresh_seeds_each_micro_batch():
     """Under --bf16-sr the compute copy is re-rounded before every
     micro-batch: two syncs of the same master weights differ."""

@@ -170,3 +170,70 @@ def test_layer_norm_matches_reference(rng):
     want = np.asarray(layer_norm_reference(
         jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), eps=1e-5))
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+def bf16_ulp(a):
+    """One bf16 ulp at each value of ``a`` (fp32 numpy)."""
+    mag = np.maximum(np.abs(a), np.float32(2.0 ** -126))
+    return np.exp2(np.floor(np.log2(mag)) - 7).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape", [(64, 768), (256, 128)])
+def test_layer_norm_bf16_rounds_where_the_reference_rounds(shape):
+    """bf16 x: the normalized value rounded to bf16, then the affine in
+    bf16, as ``layer_norm_reference`` computes it — every element within
+    one bf16 ulp of the reference's (the fp32 statistics sum in another
+    order, so the normalized value may round across one boundary)."""
+    from unicore_tpu.ops.layer_norm import layer_norm_reference
+    from unicore_tpu_torch.modules import LayerNorm
+
+    rng = np.random.RandomState(shape[0])
+    x = torch.from_numpy((1.5 + 3.0 * rng.randn(*shape)).astype(
+        np.float32)).bfloat16()
+    w = (1.0 + 0.5 * rng.randn(shape[1])).astype(np.float32)
+    b = (0.5 * rng.randn(shape[1])).astype(np.float32)
+    ln = LayerNorm(shape[1])
+    with torch.no_grad():
+        ln.weight.copy_(torch.from_numpy(w))
+        ln.bias.copy_(torch.from_numpy(b))
+        got = ln(x)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    want = np.asarray(layer_norm_reference(
+        jnp.asarray(x.float().numpy(), jnp.bfloat16), jnp.asarray(w),
+        jnp.asarray(b), eps=1e-5).astype(jnp.float32))
+    assert (np.abs(got - want) <= bf16_ulp(want)).all()
+
+
+def test_flax_layer_norm_keeps_flax_rounding():
+    """The Evoformer's LayerNorm (``flax_layer_norm``) is flax's: on bf16
+    x the affine runs in fp32 and rounds once — bit for bit the port's
+    fp32-affine formula, within one bf16 ulp of flax's own fp32 output,
+    and unlike the reference LayerNorm's bf16 affine."""
+    import flax.linen as fnn
+
+    from unicore_tpu_torch.modules import LayerNorm
+    from unicore_tpu_torch.modules.triangle_attention import (
+        FLAX_LN_EPS, flax_layer_norm)
+
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy((1.5 + 3.0 * rng.randn(256, 128)).astype(
+        np.float32)).bfloat16()
+    w = (1.0 + 0.5 * rng.randn(128)).astype(np.float32)
+    b = (0.5 * rng.randn(128)).astype(np.float32)
+    ln, ref_ln = flax_layer_norm(128), LayerNorm(128, eps=FLAX_LN_EPS)
+    with torch.no_grad():
+        for m in (ln, ref_ln):
+            m.weight.copy_(torch.from_numpy(w))
+            m.bias.copy_(torch.from_numpy(b))
+        got, other = ln(x), ref_ln(x)
+    pinned = torch.nn.functional.layer_norm(
+        x.float(), (128,), torch.from_numpy(w), torch.from_numpy(b),
+        FLAX_LN_EPS).bfloat16()
+    assert torch.equal(got.view(torch.int16), pinned.view(torch.int16))
+    assert not torch.equal(got, other)
+    flax_out = np.asarray(fnn.LayerNorm(epsilon=FLAX_LN_EPS).apply(
+        {"params": {"scale": jnp.asarray(w), "bias": jnp.asarray(b)}},
+        jnp.asarray(x.float().numpy(), jnp.bfloat16)).astype(jnp.float32))
+    assert (np.abs(got.float().numpy() - flax_out)
+            <= bf16_ulp(flax_out)).all()

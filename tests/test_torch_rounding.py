@@ -98,6 +98,44 @@ def test_out_argument_and_mean_is_unbiased():
     assert abs(float(vals.double().mean()) - (1.0 + 2 ** -9)) < 4 * sigma
 
 
+# ragged leaves: (elements, seed); r_blk 8 but for 262,144 (256)
+RAGGED = ((1, -1), (7, 2 ** 31 - 2), (1023, -2 ** 31), (1025, 17),
+          (262_144, -987_654), (1_000_003, 123_456_789))
+
+
+def ragged_leaves():
+    """fp32 leaves of the RAGGED sizes, NaN, ±Inf and ±0 at each one's
+    start, and their int32 seeds."""
+    xs = []
+    for k, (n, _) in enumerate(RAGGED):
+        x = make_values(n, 100 + k)
+        x[:6] = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, -np.nan],
+                         np.float32)[:n]
+        xs.append(torch.from_numpy(x))
+    return xs, torch.tensor([s for _, s in RAGGED], dtype=torch.int32)
+
+
+def test_multi_plain_equals_jax_kernel_per_leaf(monkeypatch):
+    """One table of ragged leaves, negative seeds included, rounds each
+    leaf bit for bit as the JAX Pallas kernel (interpret mode) rounds it
+    alone under that leaf's seed (handed to the JAX function in place of
+    the seed it would draw from its key)."""
+    import jax
+    import jax.numpy as jnp
+
+    from unicore_tpu.ops.pallas import rounding as jr
+
+    xs, seeds = ragged_leaves()
+    outs = [torch.empty(x.shape, dtype=torch.bfloat16) for x in xs]
+    assert rounding.fp32_to_bf16_sr_multi(xs, seeds, outs) is outs
+    for x, seed, out in zip(xs, seeds.tolist(), outs):
+        monkeypatch.setattr(jax.random, "randint", lambda *a, s=seed, **k:
+                            jnp.array([s], jnp.int32))
+        want = np.asarray(jr.fp32_to_bf16_sr(jnp.asarray(x.numpy()), None))
+        np.testing.assert_array_equal(out.view(torch.int16).numpy(),
+                                      want.view(np.int16))
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -117,3 +155,53 @@ def test_kernel_equals_plain_on_card(cuda, name):
     assert rounding.launches["fp32_to_bf16_sr"] == before + 1
     want = rounding.fp32_to_bf16_sr_plain(x, seed)
     assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aligned", [True, False])
+def test_table_kernel_equals_per_leaf_plain_on_card(cuda, aligned):
+    """The ragged leaves in one launch, bit for bit the per-leaf plain
+    version; unaligned views (4 bytes off) take the kernel's element by
+    element path."""
+    xs, seeds = ragged_leaves()
+    off = 0 if aligned else 1
+
+    def on_card(n, dtype):
+        return torch.empty(n + off, dtype=dtype, device=cuda)[off:]
+
+    dev = [on_card(x.numel(), torch.float32).copy_(x) for x in xs]
+    outs = [on_card(x.numel(), torch.bfloat16) for x in xs]
+    before = rounding.launches["fp32_to_bf16_sr"]
+    rounding.fp32_to_bf16_sr_multi(dev, seeds.to(cuda), outs)
+    torch.cuda.synchronize()
+    assert rounding.launches["fp32_to_bf16_sr"] == before + 1
+    for x, seed, out in zip(xs, seeds, outs):
+        want = rounding.fp32_to_bf16_sr_plain(x, seed)
+        assert torch.equal(out.cpu().view(torch.int16),
+                           want.view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_table_of_many_chunks_on_card(cuda):
+    """More entries than one launch takes: one launch per capacity's
+    worth, every leaf bit for bit the per-leaf plain version, an empty
+    leaf skipped."""
+    rng = np.random.RandomState(7)
+    n_leaves = 2 * rounding.capacity() + 5
+    sizes = rng.randint(1, 3000, size=n_leaves)
+    sizes[3] = 0
+    xs = [torch.from_numpy(make_values(int(n), k)) for k, n in
+          enumerate(sizes)]
+    seeds = torch.from_numpy(rng.randint(-2 ** 31, 2 ** 31 - 1,
+                                         size=n_leaves).astype(np.int32))
+    outs = [torch.empty(x.shape, dtype=torch.bfloat16, device=cuda)
+            for x in xs]
+    before = rounding.launches["fp32_to_bf16_sr"]
+    rounding.fp32_to_bf16_sr_multi([x.to(cuda) for x in xs], seeds.to(cuda),
+                                   outs)
+    torch.cuda.synchronize()
+    assert rounding.launches["fp32_to_bf16_sr"] == before + 3
+    for x, seed, out in zip(xs, seeds, outs):
+        want = rounding.fp32_to_bf16_sr_plain(x, seed)
+        assert torch.equal(out.cpu().view(torch.int16),
+                           want.view(torch.int16))

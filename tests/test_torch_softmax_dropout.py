@@ -143,6 +143,63 @@ def test_eligibility_copies_the_reference():
             jnp.zeros(xs), *ops), xs
 
 
+ROUTE_OPS = {  # (mask shape, bias shape) for x [..., 16, k]
+    "none": lambda lead, k: (None, None),
+    "mask_bias": lambda lead, k: ((*lead[:1], *(1,) * (len(lead) - 1), 1, k),
+                                  ((1, *lead[1:]) if lead else ()) + (16, k)),
+    "mask_over_k": lambda lead, k: ((*lead, 1, 1), None),
+    "bias_over_k": lambda lead, k: (None, (1, 16, 1)),
+}
+
+
+@pytest.mark.parametrize("ndim", [2, 3, 4, 5, 6])
+@pytest.mark.parametrize("k", [128, 200, 256, 8192, 8320])
+def test_route_is_the_reference_dispatch(k, ndim):
+    """``route`` sends a shape to the kernels exactly where the JAX
+    package's ``_pallas_eligible`` takes its Pallas kernel, for k on and
+    off the grid, operands broadcast over k or not, and 2-D to 6-D x."""
+    import jax.numpy as jnp
+
+    from unicore_tpu.ops.softmax_dropout import _pallas_eligible
+
+    lead = (2, 3, 2, 2)[:ndim - 2]
+    for name, ops in ROUTE_OPS.items():
+        shapes = ops(lead, k)
+        x = (*lead, 16, k)
+        want = _pallas_eligible(jnp.zeros(x), *(
+            None if s is None else jnp.zeros(s) for s in shapes))
+        got = sd.route(torch.zeros(x), *(
+            None if s is None else torch.zeros(s) for s in shapes))
+        assert got == ("kernel" if want else "plain"), (name, x, shapes)
+
+
+@pytest.mark.parametrize("x_shape,mask_shape,bias_shape", [
+    ((2, 2, 3, 2, 16, 128), (2, 1, 3, 1, 1, 128), (1, 2, 1, 2, 16, 128)),
+    ((2, 2, 3, 2, 16, 128), (2, 2, 1, 2, 1, 128), None),
+    ((2, 1, 3, 2, 16, 128), (1, 1, 16, 128), (2, 1, 3, 1, 16, 128)),
+])
+def test_fold_lead_keeps_rows_and_dropout_bits(x_shape, mask_shape,
+                                               bias_shape):
+    """The kernels take at most five dims; a 6-D x folds its lead dims
+    row-major (a size-1 dim first; operands broadcast over one dim of a
+    folded pair but not the other are expanded), so the plain forward of
+    the folded operands is the plain forward of the originals, dropout
+    bits included, bit for bit."""
+    rng = np.random.RandomState(len(mask_shape))
+    x, mask, bias = (None if s is None else torch.from_numpy(
+        rng.randn(*s).astype(np.float32))
+        for s in (x_shape, mask_shape, bias_shape))
+    seed = torch.tensor([-31], dtype=torch.int32)
+    q_blk = sd.pick_q_blk_for(x, mask, bias)
+    folded = sd.fold_lead(x, mask, bias)
+    assert folded[0].dim() <= sd.MAX_KERNEL_DIMS
+    want = sd.softmax_dropout_fwd_plain(x, mask, bias, 0.1, seed, q_blk, True)
+    got = sd.softmax_dropout_fwd_plain(*folded, 0.1, seed, q_blk, True)
+    assert (got[0] == 0).any()
+    for g, w in zip(got, want):
+        assert torch.equal(g.reshape(w.shape), w)
+
+
 def test_keep_mask_follows_the_program_grid():
     """Rows of q_blk share one program; the program id runs over (lead
     dims..., row block), and the index is block-local."""
@@ -316,10 +373,67 @@ def test_forward_matches_plain_on_card(cuda, k, dtype):
         torch.testing.assert_close(g, w, rtol=0, atol=tol)
 
 
+def off_grid_case(k, dtype):
+    """A 4-D attention call at key width k: x, a [b, 1, 1, k] mask and a
+    [1, h, q, k] bias (fp32 numpy), and the loss weights."""
+    rng = np.random.RandomState(k)
+    x = rng.randn(2, 3, 24, k).astype(np.float32)
+    mask = ((rng.rand(2, 1, 1, k) > 0.2).astype(np.float32) - 1.0) * 1e4
+    bias = rng.randn(1, 3, 24, k).astype(np.float32)
+    if dtype == "bfloat16":
+        x, bias = (torch.from_numpy(a).bfloat16().float().numpy()
+                   for a in (x, bias))
+    return x, mask, bias, rng.randn(2, 3, 24, k).astype(np.float32)
+
+
 @pytest.mark.gpu
-def test_ineligible_shapes_raise_on_card(cuda):
-    with pytest.raises(NotImplementedError, match="multiple of 128"):
-        sd.softmax_dropout(torch.zeros(2, 8, 100, device=cuda), 0.0)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("k,path", [(200, "plain"), (256, "kernel")])
+def test_route_decides_on_card(cuda, k, path, dtype):
+    """k = 200 is off the kernels' grid, where the reference runs its jnp
+    path: forward and backward run the plain version on the card, counted
+    in ``plain_route`` and not in ``launches``, equal to the plain version
+    on the CPU (fp32 within 1e-6, bf16 within 1e-2 of each tensor's max:
+    the same ops on another device).  k = 256 still launches both
+    kernels."""
+    case = off_grid_case(k, dtype)
+    assert sd.route(*(torch.from_numpy(a) for a in case[:3])) == path
+    before = dict(sd.launches), dict(sd.plain_route)
+    got = port_run(case, dtype, 0.1, 4321, cuda)
+    torch.cuda.synchronize()
+    ran = {name: (sd.launches[name] - before[0][name],
+                  sd.plain_route[name] - before[1][name])
+           for name in sd.launches}
+    one = (1, 0) if path == "kernel" else (0, 1)
+    assert ran == {"softmax_dropout_fwd": one, "softmax_dropout_bwd": one}
+    want = port_run(case, dtype, 0.1, 4321)
+    np.testing.assert_array_equal(got[0] == 0, want[0] == 0)
+    for g, w in zip(got, want):
+        tol = (1e-6 if path == "plain" else 1e-5) if dtype == "float32" \
+            else (1e-2 if path == "plain" else 2e-2) * np.abs(w).max()
+        np.testing.assert_allclose(g, w, rtol=0, atol=tol)
+
+
+@pytest.mark.gpu
+def test_six_dim_x_launches_the_kernels_on_card(cuda):
+    """A 6-D x, eligible as the reference's kernel takes any rank, folds
+    into the kernels' five dims and launches them: equal keep pattern and
+    within 1e-5 of the plain version, fp32."""
+    rng = np.random.RandomState(6)
+    x = rng.randn(2, 2, 3, 2, 16, 128).astype(np.float32)
+    mask = ((rng.rand(2, 1, 3, 1, 1, 128) > 0.2).astype(np.float32)
+            - 1.0) * 1e4
+    bias = rng.randn(1, 2, 1, 2, 16, 128).astype(np.float32)
+    w = rng.randn(*x.shape).astype(np.float32)
+    before = dict(sd.launches)
+    got = port_run((x, mask, bias, w), "float32", 0.1, 99, cuda)
+    torch.cuda.synchronize()
+    assert {n: sd.launches[n] - before[n] for n in before} == {
+        "softmax_dropout_fwd": 1, "softmax_dropout_bwd": 1}
+    want = port_run((x, mask, bias, w), "float32", 0.1, 99)
+    np.testing.assert_array_equal(got[0] == 0, want[0] == 0)
+    for g, w_ in zip(got, want):
+        np.testing.assert_allclose(g, w_, rtol=0, atol=1e-5)
 
 
 @pytest.mark.gpu

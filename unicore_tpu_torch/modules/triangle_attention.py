@@ -22,7 +22,7 @@ from torch import nn
 
 from ..ops import flash_attention as fa
 from ..ops.softmax_dropout import softmax_dropout
-from .layer_norm import LayerNorm
+from .layer_norm import FlaxLayerNorm, LayerNorm
 
 FLAX_LN_EPS = 1e-6
 
@@ -49,7 +49,7 @@ class Dense(nn.Linear):
 
 
 def flax_layer_norm(dim):
-    return LayerNorm(dim, eps=FLAX_LN_EPS)
+    return FlaxLayerNorm(dim, eps=FLAX_LN_EPS)
 
 
 def reset_evoformer_parameters(module, generator):

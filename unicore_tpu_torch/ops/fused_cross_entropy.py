@@ -9,9 +9,14 @@ gradients in fp32 while d(features) streams out per chunk.  Peak head
 memory drops from O(N·V) to O(chunk·V + V·D).
 
 The JAX package has no Pallas kernel here (XLA fuses it), so the port is
-plain PyTorch: matmuls run in the operands' dtype (bf16 logits under
-``--bf16``, as the reference's unfused path) and every reduction in fp32.
-Callers weight the returned nll themselves (``sum(nll * w)``).
+plain PyTorch and rounds where the reference rounds.  The unfused path
+(:func:`linear_nll_reference`) forms bf16 logits under ``--bf16`` and
+adds the bias in bf16 before going to fp32.  The chunked path forms each
+chunk's logits, and each chunk's weight gradient, as an fp32 product of
+the compute-dtype operands (the reference's ``preferred_element_type=
+float32``) with the bias added in fp32; d(features) is a compute-dtype
+product, as there.  Every reduction runs in fp32.  Callers weight the
+returned nll themselves (``sum(nll * w)``).
 """
 
 import torch
@@ -32,9 +37,22 @@ def pick_chunk(rows, vocab):
     return max(MIN_CHUNK, min(c, 8192, max(rows, 1)))
 
 
-def _logits32(f, kernel, bias, tied):
-    logits = f @ (kernel.t() if tied else kernel)
-    logits = logits.float()
+def mm32(a, b):
+    """``a @ b`` of two 2-D operands of one dtype as an fp32 product whose
+    output is never rounded to the operands' dtype (the reference's
+    ``preferred_element_type=float32``): cuBLAS's fp32-output product on
+    the card, the fp32 upcast on the CPU (every bf16 value is exact in
+    fp32, so both are the product of the same values)."""
+    if a.dtype == torch.float32:
+        return a @ b
+    if a.device.type == "cuda":
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def _chunk_logits32(f_c, kernel_c, bias, tied):
+    """One chunk's fp32 logits (the reference's ``_chunk_logits32``)."""
+    logits = mm32(f_c, kernel_c.t() if tied else kernel_c)
     if bias is not None:
         logits = logits + bias.float()
     return logits
@@ -42,9 +60,13 @@ def _logits32(f, kernel, bias, tied):
 
 def linear_nll_reference(features, kernel, targets, bias=None, *,
                          tied=False):
-    """Unfused spec: materialized logits in the compute dtype, then fp32
-    ``logsumexp - picked``."""
-    logits32 = _logits32(features, kernel.to(features.dtype), bias, tied)
+    """Unfused spec: materialized logits in the compute dtype, the bias
+    added in the compute dtype, then fp32 ``logsumexp - picked``."""
+    kernel = kernel.to(features.dtype)
+    logits = features @ (kernel.t() if tied else kernel)
+    if bias is not None:
+        logits = logits + bias.to(logits.dtype)
+    logits32 = logits.float()
     lse = torch.logsumexp(logits32, dim=-1)
     picked = logits32.gather(-1, targets.long()[:, None])[:, 0]
     return lse - picked
@@ -57,7 +79,8 @@ class _ChunkedNLL(torch.autograd.Function):
         nll = torch.empty(features.shape[0], dtype=torch.float32,
                           device=features.device)
         for s in range(0, features.shape[0], chunk):
-            logits32 = _logits32(features[s:s + chunk], kernel_c, bias, tied)
+            logits32 = _chunk_logits32(features[s:s + chunk], kernel_c, bias,
+                                       tied)
             t = targets[s:s + chunk].long()
             nll[s:s + chunk] = (torch.logsumexp(logits32, dim=-1)
                                 - logits32.gather(-1, t[:, None])[:, 0])
@@ -78,20 +101,22 @@ class _ChunkedNLL(torch.autograd.Function):
         g = g.float()
         for s in range(0, features.shape[0], chunk):
             f_c = features[s:s + chunk]
-            logits32 = _logits32(f_c, kernel_c, bias, tied)
+            logits32 = _chunk_logits32(f_c, kernel_c, bias, tied)
             dlog32 = torch.softmax(logits32, dim=-1)
             rows = torch.arange(dlog32.shape[0], device=dlog32.device)
             dlog32[rows, targets[s:s + chunk].long()] -= 1.0
             dlog32 *= g[s:s + chunk, None]
             if db is not None:
                 db += dlog32.sum(dim=0)
+            # d(features) in the compute dtype; dk an fp32 product summed
+            # in fp32, as the reference's backward
             dlog = dlog32.to(f_c.dtype)
             if tied:
                 dfeatures[s:s + chunk] = dlog @ kernel_c
-                dk += (dlog.t() @ f_c).float()
+                dk += mm32(dlog.t(), f_c)
             else:
                 dfeatures[s:s + chunk] = dlog @ kernel_c.t()
-                dk += (f_c.t() @ dlog).float()
+                dk += mm32(f_c.t(), dlog)
         dbias = None if db is None else db.to(bias.dtype)
         return dfeatures, dk.to(kernel.dtype), dbias, None, None, None
 

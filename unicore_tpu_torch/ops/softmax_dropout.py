@@ -25,11 +25,17 @@ reference's row block (:func:`pick_q_blk_for`).  The backward recomputes
 the mask from the same seed instead of storing it.
 
 Dispatch is by the tensor's device: a CPU tensor takes the plain version
-(the tests' path), a CUDA tensor launches the kernels or raises
-(:class:`~unicore_tpu_torch.ops.build.KernelError`, or
-``NotImplementedError`` for a shape the JAX package's eligibility rule
-refuses).  There is no fallback from a kernel to the plain version.  The
-JAX package's autotuner, timed probe and "eager" crossover are TPU
+(the tests' path).  On a CUDA tensor :func:`route` decides from the
+shapes alone, before anything launches, with the JAX package's own rule
+(``_pallas_eligible``): a shape its dispatch sends to the Pallas kernel
+launches the CUDA kernels or raises
+(:class:`~unicore_tpu_torch.ops.build.KernelError`); a shape it sends to
+its jnp path (``softmax_dropout_reference``: k not a multiple of 128,
+k > 8192, an operand broadcast over k) runs the plain version as torch
+ops on the card, counted in :data:`plain_route`, never in
+:data:`launches`.  That is the reference's dispatch, not a fallback:
+nothing is caught, and a kernel that fails to build or launch raises.
+The JAX package's autotuner, timed probe and "eager" crossover are TPU
 dispatch and are not ported.
 """
 
@@ -46,6 +52,8 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 # launches per kernel, counted where each wrapper launches its kernel
 launches = {"softmax_dropout_fwd": 0, "softmax_dropout_bwd": 0}
+# calls on the card that :func:`route` sent to the plain version
+plain_route = {"softmax_dropout_fwd": 0, "softmax_dropout_bwd": 0}
 
 
 def pick_q_blk(q, k, n_streams=4, itemsize=4):
@@ -90,6 +98,47 @@ def eligible(x, mask, bias):
     if not (k % 128 == 0 and k <= MAX_K and x.dim() >= 2):
         return False
     return all(op is None or op.shape[-1] == k for op in (mask, bias))
+
+
+def route(x, mask, bias):
+    """``"kernel"`` where the JAX package's dispatch takes its Pallas
+    kernel (:func:`eligible`), else ``"plain"`` (its jnp path); a pure
+    function of the shapes, mask and bias canonicalized to x's rank."""
+    return "kernel" if eligible(x, mask, bias) else "plain"
+
+
+def fold_lead(x, mask, bias):
+    """x, mask and bias with x's lead dims folded until x has at most
+    ``MAX_KERNEL_DIMS`` dims.  Folding is row-major, so every row keeps
+    its program id and so its dropout bits; dims where x has size 1 go
+    first, then the pair of neighbours that the fewest operands broadcast
+    over one of but not the other (such an operand is expanded over the
+    pair, a copy)."""
+    mask, bias = canon(x, mask, bias)
+    keep = [d for d in range(x.dim() - 2) if x.shape[d] != 1]
+    if x.dim() > MAX_KERNEL_DIMS and len(keep) < x.dim() - 2:
+        def squeeze(a):
+            return None if a is None else a.reshape(
+                [a.shape[d] for d in keep] + list(a.shape[-2:]))
+        x, mask, bias = squeeze(x), squeeze(mask), squeeze(bias)
+    while x.dim() > MAX_KERNEL_DIMS:
+        def copies(i):
+            return sum(op is not None and (op.shape[i] == 1)
+                       != (op.shape[i + 1] == 1) for op in (mask, bias))
+
+        i = min(range(x.dim() - 3), key=copies)
+
+        def fold(a):
+            if a is None:
+                return None
+            shape = list(a.shape)
+            if shape[i] == shape[i + 1] == 1:
+                return a.reshape(shape[:i] + [1] + shape[i + 2:])
+            shape[i:i + 2] = x.shape[i:i + 2]
+            return a.expand(shape).reshape(
+                shape[:i] + [shape[i] * shape[i + 1]] + shape[i + 2:])
+        x, mask, bias = fold(x), fold(mask), fold(bias)
+    return x, mask, bias
 
 
 # ---------------------------------------------------------------- plain --
@@ -224,11 +273,11 @@ def _check(x, mask, bias, seed):
         if op is not None and op.device != x.device:
             raise ValueError(f"all operands must be on {x.device}, got one "
                              f"on {op.device}")
-    if not eligible(x, mask, bias) or x.dim() > MAX_KERNEL_DIMS:
-        raise NotImplementedError(
-            f"softmax_dropout on the card takes k a multiple of 128 up to "
-            f"{MAX_K}, no operand broadcast over k and at most "
-            f"{MAX_KERNEL_DIMS} dims; got x {tuple(x.shape)}, mask "
+    if route(x, mask, bias) != "kernel":
+        raise ValueError(
+            f"softmax_dropout kernels take k a multiple of 128 up to "
+            f"{MAX_K} and no operand broadcast over k (route() sends other "
+            f"shapes to the plain version); got x {tuple(x.shape)}, mask "
             f"{None if mask is None else tuple(mask.shape)}, bias "
             f"{None if bias is None else tuple(bias.shape)}")
 
@@ -254,9 +303,11 @@ def softmax_dropout_fwd_cuda(x, mask, bias, dropout_prob, seed, q_blk,
                              save_softmax):
     """Launch the forward kernel: ``(out, softmax or None)`` as
     :func:`softmax_dropout_fwd_plain`, the operands as
-    :func:`fwd_operands` gives them."""
+    :func:`fwd_operands` gives them, lead dims folded by
+    :func:`fold_lead`."""
     _check(x, mask, bias, seed)
-    x, sx, ops = fwd_operands(x, mask, bias)
+    shape = x.shape
+    x, sx, ops = fwd_operands(*fold_lead(x, mask, bias))
     x5 = _lead5(x.shape)
     q, k = x5[3], x5[4]
     rows = x.numel() // k
@@ -273,7 +324,7 @@ def softmax_dropout_fwd_cuda(x, mask, bias, dropout_prob, seed, q_blk,
     prm.out = out.data_ptr()
     prm.sm = sm.data_ptr() if sm is not None else None
     _launch("fwd", prm, x.dtype == torch.bfloat16, x.device)
-    return out, sm
+    return out.reshape(shape), None if sm is None else sm.reshape(shape)
 
 
 def softmax_dropout_bwd_cuda(g, sm, dropout_prob, seed, q_blk):
@@ -291,12 +342,19 @@ def softmax_dropout_bwd_cuda(g, sm, dropout_prob, seed, q_blk):
 
 # -------------------------------------------------------------- autograd --
 
-def _on(x, plain, cuda):
+def _path(x, mask, bias):
+    """``"cpu"`` for a CPU tensor, else the card's :func:`route`."""
     if x.device.type == "cpu":
-        return plain
+        return "cpu"
     if x.device.type == "cuda":
-        return cuda
+        return route(x, mask, bias)
     raise ValueError(f"softmax_dropout has no path for {x.device}")
+
+
+def _run(path, name, plain, cuda):
+    if path == "plain":
+        plain_route[f"softmax_dropout_{name}"] += 1
+    return cuda if path == "kernel" else plain
 
 
 def _reduce_to(dx, shape, dtype):
@@ -313,10 +371,12 @@ def _reduce_to(dx, shape, dtype):
 class _SoftmaxDropout(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mask, bias, dropout_prob, seed, q_blk, save):
-        fwd = _on(x, softmax_dropout_fwd_plain, softmax_dropout_fwd_cuda)
+        path = _path(x, mask, bias)
+        fwd = _run(path, "fwd", softmax_dropout_fwd_plain,
+                   softmax_dropout_fwd_cuda)
         out, sm = fwd(x, mask, bias, dropout_prob, seed, q_blk, save)
         ctx.save_for_backward(sm, seed)
-        ctx.args = (dropout_prob, q_blk,
+        ctx.args = (path, dropout_prob, q_blk,
                     None if mask is None else (mask.shape, mask.dtype),
                     None if bias is None else (bias.shape, bias.dtype))
         return out
@@ -327,8 +387,9 @@ class _SoftmaxDropout(torch.autograd.Function):
         if sm is None:
             raise RuntimeError("softmax_dropout: the forward ran without "
                                "grad mode and saved no softmax")
-        dropout_prob, q_blk, mask_meta, bias_meta = ctx.args
-        bwd = _on(sm, softmax_dropout_bwd_plain, softmax_dropout_bwd_cuda)
+        path, dropout_prob, q_blk, mask_meta, bias_meta = ctx.args
+        bwd = _run(path, "bwd", softmax_dropout_bwd_plain,
+                   softmax_dropout_bwd_cuda)
         dx = bwd(g, sm, dropout_prob, seed, q_blk)
         grads = [dx if ctx.needs_input_grad[0] else None]
         for i, meta in ((1, mask_meta), (2, bias_meta)):

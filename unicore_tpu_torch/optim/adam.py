@@ -9,9 +9,12 @@ With fp32 moments (the default) it runs as multi-tensor
 ``--optim-bf16-moments`` stores m and v in bf16: the update math still
 runs in fp32 (the moments upcast on entry, the step uses the fp32 m and
 v), and the new moments re-quantize by stochastic rounding
-(:func:`~unicore_tpu_torch.optim.fp16_optimizer.cast_moments`) under a
-distinct seed per (leaf, moment), drawn from the generator the trainer
-passes to :meth:`UnicoreAdam.step` — two rounding launches per leaf.
+under a distinct seed per (leaf, moment), drawn from the generator the
+trainer passes to :meth:`UnicoreAdam.step` — m and v of every leaf in
+one multi-tensor rounding call
+(:func:`~unicore_tpu_torch.ops.rounding.fp32_to_bf16_sr_multi`).
+``--optim-bf16-moments-rounding nearest`` rounds to nearest instead
+(:func:`~unicore_tpu_torch.optim.fp16_optimizer.cast_moments`).
 """
 
 import ast
@@ -20,6 +23,7 @@ import math
 import torch
 
 from ..ops.prng import draw_seeds
+from ..ops.rounding import fp32_to_bf16_sr_multi
 from . import register_optimizer
 from .fp16_optimizer import cast_moments
 from .unicore_optimizer import UnicoreOptimizer
@@ -81,17 +85,22 @@ class UnicoreAdam(UnicoreOptimizer):
             torch._foreach_mul_(self.params, 1.0 - lr * wd)
         torch._foreach_addcdiv_(self.params, m, denom,
                                 value=-lr * math.sqrt(bc2) / bc1)
-        if not store:
-            return
-        seeds = None
-        if self.moments_rounding == "sr":
-            if generator is None:
-                raise ValueError("bf16 moments with stochastic rounding "
-                                 "need a generator for their seeds")
-            seeds = draw_seeds(generator, (len(self.params), 2))
-        for i in range(len(self.params)):
-            for j, (new, old) in enumerate(((m[i], self.exp_avg[i]),
-                                            (v[i], self.exp_avg_sq[i]))):
+        if store:
+            self._store_moments(m, v, generator)
+
+    def _store_moments(self, m, v, generator):
+        """Round the fp32 moments ``m``, ``v`` into the bf16 stores: under
+        stochastic rounding, seed ``[i, j]`` for leaf i's m (j = 0) and v
+        (j = 1), every leaf in one call."""
+        if self.moments_rounding != "sr":
+            for new, old in zip(m + v, self.exp_avg + self.exp_avg_sq):
                 cast_moments(new, self.moments_dtype,
-                             seed=None if seeds is None else seeds[i, j],
                              rounding=self.moments_rounding, out=old)
+            return
+        if generator is None:
+            raise ValueError("bf16 moments with stochastic rounding "
+                             "need a generator for their seeds")
+        seeds = draw_seeds(generator, (len(self.params), 2))
+        fp32_to_bf16_sr_multi(
+            [t for pair in zip(m, v) for t in pair], seeds,
+            [t for pair in zip(self.exp_avg, self.exp_avg_sq) for t in pair])

@@ -3,11 +3,12 @@
 
 - :func:`sync_master_to_model` casts the fp32 master parameters into the
   bf16 compute copy, with stochastic rounding under ``--bf16-sr`` — one
-  seed per leaf, drawn on the card.  The JAX package applies the SR cast
-  inside the differentiated loss with a straight-through gradient; the
-  port casts the compute copy before the forward and folds the copy's
-  gradients into the master gradients as identity (the trainer's
-  ``_fold_compute_grads``), which is the same gradient.
+  seed per leaf, drawn on the card, every leaf in one kernel launch.
+  The JAX package applies the SR cast inside the differentiated loss
+  with a straight-through gradient; the port casts the compute copy
+  before the forward and folds the copy's gradients into the master
+  gradients as identity (the trainer's ``_fold_compute_grads``), which
+  is the same gradient.
 - :func:`cast_moments` casts one fp32 optimizer-moment leaf to its store
   type: stochastic rounding for bf16 by default (an unbiased EMA), or
   round-to-nearest when asked for explicitly.
@@ -16,7 +17,7 @@
 import torch
 
 from ..ops.prng import draw_seeds
-from ..ops.rounding import fp32_to_bf16_sr
+from ..ops.rounding import fp32_to_bf16_sr, fp32_to_bf16_sr_multi
 
 
 @torch.no_grad()
@@ -28,9 +29,8 @@ def sync_master_to_model(master, model, generator=None):
     if generator is None or not model or model[0].dtype != torch.bfloat16:
         torch._foreach_copy_(model, master)
         return
-    seeds = draw_seeds(generator, (len(master),))
-    for i, (m, c) in enumerate(zip(master, model)):
-        fp32_to_bf16_sr(m, seeds[i], out=c)
+    fp32_to_bf16_sr_multi(master, draw_seeds(generator, (len(master),)),
+                          model)
 
 
 def cast_moments(x, dtype, seed=None, rounding="sr", out=None):
