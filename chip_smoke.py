@@ -74,9 +74,14 @@ code is non-zero:
    bias [1, 128, 8, 256, 256], column [1, 256, 8, 128, 128], triangle
    [1, 256, 4, 256, 256]; mask [1, G, 1, 1, K] fp32, bias [1, 1, H, Q,
    K]), dropout 0.1, fp32 (within 1e-5) and bf16 (within 2e-2 of each
-   tensor's max), equal keep patterns; times beside the bytes bound,
-   the plain version and ``torch.softmax`` of the pre-added scores (and
-   its backward) — not the same function, no dropout.  Then
+   tensor's max), equal keep patterns; the backward's dx and dbias held
+   exactly on its keep bits (``check_backward``: element by element
+   against the plain backward of the kernel's softmax, within a bound a
+   wrong bit exceeds wherever g is not 0); times beside the bytes bound
+   (the backward's beside the recorded time of the element-by-element
+   backward it replaced), the plain version and
+   ``torch.softmax`` of the pre-added scores (and its backward) — not
+   the same function, no dropout.  Then
    softmax_dropout_route: an Evoformer row attention at R = 200 (off the
    kernels' grid) takes the reference's jnp route, the plain version on
    the card, counted apart from the kernels, equal to the CPU.
@@ -97,8 +102,9 @@ code is non-zero:
    backward 32 launches per update each and its plain route never,
    rounding one table launch per 800 entries of the SR sync and of the
    moments (3 per update for 688 leaves), flash none.  Reports step
-   time, residue pairs/s and peak memory, then the idle share and top
-   kernels of a ``torch.profiler`` window of 2 more updates.
+   time, residue pairs/s and peak memory, then the idle share, the
+   softmax_dropout kernels' time and the top kernels of a
+   ``torch.profiler`` window of 2 more updates.
 13. the ``kernels`` line (rows 1-11 of the TPU kernel table; the bf16
    backward rows carry the row's whole backward time beside the bound of
    the backward as one function), the card's name and power limit, and
@@ -695,6 +701,13 @@ SD_P = 0.1
 SD_CASES = (("row", (1, 128, 8, 256, 256), True),
             ("column", (1, 256, 8, 128, 128), False),
             ("triangle", (1, 256, 4, 256, 256), True))
+# the element-by-element backward this kernel replaced, at these cases,
+# as PERF.md's row 10 records it in brackets (H100 80GB HBM3, 700 W):
+# reported beside this run's time, not measured by it
+SD_BWD_REPLACED_MS = {"float32": {"row": 0.341, "column": 0.162,
+                             "triangle": 0.342},
+                 "bfloat16": {"row": 0.287, "column": 0.136,
+                              "triangle": 0.287}}
 
 
 def softmax_dropout_phase(flush):
@@ -741,20 +754,21 @@ def softmax_dropout_phase(flush):
                 return sd.softmax_dropout_bwd_plain(g, sm_p, SD_P, seed,
                                                     q_blk)
 
-            dx_k, dx_p = kernel_bwd(), plain_bwd()
+            dx_k = kernel_bwd()
             torch.cuda.synchronize()
             if not torch.equal(out_k == 0, out_p == 0):
                 n = int(((out_k == 0) != (out_p == 0)).sum())
                 raise AssertionError(f"{dt} {name}: keep patterns differ "
                                      f"at {n} elements")
-            pairs = [("out", out_k, out_p), ("softmax", sm_k, sm_p),
-                     ("dx", dx_k, dx_p)]
-            if with_bias:
-                pairs.append(("dbias", sd._reduce_to(dx_k, bias.shape,
-                                                     bias.dtype),
-                              sd._reduce_to(dx_p, bias.shape, bias.dtype)))
-            errs = {}
-            for what, a, b in pairs:
+            # dx and dbias exactly on the backward's keep bits: against the
+            # plain backward of the kernel's own softmax, element by element
+            # (a non-finite element fails too)
+            errs = sd.check_backward(
+                dx_k, g, sm_k, SD_P, seed, q_blk,
+                dbias=(sd._reduce_to(dx_k, bias.shape, bias.dtype)
+                       if with_bias else None))
+            for what, a, b in (("out", out_k, out_p),
+                               ("softmax", sm_k, sm_p)):
                 a, b = a.float(), b.float()
                 if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
                     raise AssertionError(f"{dt} {name} {what}: non-finite")
@@ -781,13 +795,18 @@ def softmax_dropout_phase(flush):
                               + (bias.numel() * bias.element_size()
                                  if with_bias else 0)),
                       "bwd": 3 * x.numel() * x.element_size()}
+            bound = {kind: n / HBM_BYTES_PER_S * 1e3
+                     for kind, n in nbytes.items()}
             report = {
                 "shape": list(shape), "q_blk": q_blk, "max_abs_err": errs,
                 "dropped_share": float((out_k == 0).float().mean()),
                 "fwd_ms": ms["softmax_dropout_fwd"],
                 "bwd_ms": ms["softmax_dropout_bwd"],
-                "bound_fwd_ms": nbytes["fwd"] / HBM_BYTES_PER_S * 1e3,
-                "bound_bwd_ms": nbytes["bwd"] / HBM_BYTES_PER_S * 1e3,
+                "bound_fwd_ms": bound["fwd"],
+                "bound_bwd_ms": bound["bwd"],
+                "bwd_share_of_bound": bound["bwd"]
+                / ms["softmax_dropout_bwd"],
+                "replaced_bwd_ms_recorded": SD_BWD_REPLACED_MS[dt][name],
                 "plain_fwd_ms": time_ms(plain_fwd, flush, iters=3),
                 "plain_bwd_ms": time_ms(plain_bwd, flush, iters=3),
                 "library_fwd_ms": time_ms(
@@ -799,8 +818,8 @@ def softmax_dropout_phase(flush):
             }
             emit("softmax_dropout", dtype=dt, case=name, **report)
             reports[dt][name] = report
-            del x, g, mask, bias, out_k, sm_k, out_p, sm_p, dx_k, dx_p
-            del pre, y_lib, pairs
+            del x, g, mask, bias, out_k, sm_k, out_p, sm_p, dx_k
+            del pre, y_lib
             torch.cuda.empty_cache()
     return reports
 
@@ -1299,6 +1318,11 @@ def evoformer_train_phase():
              wall_ms=wall_ms, device_busy_ms=busy_ms,
              device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
              kernel_launches=sum(e.count for e in kernels),
+             # both windows' updates, whether or not in the top 10
+             softmax_dropout_ms={
+                 kind: sum(e.self_device_time_total for e in kernels
+                           if f"softmax_dropout_{kind}_kernel" in e.key)
+                 / 1e3 for kind in ("fwd", "bwd")},
              top_kernels=[{"name": e.key[:80], "count": e.count,
                            "ms": e.self_device_time_total / 1e3}
                           for e in top])

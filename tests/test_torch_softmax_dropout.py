@@ -9,7 +9,9 @@ exactly.  Tolerances: fp32 — out 1e-6, dx and dbias 1e-5 (both sides
 exact fp32, exp and summation order differ); bf16 — 1e-2 of each
 tensor's max (a bf16 ulp at 1 is 7.8e-3: both sides round the same fp32
 value, which may sit on either side of a rounding boundary).  Where a card
-is present, the CUDA kernels vs the plain version.
+is present, the CUDA kernels vs the plain version, and the backward's keep
+bits exactly (``check_backward``: a per-element bound that any wrong keep
+bit exceeds wherever g is not 0).
 
 The JAX side is imported inside the tests, so that the card-only cases
 can run where JAX is not installed."""
@@ -77,7 +79,11 @@ def jax_run(case, dtype, p, key_seed):
             None if bias is None else f32(grads[1]), seed)
 
 
-def port_run(case, dtype, p, seed, device="cpu"):
+def port_run(case, dtype, p, seed, device="cpu", check=False):
+    """out, dx, dbias (fp32 numpy) of the port's autograd path; with
+    ``check``, also the autograd backward's dx and dbias held by
+    :func:`~unicore_tpu_torch.ops.softmax_dropout.check_backward` against
+    the plain backward of the same g, saved softmax and seed."""
     x, mask, bias, w = case
     dt = getattr(torch, dtype)
     xt = torch.tensor(x, dtype=dt, device=device, requires_grad=True)
@@ -85,9 +91,17 @@ def port_run(case, dtype, p, seed, device="cpu"):
     bt = None if bias is None else torch.tensor(bias, dtype=dt, device=device,
                                                 requires_grad=True)
     out = sd.softmax_dropout(xt, p, mask=mt, bias=bt, seed=seed)
-    (out.float() * torch.from_numpy(w).to(device)).sum().backward()
+    if check:  # read before the backward frees them
+        sm, seed_t = out.grad_fn.saved_tensors
+    wt = torch.from_numpy(w).to(device)
+    (out.float() * wt).sum().backward()
     f32 = lambda t: t.detach().float().cpu().numpy()  # noqa: E731
-    return f32(out), f32(xt.grad), None if bt is None else f32(bt.grad)
+    got = f32(out), f32(xt.grad), None if bt is None else f32(bt.grad)
+    if not check:
+        return got
+    return got, sd.check_backward(
+        xt.grad, wt.to(dt), sm, p, seed_t, sd.pick_q_blk_for(xt, mt, bt),
+        dbias=None if bt is None else bt.grad)
 
 
 @pytest.mark.parametrize("p", [0.0, 0.1])
@@ -252,6 +266,82 @@ def test_forward_operands_are_16_byte_aligned(dtype):
     assert sx == [0, 0, 512, 128]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_operands_are_16_byte_aligned(dtype):
+    """g and sm as the backward's 16-byte runs read them: aligned
+    contiguous tensors pass as they are; an fp32 g for a bf16 softmax is
+    cast, a transposed g made contiguous; a contiguous view at a
+    2-element offset (its address off 16 bytes) is copied, with the same
+    values."""
+    g = torch.randn(2, 4, 128).to(dtype)
+    sm = torch.rand(2, 4, 128).to(dtype)
+    got_g, got_sm = sd.bwd_operands(g, sm)
+    assert got_g is g and got_sm is sm
+    got_g, _ = sd.bwd_operands(g.float(), sm)
+    assert got_g.dtype == dtype and torch.equal(got_g, g.float().to(dtype))
+    gt = torch.randn(2, 128, 4).to(dtype).transpose(1, 2)
+    got_g, _ = sd.bwd_operands(gt, sm)
+    assert got_g.is_contiguous() and got_g.data_ptr() % 16 == 0
+    assert torch.equal(got_g, gt)
+    off = torch.randn(2 * 4 * 128 + 2).to(dtype)[2:].view(2, 4, 128)
+    assert off.is_contiguous() and off.data_ptr() % 16 != 0
+    for got in sd.bwd_operands(off, off):
+        assert got.data_ptr() != off.data_ptr() and got.data_ptr() % 16 == 0
+        assert torch.equal(got, off)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_backward_check_sees_one_flipped_keep_bit(name, dtype):
+    """``check_backward`` passes the plain dx against itself (dx and
+    dbias), and fails once a single keep bit of the plain version's mask
+    is flipped on an element whose softmax is below 1e-4 of its row's max
+    and whose |g| is at least 0.1 — where a bound relative to the
+    tensor's max sees nothing.  x is scaled by 4 so that every row's
+    softmax spans such decades."""
+    x, mask, bias, w = make_case(name, str(dtype).replace("torch.", ""))
+    xt = (4 * torch.from_numpy(x)).to(dtype)
+    mt = None if mask is None else torch.from_numpy(mask)
+    bt = None if bias is None else torch.from_numpy(bias).to(dtype)
+    mt, bt = sd.canon(xt, mt, bt)
+    seed = torch.tensor([2024], dtype=torch.int32)
+    q_blk = sd.pick_q_blk_for(xt, mt, bt)
+    _, sm = sd.softmax_dropout_fwd_plain(xt, mt, bt, 0.1, seed, q_blk, True)
+    g = torch.from_numpy(w).to(dtype)
+    dx = sd.softmax_dropout_bwd_plain(g, sm, 0.1, seed, q_blk)
+    dbias = None if bt is None else sd._reduce_to(dx, bt.shape, bt.dtype)
+    errs = sd.check_backward(dx, g, sm, 0.1, seed, q_blk, dbias=dbias)
+    assert set(errs.values()) == {0.0}
+    # a right backward whose dot sums in another order passes: the exact
+    # dx (float64) moved by up to the reordering's fp32 error, K·2^-23 of
+    # the row's Σ|g'·y| times |y|, then rounded to nearest as a kernel
+    # rounds, so some elements land one ulp off the plain dx
+    keep = sd.keep_mask(seed, tuple(sm.shape), q_blk, 0.9)
+    y64 = sm.double()
+    gp64 = torch.where(keep, g.double() * (1.0 / 0.9), 0.0)
+    gy = gp64 * y64
+    shift = (y64.abs() * y64.shape[-1] * 2.0 ** -23
+             * gy.abs().sum(dim=-1, keepdim=True)
+             * (2 * torch.rand(y64.shape, generator=torch.Generator()
+                               .manual_seed(5), dtype=torch.float64) - 1))
+    right = (y64 * (gp64 - gy.sum(dim=-1, keepdim=True))
+             + shift).float().to(dtype)
+    assert not torch.equal(right, dx)
+    sd.check_backward(right, g, sm, 0.1, seed, q_blk, dbias=None if bt is None
+                      else sd._reduce_to(right, bt.shape, bt.dtype))
+
+    y = sm.float()
+    small = ((y > 0) & (y < 1e-4 * y.amax(dim=-1, keepdim=True))
+             & (g.float().abs() >= 0.1))
+    i = int(torch.nonzero(small.reshape(-1))[0])
+    keep.reshape(-1)[i] ^= True
+    gp = torch.where(keep, g.float() * (1.0 / 0.9), 0.0)
+    flipped = (y * (gp - (gp * y).sum(dim=-1, keepdim=True))).to(dtype)
+    assert torch.count_nonzero(flipped != dx) >= 1
+    with pytest.raises(AssertionError, match="wrong keep bit"):
+        sd.check_backward(flipped, g, sm, 0.1, seed, q_blk)
+
+
 def attention_case(rng, bsz=2, t=128, d=32, heads=4):
     query = rng.randn(bsz, t, d).astype(np.float32)
     pad = np.zeros((bsz, t), np.int32)
@@ -324,15 +414,19 @@ def cuda():
 def test_kernels_match_plain_on_card(cuda, name, dtype):
     """The CUDA forward and backward vs the plain version on the same
     values at dropout 0.1: equal keep patterns; fp32 within 1e-5, bf16
-    within 2e-2 of each tensor's max."""
+    within 2e-2 of each tensor's max; and the backward's dx and dbias
+    held exactly on its keep bits (``check_backward``, against the plain
+    backward of the saved softmax)."""
     case = make_case(name, dtype)
     before = dict(sd.launches)
-    got = port_run(case, dtype, 0.1, 12345, cuda)
+    got, errs = port_run(case, dtype, 0.1, 12345, cuda, check=True)
     torch.cuda.synchronize()
     assert sd.launches["softmax_dropout_fwd"] == before[
         "softmax_dropout_fwd"] + 1
     assert sd.launches["softmax_dropout_bwd"] == before[
         "softmax_dropout_bwd"] + 1
+    assert set(errs) == ({"dx", "dbias"} if case[2] is not None
+                         else {"dx"})
     want = port_run(case, dtype, 0.1, 12345)
     np.testing.assert_array_equal(got[0] == 0, want[0] == 0)
     for g, w in zip(got, want):
@@ -340,6 +434,89 @@ def test_kernels_match_plain_on_card(cuda, name, dtype):
             continue
         tol = 1e-5 if dtype == "float32" else 2e-2 * np.abs(w).max()
         np.testing.assert_allclose(g, w, rtol=0, atol=tol)
+
+
+def backward_case(shape, dtype, seed):
+    """g and a softmax of 210 rows: scores of 3·N(0, 1) with about a
+    fifth of the keys masked, so rows span many decades and hold zeros."""
+    gen = torch.Generator().manual_seed(seed)
+    z = 3 * torch.randn(shape, generator=gen)
+    z = z.masked_fill(torch.rand(shape, generator=gen) < 0.2, -1e9)
+    sm = torch.softmax(z, dim=-1).to(dtype)
+    g = torch.randn(shape, generator=gen).to(dtype)
+    return g, sm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("k", [128, 384, 1024, 1152, 2048, 8192])
+def test_backward_keep_bits_exact_on_card(cuda, k, dtype):
+    """The backward kernel at every split a K on the grid reaches — 4, 8,
+    16 or 32 lanes a row (K = 128, 384 with a lane's last run idle, 1024)
+    and a block (1152 with idle threads, 2048, 8192) — at 210 rows, not
+    a multiple of any warp split's rows a block, dropout 0.1 and the
+    reference's q_blk: one launch, dx held exactly on its keep bits
+    (``check_backward``)."""
+    shape = (2, 3, 5, 7, k)
+    g, sm = (t.to(cuda) for t in backward_case(shape, getattr(torch, dtype),
+                                                k))
+    seed = torch.tensor([777], dtype=torch.int32, device=cuda)
+    q_blk = sd.pick_q_blk_for(sm, None, None)
+    before = sd.launches["softmax_dropout_bwd"]
+    dx = sd.softmax_dropout_bwd_cuda(g, sm, 0.1, seed, q_blk)
+    torch.cuda.synchronize()
+    assert sd.launches["softmax_dropout_bwd"] == before + 1
+    assert dx.shape == sm.shape and dx.dtype == sm.dtype
+    sd.check_backward(dx, g, sm, 0.1, seed, q_blk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_backward_copies_a_misaligned_g_on_card(cuda, dtype):
+    """A g that is a contiguous view at a 2-element offset (its address
+    off 16 bytes) is copied by ``bwd_operands`` and gives the same dx,
+    bit for bit, as an aligned g of the same values."""
+    shape = (2, 3, 5, 7, 256)
+    g, sm = (t.to(cuda) for t in backward_case(shape, getattr(torch, dtype),
+                                                1))
+    g_off = torch.empty(g.numel() + 2, dtype=g.dtype, device=cuda)[2:].view(
+        shape)
+    g_off.copy_(g)
+    assert g_off.data_ptr() % 16 != 0
+    assert sd.bwd_operands(g_off, sm)[0].data_ptr() != g_off.data_ptr()
+    seed = torch.tensor([31], dtype=torch.int32, device=cuda)
+    dx_off = sd.softmax_dropout_bwd_cuda(g_off, sm, 0.1, seed, 1)
+    dx = sd.softmax_dropout_bwd_cuda(g, sm, 0.1, seed, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(dx_off, dx)
+    sd.check_backward(dx_off, g_off, sm, 0.1, seed, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", ["g_off_16", "dx_off_16", "rows_2_31"])
+def test_backward_entry_rejects_what_it_does_not_take(cuda, fault):
+    """The backward's C entry refuses, before any launch, an operand off
+    16 bytes and rows >= 2^31: the wrapper raises KernelError and counts
+    no launch."""
+    from unicore_tpu_torch.ops import build
+
+    sm = torch.full((4, 128), 1 / 128, device=cuda)
+    g = torch.ones_like(sm)
+    dx = torch.empty_like(sm)
+    seed = torch.tensor([1], dtype=torch.int32, device=cuda)
+    prm = sd._params(4, 128, 4, 0.1, seed, 1)
+    prm.g, prm.sm, prm.dx = g.data_ptr(), sm.data_ptr(), dx.data_ptr()
+    if fault == "g_off_16":
+        prm.g += 4
+    elif fault == "dx_off_16":
+        prm.dx += 4
+    else:
+        prm.rows = 1 << 31
+    before = sd.launches["softmax_dropout_bwd"]
+    with pytest.raises(build.KernelError, match="bwd launch failed"):
+        sd._launch("bwd", prm, False, cuda)
+    torch.cuda.synchronize()
+    assert sd.launches["softmax_dropout_bwd"] == before
 
 
 @pytest.mark.gpu

@@ -31,24 +31,31 @@
 //
 // Design.  Each row is owned by lanes of one warp when K <= 1024 and by
 // one block of 256 threads up to K = 8192, its values in registers; the
-// row's max and sum reduce by warp shuffles (and shared memory across the
-// block's warps).  The forward moves runs of 16 bytes: a lane owns runs
-// of 16 / sizeof(x) contiguous columns, runs lane, lane + kTPR, ... so a
-// row's accesses are contiguous, and every load and store of x, out and
-// sm is one 16-byte access; mask and bias are read over the same columns
-// in their own types.  Up to K = 1024 a lane owns 4 runs (32 bf16 values:
-// 4 lanes a row of 128, 32 a row of 1024), enough work to amortize the
-// row's index arithmetic and reductions.  The caller gives an operand
-// whose address or strides are not multiples of 16 bytes a contiguous
-// copy; the entry checks it.  The backward reads and writes element by
-// element (lane, lane + 32, ...).
+// row's reductions go by warp shuffles (and shared memory across the
+// block's warps).  Both passes move runs of 16 bytes on one work split
+// (split below): a lane owns runs of 16 / sizeof(x) contiguous columns,
+// runs lane, lane + kTPR, ... so a row's accesses are contiguous, and
+// every load and store of x, out, sm, g and dx is one 16-byte access;
+// the forward reads mask and bias over the same columns in their own
+// types.  Up to K = 1024 a lane owns 4 runs (32 bf16 values: 4 lanes a
+// row of 128, 32 a row of 1024), enough work to amortize the row's index
+// arithmetic and reductions; the index arithmetic is 32-bit, once a row
+// (row_info, RowInfo::drop).  With fewer than 32 lanes a row, several
+// rows share a warp, and the reductions shuffle over the whole warp (and
+// synchronize the block for a row of 256 threads): a thread past the
+// last row therefore works on the last row, takes part in every
+// reduction, and stores nothing.  The caller gives an operand whose
+// address or strides are not multiples of 16 bytes a contiguous copy;
+// the entry checks it.  The backward recomputes the forward's keep bits
+// for its runs and reduces the row's dot sum_c g'[c] y[c] in fp32.
 //
 // Bound: bytes.  The forward reads x and writes out and sm (6 bytes an
 // element in bf16, plus the mask and bias at their own sizes); the
-// backward reads g and sm and writes dx.  Against 3.35 TB/s that is
-// ~0.12 ms for each pass of the Evoformer triangle attention
-// ([1, 256, 4, 256, 256] bf16).  The exp and the counter hash of each
-// element take instruction slots the 16-byte accesses leave free.
+// backward reads g and sm and writes dx (6 bytes an element in bf16).
+// Against 3.35 TB/s that is ~0.12 ms for each pass of the Evoformer
+// triangle attention ([1, 256, 4, 256, 256] bf16).  The exp and the
+// counter hash of each element take instruction slots the 16-byte
+// accesses leave free.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,22 +91,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(bf16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ bf16 from_float<bf16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // N contiguous elements at p as floats, by 16-byte loads (one 8-byte
 // load for four bf16 values).
@@ -177,53 +168,57 @@ __device__ __forceinline__ float row_reduce(float v) {
   return v;
 }
 
-// The row this thread works on, or -1 past the end.
+// A thread's row, of kThreads / kTPR rows a block with kTPR threads
+// each: a thread past the last row works on the last row (live false),
+// so that it takes part in the row's reductions, and stores nothing.
+// 32-bit arithmetic once a row (rows < 2^31, checked by the entry).
+struct RowInfo {
+  long long base;  // row * K: the row's offset into out, sm, g and dx
+  unsigned lead;   // row / Q: the row's index over (L0, L1, L2)
+  unsigned r;      // row % Q
+  bool live;
+
+  // The row's dropout seed, seed + pid with pid over (lead...,
+  // r / q_blk) mod 2^32, and the dropout index of its column 0,
+  // (r % q_blk) * K.  The forward asks after its reductions, so that
+  // the seed's load and registers do not span them.
+  __device__ __forceinline__ void drop(const SoftmaxDropoutParams& p,
+                                       uint32_t& seed, uint32_t& idx0) const {
+    const unsigned q_blk = static_cast<unsigned>(p.q_blk);
+    const unsigned rb = r / q_blk;
+    seed = p.dropout ? static_cast<uint32_t>(p.seed[0]) +
+                           lead * (static_cast<unsigned>(p.Q) / q_blk) + rb
+                     : 0u;
+    idx0 = (r - rb * q_blk) * static_cast<uint32_t>(p.K);
+  }
+};
+
 template <int kTPR>
-__device__ __forceinline__ long long my_row(const SoftmaxDropoutParams& p) {
-  const long long row =
-      static_cast<long long>(blockIdx.x) * (kThreads / kTPR) + threadIdx.x / kTPR;
-  return row < p.rows ? row : -1;
-}
-
-// The dropout seed of a row: seed + pid, pid over (lead..., r / q_blk).
-__device__ __forceinline__ uint32_t row_seed(const SoftmaxDropoutParams& p,
-                                             long long row) {
-  const long long lead = row / p.Q;
-  const int r = static_cast<int>(row - lead * p.Q);
-  const long long pid = lead * (p.Q / p.q_blk) + r / p.q_blk;
-  return static_cast<uint32_t>(p.seed[0]) + static_cast<uint32_t>(pid);
-}
-
-__device__ __forceinline__ bool keep(const SoftmaxDropoutParams& p,
-                                     uint32_t seed, int r, int c) {
-  const uint32_t idx =
-      static_cast<uint32_t>(r % p.q_blk) * static_cast<uint32_t>(p.K) + c;
-  return unicore_random_bits(seed, idx) < p.keep_thresh;
+__device__ __forceinline__ RowInfo row_info(const SoftmaxDropoutParams& p) {
+  RowInfo ri;
+  const unsigned rows = static_cast<unsigned>(p.rows);
+  const unsigned row0 = blockIdx.x * (kThreads / kTPR) + threadIdx.x / kTPR;
+  ri.live = row0 < rows;
+  const unsigned row = ri.live ? row0 : rows - 1;
+  ri.lead = row / static_cast<unsigned>(p.Q);
+  ri.r = row - ri.lead * p.Q;
+  ri.base = static_cast<long long>(row) * p.K;
+  return ri;
 }
 
 // The forward over runs of kV = 16 / sizeof(T) columns: each of a row's
 // kTPR threads owns kNV runs, run i at columns (i * kTPR + lane) * kV.
-// Threads past the last row compute on the last row and store nothing,
-// so a row of a few lanes never leaves its warp's shuffles.  The row's
-// coordinates take 32-bit divisions (rows < 2^31, checked by the entry):
-// at a few runs a thread they cost as many instructions as the row's
-// arithmetic.
 template <typename T, typename MaskT, typename BiasT, int kTPR, int kNV>
 __global__ void __launch_bounds__(kThreads)
     softmax_dropout_fwd_kernel(const SoftmaxDropoutParams p) {
   constexpr int kV = 16 / sizeof(T);
-  const long long row0 =
-      static_cast<long long>(blockIdx.x) * (kThreads / kTPR) +
-      threadIdx.x / kTPR;
-  const bool live = row0 < p.rows;
-  const long long row = live ? row0 : p.rows - 1;
+  const RowInfo ri = row_info<kTPR>(p);
   const int lane = threadIdx.x % kTPR;
   const int K = p.K;
   // (l0, l1, l2, r) of the row
-  const unsigned lead = static_cast<unsigned>(row) / static_cast<unsigned>(p.Q);
-  const unsigned r = static_cast<unsigned>(row) - lead * p.Q;
-  const unsigned t = lead / static_cast<unsigned>(p.L2);
-  const unsigned l2 = lead - t * p.L2;
+  const unsigned r = ri.r;
+  const unsigned t = ri.lead / static_cast<unsigned>(p.L2);
+  const unsigned l2 = ri.lead - t * p.L2;
   const unsigned l0 = t / static_cast<unsigned>(p.L1);
   const unsigned l1 = t - l0 * p.L1;
   const T* x = static_cast<const T*>(p.x) + l0 * p.sx[0] + l1 * p.sx[1] +
@@ -271,17 +266,11 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   s = row_reduce<kTPR, false>(s);
-  if (!live) return;
-  // seed + pid, pid over (lead..., r / q_blk), mod 2^32 (row_seed)
-  const unsigned q_blk = static_cast<unsigned>(p.q_blk);
-  const unsigned rb = r / q_blk;
-  const uint32_t seed =
-      p.dropout ? static_cast<uint32_t>(p.seed[0]) +
-                      lead * (static_cast<unsigned>(p.Q) / q_blk) + rb
-                : 0u;
-  const uint32_t idx0 = (r - rb * q_blk) * static_cast<uint32_t>(K);
-  T* out = static_cast<T*>(p.out) + row * K;
-  T* sm = p.sm ? static_cast<T*>(p.sm) + row * K : nullptr;
+  if (!ri.live) return;
+  uint32_t seed, idx0;
+  ri.drop(p, seed, idx0);
+  T* out = static_cast<T*>(p.out) + ri.base;
+  T* sm = p.sm ? static_cast<T*>(p.sm) + ri.base : nullptr;
   const float inv_s = 1.f / s;
 #pragma unroll
   for (int i = 0; i < kNV; ++i) {
@@ -302,38 +291,50 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int kTPR, int kNPT>
+// The backward over the forward's runs and split: each of a row's kTPR
+// threads reads its kNV runs of g and sm, drops and scales g by the
+// forward's keep bits, and reduces the row's dot in fp32; dx = y (g' -
+// dot) is rounded once to T.
+template <typename T, int kTPR, int kNV>
 __global__ void __launch_bounds__(kThreads)
     softmax_dropout_bwd_kernel(const SoftmaxDropoutParams p) {
-  const long long row = my_row<kTPR>(p);
-  if (row < 0) return;
+  constexpr int kV = 16 / sizeof(T);
+  const RowInfo ri = row_info<kTPR>(p);
   const int lane = threadIdx.x % kTPR;
   const int K = p.K;
-  const int r = static_cast<int>(row % p.Q);
-  const T* g = static_cast<const T*>(p.g) + row * K;
-  const T* sm = static_cast<const T*>(p.sm) + row * K;
-  const uint32_t seed = p.dropout ? row_seed(p, row) : 0u;
-  float gv[kNPT], yv[kNPT];
+  const T* g = static_cast<const T*>(p.g) + ri.base;
+  const T* sm = static_cast<const T*>(p.sm) + ri.base;
+  uint32_t seed, idx0;
+  ri.drop(p, seed, idx0);
+  float gv[kNV][kV], yv[kNV][kV];  // g', y
   float dot = 0.f;
 #pragma unroll
-  for (int i = 0; i < kNPT; ++i) {
-    const int c = i * kTPR + lane;
-    gv[i] = 0.f;
-    yv[i] = 0.f;
-    if (c < K) {
-      float gi = to_float(g[c]);
-      if (p.dropout) gi = keep(p, seed, r, c) ? gi * p.inv_keep : 0.f;
-      gv[i] = gi;
-      yv[i] = to_float(sm[c]);
-      dot += gi * yv[i];
+  for (int i = 0; i < kNV; ++i) {
+    const int c = (i * kTPR + lane) * kV;
+    if (c >= K) continue;
+    load_run(g + c, gv[i]);
+    load_run(sm + c, yv[i]);
+#pragma unroll
+    for (int e = 0; e < kV; ++e) {
+      if (p.dropout)
+        gv[i][e] = unicore_random_bits(seed, idx0 + c + e) <
+                           p.keep_thresh
+                       ? gv[i][e] * p.inv_keep
+                       : 0.f;
+      dot += gv[i][e] * yv[i][e];
     }
   }
   dot = row_reduce<kTPR, false>(dot);
-  T* dx = static_cast<T*>(p.dx) + row * K;
+  if (!ri.live) return;
+  T* dx = static_cast<T*>(p.dx) + ri.base;
 #pragma unroll
-  for (int i = 0; i < kNPT; ++i) {
-    const int c = i * kTPR + lane;
-    if (c < K) dx[c] = from_float<T>(yv[i] * (gv[i] - dot));
+  for (int i = 0; i < kNV; ++i) {
+    const int c = (i * kTPR + lane) * kV;
+    if (c >= K) continue;
+    float d[kV];
+#pragma unroll
+    for (int e = 0; e < kV; ++e) d[e] = yv[i][e] * (gv[i][e] - dot);
+    store_run(dx + c, d);
   }
 }
 
@@ -348,49 +349,59 @@ int launch_rows(void (*kernel)(SoftmaxDropoutParams),
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename MaskT, typename BiasT, int kTPR, int kNV>
-int fwd_split(const SoftmaxDropoutParams& p, cudaStream_t st) {
-  return launch_rows<kTPR>(
-      softmax_dropout_fwd_kernel<T, MaskT, BiasT, kTPR, kNV>, p, st);
-}
-
-template <typename T, int kTPR, int kNPT>
-int bwd_split(const SoftmaxDropoutParams& p, cudaStream_t st) {
-  return launch_rows<kTPR>(softmax_dropout_bwd_kernel<T, kTPR, kNPT>, p, st);
-}
-
-// The forward's work split of a row of K = nv runs of kV columns: up to
-// K = 1024, 4 to 32 lanes of a warp with 4 runs each (8 for an fp32 row
-// of 1024), then a block of 256 threads.  Only the splits that a K which
-// is a multiple of 128 can reach are instantiated.
+// The two passes, each launching its kernel at a split (kTPR, kNV).
 template <typename T, typename MaskT, typename BiasT>
-int fwd_dispatch(const SoftmaxDropoutParams& p, cudaStream_t st) {
-  constexpr int kV = 16 / sizeof(T);
+struct FwdPass {
+  static constexpr int kV = 16 / sizeof(T);
+  template <int kTPR, int kNV>
+  static int run(const SoftmaxDropoutParams& p, cudaStream_t st) {
+    return launch_rows<kTPR>(
+        softmax_dropout_fwd_kernel<T, MaskT, BiasT, kTPR, kNV>, p, st);
+  }
+};
+
+template <typename T>
+struct BwdPass {
+  static constexpr int kV = 16 / sizeof(T);
+  template <int kTPR, int kNV>
+  static int run(const SoftmaxDropoutParams& p, cudaStream_t st) {
+    return launch_rows<kTPR>(softmax_dropout_bwd_kernel<T, kTPR, kNV>, p,
+                             st);
+  }
+};
+
+// The work split of a row of K = nv runs of kV columns, one for both
+// passes: up to K = 1024, 4 to 32 lanes of a warp with 4 runs each (8 for
+// an fp32 row of 1024), then a block of 256 threads.  Only the splits
+// that a K which is a multiple of 128 can reach are instantiated.
+template <class Pass>
+int split(const SoftmaxDropoutParams& p, cudaStream_t st) {
+  constexpr int kV = Pass::kV;
   const int nv = p.K / kV;
   if (p.K <= 1024) {
     if constexpr (kV == 8) {
-      if (nv <= 16) return fwd_split<T, MaskT, BiasT, 4, 4>(p, st);
+      if (nv <= 16) return Pass::template run<4, 4>(p, st);
     }
-    if (nv <= 32) return fwd_split<T, MaskT, BiasT, 8, 4>(p, st);
-    if (nv <= 64) return fwd_split<T, MaskT, BiasT, 16, 4>(p, st);
-    if (nv <= 128) return fwd_split<T, MaskT, BiasT, 32, 4>(p, st);
-    if constexpr (kV == 4) return fwd_split<T, MaskT, BiasT, 32, 8>(p, st);
+    if (nv <= 32) return Pass::template run<8, 4>(p, st);
+    if (nv <= 64) return Pass::template run<16, 4>(p, st);
+    if (nv <= 128) return Pass::template run<32, 4>(p, st);
+    if constexpr (kV == 4) return Pass::template run<32, 8>(p, st);
   }
   if constexpr (kV == 8) {
-    if (nv <= 256) return fwd_split<T, MaskT, BiasT, kThreads, 1>(p, st);
+    if (nv <= 256) return Pass::template run<kThreads, 1>(p, st);
   }
-  if (nv <= 512) return fwd_split<T, MaskT, BiasT, kThreads, 2>(p, st);
-  if (nv <= 1024) return fwd_split<T, MaskT, BiasT, kThreads, 4>(p, st);
+  if (nv <= 512) return Pass::template run<kThreads, 2>(p, st);
+  if (nv <= 1024) return Pass::template run<kThreads, 4>(p, st);
   if constexpr (kV == 4) {
-    if (nv <= 2048) return fwd_split<T, MaskT, BiasT, kThreads, 8>(p, st);
+    if (nv <= 2048) return Pass::template run<kThreads, 8>(p, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T, typename MaskT>
 int fwd_bias_type(const SoftmaxDropoutParams& p, cudaStream_t st) {
-  return p.bias_bf16 ? fwd_dispatch<T, MaskT, bf16>(p, st)
-                     : fwd_dispatch<T, MaskT, float>(p, st);
+  return p.bias_bf16 ? split<FwdPass<T, MaskT, bf16>>(p, st)
+                     : split<FwdPass<T, MaskT, float>>(p, st);
 }
 
 template <typename T>
@@ -399,28 +410,13 @@ int fwd(const SoftmaxDropoutParams& p, cudaStream_t st) {
                      : fwd_bias_type<T, float>(p, st);
 }
 
-// The backward's work split of a row of K: a warp with K / 32 values a
-// lane up to K = 1024, then a block of 256 threads.
-template <typename T>
-int bwd(const SoftmaxDropoutParams& p, cudaStream_t st) {
-  const int K = p.K;
-  if (K <= 128) return bwd_split<T, 32, 4>(p, st);
-  if (K <= 256) return bwd_split<T, 32, 8>(p, st);
-  if (K <= 512) return bwd_split<T, 32, 16>(p, st);
-  if (K <= 1024) return bwd_split<T, 32, 32>(p, st);
-  if (K <= 2048) return bwd_split<T, kThreads, 8>(p, st);
-  if (K <= 4096) return bwd_split<T, kThreads, 16>(p, st);
-  if (K <= 8192) return bwd_split<T, kThreads, 32>(p, st);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 bool aligned16(const void* x) {
   return (reinterpret_cast<uintptr_t>(x) & 15u) == 0;
 }
 
 // What the forward's 16-byte runs assume and the caller guarantees: each
 // operand's address, and its strides over (L0, L1, L2, Q), multiples of
-// 16 bytes; K a multiple of 128.
+// 16 bytes.
 bool fwd_takes(const SoftmaxDropoutParams& p, int x_item) {
   const struct {
     const void* ptr;
@@ -434,28 +430,36 @@ bool fwd_takes(const SoftmaxDropoutParams& p, int x_item) {
     for (int d = 0; d < 4; ++d)
       if (op.ptr && (op.strides[d] * op.item) % 16 != 0) return false;
   }
-  return p.K % 128 == 0 && p.rows < (1LL << 31) && aligned16(p.out) &&
-         aligned16(p.sm);
+  return aligned16(p.out) && aligned16(p.sm);
+}
+
+// What the backward's runs assume and the caller guarantees: g, sm and
+// dx contiguous [rows, K] at addresses that are multiples of 16 bytes
+// (K a multiple of 128 puts every row there too).
+bool bwd_takes(const SoftmaxDropoutParams& p) {
+  return aligned16(p.g) && aligned16(p.sm) && aligned16(p.dx);
 }
 
 int entry(const SoftmaxDropoutParams* p, int is_bf16, bool forward,
           void* stream) {
   if (p->rows == 0) return 0;
-  if (p->K <= 0 || p->Q <= 0 || p->q_blk <= 0 || p->Q % p->q_blk)
+  if (p->K <= 0 || p->K % 128 || p->rows >= (1LL << 31) || p->Q <= 0 ||
+      p->q_blk <= 0 || p->Q % p->q_blk)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!(forward ? fwd_takes(*p, is_bf16 ? 2 : 4) : bwd_takes(*p)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!forward) return is_bf16 ? bwd<bf16>(*p, st) : bwd<float>(*p, st);
-  if (!fwd_takes(*p, is_bf16 ? 2 : 4))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return is_bf16 ? fwd<bf16>(*p, st) : fwd<float>(*p, st);
+  if (forward) return is_bf16 ? fwd<bf16>(*p, st) : fwd<float>(*p, st);
+  return is_bf16 ? split<BwdPass<bf16>>(*p, st)
+                 : split<BwdPass<float>>(*p, st);
 }
 
 }  // namespace
 
 // Launch on `stream`; each returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for parameters the kernels do not take.  The
-// caller checks types and shapes, guarantees K <= 8192, and for the
-// forward 16-byte aligned operands.
+// cudaErrorInvalidValue for parameters the kernels do not take (K not a
+// multiple of 128 or above 8192, rows >= 2^31, an operand off 16 bytes).
+// The caller checks types and shapes and gives 16-byte aligned operands.
 extern "C" int unicore_softmax_dropout_fwd(const SoftmaxDropoutParams* p,
                                            int bf16, void* stream) {
   return entry(p, bf16, true, stream);

@@ -327,17 +327,119 @@ def softmax_dropout_fwd_cuda(x, mask, bias, dropout_prob, seed, q_blk,
     return out.reshape(shape), None if sm is None else sm.reshape(shape)
 
 
+def bwd_operands(g, sm):
+    """g and sm as the backward kernel reads them: ``(g, sm)``, g in sm's
+    dtype, both contiguous at addresses that are multiples of 16 bytes
+    (else a copy).  The kernel reads both, and writes dx, in runs of 16
+    bytes; k is a multiple of 128, so every row starts on 16 bytes too.
+    A contiguous view at an odd storage offset is contiguous but
+    misaligned: it is copied."""
+    return (build.aligned16(g.to(sm.dtype).contiguous()),
+            build.aligned16(sm.contiguous()))
+
+
 def softmax_dropout_bwd_cuda(g, sm, dropout_prob, seed, q_blk):
-    """Launch the backward kernel: dx as :func:`softmax_dropout_bwd_plain`
-    (g in the softmax's dtype, both made contiguous)."""
-    g = g.to(sm.dtype).contiguous()
-    sm = sm.contiguous()
+    """Launch the backward kernel: dx as :func:`softmax_dropout_bwd_plain`,
+    g and sm as :func:`bwd_operands` gives them, dx a fresh (so aligned)
+    tensor.  The kernel works on the forward's split of a row, each lane
+    reading its runs of g and sm and writing its runs of dx 16 bytes at
+    a time; where several rows share a warp, a lane past the last row
+    takes part in the row's reductions on the last row and stores
+    nothing."""
+    g, sm = bwd_operands(g, sm)
     q, k = sm.shape[-2], sm.shape[-1]
     dx = torch.empty_like(sm)
     prm = _params(q, k, sm.numel() // k, dropout_prob, seed, q_blk)
     prm.g, prm.sm, prm.dx = g.data_ptr(), sm.data_ptr(), dx.data_ptr()
     _launch("bwd", prm, sm.dtype == torch.bfloat16, sm.device)
     return dx
+
+
+def check_backward(dx, g, sm, dropout_prob, seed, q_blk, dbias=None):
+    """Hold a backward's dx against :func:`softmax_dropout_bwd_plain` of
+    the same g, sm, seed and q_blk, element by element, and with
+    ``dbias`` also dx reduced over a broadcast bias as the autograd
+    function reduces it.  Test support (the card tests and
+    ``chip_smoke.py``); nothing on the main path calls it.
+
+    Two correct backwards differ only in the order of the row's fp32 dot
+    and in rounding, so at every element, with y = sm, g' = g after the
+    plain version's keep bits, dot = Σ_c g'·y and ε = the ulp of 1 in
+    dx's dtype:
+
+        |dx − plain| ≤ (1 + ε)·(d + ε·|plain|),
+        d = |y|·(K·2^-22·Σ_c |g'·y| + 2^-21·(|g'| + |dot|)):
+
+    K·2^-22·Σ|g'·y| bounds two fp32 sums of K products in any order
+    (K·2^-23 each, with room for g' rounded apart on each side); 2^-21
+    the subtraction, the product and g' = g·inv_keep rounded on each
+    side; (1 + ε)(· + ε·|plain|) the rounding of both results to dx's
+    dtype.  A wrong keep bit moves its element by |y·g|·inv_keep, far
+    above d wherever g ≠ 0, however small y is.  The reduced dbias is
+    held within the sum of dx's bounds over the summed elements, two fp32
+    sums of n terms (n·2^-23 of the summed magnitudes), and the rounding
+    to its dtype.
+
+    Returns ``{"dx": max |dx − plain|}`` (and ``"dbias"``); raises
+    AssertionError naming the worst element otherwise."""
+    want = softmax_dropout_bwd_plain(g, sm, dropout_prob, seed, q_blk)
+    y = sm.float()
+    gp = g.float()
+    if dropout_prob > 0.0:
+        keep_prob = 1.0 - dropout_prob
+        keep = keep_mask(seed, tuple(y.shape), q_blk, keep_prob)
+        gp = torch.where(keep, gp * (1.0 / keep_prob), 0.0)
+    gy = gp * y
+    dot = gy.sum(dim=-1, keepdim=True)
+    d = y.abs() * (y.shape[-1] * 2.0 ** -22 * gy.abs().sum(
+        dim=-1, keepdim=True) + 2.0 ** -21 * (gp.abs() + dot.abs()))
+    del y, gp, gy
+    bound = _bound(d, want, torch.finfo(dx.dtype).eps)
+    errs = {"dx": _held("dx", dx, want, bound)}
+    if dbias is not None:
+        shape = (1,) * (dx.dim() - dbias.dim()) + tuple(dbias.shape)
+        axes = [i for i, (s, xs) in enumerate(zip(shape, dx.shape))
+                if s == 1 and xs != 1]
+        n = dx.numel() // dbias.numel()
+
+        def total(t):
+            return t.sum(dim=axes, keepdim=True) if axes else t
+
+        b_sum, mag = total(bound), total(want.float().abs())
+        want_db = _reduce_to(want, shape, dbias.dtype)
+        eps = max(torch.finfo(dx.dtype).eps, torch.finfo(dbias.dtype).eps)
+        errs["dbias"] = _held(
+            "dbias", dbias.reshape(shape), want_db,
+            _bound(b_sum + n * 2.0 ** -23 * (mag + b_sum), want_db, eps))
+    return errs
+
+
+def _bound(d, want, eps):
+    """(1 + eps)·(d + eps·|want|): d, then both sides rounded to a type
+    whose ulp is at most eps of the value (plus fp32's least normal, for
+    values near 0)."""
+    return ((1 + eps) * (d + eps * want.float().abs())
+            + torch.finfo(torch.float32).tiny)
+
+
+def _held(what, got, want, bound):
+    """max |got − want|, after checking it within ``bound`` at every
+    element (a NaN fails)."""
+    want = want.float()
+    err = (got.float() - want).abs()
+    bad = ~(err <= bound)
+    if bad.any():
+        i = int(torch.argmax((err / bound).masked_fill(
+            torch.isnan(err), float("inf")).reshape(-1)))
+        idx = tuple(int(v) for v in torch.unravel_index(
+            torch.tensor(i), err.shape))
+        raise AssertionError(
+            f"softmax_dropout backward: {what} off the plain version's "
+            f"(a wrong keep bit?) at {int(bad.sum())} of {err.numel()} "
+            f"elements; worst at {idx}: got {float(got.reshape(-1)[i])}, "
+            f"want {float(want.reshape(-1)[i])}, bound "
+            f"{float(bound.reshape(-1)[i])}")
+    return float(err.max()) if err.numel() else 0.0
 
 
 # -------------------------------------------------------------- autograd --
