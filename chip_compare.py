@@ -1,0 +1,156 @@
+"""The paged-attention kernel of a parent commit and of this tree on one
+card, in turns: parent, change, change, parent (P C C P).
+
+    git archive HEAD | (mkdir -p build/parent && tar -x -C build/parent)
+    python3 chip_compare.py build/parent
+
+The parent's checkout must lie in a directory that .gitignore lists.
+Each turn is one process that imports ``chip_smoke.py`` and the port
+from its own tree, builds the paged-attention kernel there, and runs the
+smoke's ``kernel``, ``serve`` and ``profile`` phases, the last with the
+host time of every paged-attention call in its window noted; then it
+runs the profile's window WINDOW_RUNS times without the profiler, and
+times the host's side of one wrapper call at the smoke's decode case
+(checks, allocations and the launch, the card left to run behind).
+Every line is JSON, after the card's name and power limit; a ``turn``
+line opens each turn.  Needs one card.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+HOST_ROUNDS, HOST_CALLS = 10, 50  # a round stays well inside the launch
+                                 # queue: no call waits on the card
+WINDOW_RUNS = 5
+TURN_TIMEOUT_S = 400
+
+
+def host_us(cs, pa):
+    """Host microseconds of one ``ragged_paged_attention`` call: the
+    median over HOST_ROUNDS rounds of the mean over HOST_CALLS calls in a
+    row, the card left to run behind and drained between rounds."""
+    import numpy as np
+    import torch
+
+    case = cs.make_case(np.random.default_rng(20261016), "decode")
+    q, k, v, table, positions, lengths = (
+        torch.from_numpy(x).cuda() for x in case)
+
+    def call():
+        pa.ragged_paged_attention(q, k, v, table, positions, lengths,
+                                  page_size=cs.PAGE_SIZE,
+                                  scale=cs.HEAD_DIM ** -0.5)
+
+    for _ in range(10):
+        call()
+    rounds = []
+    for _ in range(HOST_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            call()
+        rounds.append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+    torch.cuda.synchronize()
+    return float(np.median(rounds)), rounds
+
+
+def timed_profile(cs, model):
+    """The smoke's profile phase with the host time of each paged-attention
+    call of its window noted (the model's own reference to the wrapper is
+    swapped for a timing one, then restored)."""
+    from unicore_tpu_torch.modules import multihead_attention as mha
+
+    real, spent = mha.ragged_paged_attention, []
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    mha.ragged_paged_attention = timed
+    try:
+        cs.profile_phase(model)
+    finally:
+        mha.ragged_paged_attention = real
+    return {"calls": len(spent), "wrapper_ms": sum(spent) * 1e3,
+            "wrapper_median_us": sorted(spent)[len(spent) // 2] * 1e6}
+
+
+def window_walls(cs, model):
+    """Wall ms of the profile phase's window (8 requests of 64-token
+    prompts, 16 new tokens each, on a fresh engine) without the
+    profiler, WINDOW_RUNS times."""
+    import numpy as np
+    import torch
+
+    from unicore_tpu_torch.serve.engine import ServeEngine
+    from unicore_tpu_torch.serve.scheduler import Request
+
+    engine = ServeEngine(model, device="cuda", num_pages=cs.NUM_PAGES,
+                         page_size=cs.PAGE_SIZE, max_batch=cs.BATCH)
+    rng = np.random.default_rng(7)
+    engine.generate([Request(prompt=[5] * 20, max_new_tokens=2)])
+    walls = []
+    for run in range(WINDOW_RUNS):
+        reqs = [Request(prompt=rng.integers(1, model.vocab_size,
+                                            64).tolist(),
+                        max_new_tokens=16, request_id=f"w{run}.{i}")
+                for i in range(8)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.generate(reqs)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def turn(root, label):
+    os.chdir(root)
+    sys.path.insert(0, root)
+    import torch
+
+    import chip_smoke as cs
+    from unicore_tpu_torch.ops import build
+    from unicore_tpu_torch.ops import paged_attention as pa
+
+    print(json.dumps({"turn": label, "root": root}), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build(["paged_attention"])
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    cs.kernel_phase(pa, flush)
+    del flush
+    torch.cuda.empty_cache()
+    model = cs.serve_phase(pa)[0]
+    cs.emit("profile_host", **timed_profile(cs, model))
+    cs.emit("window", wall_ms=window_walls(cs, model))
+    median, rounds = host_us(cs, pa)
+    cs.emit("host", case="decode", calls=HOST_CALLS, us_per_call=median,
+            rounds_us=rounds)
+    return 0
+
+
+def main(parent):
+    parent = os.path.abspath(parent)
+    smi = ["nvidia-smi", "--query-gpu=name,power.limit",
+           "--format=csv,noheader"]
+    subprocess.run(smi, check=True, timeout=60)
+    for label, root in (("P", parent), ("C", HERE), ("C", HERE),
+                        ("P", parent)):
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--turn",
+                        root, label], check=True, timeout=TURN_TIMEOUT_S)
+    subprocess.run(smi, check=True, timeout=60)
+    return 0
+
+
+if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--turn":
+        sys.exit(turn(sys.argv[2], sys.argv[3]))
+    if len(sys.argv) != 2:
+        sys.exit(__doc__)
+    sys.exit(main(sys.argv[1]))

@@ -15,21 +15,26 @@ code is non-zero:
    the serve path's shapes (B=16, H=12, D=64, page size 16, fp32): pure
    decode (T=1), full prefill chunks (T=32) and a mixed batch with -1
    tail positions and an inactive row, random page permutations.  Every
-   output finite, max |kernel - plain| <= 1e-4 at every position.  Times
-   the kernel, the plain version and ``F.scaled_dot_product_attention``
-   over the gathered K/V (a yardstick the port never calls) beside the
-   least time the card could take.
+   output finite, max |kernel - plain| <= 1e-4 at every position, two
+   kernel calls bit for bit.  Times the kernel, the plain version and
+   ``F.scaled_dot_product_attention`` over the gathered K/V (a yardstick
+   the port never calls) beside the least time the card could take and
+   its share of it, with the split plan used, the kernel's time at 1, 2,
+   4 and 8 splits (each held to plain too) and the recorded time of the
+   kernel this design replaced.
 3. serve — a seeded random ``transformer_lm_base`` (12 layers, width 768,
    FFN 3072, 12 heads, vocab 30522, rotary, context 512) behind
    ``ServeEngine(num_pages=512, page_size=16, max_batch=16)``: 16 greedy
    requests with 16-448-token prompts, then 4 whose prompts open with 128
    tokens of an earlier one.  Checks finish reasons, an idle pool, a
    prefix hit, and that the kernel launched once per layer per ragged
-   dispatch.
+   dispatch; counts the dispatches whose longest row spans more than
+   one split.
 4. solo — for 3 requests, one of them a prefix-cache hit, the
    full-forward greedy decode equals the engine's tokens.
-5. profile — device busy and idle time of a decode-heavy window, and
-   the kernels that take the most time (``torch.profiler``).
+5. profile — device busy and idle time of a decode-heavy window, the
+   paged-attention kernels' time in it, and the kernels that take the
+   most time (``torch.profiler``).
 6. flash — the flash-attention kernels vs their plain versions at the
    BERT shapes (B=16, H=12, T=512, D=64, bias [1, 12, 512, 512], 0-200
    padded keys per row, dropout 0.1, q/k/v read from one fused
@@ -212,6 +217,46 @@ def bound(case):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+# the single-block paged-attention kernel this design replaced, at these
+# cases, as the smoke measured it before the redesign (H100 80GB HBM3,
+# 700 W): reported beside this run's time, not measured by it
+PA_REPLACED_MS = {"decode": 0.0679, "prefill": 0.2357, "mixed": 0.2106}
+
+
+def plan_sweep(pa, operands, want, scale, flush):
+    """The kernel's time at 1, 2, 4 and 8 splits of the table, through its
+    C entry (the wrapper always takes ``split_plan``'s): the evidence for
+    the plan.  Each plan's output is held within TOL of plain."""
+    q, k, v, table, positions, lengths = operands
+    B, T, H, D = q.shape
+    cols = table.shape[1] * PAGE_SIZE
+    fn = pa._kernel()
+    tickets = torch.zeros(B * H, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    times = {}
+    for splits in (1, 2, 4, 8):
+        per = -(-cols // splits)
+        out = torch.empty_like(q)
+        ws = torch.empty(B * H * splits * T * (D + 2), device="cuda")
+
+        def call():
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     table.data_ptr(), positions.data_ptr(),
+                     lengths.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                     tickets.data_ptr(), B, T, H, D, table.shape[1],
+                     PAGE_SIZE, splits, per, scale, stream)
+            if err:
+                raise AssertionError(f"{splits} splits: CUDA error {err}")
+
+        call()
+        err = float((out - want).abs().max())
+        if err > TOL:
+            raise AssertionError(f"{splits} splits: max |kernel - plain| "
+                                 f"{err} > {TOL}")
+        times[f"{splits}x{per}"] = time_ms(call, flush)
+    return times
+
+
 def kernel_phase(pa, flush):
     import torch.nn.functional as F
 
@@ -232,10 +277,12 @@ def kernel_phase(pa, flush):
             return pa.paged_attention_plain(
                 q, k, v, table, positions, lengths, PAGE_SIZE, scale)
 
-        got, want = kernel(), plain()
+        got, again, want = kernel(), kernel(), plain()
         torch.cuda.synchronize()
         if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
             raise AssertionError(f"{kind}: non-finite attention output")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{kind}: two kernel calls differ")
         err = float((got - want).abs().max())
         if err > TOL:
             raise AssertionError(f"{kind}: max |kernel - plain| {err} > {TOL}")
@@ -252,15 +299,38 @@ def kernel_phase(pa, flush):
                                                   scale=scale)
 
         bound_ms, bound_by = bound(case)
+        splits, split_cols = pa.split_plan(BATCH, HEADS,
+                                           table.shape[1] * PAGE_SIZE)
+        ms = time_ms(kernel, flush)
         cases[kind] = {
-            "T": int(q.shape[1]), "max_abs_err": err,
-            "ms": time_ms(kernel, flush), "plain_ms": time_ms(plain, flush),
+            "T": int(q.shape[1]), "max_abs_err": err, "bit_identical": True,
+            "ms": ms, "plain_ms": time_ms(plain, flush),
             "library_ms": time_ms(library, flush),
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / ms,
+            "splits": splits, "split_cols": split_cols,
+            "plans_ms": plan_sweep(pa, (q, k, v, table, positions, lengths),
+                                   want, scale, flush),
+            "replaced_ms_recorded": PA_REPLACED_MS[kind],
             "tokens": int(lengths.sum()),
         }
         emit("kernel", case=kind, **cases[kind])
     return cases
+
+
+def longest_rows(engine):
+    """Wrap the engine's step to note each dispatch's longest row (its
+    host ``lengths``, which read nothing from the card); returns the list
+    it fills."""
+    longest = []
+    step = engine._step
+
+    def noting(tokens, positions, tables, slot_mapping, lengths, *rest):
+        longest.append(int(lengths.max()))
+        return step(tokens, positions, tables, slot_mapping, lengths, *rest)
+
+    engine._step = noting
+    return longest
 
 
 def serve_phase(pa):
@@ -288,6 +358,7 @@ def serve_phase(pa):
                       max_new_tokens=32, eos_id=2, request_id=f"b{i}")
               for i, n in enumerate(rng.integers(16, 64, size=4))]
     before, decode_steps0 = dict(engine.stats), len(engine.decode_ms)
+    longest = longest_rows(engine)
     pa.ragged_paged_attention.launches = 0
     t0 = time.perf_counter()
     results = engine.generate(first) + engine.generate(second)
@@ -310,10 +381,13 @@ def serve_phase(pa):
         raise AssertionError(f"{launches} kernel launches for {dispatches} "
                              f"ragged dispatches of {layers} layers")
     ttft = np.array([r.ttft_ms for r in results])
+    split_cols = pa.split_plan(BATCH, model.decoder_attention_heads,
+                               engine.table_width * PAGE_SIZE)[1]
     emit("serve", model="transformer_lm_base", setup_s=build_s,
          requests=len(results), finish_reasons=reasons,
          generated_tokens=sum(len(r.tokens) for r in results),
          wall_s=wall_s, ragged_dispatches=dispatches, launches=launches,
+         multi_split_dispatches=sum(n > split_cols for n in longest),
          evictions=engine.stats["evictions"],
          prefix_hits=stats["prefix_hits"],
          prefix_tokens_saved=stats["prefix_tokens_saved"],
@@ -386,12 +460,16 @@ def profile_phase(model):
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    paged = [e for e in kernels if "paged_" in e.key]
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     emit("profile", window="8 requests x 16 new tokens, 64-token prompts",
          ragged_dispatches=engine.stats["ragged_dispatches"] - dispatches0,
          wall_ms=wall_ms, device_busy_ms=busy_ms,
          device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
          kernel_launches=sum(e.count for e in kernels),
+         paged_attention_ms=sum(e.self_device_time_total
+                                for e in paged) / 1e3,
+         paged_attention_launches=sum(e.count for e in paged),
          top_kernels=[{"name": e.key[:80], "count": e.count,
                        "ms": e.self_device_time_total / 1e3} for e in top])
 
@@ -1378,7 +1456,12 @@ def kernels_line(cases, serve_launches, flash, multiblock, train_launches,
         "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
         "ms": decode["ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
-        "library_ms": decode["library_ms"], "cases": cases,
+        "library_ms": decode["library_ms"],
+        # this run's numbers only: the recorded times stay on the phase line
+        "cases": {kind: {key: c[key] for key in (
+            "ms", "bound_ms", "plain_ms", "library_ms", "max_abs_err",
+            "share_of_bound", "splits", "split_cols")}
+            for kind, c in cases.items()},
     }]
     # the training path runs bf16: its numbers lead, fp32 rides along
     hb, joint, two_pass = (flash["bfloat16"], multiblock["t1024_nobias"],
