@@ -1,17 +1,23 @@
-"""The paged-attention kernel of a parent commit and of this tree on one
-card, in turns: parent, change, change, parent (P C C P).
+"""A parent commit and this tree on one card, in turns: parent, change,
+change, parent (P C C P).
 
     git archive HEAD | (mkdir -p build/parent && tar -x -C build/parent)
-    python3 chip_compare.py build/parent
+    python3 chip_compare.py build/parent [serve|train]
 
 The parent's checkout must lie in a directory that .gitignore lists.
 Each turn is one process that imports ``chip_smoke.py`` and the port
-from its own tree, builds the paged-attention kernel there, and runs the
-smoke's ``kernel``, ``serve`` and ``profile`` phases, the last with the
-host time of every paged-attention call in its window noted; then it
-runs the profile's window WINDOW_RUNS times without the profiler, and
-times the host's side of one wrapper call at the smoke's decode case
-(checks, allocations and the launch, the card left to run behind).
+from its own tree and builds its kernels there.
+
+- ``serve`` (the default): the smoke's ``kernel``, ``serve`` and
+  ``profile`` phases, the last with the host time of every
+  paged-attention call in its window noted; then the profile's window
+  WINDOW_RUNS times without the profiler, and the host's side of one
+  paged-attention wrapper call at the smoke's decode case (checks,
+  allocations and the launch, the card left to run behind).
+- ``train``: the smoke's ``train`` and ``train_profile`` phases
+  (full-width bert_base under --bf16: step times, launches, device busy
+  time and the top kernels).
+
 Every line is JSON, after the card's name and power limit; a ``turn``
 line opens each turn.  Needs one card.
 """
@@ -109,7 +115,7 @@ def window_walls(cs, model):
     return walls
 
 
-def turn(root, label):
+def turn(root, label, mode):
     os.chdir(root)
     sys.path.insert(0, root)
     import torch
@@ -118,9 +124,15 @@ def turn(root, label):
     from unicore_tpu_torch.ops import build
     from unicore_tpu_torch.ops import paged_attention as pa
 
-    print(json.dumps({"turn": label, "root": root}), flush=True)
+    print(json.dumps({"turn": label, "root": root, "mode": mode}),
+          flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if mode == "train":
+        build.build(["flash_attention", "flash_attention_fwd",
+                     "flash_attention_bwd"])
+        cs.train_phase()
+        return 0
     build.build(["paged_attention"])
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     cs.kernel_phase(pa, flush)
@@ -135,7 +147,7 @@ def turn(root, label):
     return 0
 
 
-def main(parent):
+def main(parent, mode):
     parent = os.path.abspath(parent)
     smi = ["nvidia-smi", "--query-gpu=name,power.limit",
            "--format=csv,noheader"]
@@ -143,14 +155,16 @@ def main(parent):
     for label, root in (("P", parent), ("C", HERE), ("C", HERE),
                         ("P", parent)):
         subprocess.run([sys.executable, os.path.abspath(__file__), "--turn",
-                        root, label], check=True, timeout=TURN_TIMEOUT_S)
+                        root, label, mode], check=True,
+                       timeout=TURN_TIMEOUT_S)
     subprocess.run(smi, check=True, timeout=60)
     return 0
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 4 and sys.argv[1] == "--turn":
-        sys.exit(turn(sys.argv[2], sys.argv[3]))
-    if len(sys.argv) != 2:
+    if len(sys.argv) == 5 and sys.argv[1] == "--turn":
+        sys.exit(turn(*sys.argv[2:]))
+    if len(sys.argv) not in (2, 3) or sys.argv[2:] not in (
+            [], ["serve"], ["train"]):
         sys.exit(__doc__)
-    sys.exit(main(sys.argv[1]))
+    sys.exit(main(sys.argv[1], (sys.argv[2:] or ["serve"])[0]))

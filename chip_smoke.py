@@ -62,7 +62,16 @@ code is non-zero:
    the fp32 flash kernels never, softmax_dropout's plain route never.
    Reports step time, samples/s and
    tokens/s, then the device idle share and top kernels of a
-   ``torch.profiler`` window of 3 more updates.
+   ``torch.profiler`` window of 3 more updates, its launch count beside
+   the count recorded before the bf16 Dense and GELU repair.
+   checkpoint — the same model and flags: run A takes 10 updates with
+   ``--save-interval-updates 5`` (async save); run B, a fresh trainer,
+   restores A's ``checkpoint_1_5.pt`` and runs to update 10.  Every
+   file's ``.sum`` sidecar verifies, B's losses of updates 6-10 lie within
+   1e-3 relative of A's (bit-equality reported), the flash kernels
+   launched once per layer per update in both runs; reports the save's
+   step-path stall, the file's bytes, the background write's and the
+   restore's seconds.
 8. flash_multiblock — the same checks at the shapes the JAX package
    sends to its multi-block kernels (rows 2 and 4-7 of the TPU kernel
    table): T=1024 without a bias (one key block: the joint dq/dk/dv
@@ -1163,6 +1172,27 @@ def write_corpus(path, rng):
                 start += n_tok
 
 
+def bert_args(corpus, logdir, updates):
+    """The command line of the train and checkpoint phases: full-width
+    bert_base under --bf16 on the corpus ``write_corpus`` wrote."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return [
+        corpus, "--user-dir",
+        os.path.join(here, "unicore_tpu_torch", "examples", "bert"),
+        "--task", "bert", "--loss", "masked_lm", "--arch",
+        "bert_base", "--pre-tokenized", "--optimizer", "adam",
+        "--adam-betas", "(0.9, 0.98)", "--adam-eps", "1e-6",
+        "--clip-norm", "1.0", "--lr-scheduler", "polynomial_decay",
+        "--lr", "1e-4", "--warmup-updates", "4",
+        "--total-num-update", str(TRAIN_UPDATES),
+        "--batch-size", str(TRAIN_BATCH), "--update-freq", "1",
+        "--seed", "1", "--bf16", "--max-update", str(updates),
+        "--log-interval", "1", "--log-format", "none",
+        "--tensorboard-logdir", logdir, "--disable-validation",
+        "--num-workers", "0",
+    ]
+
+
 def train_phase():
     """The port's CLI trains full-width bert_base under --bf16; returns
     the flash launch counts of its 20 updates."""
@@ -1174,7 +1204,6 @@ def train_phase():
     from unicore_tpu_torch.ops import flash_attention as fa
     from unicore_tpu_torch.ops import softmax_dropout as sd
 
-    here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         write_corpus(tmp, np.random.default_rng(2048))
@@ -1198,21 +1227,8 @@ def train_phase():
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         try:
-            loop = cli_main([
-                tmp, "--user-dir",
-                os.path.join(here, "unicore_tpu_torch", "examples", "bert"),
-                "--task", "bert", "--loss", "masked_lm", "--arch",
-                "bert_base", "--pre-tokenized", "--optimizer", "adam",
-                "--adam-betas", "(0.9, 0.98)", "--adam-eps", "1e-6",
-                "--clip-norm", "1.0", "--lr-scheduler", "polynomial_decay",
-                "--lr", "1e-4", "--warmup-updates", "4",
-                "--total-num-update", str(TRAIN_UPDATES),
-                "--batch-size", str(TRAIN_BATCH), "--update-freq", "1",
-                "--seed", "1", "--bf16", "--max-update", str(TRAIN_UPDATES),
-                "--log-interval", "1", "--log-format", "none",
-                "--tensorboard-logdir", logdir, "--disable-validation",
-                "--num-workers", "0", "--no-save",
-            ])
+            loop = cli_main(bert_args(tmp, logdir, TRAIN_UPDATES)
+                            + ["--no-save"])
         finally:
             trainer_mod.Trainer.train_step = train_step
         run_s = time.perf_counter() - t0
@@ -1269,10 +1285,126 @@ def train_phase():
              wall_ms=wall_ms, device_busy_ms=busy_ms,
              device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
              kernel_launches=sum(e.count for e in kernels),
+             # the parent tree's count, before the reference's Dense and
+             # GELU rounding (PERF.md §5; chip_compare.py's train turns
+             # measure both trees in one call)
+             kernel_launches_recorded_before_c4=5397,
              top_kernels=[{"name": e.key[:80], "count": e.count,
                            "ms": e.self_device_time_total / 1e3}
                           for e in top])
     return launches
+
+
+CKPT_UPDATES, CKPT_EVERY = 10, 5
+CKPT_TOL = 1e-3  # relative, per update: the card's reductions may differ
+
+
+def checkpoint_phase():
+    """Run A: the train phase's bert_base, 10 updates with a save every 5
+    (the default async writer).  Run B: a fresh trainer restores A's
+    ``checkpoint_1_5.pt`` and runs to update 10.  Raises unless every
+    file's sidecar verifies and B's updates 6-10 are within CKPT_TOL of
+    A's; reports whether they are bit-equal, the save's step-path stall,
+    the file's bytes, the background write's and the restore's
+    seconds, and the flash launches of both runs."""
+    from unicore_tpu_torch import checkpoint_utils as cu
+    from unicore_tpu_torch import trainer as trainer_mod
+    from unicore_tpu_torch.cli.train import cli_main
+    from unicore_tpu_torch.ops import flash_attention as fa
+
+    Trainer, Manager = trainer_mod.Trainer, cu.CheckpointManager
+    real = {"step": Trainer.train_step, "load": Trainer.load_checkpoint,
+            "save": Manager.save, "write": Manager._write_and_finalize}
+    losses, stall_ms, write_s, restore_s = [], [], [], []
+
+    def step(self, samples):
+        out = real["step"](self, samples)
+        losses[-1].append(float(out[0]["loss"]) / float(out[0]["sample_size"]))
+        return out
+
+    def load(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real["load"](self, *args, **kwargs)
+        torch.cuda.synchronize()
+        if out is not None:
+            restore_s.append(time.perf_counter() - t0)
+        return out
+
+    def save(self, *args, **kwargs):
+        saves, stall = self.saves, self.stall_s
+        real["save"](self, *args, **kwargs)
+        if self.saves > saves:
+            stall_ms.append((self.stall_s - stall) * 1e3)
+
+    def write(self, *args, **kwargs):  # on the writer's thread
+        t0 = time.perf_counter()
+        real["write"](self, *args, **kwargs)
+        write_s.append(time.perf_counter() - t0)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_corpus(tmp, np.random.default_rng(2048))
+        a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        restore = os.path.join(a, f"checkpoint_1_{CKPT_EVERY}.pt")
+        Trainer.train_step, Trainer.load_checkpoint = step, load
+        Manager.save, Manager._write_and_finalize = save, write
+        for name in fa.launches:
+            fa.launches[name] = 0
+        try:
+            losses.append([])
+            run_a = cli_main(bert_args(tmp, os.path.join(tmp, "log_a"),
+                                       CKPT_UPDATES) + [
+                "--save-interval-updates", str(CKPT_EVERY), "--save-dir", a,
+                "--tmp-save-dir", a, "--no-last-checkpoints"])
+            losses.append([])
+            run_b = cli_main(bert_args(tmp, os.path.join(tmp, "log_b"),
+                                       CKPT_UPDATES) + [
+                "--restore-file", restore, "--save-dir", b, "--no-save"])
+        finally:
+            Trainer.train_step, Trainer.load_checkpoint = real["step"], \
+                real["load"]
+            Manager.save, Manager._write_and_finalize = real["save"], \
+                real["write"]
+        launches = dict(fa.launches)
+        files = sorted(f for f in os.listdir(a) if f.endswith(".pt"))
+        integrity = {f: cu.file_integrity(os.path.join(a, f)) for f in files}
+        if files != [f"checkpoint_1_{CKPT_UPDATES}.pt",
+                     f"checkpoint_1_{CKPT_EVERY}.pt"] or any(
+                v != "ok" for v in integrity.values()):
+            raise AssertionError(f"checkpoint files {integrity}")
+        file_bytes = os.path.getsize(restore)
+        la, lb = np.array(losses[0]), np.array(losses[1])
+        if (len(la), len(lb)) != (CKPT_UPDATES, CKPT_UPDATES - CKPT_EVERY) \
+                or not np.isfinite(la).all() or not np.isfinite(lb).all():
+            raise AssertionError(f"losses A {la}, B {lb}")
+        rel = np.abs(lb - la[CKPT_EVERY:]) / np.abs(la[CKPT_EVERY:])
+        if not rel.max() <= CKPT_TOL:
+            raise AssertionError(f"resumed losses {lb} off run A's "
+                                 f"{la[CKPT_EVERY:]} by {rel.max()}")
+        if run_b.trainer.get_num_updates() != CKPT_UPDATES or len(
+                restore_s) != 1:
+            raise AssertionError("run B did not resume from update "
+                                 f"{CKPT_EVERY}")
+        layers = run_a.trainer.model.encoder_layers
+        runs = CKPT_UPDATES + CKPT_UPDATES - CKPT_EVERY
+        want = {n: layers * runs if n in TRAIN_FLASH else 0
+                for n in launches}
+        if launches != want:
+            raise AssertionError(f"flash launches {launches}, want {want}")
+        with torch.no_grad():
+            diff = max(float((p - q).abs().max()) for p, q in zip(
+                run_a.trainer.model.parameters(),
+                run_b.trainer.model.parameters()))
+    return {"model": "bert_base", "dtype": "bf16", "batch": TRAIN_BATCH,
+            "seq_len": 512, "updates": CKPT_UPDATES,
+            "save_interval_updates": CKPT_EVERY, "async_save": True,
+            "files": integrity, "file_bytes": file_bytes,
+            "save_stall_ms": stall_ms, "background_write_s": write_s,
+            "restore_s": restore_s[0], "losses_a_nats": la.tolist(),
+            "losses_b_nats": lb.tolist(), "max_rel_diff": float(rel.max()),
+            "tolerance": CKPT_TOL,
+            "bit_equal": bool((lb == la[CKPT_EVERY:]).all()),
+            "params_max_abs_diff_at_end": diff, "launches": launches}
 
 
 EVO_UPDATES, EVO_S, EVO_R = 10, 128, 256
@@ -1558,6 +1690,8 @@ def main():
     del flush
     torch.cuda.empty_cache()
     train_launches = train_phase()
+    torch.cuda.empty_cache()
+    emit("checkpoint", **checkpoint_phase())
     torch.cuda.empty_cache()
     evo_launches = evoformer_train_phase()
     rows = kernels_line(cases, launches, flash, multiblock, train_launches,

@@ -8,7 +8,9 @@ scale.
 
 Tiny config (V = 29 + specials, D = 32, H = 4, F = 64, L = 2), fp32,
 dropout 0; every input comes from a seeded numpy RNG and goes to both
-packages.  Values within 1e-4, indices exactly."""
+packages.  Values within 1e-4, indices exactly.  Under bf16 the encoder
+output, its ``Dense`` projections and its GELU are held to the share of
+elements off the reference's bf16 result."""
 
 import os
 from types import SimpleNamespace
@@ -21,6 +23,8 @@ import torch
 
 from unicore_tpu_torch.examples.bert.convert import state_dict_from_flax
 from unicore_tpu_torch.examples.bert.model import BertModel
+from unicore_tpu_torch.modules import FlaxDense
+from unicore_tpu_torch.utils import get_activation_fn
 
 V, PAD, D, H, F, L = 33, 1, 32, 4, 64, 2
 
@@ -45,7 +49,7 @@ def make_pair(post_ln, capacity=0.25, max_seq_len=128):
         lambda p: np.asarray(p) + np.float32(0.05) * nrng.randn(
             *p.shape).astype(np.float32), params)
     model = BertModel(**kw)
-    model.load_state_dict(state_dict_from_flax(params), strict=True)
+    model.load_flax_params(params)
     return fmodel, params, model.eval()
 
 
@@ -89,6 +93,83 @@ def test_model_matches_flax(rng, post_ln, seq):
                                rtol=0)
     np.testing.assert_allclose(got_logits.numpy(), np.asarray(want_logits),
                                atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("post_ln", [True, False])
+def test_model_matches_flax_bf16(rng, post_ln):
+    """The bf16 case: bf16 params in both packages, T = 16 (both take the
+    materialized attention).  At most 8% of the encoder output's elements
+    are off the reference's bf16 output, each within 2^-7 of the output's
+    largest magnitude (one bf16 ulp there).  With ``nn.Linear``'s bias
+    inside the product's rounding and ``F.gelu``'s single rounding,
+    33-35% were off.  The reference runs op by op, each op rounding to
+    bf16 as its code reads: under ``jax.jit`` XLA's CPU fusions keep fp32
+    between ops (excess precision), which moves about half of its own
+    output's elements."""
+    fmodel, params, model = make_pair(post_ln)
+    toks = make_sample(rng, 3, 16)["net_input"]["src_tokens"]
+    bf16 = jax.tree_util.tree_map(lambda p: jnp.asarray(p, jnp.bfloat16),
+                                  params)
+    want = np.asarray(fmodel.apply({"params": bf16}, jnp.asarray(toks),
+                                   features_only=True).astype(jnp.float32))
+    with torch.no_grad():
+        got = model.to(torch.bfloat16)(torch.from_numpy(toks),
+                                       features_only=True)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    assert np.isfinite(want).all() and np.isfinite(got).all()
+    off = np.abs(got - want)
+    assert (off > 0).mean() <= 0.08, f"{(off > 0).mean():.1%} off"
+    assert off.max() <= 2.0 ** -7 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("op", ["dense", "gelu", "gelu_tanh"])
+def test_bf16_ops_round_where_the_reference_rounds(op, dtype):
+    """``FlaxDense`` against ``flax.linen.Dense`` at [512, 768] x [768,
+    3072] with a bias: at most 0.1% of the bf16 outputs off (the same
+    bf16 product and bias add; the products' fp32 sums differ in order).
+    GELU (erf and tanh forms) against ``jax.nn.gelu`` over N(0, 3^2):
+    bit for bit in bf16, except where XLA flushes a subnormal result to
+    zero and torch keeps it (the erf form at x < -13).  fp32: within
+    2e-6 of the largest output (Dense), or 1e-6 (GELU: the tanh form
+    loses its relative accuracy in 1 + tanh where tanh is near -1)."""
+    import flax.linen as fnn
+
+    rng = np.random.RandomState(768)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    if op == "dense":
+        x = rng.randn(512, 768).astype(np.float32)
+        kernel = (0.02 * rng.randn(768, 3072)).astype(np.float32)
+        bias = (0.1 * rng.randn(3072)).astype(np.float32)
+        want = fnn.Dense(3072, dtype=jdt, param_dtype=jdt).apply(
+            {"params": {"kernel": jnp.asarray(kernel, jdt),
+                        "bias": jnp.asarray(bias, jdt)}}, jnp.asarray(x, jdt))
+        dense = FlaxDense(768, 3072)
+        dense.load_state_dict({"weight": torch.from_numpy(kernel.T.copy()),
+                               "bias": torch.from_numpy(bias)})
+        with torch.no_grad():
+            got = dense.to(tdt)(torch.from_numpy(x).to(tdt))
+    else:
+        x = (3 * rng.randn(512, 3072)).astype(np.float32)
+        want = jax.nn.gelu(jnp.asarray(x, jdt),
+                           approximate=op == "gelu_tanh")
+        got = get_activation_fn(op)(torch.from_numpy(x).to(tdt))
+    assert got.dtype == tdt
+    got = got.float().numpy()
+    want = np.asarray(want.astype(jnp.float32))
+    if dtype == "float32":
+        if op == "dense":
+            np.testing.assert_allclose(got, want, rtol=0,
+                                       atol=2e-6 * np.abs(want).max())
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    elif op == "dense":
+        assert (got != want).mean() <= 1e-3, f"{(got != want).mean():.3%}"
+    else:
+        flushed = np.where(np.abs(got) < np.finfo(np.float32).tiny, 0.0,
+                           got)
+        np.testing.assert_array_equal(flushed, want)
 
 
 def test_state_dict_round_trips_through_bert_rules():

@@ -292,7 +292,7 @@ def trajectories(args, updates=5):
 
     task = UnicoreTask(args)
     model = EvoformerModel(8, 8, **TINY)
-    model.load_state_dict(state_dict_from_flax(params), strict=True)
+    model.load_flax_params(params)
     trainer = port_trainer.Trainer(args, task, model, EvoformerMSELoss(task),
                                    device="cpu")
     jmetrics.reset()

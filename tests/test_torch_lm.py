@@ -15,7 +15,6 @@ import torch
 from examples.lm.model import TransformerLMModel as FlaxLM
 from unicore_tpu.serve.attention import PagedMeta as FlaxPagedMeta
 from unicore_tpu.tools.convert_torch_checkpoint import arch_flax_params
-from unicore_tpu_torch.examples.lm.convert import state_dict_from_flax
 from unicore_tpu_torch.examples.lm.model import TransformerLMModel
 from unicore_tpu_torch.serve.attention import PagedMeta
 
@@ -44,7 +43,7 @@ def pair():
         vocab_size=V, padding_idx=0, decoder_layers=L, decoder_embed_dim=D,
         decoder_ffn_embed_dim=F, decoder_attention_heads=H, max_seq_len=64,
     )
-    model.load_state_dict(state_dict_from_flax(params), strict=True)
+    model.load_flax_params(params)
     return fmodel, params, model.eval()
 
 

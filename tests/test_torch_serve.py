@@ -17,7 +17,6 @@ import pytest
 import torch
 
 from unicore_tpu.serve.kv_pool import PagedKVPool as FlaxPool
-from unicore_tpu_torch.examples.lm.convert import state_dict_from_flax
 from unicore_tpu_torch.examples.lm.model import (
     TransformerLMModel,
     solo_greedy,
@@ -48,7 +47,7 @@ def pair():
         vocab_size=V, padding_idx=0, decoder_layers=L, decoder_embed_dim=D,
         decoder_ffn_embed_dim=F, decoder_attention_heads=H, max_seq_len=64,
     )
-    model.load_state_dict(state_dict_from_flax(params), strict=True)
+    model.load_flax_params(params)
     return fmodel, params, model.eval()
 
 

@@ -3,19 +3,20 @@
 
     python -m unicore_tpu_torch.cli.train DATA \\
         --user-dir unicore_tpu_torch/examples/bert --task bert \\
-        --loss masked_lm --arch bert_base --pre-tokenized --bf16 --no-save ...
+        --loss masked_lm --arch bert_base --pre-tokenized --bf16 ...
 
 The epoch loop groups ``--update-freq`` micro-batches per update, logs
 the ``train_inner`` meters every ``--log-interval`` updates and the epoch
-averages at each epoch's end, validates every
-``--validate-interval-updates`` updates, at each epoch's end and when
-training stops, and stops at ``--max-update`` or ``--max-epoch``.
-Checkpointing is not ported yet (ROADMAP.md A7): a run without
-``--no-save`` exits with a message saying so.
+averages at each epoch's end, and after every update decides, as the
+reference's ``validate_and_save`` does, whether to validate and whether
+to save.  A run resumes from ``<save-dir>/checkpoint_last.pt`` when there
+is one (:class:`~unicore_tpu_torch.checkpoint_utils.CheckpointManager`),
+and stops at ``--max-update``, ``--max-epoch`` or ``--patience``.
 """
 
 import json
 import logging
+import math
 import os
 import sys
 import time
@@ -23,6 +24,7 @@ import time
 import torch
 
 from .. import options, tasks
+from ..checkpoint_utils import CheckpointManager
 from ..data import iterators
 from ..logging import metrics
 from ..trainer import Trainer
@@ -53,38 +55,65 @@ class _Log:
 
 
 class TrainLoop:
-    def __init__(self, args, trainer, task):
+    def __init__(self, args, trainer, task, ckpt):
         self.args = args
         self.trainer = trainer
         self.task = task
+        self.ckpt = ckpt
         self.log = _Log(args)
         self.valid_losses = []
+        self._runs_without_improvement = 0
+        self._patience_best = None
+
+    def _hit_hard_limits(self):
+        max_update = self.args.max_update or math.inf
+        return self.trainer.get_num_updates() >= max_update
 
     def _stop(self, epoch_itr):
-        args, n = self.args, self.trainer.get_num_updates()
-        if args.max_update > 0 and n >= args.max_update:
+        args = self.args
+        return self._hit_hard_limits() or (
+            args.max_epoch > 0 and epoch_itr.epoch >= args.max_epoch
+            and epoch_itr.end_of_epoch())
+
+    def _patience_exhausted(self, valid_loss):
+        if valid_loss is None or self.args.patience <= 0:
+            return False
+        if (self._patience_best is None
+                or (valid_loss > self._patience_best
+                    if self.args.maximize_best_checkpoint_metric
+                    else valid_loss < self._patience_best)):
+            self._patience_best = valid_loss
+            self._runs_without_improvement = 0
+            return False
+        self._runs_without_improvement += 1
+        if self._runs_without_improvement >= self.args.patience:
+            logger.info("early stop: no validation improvement in the last "
+                        "%d runs", self.args.patience)
             return True
-        return args.max_epoch > 0 and epoch_itr.epoch >= args.max_epoch \
-            and epoch_itr.end_of_epoch()
+        return False
 
     def run(self, epoch_itr):
-        while True:
-            if self.args.max_epoch > 0 and \
-                    epoch_itr.next_epoch_idx > self.args.max_epoch:
-                break
-            stop = self.train_epoch(epoch_itr)
+        while not (self.args.max_epoch > 0
+                   and epoch_itr.next_epoch_idx > self.args.max_epoch):
+            valid_losses, stop = self.train_epoch(epoch_itr)
             if stop:
                 break
+            self.trainer.lr_step(epoch_itr.epoch, valid_losses[0])
 
     def train_epoch(self, epoch_itr):
+        """One epoch of updates; returns (valid_losses, should_stop)."""
         args = self.args
+        # a resumed run may already sit at its limit (its last save was
+        # the final one): train no update past it
+        if self._hit_hard_limits():
+            return [None], True
         itr = epoch_itr.next_epoch_itr()
         freqs = args.update_freq
         update_freq = freqs[min(epoch_itr.epoch, len(freqs)) - 1]
         grouped = iterators.GroupedIterator(itr, update_freq)
         self.trainer.begin_epoch(epoch_itr.epoch)
         prefix = f"epoch {epoch_itr.epoch:03d}"
-        stop = False
+        valid_losses, stop = [None], False
         for samples in grouped:
             with metrics.aggregate("train_inner"):
                 self.trainer.train_step(samples)
@@ -94,12 +123,8 @@ class TrainLoop:
                 self.log(f"{prefix}: {grouped.n:5d} / {len(grouped)}", stats,
                          "train_inner", n)
                 metrics.reset_meters("train_inner")
-            end_of_epoch = not itr.has_next()
-            stop = self._stop(epoch_itr)
-            vi = args.validate_interval_updates
-            if not args.disable_validation and (
-                    stop or end_of_epoch or (vi > 0 and n % vi == 0)):
-                self.validate(epoch_itr)
+            valid_losses, stop = self.validate_and_save(
+                epoch_itr, end_of_epoch=not grouped.has_next())
             if stop:
                 break
         logger.info("end of epoch %d (average epoch stats below)",
@@ -107,10 +132,43 @@ class TrainLoop:
         self.log(prefix, metrics.get_smoothed_values("train"), "train",
                  self.trainer.get_num_updates())
         metrics.reset_meters("train")
-        return stop
+        return valid_losses, stop
+
+    def validate_and_save(self, epoch_itr, end_of_epoch):
+        """The reference's condition trees: what this update owes — a
+        checkpoint, a validation pass, both or neither."""
+        args = self.args
+        # a background write that failed since the last boundary surfaces
+        # here, before anything else
+        self.ckpt.poll()
+        updates = self.trainer.get_num_updates()
+        stop = self._stop(epoch_itr)
+        save_now = stop or (
+            end_of_epoch and epoch_itr.epoch % args.save_interval == 0
+            and not args.no_epoch_checkpoints
+        ) or (
+            args.save_interval_updates > 0 and updates > 0
+            and updates % args.save_interval_updates == 0
+            and updates >= getattr(args, "validate_after_updates", 0))
+        vi = args.validate_interval_updates
+        validate_now = not args.disable_validation and (
+            stop or (not end_of_epoch and save_now)
+            or (end_of_epoch
+                and epoch_itr.epoch % getattr(args, "validate_interval", 1)
+                == 0 and not args.no_epoch_checkpoints)
+            or (vi > 0 and updates > 0 and updates % vi == 0))
+        valid_losses = [None]
+        if validate_now:
+            valid_losses = self.validate(epoch_itr)
+        stop |= self._patience_exhausted(valid_losses[0])
+        self.ckpt.save(self.trainer, epoch_itr, valid_losses[0],
+                       do_save=save_now or stop)
+        return valid_losses, stop
 
     def validate(self, epoch_itr):
+        """Every validation subset; returns the checkpoint-metric values."""
         args = self.args
+        losses = []
         for subset in args.valid_subset.split(","):
             itr = self.trainer.get_valid_iterator(subset).next_epoch_itr(
                 shuffle=False)
@@ -121,16 +179,20 @@ class TrainLoop:
                                              "valid")
             stats = agg.get_smoothed_values()
             stats["num_updates"] = self.trainer.get_num_updates()
+            metric = args.best_checkpoint_metric
+            if self.ckpt.best.value is not None and metric in stats:
+                fold = max if args.maximize_best_checkpoint_metric else min
+                stats[f"best_{metric}"] = fold(self.ckpt.best.value,
+                                               stats[metric])
             self.log(f"epoch {epoch_itr.epoch:03d} | valid on '{subset}' "
                      "subset", stats, subset, stats["num_updates"])
             self.valid_losses.append(stats.get("loss"))
+            if metric in stats:
+                losses.append(stats[metric])
+        return losses or [None]
 
 
 def main(args):
-    if not args.no_save:
-        raise SystemExit(
-            "unicore_tpu_torch.cli.train: checkpointing is not ported yet "
-            "(ROADMAP.md A7); pass --no-save")
     if args.num_workers > 0:
         raise NotImplementedError(
             "--num-workers > 0: the port loads batches inline; data worker "
@@ -147,10 +209,16 @@ def main(args):
     n_params = sum(p.numel() for p in model.parameters())
     logger.info("model %s, %d parameters, device %s, compute dtype %s",
                 args.arch, n_params, trainer.device, trainer.compute_dtype)
-    epoch_itr = trainer.get_train_iterator(epoch=1)
+    ckpt = CheckpointManager(args, is_master=True)
+    _, epoch_itr = ckpt.restore(trainer)
     t0 = time.perf_counter()
-    loop = TrainLoop(args, trainer, task)
-    loop.run(epoch_itr)
+    loop = TrainLoop(args, trainer, task, ckpt)
+    try:
+        loop.run(epoch_itr)
+        # every background save must land (or raise) before success
+        ckpt.drain()
+    finally:
+        ckpt.close()
     logger.info("done training in %.1f seconds", time.perf_counter() - t0)
     return loop
 

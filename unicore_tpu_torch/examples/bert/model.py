@@ -18,8 +18,9 @@ from torch import nn
 
 from ...models import (BaseUnicoreModel, register_model,
                        register_model_architecture)
-from ...modules import LayerNorm, TransformerEncoder
+from ...modules import FlaxDense, LayerNorm, TransformerEncoder
 from ...utils import eval_bool, get_activation_fn
+from . import convert
 
 
 class BertLMHead(nn.Module):
@@ -28,7 +29,7 @@ class BertLMHead(nn.Module):
 
     def __init__(self, embed_dim, output_dim, activation_fn):
         super().__init__()
-        self.dense = nn.Linear(embed_dim, embed_dim)
+        self.dense = FlaxDense(embed_dim, embed_dim)
         self.act = get_activation_fn(activation_fn)
         self.layer_norm = LayerNorm(embed_dim)
         self.bias = nn.Parameter(torch.zeros(output_dim))
@@ -43,6 +44,7 @@ class BertLMHead(nn.Module):
 @register_model("bert")
 class BertModel(BaseUnicoreModel):
     supports_fused_head = True
+    flax_convert = convert
 
     def __init__(self, vocab_size=30522, padding_idx=0, encoder_layers=12,
                  encoder_embed_dim=768, encoder_ffn_embed_dim=3072,
@@ -56,6 +58,7 @@ class BertModel(BaseUnicoreModel):
         self.encoder_layers = encoder_layers
         self.max_seq_len = max_seq_len
         self.masked_loss_capacity = masked_loss_capacity
+        self.flax_heads = encoder_attention_heads
         self.embed_tokens = nn.Embedding(vocab_size, encoder_embed_dim)
         self.embed_positions = nn.Embedding(max_seq_len, encoder_embed_dim)
         self.sentence_encoder = TransformerEncoder(

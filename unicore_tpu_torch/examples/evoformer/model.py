@@ -19,10 +19,13 @@ from ...modules import EvoformerBlock
 from ...modules.triangle_attention import (Dense, flax_layer_norm,
                                            reset_evoformer_parameters)
 from ...utils import eval_bool
+from . import convert
 
 
 @register_model("evoformer")
 class EvoformerModel(BaseUnicoreModel):
+    flax_convert = convert
+
     def __init__(self, msa_features, pair_features, evoformer_layers=2,
                  msa_embed_dim=64, pair_embed_dim=32, msa_attention_heads=4,
                  pair_attention_heads=4, opm_hidden_dim=16, dropout=0.0,

@@ -16,8 +16,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...device import resolve_device
+from ...models import BaseUnicoreModel
 from ...modules import LayerNorm, TransformerDecoder
 from ...utils import get_activation_fn
+from . import convert
 
 ARCHS = {
     "transformer_lm": dict(
@@ -31,7 +33,9 @@ ARCHS = {
 }
 
 
-class TransformerLMModel(nn.Module):
+class TransformerLMModel(BaseUnicoreModel):
+    flax_convert = convert
+
     def __init__(self, vocab_size=30522, padding_idx=0, decoder_layers=6,
                  decoder_embed_dim=512, decoder_ffn_embed_dim=2048,
                  decoder_attention_heads=8, max_seq_len=512,
@@ -42,6 +46,7 @@ class TransformerLMModel(nn.Module):
         self.decoder_layers = decoder_layers
         self.decoder_embed_dim = decoder_embed_dim
         self.decoder_attention_heads = decoder_attention_heads
+        self.flax_heads = decoder_attention_heads
         self.max_seq_len = max_seq_len
         self.act = get_activation_fn(activation_fn)
         self.embed_tokens = nn.Embedding(vocab_size, decoder_embed_dim)

@@ -1,5 +1,6 @@
 """Model building blocks of the port."""
 
+from .dense import FlaxDense
 from .layer_norm import LayerNorm
 from .msa_attention import (EvoformerBlock, MSAColumnAttention,
                             MSARowAttentionWithPairBias, MSATransition,
@@ -15,7 +16,7 @@ from .transformer_encoder import (RelativePositionBias, TransformerEncoder,
                                   relative_position_bucket)
 
 __all__ = [
-    "EvoformerBlock", "EvoformerPairBlock", "LayerNorm", "MSAColumnAttention",
+    "EvoformerBlock", "EvoformerPairBlock", "FlaxDense", "LayerNorm", "MSAColumnAttention",
     "MSARowAttentionWithPairBias", "MSATransition", "OuterProductMean",
     "PairTransition", "RelativePositionBias", "SelfMultiheadAttention",
     "TransformerDecoder", "TransformerDecoderLayer", "TransformerEncoder",

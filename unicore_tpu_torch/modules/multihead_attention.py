@@ -21,10 +21,11 @@ Three paths:
   :func:`unicore_tpu_torch.ops.paged_attention.ragged_paged_attention`.
 
 Parameter names follow the reference torch model (``in_proj``,
-``out_proj``): ``in_proj`` is ``Linear(D, 3D)`` whose output features are
-laid out q-block, k-block, v-block, each ``[H, Dh]`` — the JAX package's
-``DenseGeneral`` kernel ``[D, 3, H, Dh]`` is ``in_proj.weight.T``
-reshaped.  The cross-attention module, ``return_attn``, packed
+``out_proj``; both :class:`~.dense.FlaxDense`, the bias added after the
+product rounds, as flax's): ``in_proj`` is ``Linear(D, 3D)`` whose
+output features are laid out q-block, k-block, v-block, each
+``[H, Dh]`` — the JAX package's ``DenseGeneral`` kernel
+``[D, 3, H, Dh]`` is ``in_proj.weight.T`` reshaped.  The cross-attention module, ``return_attn``, packed
 ``segment_ids`` and the dense ``_decode_attend`` cache are not ported yet.
 """
 
@@ -35,6 +36,7 @@ from ..ops.flash_attention import eligible, flash_attention
 from ..ops.paged_attention import ragged_paged_attention
 from ..ops.softmax_dropout import softmax_dropout
 from ..utils import causal_iota_mask
+from .dense import FlaxDense
 from .rotary import apply_rotary_qk
 
 
@@ -90,8 +92,8 @@ class SelfMultiheadAttention(nn.Module):
         self.scaling = (self.head_dim * scaling_factor) ** -0.5
         self.rotary = rotary
         self.rotary_base = rotary_base
-        self.in_proj = nn.Linear(embed_dim, 3 * embed_dim, bias=bias)
-        self.out_proj = nn.Linear(embed_dim, embed_dim, bias=bias)
+        self.in_proj = FlaxDense(embed_dim, 3 * embed_dim, bias=bias)
+        self.out_proj = FlaxDense(embed_dim, embed_dim, bias=bias)
 
     def forward(self, query, key_padding_mask=None, attn_bias=None,
                 causal=False, generator=None, positions=None, paged=None,

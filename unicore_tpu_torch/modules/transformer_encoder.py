@@ -15,6 +15,7 @@ from torch import nn
 
 from ..ops.dropout import dropout as ops_dropout
 from ..utils import get_activation_fn
+from .dense import FlaxDense
 from .layer_norm import LayerNorm
 from .multihead_attention import SelfMultiheadAttention
 
@@ -82,8 +83,8 @@ class TransformerEncoderLayer(nn.Module):
         self.self_attn = SelfMultiheadAttention(
             embed_dim, attention_heads, dropout=attention_dropout)
         self.final_layer_norm = LayerNorm(embed_dim)
-        self.fc1 = nn.Linear(embed_dim, ffn_embed_dim)
-        self.fc2 = nn.Linear(ffn_embed_dim, embed_dim)
+        self.fc1 = FlaxDense(embed_dim, ffn_embed_dim)
+        self.fc2 = FlaxDense(ffn_embed_dim, embed_dim)
 
     def _drop(self, x, rate, generator):
         if not self.training or rate == 0.0:

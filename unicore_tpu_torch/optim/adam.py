@@ -15,11 +15,14 @@ one multi-tensor rounding call
 (:func:`~unicore_tpu_torch.ops.rounding.fp32_to_bf16_sr_multi`).
 ``--optim-bf16-moments-rounding nearest`` rounds to nearest instead
 (:func:`~unicore_tpu_torch.optim.fp16_optimizer.cast_moments`).
+:meth:`UnicoreAdam.state_dict` gives the JAX package's ``opt_state``
+shape, so the checkpoints of both packages carry the same moments.
 """
 
 import ast
 import math
 
+import numpy as np
 import torch
 
 from ..ops.prng import draw_seeds
@@ -87,6 +90,37 @@ class UnicoreAdam(UnicoreOptimizer):
                                 value=-lr * math.sqrt(bc2) / bc1)
         if store:
             self._store_moments(m, v, generator)
+
+    def state_dict(self):
+        """The JAX package's ``opt_state`` shape, ``{"step", "exp_avg",
+        "exp_avg_sq"}``: the step count as an int32 scalar and each moment
+        as a list of the live tensors, one per parameter in order (the
+        trainer maps the lists onto the params' tree and copies them to
+        the host; bf16 stores widen to fp32 there, exactly)."""
+        return {"step": np.asarray(self.step_count, np.int32),
+                "exp_avg": list(self.exp_avg),
+                "exp_avg_sq": list(self.exp_avg_sq)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state_dict):
+        """Load :meth:`state_dict`'s shape (moments as lists of arrays or
+        tensors in parameter order).  Each moment casts to its store
+        dtype: exact for values a bf16 store wrote, whatever their
+        saved dtype."""
+        for key in ("exp_avg", "exp_avg_sq"):
+            stores, saved = getattr(self, key), state_dict[key]
+            if len(saved) != len(stores):
+                raise ValueError(f"{key}: {len(saved)} saved leaves for "
+                                 f"{len(stores)} parameters")
+            for i, (dst, src) in enumerate(zip(stores, saved)):
+                if not torch.is_tensor(src):
+                    src = torch.from_numpy(np.asarray(src, np.float32))
+                if tuple(src.shape) != tuple(dst.shape):
+                    raise ValueError(f"{key}[{i}] has shape "
+                                     f"{tuple(src.shape)}, the parameter "
+                                     f"{tuple(dst.shape)}")
+                dst.copy_(src)
+        self.step_count = int(state_dict["step"])
 
     def _store_moments(self, m, v, generator):
         """Round the fp32 moments ``m``, ``v`` into the bf16 stores: under

@@ -26,14 +26,16 @@ class FixedLRSchedule(FunctionalLRScheduler):
         self._rebind(args.lr[0])
 
     def _rebind(self, base_lr):
-        self.lr = base_lr
+        self.lr = self.base_lr = base_lr
         self._schedule = functools.partial(
             fixed_warmup, base_lr=base_lr,
             warmup_updates=self.args.warmup_updates,
         )
 
     def state_dict(self):
-        return {"lr": self.lr}
+        # the epoch's base lr: ``self.lr`` is the warmed one during warmup,
+        # and rebinding to it would shrink every later update's lr
+        return {"lr": self.base_lr}
 
     def load_state_dict(self, state_dict):
         if "lr" in state_dict:

@@ -30,3 +30,11 @@ class UnicoreOptimizer:
     def step(self):
         """One update of ``self.params`` from their ``.grad``."""
         raise NotImplementedError
+
+    def state_dict(self):
+        """The optimizer's state in the JAX package's ``opt_state``
+        shape."""
+        raise NotImplementedError
+
+    def load_state_dict(self, state_dict):
+        raise NotImplementedError

@@ -110,14 +110,92 @@ def get_training_parser(input_args=None):
                         "(unbiased, the default) or round-to-nearest")
     g.add_argument("--checkpoint-activations", action="store_true")
 
-    g = p.add_argument_group("checkpoint")
-    g.add_argument("--no-save", action="store_true",
-                   help="required: checkpointing is not ported yet")
-    g.add_argument("--save-dir", default="checkpoints")
-    g.add_argument("--save-interval-updates", type=int, default=0)
-    g.add_argument("--keep-interval-updates", type=int, default=-1)
-    g.add_argument("--no-epoch-checkpoints", action="store_true")
+    add_checkpoint_args(p)
     return p
+
+
+def add_checkpoint_args(parser):
+    """The JAX package's checkpoint group: the same names and defaults.
+    ``--publish-dir`` (A12) and ``--load-from-ema`` (A7) parse and are
+    refused by the checkpoint manager."""
+    g = parser.add_argument_group("Checkpointing")
+    g.add_argument("--save-dir", metavar="DIR", default="checkpoints",
+                   help="directory that receives checkpoint files")
+    g.add_argument("--tmp-save-dir", metavar="DIR", default="./",
+                   help="path to temporarily save checkpoints (fast local "
+                        "disk; a background thread copies them into "
+                        "--save-dir)")
+    g.add_argument("--async-save", nargs="?", const="on", default="on",
+                   choices=["on", "off"],
+                   help="pickle, checksum and copy checkpoints on a "
+                        "background writer thread while training continues; "
+                        "a failed background write surfaces at the next "
+                        "step boundary.  \"off\" writes synchronously")
+    g.add_argument("--publish-dir", metavar="DIR", default="",
+                   help="weight-manifest publishing (not ported: ROADMAP.md "
+                        "A12)")
+    g.add_argument("--save-queue-size", type=int, default=2, metavar="N",
+                   help="max in-flight background saves before submit "
+                        "blocks")
+    g.add_argument("--restore-file", default="checkpoint_last.pt",
+                   help="filename from which to load checkpoint "
+                        "(default: <save-dir>/checkpoint_last.pt")
+    g.add_argument("--finetune-from-model", default=None, type=str,
+                   help="warm-start params from this model; optimizer/"
+                        "meters/lr state start fresh")
+    g.add_argument("--reset-dataloader", action="store_true",
+                   help="start data iteration from scratch instead of the "
+                        "saved position")
+    g.add_argument("--reset-lr-scheduler", action="store_true",
+                   help="leave the saved lr-scheduler state on disk; start "
+                        "the schedule over")
+    g.add_argument("--reset-meters", action="store_true",
+                   help="start logging meters from zero instead of the "
+                        "saved counters")
+    g.add_argument("--reset-optimizer", action="store_true",
+                   help="restore params only; optimizer moments/step start "
+                        "fresh")
+    g.add_argument("--optimizer-overrides", default="{}", type=str,
+                   metavar="DICT",
+                   help="python-dict literal of optimizer hyperparams to "
+                        "override at restore")
+    g.add_argument("--save-interval", type=int, default=1, metavar="N",
+                   help="write an epoch checkpoint once per N epochs")
+    g.add_argument("--save-interval-updates", type=int, default=0,
+                   metavar="N",
+                   help="also write (and validate) every N optimizer "
+                        "updates")
+    g.add_argument("--keep-interval-updates", type=int, default=-1,
+                   metavar="N",
+                   help="retain only the newest N mid-epoch "
+                        "(update-interval) checkpoints")
+    g.add_argument("--keep-last-epochs", type=int, default=-1, metavar="N",
+                   help="retain only the newest N epoch checkpoints")
+    g.add_argument("--keep-best-checkpoints", type=int, default=-1,
+                   metavar="N", help="retain the N best-scoring checkpoints")
+    g.add_argument("--no-save", action="store_true",
+                   help="disable checkpoint writing entirely")
+    g.add_argument("--no-epoch-checkpoints", action="store_true",
+                   help="skip per-epoch files; keep only _last and _best")
+    g.add_argument("--no-last-checkpoints", action="store_true",
+                   help="skip writing checkpoint_last.pt")
+    g.add_argument("--no-save-optimizer-state", action="store_true",
+                   help="omit optimizer moments from saved files (params "
+                        "only)")
+    g.add_argument("--best-checkpoint-metric", type=str, default="loss",
+                   help="validation stat that ranks checkpoint_best.pt")
+    g.add_argument("--maximize-best-checkpoint-metric", action="store_true",
+                   help="rank best checkpoints by the LARGEST value of the "
+                        "metric")
+    g.add_argument("--patience", type=int, default=-1, metavar="N",
+                   help="early stop training if valid performance doesn't "
+                        "improve for N consecutive validation runs")
+    g.add_argument("--checkpoint-suffix", type=str, default="",
+                   help="string appended to every checkpoint filename")
+    g.add_argument("--load-from-ema", action="store_true",
+                   help="initialize params from the EMA params in the "
+                        "checkpoint (not ported: ROADMAP.md A7)")
+    return g
 
 
 def parse_args_and_arch(parser, input_args=None):

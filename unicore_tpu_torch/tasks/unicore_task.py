@@ -7,6 +7,40 @@ fixed batch size, whole batches shuffled per epoch)."""
 from ..data import UnicoreDataset, data_utils, iterators
 
 
+class StatefulContainer:
+    """Lazy checkpointable task state (a copy of the JAX package's):
+    attributes materialize on first access from registered zero-argument
+    factories and ride checkpoints verbatim; a restore merges the saved
+    dict over whatever has materialized (restored values win)."""
+
+    def __init__(self):
+        self._state = {}
+        self._factories = {}
+
+    def add_factory(self, name, factory):
+        self._factories[name] = factory
+
+    def merge_state_dict(self, state_dict):
+        self._state.update(state_dict)
+
+    @property
+    def state_dict(self):
+        return self._state
+
+    def __getattr__(self, name):
+        # only called when normal lookup misses: a state attribute
+        state = self.__dict__.get("_state")
+        if state is None:  # probed before __init__ (copy, pickle)
+            raise AttributeError(name)
+        if name not in state:
+            factory = self.__dict__["_factories"].get(name)
+            if factory is None:
+                raise AttributeError(
+                    f"Task state has no factory for attribute {name}")
+            state[name] = factory()
+        return state[name]
+
+
 class UnicoreTask:
     @classmethod
     def add_args(cls, parser):
@@ -15,6 +49,7 @@ class UnicoreTask:
     def __init__(self, args, **kwargs):
         self.args = args
         self.datasets = {}
+        self.state = StatefulContainer()
 
     @classmethod
     def setup_task(cls, args, **kwargs):
@@ -58,6 +93,12 @@ class UnicoreTask:
 
     def begin_epoch(self, epoch, model):
         """Hook at the beginning of each epoch."""
+
+    def state_dict(self):
+        return self.state.state_dict
+
+    def load_state_dict(self, state_dict):
+        self.state.merge_state_dict(state_dict)
 
     def reduce_metrics(self, logging_outputs, loss, split="train"):
         from ..logging import metrics

@@ -18,17 +18,30 @@ by stochastic rounding before every micro-batch instead, with fresh
 seeds, as the reference's step does; ``--optim-bf16-moments`` stores
 Adam's moments in bf16, re-quantized by stochastic rounding.
 
+Checkpoints (:meth:`Trainer.state_dict`, :meth:`Trainer.load_checkpoint`)
+hold the JAX trainer's tree: ``"model"`` is ``{"step", "params",
+"opt_state", "guard"}`` of numpy arrays in the flax layout (the model's
+``flax_tree``), so either package resumes the other's file.  The port's
+dropout generator is state the JAX trainer does not have; its bytes ride
+``optimizer_history`` under ``"torch_generator_state"``, which the JAX
+trainer ignores.
+
 Flags of the JAX trainer this slice does not port raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` item
 (:func:`refuse_unported`); none is ignored.
 """
 
+import argparse
 import copy
 import logging
 import math
+import os
+import time
 
+import numpy as np
 import torch
 
+from . import checkpoint_utils
 from .device import resolve_device
 from .logging import metrics
 from .optim import build_optimizer
@@ -110,6 +123,8 @@ class Trainer:
                                                self.total_train_steps)
         self.lr_scheduler.step_update(0)
         self._num_updates = 0
+        self._start_time = time.time()
+        self._previous_training_time = 0.0
 
     # -- one update --------------------------------------------------------
 
@@ -231,8 +246,34 @@ class Trainer:
         metrics.log_scalar("num_updates", num_updates, weight=0,
                            priority=200)
 
-    def get_train_iterator(self, epoch):
-        self.task.load_dataset(self.args.train_subset, epoch=epoch)
+    def get_lr(self):
+        return self.optimizer.get_lr()
+
+    def lr_step(self, epoch, val_loss=None):
+        self.lr_scheduler.step(epoch, val_loss)
+        return self.lr_step_update()
+
+    def init_total_train_steps(self, epoch_itr):
+        """Total updates of the run, for schedules that read it."""
+        if getattr(self.args, "max_update", 0) > 0:
+            total = self.args.max_update
+        else:
+            max_epoch = getattr(self.args, "max_epoch", 0) or 1
+            total = len(epoch_itr) // self.args.update_freq[0] * max_epoch
+        self.total_train_steps = self.lr_scheduler.total_train_steps = total
+
+    def cumulative_training_time(self):
+        return time.time() - self._start_time + self._previous_training_time
+
+    def get_train_iterator(self, epoch, combine=True, load_dataset=True,
+                           data_selector=None, shard_batch_itr=True,
+                           disable_iterator_cache=False):
+        """The train split's epoch iterator (the reference's signature;
+        one process, so no shards, and the iterator is built anew)."""
+        if load_dataset:
+            self.task.load_dataset(self.args.train_subset, epoch=epoch,
+                                   combine=combine,
+                                   data_selector=data_selector)
         return self.task.get_batch_iterator(
             self.task.dataset(self.args.train_subset),
             batch_size=self.args.batch_size,
@@ -245,3 +286,161 @@ class Trainer:
             batch_size=self.args.batch_size,
             required_batch_size_multiple=self.args.required_batch_size_multiple,
             seed=self.seed)
+
+    # -- checkpoint state (the JAX trainer's tree) -------------------------
+
+    def _param_names(self):
+        return [n for n, p in self.model.named_parameters()
+                if p.requires_grad]
+
+    def _flax(self, leaves):
+        """Tensors in parameter order -> the flax tree of numpy copies."""
+        return self.model.flax_tree(dict(zip(self._param_names(), leaves)))
+
+    def _leaves(self, tree):
+        """A flax tree of the model's layout -> tensors in parameter
+        order."""
+        named = self.model.named_from_flax(tree)
+        return [named[n] for n in self._param_names()]
+
+    def state_dict(self):
+        """The checkpoint: numpy arrays and plain values only, so the JAX
+        package reads it without torch."""
+        model = {
+            "step": np.asarray(self._num_updates, np.int32),
+            "params": self._flax([p for p in self.model.parameters()
+                                  if p.requires_grad]),
+            # the JAX trainer's anomaly-guard scalars (its guard_init); the
+            # port has no guard, and zeros load there without a warning
+            "guard": {"loss_ema": np.zeros((), np.float32),
+                      "loss_emsq": np.zeros((), np.float32),
+                      **{k: np.zeros((), np.int32)
+                         for k in ("count", "streak", "skips", "spikes")}},
+        }
+        if not getattr(self.args, "no_save_optimizer_state", False):
+            opt = self.optimizer.state_dict()
+            model["opt_state"] = {"step": opt["step"],
+                                  "exp_avg": self._flax(opt["exp_avg"]),
+                                  "exp_avg_sq": self._flax(opt["exp_avg_sq"])}
+        return {
+            "args": _plain_args(self.args),
+            "model": model,
+            "optimizer_history": [{
+                "loss_name": self.loss.__class__.__name__,
+                "optimizer_name": self.optimizer.__class__.__name__,
+                "lr_scheduler_state": self.lr_scheduler.state_dict(),
+                "num_updates": self._num_updates,
+                # the JAX trainer's dropout-stream counter; the port has
+                # no skipped dispatches that advance it past the updates
+                "dispatch_count": self._num_updates,
+                "torch_generator_state":
+                    self.generator.get_state().numpy().copy(),
+            }],
+            "task_state": dict(self.task.state_dict()),
+            "extra_state": {
+                "metrics": metrics.state_dict(),
+                "previous_training_time": self.cumulative_training_time(),
+            },
+        }
+
+    def collect_checkpoint_state(self, extra_state):
+        """Everything a checkpoint write needs, copied to the host: the
+        synchronous part of a save (the manager serializes it)."""
+        state_dict = self.state_dict()
+        state_dict["extra_state"].update(extra_state)
+        return state_dict
+
+    def save_checkpoint(self, filename, extra_state):
+        """Direct synchronous save."""
+        logger.info("Saving checkpoint to %s", filename)
+        checkpoint_utils.atomic_save(
+            self.collect_checkpoint_state(extra_state), filename)
+        logger.info("Finished saving checkpoint to %s", filename)
+
+    def load_checkpoint(self, filename, reset_optimizer=False,
+                        reset_lr_scheduler=False, optimizer_overrides=None,
+                        reset_meters=False):
+        """Load a checkpoint of either package; returns its
+        ``extra_state`` (None when ``filename`` does not exist)."""
+        if not os.path.exists(filename):
+            logger.info("No existing checkpoint found %s", filename)
+            return None
+        state = checkpoint_utils.load_checkpoint_to_cpu(filename)
+        last = state.get("optimizer_history", [{}])[-1]
+        if optimizer_overrides:
+            for k, v in optimizer_overrides.items():
+                logger.info("overriding optimizer arg %s=%r", k, v)
+                setattr(self.args, k, v)
+            self.optimizer = build_optimizer(
+                self.args, list(self.model.parameters()))
+            self.lr_scheduler = build_lr_scheduler(
+                self.args, self.optimizer, self.total_train_steps)
+        model_state = state.get("model")
+        if model_state is not None:
+            self.model.load_flax_params(model_state["params"])
+            if reset_optimizer:
+                logger.info("--reset-optimizer: restoring params only")
+            elif "opt_state" in model_state:
+                opt = model_state["opt_state"]
+                self.optimizer.load_state_dict({
+                    "step": opt["step"],
+                    "exp_avg": self._leaves(opt["exp_avg"]),
+                    "exp_avg_sq": self._leaves(opt["exp_avg_sq"])})
+            else:
+                logger.warning("checkpoint: %s holds no optimizer state; "
+                               "keeping fresh moments", filename)
+        if not reset_lr_scheduler:
+            self.lr_scheduler.load_state_dict(
+                last.get("lr_scheduler_state", {}))
+        if not reset_optimizer:
+            step = (0 if model_state is None
+                    else int(model_state.get("step", 0)))
+            self.set_num_updates(last.get("num_updates", step))
+            self._load_generator(last.get("torch_generator_state"))
+        self.task.load_state_dict(state.get("task_state", {}))
+        extra_state = state.get("extra_state", {}) or {}
+        if not reset_meters and "metrics" in extra_state:
+            metrics.load_state_dict(extra_state["metrics"])
+        self._previous_training_time = extra_state.get(
+            "previous_training_time", 0.0)
+        logger.info("Loaded checkpoint %s (epoch %s @ %d updates)", filename,
+                    extra_state.get("train_iterator", {}).get("epoch", 0),
+                    self.get_num_updates())
+        return extra_state
+
+    def _load_generator(self, saved):
+        """Restore the dropout generator's bytes.  A JAX-written file holds
+        none (the JAX trainer draws its dropout from the seed and its
+        dispatch count, which torch cannot reproduce), and a file written
+        on another device type holds another generator's: the generator
+        then restarts from ``(seed, num_updates)``, the same seed for
+        every resume of one file."""
+        current = self.generator.get_state()
+        if saved is not None and np.asarray(saved).size == current.numel():
+            self.generator.set_state(
+                torch.from_numpy(np.array(saved, np.uint8)))
+            return
+        seed = np.random.SeedSequence(
+            [self.seed & 0xFFFFFFFF, self._num_updates])
+        self.generator.manual_seed(int(seed.generate_state(1, np.uint64)[0]
+                                       >> np.uint64(1)))
+        logger.warning("checkpoint holds no torch generator state for this "
+                       "device; dropout restarts from (seed %d, update %d)",
+                       self.seed, self._num_updates)
+
+
+def _plain(value):
+    if value is None or isinstance(value, (bool, int, float, str)):
+        return True
+    if isinstance(value, (list, tuple)):
+        return all(_plain(v) for v in value)
+    if isinstance(value, dict):
+        return all(isinstance(k, str) and _plain(v) for k, v in value.items())
+    return False
+
+
+def _plain_args(args):
+    """``args`` without values the JAX package could not unpickle
+    without torch (a ``torch.dtype``, a device, ...)."""
+    return argparse.Namespace(**{k: v for k, v in vars(args).items()
+                                 if _plain(v)})

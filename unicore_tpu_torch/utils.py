@@ -1,7 +1,9 @@
 """Helpers shared by the port's modules (the subset of
 ``unicore_tpu/utils.py`` the serve and training slices need)."""
 
+import functools
 import importlib
+import math
 import sys
 from pathlib import Path
 
@@ -9,12 +11,37 @@ import torch
 import torch.nn.functional as F
 
 
+@functools.lru_cache(maxsize=None)
+def _rounded(value, dtype):
+    """``value`` rounded to ``dtype``, as ``np.float64(value).astype``
+    rounds jax's constants.  Multiplied into a tensor of that dtype it
+    gives jax's product: torch forms it in fp32 from the exact operands
+    and rounds once, as XLA does."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def gelu(x):
+    """``jax.nn.gelu(x, approximate=False)`` op for op: each op rounds to
+    x's dtype, so under bf16 the result is flax's bit for bit (``F.gelu``
+    rounds once from fp32).  ``x * -c`` is jax's ``-x * c``: negation is
+    exact."""
+    return 0.5 * x * torch.erfc(x * -_rounded(math.sqrt(0.5), x.dtype))
+
+
+def gelu_tanh(x):
+    """``jax.nn.gelu(x, approximate=True)`` op for op (``x ** 3`` is
+    ``integer_pow``: two rounded products)."""
+    cube = _rounded(0.044715, x.dtype) * (x * x * x)
+    inner = _rounded(math.sqrt(2 / math.pi), x.dtype) * (x + cube)
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
 def get_activation_fn(activation):
     """Activation by name.  ``"gelu"`` is the exact (erf) form, as in
     the JAX package (``jax.nn.gelu(approximate=False)``)."""
     fns = {
-        "gelu": F.gelu,
-        "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
+        "gelu": gelu,
+        "gelu_tanh": gelu_tanh,
         "relu": F.relu,
         "tanh": torch.tanh,
         "silu": F.silu,
