@@ -8,9 +8,9 @@ code is non-zero:
 
 1. build — compile every kernel of the serve and training paths from
    ``unicore_tpu_torch/csrc/`` with ``nvcc`` for sm_90a (one process per
-   source — paged attention, the fp32 flash kernels, the bf16 flash
-   forward, the bf16 flash backward, softmax_dropout, rounding — started
-   together).
+   source — paged attention, the fp32 flash kernels, the bf16 and fp16
+   flash forward, the bf16 and fp16 flash backward, softmax_dropout,
+   rounding — started together).
 2. kernel — the paged-attention kernel vs its plain PyTorch version at
    the serve path's shapes (B=16, H=12, D=64, page size 16, fp32): pure
    decode (T=1), full prefill chunks (T=32) and a mixed batch with -1
@@ -38,15 +38,18 @@ code is non-zero:
 6. flash — the flash-attention kernels vs their plain versions at the
    BERT shapes (B=16, H=12, T=512, D=64, bias [1, 12, 512, 512], 0-200
    padded keys per row, dropout 0.1, q/k/v read from one fused
-   [B, T, 3, H, D] projection): in bf16 the three tensor-core kernels
-   (the forward; dk/dv; dq with the dbias partials), in fp32 the four
-   fp32 kernels (the forward; dk/dv, dq, dbias).  Each against its plain
-   version on the same tensors, which in bf16 rounds p, p_drop and dS as
-   the kernels do: out within 1e-4 in fp32 and 1e-2 of its max in bf16,
-   lse within 1e-4 (fp32) or 2e-4 (bf16), each grad within 1e-3 of its
-   max in fp32, 2e-2 in bf16; two forward and two backward calls bit for
-   bit.  Kernel times from ``torch.profiler`` beside each kernel's bound
-   and achieved TFLOP/s on unpadded pairs, the backward kernels' sum
+   [B, T, 3, H, D] projection): in bf16 and in fp16 the three
+   tensor-core kernels of that type (the forward; dk/dv; dq with the
+   dbias partials), in fp32 the four fp32 kernels (the forward; dk/dv,
+   dq, dbias).  Each against its plain version on the same tensors,
+   which in bf16 and fp16 rounds p, p_drop and dS as the kernels do: out
+   within 1e-4 in fp32, 1e-2 of its max in bf16 and 5e-3 in fp16, lse
+   within 1e-4 (fp32) or 2e-4, each grad within 1e-3 of its max in fp32,
+   2e-2 in bf16, 5e-3 in fp16; two forward and two backward calls bit
+   for bit; the fp16 keep pattern equal to bf16's on the same seeds; the
+   bf16 and fp16 kernels timed in turns (bf16, fp16, fp16, bf16).
+   Kernel times from ``torch.profiler`` beside each kernel's bound and
+   achieved TFLOP/s on unpadded pairs, the backward kernels' sum
    beside the bound of the whole backward; the wrapper's whole backward,
    plain and SDPA (same bias + pad mask and dropout, forward and forward
    + backward, pinned to its memory-efficient backend, TF32 off) times
@@ -64,6 +67,17 @@ code is non-zero:
    tokens/s, then the device idle share and top kernels of a
    ``torch.profiler`` window of 3 more updates, its launch count beside
    the count recorded before the bf16 Dense and GELU repair.
+   train_fp16 — the same model, corpus and flags under --fp16 (initial
+   loss scale 128): 20 updates in 21 dispatches, dispatch 7 forced to
+   overflow (an inf in the master position embedding): skipped, params
+   and moments unchanged, the update count held, the scale halved; the
+   first loss in 9-11.5 nats and falling; loss_scale logged per step;
+   the fp16 flash kernels once per layer per dispatch and no other flash
+   kernel; a synchronous save at update 10 resumed in a fresh trainer
+   for 5 updates with the same scale and growth tracker and losses
+   within 1e-3 relative.  Step time, samples/s, peak memory (training's,
+   and with the save's staging) and a profiled window of 3 updates,
+   each beside the train phase's bf16 figures.
    checkpoint — the same model and flags: run A takes 10 updates with
    ``--save-interval-updates 5`` (async save); run B, a fresh trainer,
    restores A's ``checkpoint_1_5.pt`` and runs to update 10.  Every
@@ -76,8 +90,8 @@ code is non-zero:
    sends to its multi-block kernels (rows 2 and 4-7 of the TPU kernel
    table): T=1024 without a bias (one key block: the joint dq/dk/dv
    backward) and T=2048 with a [1, H, T, T] bias (two-pass dq, dk/dv and
-   the dbias pass), bf16, dropout 0.1, against the plain version and
-   SDPA.
+   the dbias pass), bf16 and fp16, dropout 0.1, against the plain
+   version and SDPA, the two types also in turns.
 9. head — the BERT masked-LM head at bert_base's shape (2,048 slots x
    768, tied vocab 30,522, bias, bf16): the chunked cross-entropy's fp32
    product of bf16 operands, the kernels it ran, the nll within 1e-3
@@ -119,14 +133,17 @@ code is non-zero:
    time, residue pairs/s and peak memory, then the idle share, the
    softmax_dropout kernels' time and the top kernels of a
    ``torch.profiler`` window of 2 more updates.
-13. the ``kernels`` line (rows 1-11 of the TPU kernel table; the bf16
-   backward rows carry the row's whole backward time beside the bound of
-   the backward as one function), the card's name and power limit, and
-   the closing ``{"ok": true, ...}`` line.
+13. the ``kernels`` line (rows 1-11 of the TPU kernel table, rows 2-8
+   once for the bf16 kernels and once for the fp16 ones, their launches
+   from the train and train_fp16 phases; the backward rows carry the
+   row's whole backward time beside the bound of the backward as one
+   function), the card's name and power limit, and the closing
+   ``{"ok": true, ...}`` line.
 
 Exits non-zero without a card, and without the repository around it.
 """
 
+import gc
 import json
 import os
 import subprocess
@@ -141,11 +158,13 @@ PAGE_SIZE, HEADS, HEAD_DIM, BATCH, CHUNK = 16, 12, 64, 16, 32
 NUM_PAGES, CONTEXT = 512, 512
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
-BF16_FLOP_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
+BF16_FLOP_PER_S = 989e12    # H100 SXM bf16 (and fp16) tensor cores, dense
 TOL = 1e-4                  # fp32, summation order differs
 FLASH_B, FLASH_H, FLASH_T, FLASH_D, FLASH_P = 16, 12, 512, 64, 0.1
 TRAIN_UPDATES, TRAIN_BATCH = 20, 16
 TRAIN_FLASH = ("flash_fwd_bf16", "flash_bwd_dkdv", "flash_bwd_dq")
+TRAIN_FLASH_FP16 = ("flash_fwd_fp16", "flash_bwd_dkdv_fp16",
+                    "flash_bwd_dq_fp16")
 
 
 def emit(phase, **fields):
@@ -507,12 +526,19 @@ def flash_operands(rng, dtype, shape=(FLASH_B, FLASH_H, FLASH_T, FLASH_D),
             torch.from_numpy(seed).cuda(), dout, npad)
 
 
-# the kernels of each operand type: bf16 (the training path) takes the
-# tensor-core forward and the two tensor-core backward kernels, fp32 the
-# fp32 FMA forward and the three fp32 FMA backward kernels
-FWD_KERNEL = {torch.float32: "flash_fwd", torch.bfloat16: "flash_fwd_bf16"}
+# the kernels of each operand type: bf16 and fp16 (the training paths)
+# take the tensor-core forward and the two tensor-core backward kernels of
+# their type, fp32 the fp32 FMA forward and the three fp32 FMA backward
+# kernels
+FWD_KERNEL = {torch.float32: "flash_fwd", torch.bfloat16: "flash_fwd_bf16",
+              torch.float16: "flash_fwd_fp16"}
 BWD_KERNELS = {torch.float32: ("flash_dkdv", "flash_dq", "flash_dbias"),
-               torch.bfloat16: ("flash_bwd_dkdv", "flash_bwd_dq")}
+               torch.bfloat16: ("flash_bwd_dkdv", "flash_bwd_dq"),
+               torch.float16: ("flash_bwd_dkdv_fp16", "flash_bwd_dq_fp16")}
+# max |kernel - plain| allowed, as a share of the plain tensor's max, of
+# the tensor-core kernels' out and grads (fp16 keeps 3 more mantissa
+# bits than bf16); fp32 is held to TOL and 1e-3 of the max
+FLASH_REL_TOL = {torch.bfloat16: (1e-2, 2e-2), torch.float16: (5e-3, 5e-3)}
 # the library yardstick's backend: the one that takes an additive mask
 # and dropout (SDPA's default moved between backends from call to call)
 SDPA_BACKEND = "EFFICIENT_ATTENTION"
@@ -545,6 +571,8 @@ def flash_bounds(npad, itemsize, shape, with_bias):
         "flash_bwd_dq": (6, 5 * act + bias + small + 2 * rows + dbias),
         "backward": (10, 7 * act + bias + small + 2 * rows + dbias),
     }
+    for name in TRAIN_FLASH:  # the fp16 kernels do the bf16 ones' work
+        work[name.replace("_bf16", "") + "_fp16"] = work[name]
     out = {}
     for name, (per_pair, nbytes) in work.items():
         flops = per_pair * pairs * D
@@ -610,11 +638,12 @@ def sdpa_yardsticks(sdpa, sdpa_fwd_bwd, operands, flush, iters):
 
 def flash_case(flush, dtype, shape, with_bias, rng, iters):
     """The flash kernels of one call vs their plain versions on the same
-    tensors — in bf16 the plain versions round p, p_drop and dS as the
-    kernels do: the forward (out within 1e-4 in fp32 and 1e-2 of its max
-    in bf16, lse within 1e-4 and 2e-4), the backward fed the plain
-    forward's lse and delta (each grad within 1e-3 of its max in fp32,
-    2e-2 in bf16); two forward and two backward calls bit for bit; kernel
+    tensors — in bf16 and fp16 the plain versions round p, p_drop and dS
+    as the kernels do: the forward (out within 1e-4 in fp32, and within
+    FLASH_REL_TOL of its max in bf16 and fp16; lse within 1e-4 and 2e-4),
+    the backward fed the plain forward's lse and delta (each grad within
+    1e-3 of its max in fp32, FLASH_REL_TOL in bf16 and fp16); two forward
+    and two backward calls bit for bit; kernel
     times (``torch.profiler``) beside their bounds, the plain versions'
     and SDPA's (same bias + pad mask and dropout rate, its
     memory-efficient backend; a yardstick the port never calls).
@@ -672,12 +701,13 @@ def flash_case(flush, dtype, shape, with_bias, rng, iters):
             raise AssertionError(f"{dtype} {shape} {what}: non-finite values")
         err = float((g - w).abs().max())
         scale_w = float(w.abs().max())
+        rel_out, rel_grad = FLASH_REL_TOL.get(dtype, (None, 1e-3))
         if what == "out":
-            tol = TOL if fp32 else 1e-2 * scale_w
+            tol = TOL if fp32 else rel_out * scale_w
         elif what == "lse":
             tol = TOL if fp32 else 2e-4
         else:
-            tol = (1e-3 if fp32 else 2e-2) * scale_w
+            tol = rel_grad * scale_w
         if err > tol:
             raise AssertionError(f"{dtype} {shape} {what}: max |kernel - "
                                  f"plain| {err} > {tol}")
@@ -738,14 +768,72 @@ def flash_case(flush, dtype, shape, with_bias, rng, iters):
     return report
 
 
+def dtype_turns(flush, shape, with_bias, seed_rng, iters=10):
+    """The bf16 and the fp16 tensor-core kernels on the same operands
+    (rounded to each type), timed in turns in one call — bf16, fp16,
+    fp16, bf16 — each turn the three kernels' mean device time over
+    ``iters`` calls (``torch.profiler``), so that a difference between the
+    types reads apart from the card's drift."""
+    from unicore_tpu_torch.ops import flash_attention as fa
+
+    T, D = shape[2], shape[3]
+    calls = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        q, k, v, bias, pad, seed, dout, _ = flash_operands(
+            np.random.default_rng(seed_rng), dtype, shape, with_bias)
+        args = (pad, FLASH_P, seed, False, D ** -0.5, fa.geometry(T, T, bias))
+        out, lse = fa.flash_fwd_cuda(q, k, v, bias, *args)
+        delta = (dout.float() * out.float()).sum(dim=-1).transpose(
+            1, 2).contiguous()
+        calls[dtype] = (lambda q=q, k=k, v=v, bias=bias, args=args, lse=lse,
+                        delta=delta, dout=dout: (
+            fa.flash_fwd_cuda(q, k, v, bias, *args),
+            fa.flash_bwd_cuda(q, k, v, bias, *args, lse, delta, dout,
+                              with_bias)))
+    turns = []
+    for dtype in (torch.bfloat16, torch.float16, torch.float16,
+                  torch.bfloat16):
+        names = (FWD_KERNEL[dtype],) + BWD_KERNELS[dtype]
+        turns.append({"dtype": str(dtype).replace("torch.", ""),
+                      **kernel_times_ms(calls[dtype], flush, names, iters)})
+    del calls
+    torch.cuda.empty_cache()
+    return turns
+
+
+def same_keep_pattern(shape, with_bias, seed_rng):
+    """Whether bf16 and fp16 operands drawn from the same seed get the
+    same dropout keep pattern: the same per-row seeds and the same
+    reference block geometry (both bias types are 2 bytes), hence the
+    same mask — which each kernel's agreement with its plain version
+    then shows the kernel draws."""
+    from unicore_tpu_torch.ops import flash_attention as fa
+
+    B, H, T, _ = shape
+    masks = []
+    for dtype in (torch.bfloat16, torch.float16):
+        ops = flash_operands(np.random.default_rng(seed_rng), dtype, shape,
+                             with_bias)
+        geom = fa.geometry(T, T, ops[3])
+        masks.append(fa.keep_mask(ops[5], H, T, T, geom, 1.0 - FLASH_P))
+    return bool(torch.equal(*masks))
+
+
 def flash_phase(flush):
     """The flash kernels vs their plain versions at the BERT shapes, in
-    fp32 and bf16; returns {dtype: report}."""
+    fp32, bf16 and fp16 (the same operands, rounded to each type);
+    returns {dtype: report}."""
     reports = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        report = flash_case(flush, dtype, (FLASH_B, FLASH_H, FLASH_T,
-                                           FLASH_D), True,
+    shape = (FLASH_B, FLASH_H, FLASH_T, FLASH_D)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        report = flash_case(flush, dtype, shape, True,
                             np.random.default_rng(512), (10, 10, 20))
+        if dtype == torch.float16:
+            report["keep_pattern_equals_bf16"] = same_keep_pattern(
+                shape, True, 512)
+            if not report["keep_pattern_equals_bf16"]:
+                raise AssertionError("fp16 and bf16 keep patterns differ")
+            report["turns_ms"] = dtype_turns(flush, shape, True, 512)
         emit("flash", **report)
         reports[report["dtype"]] = report
     return reports
@@ -760,25 +848,36 @@ MB_CASES = (("t1024_nobias", (4, 12, 1024, 64), False),
 
 def flash_multiblock_phase(flush):
     """The flash kernels at the shapes that take the JAX package's
-    multi-block kernels (rows 2 and 4-7), bf16, dropout 0.1; returns
-    {case: report}."""
+    multi-block kernels (rows 2 and 4-7), bf16 and fp16, dropout 0.1;
+    returns {case: report}, the fp16 cases' names ending in _fp16."""
     from unicore_tpu_torch.ops import flash_attention as fa
 
     reports = {}
-    for name, shape, with_bias in MB_CASES:
-        T, D = shape[2], shape[3]
-        geom = fa.pick_blocks(T, T, 2 if with_bias else 0)
-        n_q, n_k = T // geom[0], T // geom[1]
-        # the JAX backward's routing (ops/pallas/flash_attention.py:870-896)
-        joint = n_k == 1 and n_q > 1 and 2 * T * D * 4 <= (6 << 20)
-        if n_q == 1 or joint == with_bias:
-            raise AssertionError(f"{name}: reference blocks {geom} do not "
-                                 "take the multi-block kernels meant")
-        report = flash_case(flush, torch.bfloat16, shape, with_bias,
-                            np.random.default_rng(T), (5, 3, 10))
-        report["joint_backward"] = joint
-        emit("flash_multiblock", case=name, **report)
-        reports[name] = report
+    for dtype, suffix in ((torch.bfloat16, ""), (torch.float16, "_fp16")):
+        for name, shape, with_bias in MB_CASES:
+            T, D = shape[2], shape[3]
+            geom = fa.pick_blocks(T, T, 2 if with_bias else 0)
+            n_q, n_k = T // geom[0], T // geom[1]
+            # the JAX backward's routing
+            # (ops/pallas/flash_attention.py:870-896)
+            joint = n_k == 1 and n_q > 1 and 2 * T * D * 4 <= (6 << 20)
+            if n_q == 1 or joint == with_bias:
+                raise AssertionError(f"{name}: reference blocks {geom} do "
+                                     "not take the multi-block kernels "
+                                     "meant")
+            report = flash_case(flush, dtype, shape, with_bias,
+                                np.random.default_rng(T), (5, 3, 10))
+            report["joint_backward"] = joint
+            if suffix:
+                report["keep_pattern_equals_bf16"] = same_keep_pattern(
+                    shape, with_bias, T)
+                if not report["keep_pattern_equals_bf16"]:
+                    raise AssertionError(f"{name}: fp16 and bf16 keep "
+                                         "patterns differ")
+                report["turns_ms"] = dtype_turns(flush, shape, with_bias, T,
+                                                 iters=5)
+            emit("flash_multiblock", case=name + suffix, **report)
+            reports[name + suffix] = report
     return reports
 
 
@@ -1172,9 +1271,10 @@ def write_corpus(path, rng):
                 start += n_tok
 
 
-def bert_args(corpus, logdir, updates):
-    """The command line of the train and checkpoint phases: full-width
-    bert_base under --bf16 on the corpus ``write_corpus`` wrote."""
+def bert_args(corpus, logdir, updates, precision=("--bf16",)):
+    """The command line of the train, checkpoint and train_fp16 phases:
+    full-width bert_base under ``precision`` (--bf16 unless given) on the
+    corpus ``write_corpus`` wrote."""
     here = os.path.dirname(os.path.abspath(__file__))
     return [
         corpus, "--user-dir",
@@ -1186,19 +1286,54 @@ def bert_args(corpus, logdir, updates):
         "--lr", "1e-4", "--warmup-updates", "4",
         "--total-num-update", str(TRAIN_UPDATES),
         "--batch-size", str(TRAIN_BATCH), "--update-freq", "1",
-        "--seed", "1", "--bf16", "--max-update", str(updates),
+        "--seed", "1", *precision, "--max-update", str(updates),
         "--log-interval", "1", "--log-format", "none",
         "--tensorboard-logdir", logdir, "--disable-validation",
         "--num-workers", "0",
     ]
 
 
-def train_phase():
-    """The port's CLI trains full-width bert_base under --bf16; returns
-    the flash launch counts of its 20 updates."""
+def reset_peak_memory():
+    """Free what earlier phases left for the collector, then start the
+    card's peak-memory count; returns the bytes still allocated, in GB."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 1e9
+
+
+def profile_updates(trainer, n=3):
+    """Device busy and idle time, launches and top kernels of ``n`` more
+    updates of ``trainer`` on epoch 2's first batches, under
+    ``torch.profiler``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    itr = trainer.get_train_iterator(epoch=2).next_epoch_itr()
+    batches = [next(itr) for _ in range(n)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            trainer.train_step([b])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
+            "kernel_launches": sum(e.count for e in kernels),
+            "top_kernels": [{"name": e.key[:80], "count": e.count,
+                             "ms": e.self_device_time_total / 1e3}
+                            for e in top]}
+
+
+def train_phase():
+    """The port's CLI trains full-width bert_base under --bf16; returns
+    the flash launch counts of its 20 updates and its step, memory and
+    profile figures."""
     from unicore_tpu_torch import trainer as trainer_mod
     from unicore_tpu_torch.cli.train import cli_main
     from unicore_tpu_torch.ops import flash_attention as fa
@@ -1224,7 +1359,7 @@ def train_phase():
         for counts in (fa.launches, sd.plain_route):
             for name in counts:
                 counts[name] = 0
-        torch.cuda.reset_peak_memory_stats()
+        start_gb = reset_peak_memory()
         t0 = time.perf_counter()
         try:
             loop = cli_main(bert_args(tmp, logdir, TRAIN_UPDATES)
@@ -1257,42 +1392,26 @@ def train_phase():
                                  "updates)")
         warm = np.array(step_s[2:])
         med_s = float(np.median(warm))
+        report = {"step_ms_median": med_s * 1e3,
+                  "samples_per_s": TRAIN_BATCH / med_s,
+                  "tokens_per_s": TRAIN_BATCH * 512 / med_s,
+                  "peak_mem_gb": peak_gb, "mem_at_start_gb": start_gb}
         emit("train", model="bert_base", dtype="bf16", batch=TRAIN_BATCH,
              seq_len=512, updates=TRAIN_UPDATES, corpus_s=corpus_s,
              run_s=run_s, losses_nats=[round(x, 4) for x in nats],
              first_loss_nats=nats[0], last5_mean_nats=float(np.mean(nats[-5:])),
-             step_ms_median=med_s * 1e3, step_ms_all=[s * 1e3 for s in step_s],
-             samples_per_s=TRAIN_BATCH / med_s,
-             tokens_per_s=TRAIN_BATCH * 512 / med_s, peak_mem_gb=peak_gb,
-             launches=launches)
+             step_ms_all=[s * 1e3 for s in step_s], launches=launches,
+             **report)
 
         # where a step's time goes: 3 more updates under the profiler
-        trainer = loop.trainer
-        itr = trainer.get_train_iterator(epoch=2).next_epoch_itr()
-        batches = [next(itr) for _ in range(3)]
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for b in batches:
-                trainer.train_step([b])
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+        prof = profile_updates(loop.trainer)
         emit("train_profile", window="3 updates, batch 16 x 512, bf16",
-             wall_ms=wall_ms, device_busy_ms=busy_ms,
-             device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
-             kernel_launches=sum(e.count for e in kernels),
              # the parent tree's count, before the reference's Dense and
              # GELU rounding (PERF.md §5; chip_compare.py's train turns
              # measure both trees in one call)
-             kernel_launches_recorded_before_c4=5397,
-             top_kernels=[{"name": e.key[:80], "count": e.count,
-                           "ms": e.self_device_time_total / 1e3}
-                          for e in top])
-    return launches
+             kernel_launches_recorded_before_c4=5397, **prof)
+    return {"launches": launches, **report,
+            **{k: v for k, v in prof.items() if k != "top_kernels"}}
 
 
 CKPT_UPDATES, CKPT_EVERY = 10, 5
@@ -1405,6 +1524,208 @@ def checkpoint_phase():
             "tolerance": CKPT_TOL,
             "bit_equal": bool((lb == la[CKPT_EVERY:]).all()),
             "params_max_abs_diff_at_end": diff, "launches": launches}
+
+
+FP16_FLAGS = ("--fp16", "--fp16-init-scale", "128")  # the reference's
+FP16_SKIP_AT = 7    # the dispatch whose update is forced to overflow
+FP16_SAVE_AT = 10   # the update saved, then resumed in a fresh trainer
+FP16_RESUMED = 5    # updates the resumed trainer takes
+FP16_TOL = 1e-3     # relative, per resumed update
+
+
+def train_fp16_phase(bf16):
+    """The port's CLI trains full-width bert_base under --fp16 (initial
+    loss scale 128, the reference's default) for 20 updates on the train
+    phase's corpus and flags, saving at update 10.  At dispatch 7 the
+    position embedding's first row is set to inf in the master weights:
+    that update must be skipped (params and Adam moments unchanged, the
+    update count held, the scale halved), then the row is restored and
+    training goes on.  A fresh trainer then resumes the update-10 file for
+    5 updates: the same scale and growth tracker as run A had there, and
+    losses within FP16_TOL of run A's.  Checks the falling loss, a
+    loss_scale per logged step, and the fp16 flash kernels once per layer
+    per dispatch with no bf16 or fp32 flash launch; reports step, memory
+    and profile figures beside ``bf16``'s (the train phase's); returns
+    the fp16 kernels' launch counts."""
+    from unicore_tpu_torch import checkpoint_utils as cu
+    from unicore_tpu_torch import trainer as trainer_mod
+    from unicore_tpu_torch.cli.train import cli_main
+    from unicore_tpu_torch.ops import flash_attention as fa
+
+    Trainer = trainer_mod.Trainer
+    real = {"step": Trainer.train_step, "load": Trainer.load_checkpoint}
+    run = {"name": "a", "dispatches": 0}
+    step_s, losses, scalers, skip = [], {"a": {}, "b": {}}, {}, {}
+    peaks = []  # run A's running peak device memory after each dispatch
+
+    def scaler_of(trainer):
+        return (float(trainer.scaler["scale"]),
+                int(trainer.scaler["growth_tracker"]))
+
+    def poisoned_step(self, samples):
+        row = self.model.embed_positions.weight
+        # snapshots on the host: the card's peak memory stays training's
+        params = [p.detach().cpu() for p in self.model.parameters()]
+        moments = [m.cpu() for m in self.optimizer.exp_avg
+                   + self.optimizer.exp_avg_sq]
+        before = (scaler_of(self), self.get_num_updates())
+        with torch.no_grad():
+            clean = row.detach().clone()
+            row[0].fill_(float("inf"))
+        poisoned = row.detach().cpu()
+        out = real["step"](self, samples)
+        after = (scaler_of(self), self.get_num_updates())
+        skip.update({
+            "dispatch": run["dispatches"], "scale_before": before[0][0],
+            "scale_after": after[0][0], "tracker_after": after[0][1],
+            "num_updates_before": before[1], "num_updates_after": after[1],
+            "params_unchanged": all(
+                torch.equal(p.detach().cpu(), poisoned if p is row else q)
+                for p, q in zip(self.model.parameters(), params)),
+            "moments_unchanged": all(torch.equal(m.cpu(), n) for m, n in zip(
+                self.optimizer.exp_avg + self.optimizer.exp_avg_sq,
+                moments)),
+        })
+        with torch.no_grad():
+            row.copy_(clean)
+        return out
+
+    def step(self, samples):
+        run["dispatches"] += 1
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        forced = run["name"] == "a" and run["dispatches"] == FP16_SKIP_AT
+        if forced:
+            out = poisoned_step(self, samples)
+        else:
+            out = real["step"](self, samples)
+        torch.cuda.synchronize()
+        # the forced overflow's dispatch times its checks' host copies
+        step_s.append(None if forced else time.perf_counter() - t)
+        if run["name"] == "a":
+            peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        n = self.get_num_updates()
+        if not forced:
+            losses[run["name"]][n] = (float(out[0]["loss"])
+                                      / float(out[0]["sample_size"]))
+        if run["name"] == "a" and n == FP16_SAVE_AT:
+            scalers["a"] = scaler_of(self)
+            # training's own peak, before the save stages the
+            # checkpoint's leaves on the card
+            scalers["peak_before_save_gb"] = (
+                torch.cuda.max_memory_allocated() / 1e9)
+        return out
+
+    def load(self, *args, **kwargs):
+        out = real["load"](self, *args, **kwargs)
+        if out is not None:
+            scalers["b"] = scaler_of(self)
+            scalers["b_dispatches"] = self._dispatch_count
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_corpus(tmp, np.random.default_rng(2048))
+        save = os.path.join(tmp, "a")
+        logdir = os.path.join(tmp, "log_a")
+        Trainer.train_step, Trainer.load_checkpoint = step, load
+        try:
+            for name in fa.launches:
+                fa.launches[name] = 0
+            start_gb = reset_peak_memory()
+            t0 = time.perf_counter()
+            loop = cli_main(bert_args(tmp, logdir, TRAIN_UPDATES, FP16_FLAGS)
+                            + ["--save-interval-updates", str(FP16_SAVE_AT),
+                               "--save-dir", save, "--tmp-save-dir", save,
+                               "--no-last-checkpoints",
+                               # a background write would share the host
+                               # with the steps it times
+                               "--async-save", "off"])
+            run_s = time.perf_counter() - t0
+            launches = dict(fa.launches)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            dispatches, run_step_s = run["dispatches"], list(step_s)
+            run_peaks = list(peaks)
+            prof = profile_updates(loop.trainer)
+            run.update(name="b", dispatches=0)
+            restore = os.path.join(save, f"checkpoint_1_{FP16_SAVE_AT}.pt")
+            saved = cu.load_checkpoint_to_cpu(restore)
+            resumed = cli_main(bert_args(
+                tmp, os.path.join(tmp, "log_b"),
+                FP16_SAVE_AT + FP16_RESUMED, FP16_FLAGS) + [
+                    "--restore-file", restore, "--save-dir",
+                    os.path.join(tmp, "b"), "--no-save"])
+        finally:
+            Trainer.train_step, Trainer.load_checkpoint = real["step"], \
+                real["load"]
+        with open(os.path.join(logdir, "train_inner.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+    layers = loop.trainer.model.encoder_layers
+    # a skipped step logs no loss (its meters reset to None)
+    nats = [r["loss"] * np.log(2) for r in records
+            if r.get("loss") is not None]
+    if len(nats) != TRAIN_UPDATES or not np.isfinite(nats).all():
+        raise AssertionError(f"fp16 losses {nats}")
+    if not 9.0 <= nats[0] <= 11.5:
+        raise AssertionError(f"fp16 first loss {nats[0]} nats not in 9-11.5")
+    if not np.mean(nats[-5:]) < nats[0]:
+        raise AssertionError(f"fp16 loss did not fall: {nats}")
+    scales = [r.get("loss_scale") for r in records]
+    if len(records) != dispatches or None in scales:
+        raise AssertionError(f"loss_scale not logged per step: {records}")
+    skips = sum(int(r.get("n_skipped") or 0) for r in records)
+    want = {n: layers * dispatches if n in TRAIN_FLASH_FP16 else 0
+            for n in launches}
+    if launches != want:
+        raise AssertionError(f"fp16 flash launches {launches}, want {want} "
+                             f"({layers} layers x {dispatches} dispatches)")
+    if not (skip.get("dispatch") == FP16_SKIP_AT and skips == 1
+            and skip["scale_after"] == skip["scale_before"] / 2
+            and skip["num_updates_after"] == skip["num_updates_before"]
+            and skip["params_unchanged"] and skip["moments_unchanged"]):
+        raise AssertionError(f"forced overflow not skipped as it should be: "
+                             f"{skip}, {skips} skips logged")
+    file_scaler = (float(saved["model"]["scaler"]["scale"]),
+                   int(saved["model"]["scaler"]["growth_tracker"]))
+    if not scalers["a"] == file_scaler == scalers["b"]:
+        raise AssertionError(f"resumed scaler {scalers}, file {file_scaler}")
+    la, lb = losses["a"], losses["b"]
+    resumed_at = sorted(lb)
+    if resumed_at != list(range(FP16_SAVE_AT + 1,
+                                FP16_SAVE_AT + FP16_RESUMED + 1)) \
+            or resumed.trainer.get_num_updates() != FP16_SAVE_AT + \
+            FP16_RESUMED:
+        raise AssertionError(f"resumed updates {resumed_at}")
+    rel = max(abs(lb[n] - la[n]) / abs(la[n]) for n in resumed_at)
+    if not rel <= FP16_TOL:
+        raise AssertionError(f"resumed fp16 losses {lb} off run A's {la} "
+                             f"by {rel}")
+    warm = np.array([t for t in run_step_s[2:] if t is not None])
+    med_s = float(np.median(warm))
+    keys = ("step_ms_median", "samples_per_s", "tokens_per_s", "peak_mem_gb",
+            "mem_at_start_gb", "device_busy_ms", "device_idle_share",
+            "kernel_launches")
+    emit("train_fp16", model="bert_base", dtype="fp16", batch=TRAIN_BATCH,
+         seq_len=512, updates=TRAIN_UPDATES, dispatches=dispatches,
+         run_s=run_s, losses_nats=[round(x, 4) for x in nats],
+         first_loss_nats=nats[0], last5_mean_nats=float(np.mean(nats[-5:])),
+         loss_scale_per_step=scales, skips=skips, forced_skip=skip,
+         step_ms_median=med_s * 1e3,
+         step_ms_all=[None if t is None else t * 1e3 for t in run_step_s],
+         samples_per_s=TRAIN_BATCH / med_s,
+         tokens_per_s=TRAIN_BATCH * 512 / med_s,
+         peak_mem_gb=scalers["peak_before_save_gb"],
+         peak_mem_gb_with_save=peak_gb, mem_at_start_gb=start_gb,
+         peak_mem_gb_by_dispatch=run_peaks, launches=launches,
+         resume={"at_update": FP16_SAVE_AT, "scaler_run_a": scalers["a"],
+                 "scaler_file": file_scaler, "scaler_resumed": scalers["b"],
+                 "dispatch_count_resumed": scalers["b_dispatches"],
+                 "losses_a_nats": [la[n] for n in resumed_at],
+                 "losses_b_nats": [lb[n] for n in resumed_at],
+                 "max_rel_diff": rel, "tolerance": FP16_TOL},
+         bf16={k: bf16[k] for k in keys})
+    emit("train_fp16_profile", window="3 updates, batch 16 x 512, fp16",
+         **prof, bf16={k: bf16[k] for k in keys[5:]})
+    return launches
 
 
 EVO_UPDATES, EVO_S, EVO_R = 10, 128, 256
@@ -1543,14 +1864,14 @@ PALLAS = "unicore_tpu/ops/pallas/"
 
 
 def flash_row(row, name, replaces, case, launches):
-    """A kernels-line row of a bf16 flash kernel from one case's
+    """A kernels-line row of a bf16 or fp16 flash kernel from one case's
     report."""
-    fwd = name == "flash_fwd_bf16"
-    errs = {"flash_fwd_bf16": ("out",), "flash_bwd_dkdv": ("dk", "dv"),
-            "flash_bwd_dq": ("dq", "dbias")}[name]
+    fwd = name.startswith("flash_fwd")
+    errs = (("out",) if fwd else ("dk", "dv") if "dkdv" in name
+            else ("dq", "dbias"))
     kern = case["kernels"][name]
     entry = {
-        "row": row, "name": name, "route": "cuda",
+        "row": row, "name": name, "dtype": case["dtype"], "route": "cuda",
         "source": "unicore_tpu_torch/csrc/" + (
             "flash_attention_fwd.cu" if fwd else "flash_attention_bwd.cu"),
         "replaces": PALLAS + replaces, "launches": launches,
@@ -1575,10 +1896,12 @@ def flash_row(row, name, replaces, case, launches):
 
 
 def kernels_line(cases, serve_launches, flash, multiblock, train_launches,
-                 sd, sr, evo_launches):
+                 sd, sr, evo_launches, fp16_launches):
     """One row per TPU kernel of the table in PERF.md (rows 1-11); a row
-    realized by two CUDA kernels (4, 8) has one entry for each.  A flash
-    row's launches count its CUDA kernel on the BERT training path."""
+    realized by two CUDA kernels (4, 8) has one entry for each, and the
+    flash rows (2-8) one for each of the bf16 and the fp16 kernels.  A
+    flash row's launches count its CUDA kernel on the BERT training path
+    of its type (the train phase for bf16, train_fp16 for fp16)."""
     decode = cases["decode"]
     rows = [{
         "row": 1, "name": "ragged_paged_attention", "route": "cuda",
@@ -1618,6 +1941,14 @@ def kernels_line(cases, serve_launches, flash, multiblock, train_launches,
                                  "bound_ms": fp32[n]["bound_ms"]}
                              for n in keep}
         rows.append(entry)
+    # the fp16 kernels at the same shapes, on the --fp16 path
+    fp16 = {id(hb): flash["float16"],
+            id(joint): multiblock["t1024_nobias_fp16"],
+            id(two_pass): multiblock["t2048_bias_fp16"]}
+    for row, name, replaces, case in table:
+        name16 = name.replace("_bf16", "") + "_fp16"
+        rows.append(flash_row(row, name16, replaces, fp16[id(case)],
+                              fp16_launches[name16]))
     # softmax_dropout: the bf16 triangle attention (the largest) leads
     main = sd["bfloat16"]["triangle"]
     for row, kind, body, errs in ((9, "fwd", ":64", ("out", "softmax")),
@@ -1689,13 +2020,16 @@ def main():
     sr = rounding_phase(flush)
     del flush
     torch.cuda.empty_cache()
-    train_launches = train_phase()
+    train = train_phase()
+    torch.cuda.empty_cache()
+    fp16_launches = train_fp16_phase(train)
     torch.cuda.empty_cache()
     emit("checkpoint", **checkpoint_phase())
     torch.cuda.empty_cache()
     evo_launches = evoformer_train_phase()
-    rows = kernels_line(cases, launches, flash, multiblock, train_launches,
-                        sd, sr, evo_launches)
+    rows = kernels_line(cases, launches, flash, multiblock,
+                        train["launches"], sd, sr, evo_launches,
+                        fp16_launches)
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

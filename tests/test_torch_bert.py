@@ -123,15 +123,15 @@ def test_model_matches_flax_bf16(rng, post_ln):
     assert off.max() <= 2.0 ** -7 * np.abs(want).max()
 
 
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float16"])
 @pytest.mark.parametrize("op", ["dense", "gelu", "gelu_tanh"])
 def test_bf16_ops_round_where_the_reference_rounds(op, dtype):
     """``FlaxDense`` against ``flax.linen.Dense`` at [512, 768] x [768,
-    3072] with a bias: at most 0.1% of the bf16 outputs off (the same
-    bf16 product and bias add; the products' fp32 sums differ in order).
+    3072] with a bias: at most 0.1% of the bf16 (or fp16) outputs off (the
+    same product and bias add; the products' fp32 sums differ in order).
     GELU (erf and tanh forms) against ``jax.nn.gelu`` over N(0, 3^2):
-    bit for bit in bf16, except where XLA flushes a subnormal result to
-    zero and torch keeps it (the erf form at x < -13).  fp32: within
+    bit for bit in bf16 and fp16, except where XLA flushes a subnormal
+    result to zero and torch keeps it (the erf form at x < -13, bf16).  fp32: within
     2e-6 of the largest output (Dense), or 1e-6 (GELU: the tanh form
     loses its relative accuracy in 1 + tanh where tanh is near -1)."""
     import flax.linen as fnn

@@ -357,13 +357,64 @@ def _losses(trainer, batches, updates):
     return out
 
 
-@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
-def test_checkpoint_crosses_packages(tmp_path, caplog, direction):
+def _scaler(trainer):
+    """(scale, growth tracker, dispatch count) of either package's
+    trainer."""
+    if isinstance(trainer, port_trainer.Trainer):
+        state, dispatched = trainer.scaler, trainer._dispatch_count
+    else:
+        state, dispatched = trainer.state["scaler"], trainer._dispatch_count
+    return (float(state["scale"]), int(state["growth_tracker"]),
+            dispatched)
+
+
+def _skipped_step(trainer, batches):
+    """One step with the token embedding poisoned to inf (an overflow the
+    fp16 scaler absorbs: skipped), then the embedding restored."""
+    import jax
+    import jax.numpy as jnp
+
+    if isinstance(trainer, port_trainer.Trainer):
+        weight = trainer.model.embed_tokens.weight
+        saved = weight.detach().clone()
+        with torch.no_grad():
+            weight.fill_(float("inf"))
+        _losses(trainer, batches, 1)
+        with torch.no_grad():
+            weight.copy_(saved)
+        return
+    from unicore_tpu.distributed import replicated
+
+    def put(params):
+        trainer.state["params"] = jax.device_put(
+            jax.tree_util.tree_map(jnp.asarray, params),
+            replicated(trainer.mesh))
+
+    params = jax.device_get(trainer.state["params"])
+    saved = params["embed_tokens"]["embedding"].copy()
+    params["embed_tokens"]["embedding"] = np.full_like(saved, np.inf)
+    put(params)
+    _losses(trainer, batches, 1)
+    params["embed_tokens"]["embedding"] = saved
+    put(params)
+
+
+@pytest.mark.parametrize("direction,fp16", [
+    pytest.param(d, fp16, id=d + ("-fp16" if fp16 else ""))
+    for fp16 in (False, True) for d in ("jax_to_port", "port_to_jax")])
+def test_checkpoint_crosses_packages(tmp_path, caplog, direction, fp16):
     """One trainer takes 2 updates and saves; the other package's trainer
     loads the file; both take the same 3 updates: losses within 2e-4
     relative, and equal update counts and learning rates.  The JAX
-    trainer finds every leaf of the port's file (no "missing")."""
-    args = make_args()
+    trainer finds every leaf of the port's file (no "missing").
+    ``fp16`` (``--fp16 --fp16-init-scale 4 --fp16-scale-window 2``): a
+    third step, poisoned, is skipped before the save, so the file holds 2
+    updates, 3 dispatches and the scale halved from 8 to 4; the loading
+    trainer comes back with the same scale, growth tracker and dispatch
+    count, and both end on the same scale."""
+    over = (dict(fp16=True, fp16_init_scale=4, fp16_scale_window=2)
+            if fp16 else {})
+    args = make_args(**over)
     batches = make_batches(10)
     path = str(tmp_path / "checkpoint_last.pt")
     first = (_jax_trainer if direction == "jax_to_port"
@@ -371,20 +422,29 @@ def test_checkpoint_crosses_packages(tmp_path, caplog, direction):
     if direction == "jax_to_port":
         first.init_state(batches[0])
     _losses(first, batches, 2)
+    if fp16:
+        _skipped_step(first, batches)
+        assert first.get_num_updates() == 2
+        saved = _scaler(first)
+        assert saved == (4.0, 0, 3)
     first.save_checkpoint(path, {})
     want = _losses(first, batches[4:], 3)
     second = (_port_trainer if direction == "jax_to_port"
-              else _jax_trainer)(make_args())
+              else _jax_trainer)(make_args(**over))
     with caplog.at_level(logging.WARNING):
         second.load_checkpoint(path)
         if direction == "port_to_jax":
             second.init_state(batches[0])
     assert "missing" not in caplog.text
     assert second.get_num_updates() == 2
+    if fp16:
+        assert _scaler(second) == saved
     got = _losses(second, batches[4:], 3)
     np.testing.assert_allclose(got, want, rtol=2e-4)
     assert second.get_num_updates() == first.get_num_updates() == 5
     np.testing.assert_allclose(second.get_lr(), first.get_lr(), rtol=1e-7)
+    if fp16:
+        assert _scaler(second) == _scaler(first)
 
 
 def _refuse_torch(payload):

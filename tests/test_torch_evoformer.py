@@ -451,6 +451,9 @@ def test_cli_trains_tiny_evoformer_on_cpu(tmp_path):
 @pytest.mark.parametrize("flags,error,match", [
     (["--bf16-sr"], ValueError, "requires --bf16"),
     (["--structure-module", "True"], NotImplementedError, "ROADMAP.md A10"),
+    # the port runs the Evoformer in the compute type; its fp16
+    # softmax_dropout kernels are not ported
+    (["--fp16"], NotImplementedError, r"ROADMAP.md B3\(i\)"),
 ])
 def test_cli_refusals_kept_from_jax(tmp_path, flags, error, match):
     from unicore_tpu_torch.cli.train import cli_main

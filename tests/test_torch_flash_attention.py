@@ -12,6 +12,8 @@ the CPU; where a card is present, the CUDA kernels vs the plain version.
 
 fp32, B = 2.  Tolerances as tests/test_flash_attention.py: forward atol
 2e-5, grads atol 5e-4 (both sides exact fp32, summation order differs).
+The same cases in fp16 (the ``--fp16`` path) and the rounding cases in
+bf16 and fp16 hold each tensor within a stated share of its max.
 The JAX side is imported inside the tests, so that the card-only cases
 can run where JAX is not installed."""
 
@@ -138,18 +140,35 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_plain_matches_jax_flash(name):
+def _by_dtype(names, dtypes):
+    """Cases ``(name, dtype)``; the first dtype keeps the bare name as its
+    id, the others append theirs."""
+    return [pytest.param(n, dt, id=str(n) if dt == dtypes[0] else f"{n}-{dt}")
+            for dt in dtypes for n in names]
+
+
+@pytest.mark.parametrize("name,dtype",
+                         _by_dtype(sorted(CASES), ("float32", "float16")))
+def test_plain_matches_jax_flash(name, dtype):
+    """fp32 within FWD_ATOL / GRAD_ATOL.  fp16 (q, k, v and the bias in
+    fp16 on both sides, the ``--fp16`` path): each tensor within 1e-3 of
+    its max, two fp16 ulps there (measured: at most 2.4e-4; the fp32 sums
+    run in another order and an fp16 last bit may cross)."""
     H, D, bias_kind, pad_kind, causal, p = CASES[name]
     rng = np.random.RandomState(sorted(CASES).index(name))
     case = make_case(rng, 2, 128, H, D, bias_kind, pad_kind)
     scale = D ** -0.5
-    want_out, want_grads = jax_flash(case, p, causal, scale)
-    got_out, got_grads = port_flash(case, p, causal, scale)
-    np.testing.assert_allclose(got_out, want_out, atol=FWD_ATOL, rtol=0)
+    want_out, want_grads = jax_flash(case, p, causal, scale, dtype)
+    got_out, got_grads = port_flash(case, p, causal, scale,
+                                    dtype=getattr(torch, dtype))
+    fp32 = dtype == "float32"
+    np.testing.assert_allclose(
+        got_out, want_out, rtol=0,
+        atol=FWD_ATOL if fp32 else 1e-3 * np.abs(want_out).max())
     for gname, g, w in zip("q k v bias".split(), got_grads, want_grads):
-        np.testing.assert_allclose(g, w, atol=GRAD_ATOL, rtol=0,
-                                   err_msg=gname)
+        np.testing.assert_allclose(
+            g, w, rtol=0, err_msg=gname,
+            atol=GRAD_ATOL if fp32 else 1e-3 * np.abs(w).max())
 
 
 @pytest.mark.parametrize("pad_kind", ["head", "all_row"])
@@ -188,59 +207,72 @@ def test_multiblock_mask_geometry_matches_jax(monkeypatch):
                                    err_msg=gname)
 
 
-@pytest.mark.parametrize("name", ["bias_full_pad_drop",
-                                  "bias_heads1_pad_drop", "causal_drop"])
-def test_plain_bf16_rounds_where_the_reference_rounds(name):
-    """bf16 operands: the plain backward rounds p_drop and dS to bf16
-    before its products, as the Pallas kernels cast them, so dv — whose
-    only rounding is p_drop's — agrees bit for bit with the interpret-mode
-    kernel in all but a few elements (before the rounding was added, 30-41%
-    of dv's elements differed).  Every tensor within 1e-2 of its max: bf16
-    outputs; the plain forward rounds p before p·V as the reference does
-    (see test_plain_bf16_out_rounds_p_where_the_reference_does), and the
-    remaining ulps come from fp32 summation order."""
-    H, D, bias_kind, pad_kind, causal, p = CASES[name]
-    case = make_case(np.random.RandomState(3), 2, 128, H, D, bias_kind,
-                     pad_kind)
-    scale = D ** -0.5
-    want_out, want_grads = jax_flash(case, p, causal, scale, "bfloat16")
-    got_out, got_grads = port_flash(case, p, causal, scale,
-                                    dtype=torch.bfloat16)
-    np.testing.assert_allclose(got_out, want_out,
-                               atol=1e-2 * np.abs(want_out).max(), rtol=0)
-    for gname, g, w in zip("q k v bias".split(), got_grads, want_grads):
-        np.testing.assert_allclose(g, w, atol=1e-2 * np.abs(w).max(), rtol=0,
-                                   err_msg=gname)
-    assert (got_grads[2] != want_grads[2]).mean() < 0.01
-
-
-@pytest.mark.parametrize("name", ["bias_full_pad_drop",
-                                  "bias_heads1_pad_drop", "causal_drop",
-                                  "bias_row_drop", "multiblock"])
-def test_plain_bf16_out_rounds_p_where_the_reference_does(name,
-                                                          monkeypatch):
-    """bf16 operands with dropout: the plain forward rounds the dropped p
-    to bf16 before p·V, under the running max of the reference's key
-    blocks, so its out equals the interpret-mode kernel's in all but
-    under 0.1% of elements (with p·V in fp32, 35-42% differed; rounding
-    under the global max alone left 16% of the multi-block case).
-    "multiblock": T = 256 with both block picks pinned to (128, 128)."""
+def _rounding_case(name, monkeypatch):
+    """``(case, D, causal, p)`` of a rounding test: a CASES entry at
+    T = 128, or "multiblock": T = 256 with both packages' block picks
+    pinned to (128, 128), two key blocks (the two-pass backward and the
+    dbias pass)."""
     if name == "multiblock":
         import unicore_tpu.ops.pallas.flash_attention as jfa
 
         for mod, attr in ((jfa, "_pick_blocks"), (fa, "pick_blocks")):
             monkeypatch.setattr(mod, attr,
                                 lambda tq, tk, bias_itemsize=0: (128, 128))
-        case = make_case(np.random.RandomState(11), 2, 256, 2, 32, "full",
-                         "tail")
-        D, causal, p = 32, False, 0.1
-    else:
-        H, D, bias_kind, pad_kind, causal, p = CASES[name]
-        case = make_case(np.random.RandomState(3), 2, 128, H, D, bias_kind,
-                         pad_kind)
-    want_out, _ = jax_flash(case, p, causal, D ** -0.5, "bfloat16")
-    got_out, _ = port_flash(case, p, causal, D ** -0.5, dtype=torch.bfloat16)
-    assert (got_out != want_out).mean() < 1e-3
+        return (make_case(np.random.RandomState(11), 2, 256, 2, 32, "full",
+                          "tail"), 32, False, 0.1)
+    H, D, bias_kind, pad_kind, causal, p = CASES[name]
+    return (make_case(np.random.RandomState(3), 2, 128, H, D, bias_kind,
+                      pad_kind), D, causal, p)
+
+
+@pytest.mark.parametrize("name,dtype", _by_dtype(
+    ["bias_full_pad_drop", "bias_heads1_pad_drop", "causal_drop",
+     "multiblock"], ("bfloat16", "float16")))
+def test_plain_bf16_rounds_where_the_reference_rounds(name, dtype,
+                                                      monkeypatch):
+    """bf16 and fp16 operands: the plain backward rounds p_drop and dS to
+    the operand type before its products, as the Pallas kernels cast them,
+    so dv — whose only rounding is p_drop's — agrees bit for bit with the
+    interpret-mode kernel in all but a few elements (before the rounding
+    was added, 30-41% of dv's bf16 elements differed).  Every tensor within
+    1e-2 (bf16) or 1e-3 (fp16) of its max, two ulps there: outputs in the
+    operand type; the plain forward rounds p before p·V as the reference
+    does (see test_plain_bf16_out_rounds_p_where_the_reference_does), and
+    the remaining ulps come from fp32 summation order.  "multiblock": see
+    :func:`_rounding_case`."""
+    case, D, causal, p = _rounding_case(name, monkeypatch)
+    scale = D ** -0.5
+    rel = 1e-2 if dtype == "bfloat16" else 1e-3
+    want_out, want_grads = jax_flash(case, p, causal, scale, dtype)
+    got_out, got_grads = port_flash(case, p, causal, scale,
+                                    dtype=getattr(torch, dtype))
+    np.testing.assert_allclose(got_out, want_out,
+                               atol=rel * np.abs(want_out).max(), rtol=0)
+    for gname, g, w in zip("q k v bias".split(), got_grads, want_grads):
+        np.testing.assert_allclose(g, w, atol=rel * np.abs(w).max(), rtol=0,
+                                   err_msg=gname)
+    assert (got_grads[2] != want_grads[2]).mean() < 0.01
+
+
+@pytest.mark.parametrize("name,dtype", _by_dtype(
+    ["bias_full_pad_drop", "bias_heads1_pad_drop", "causal_drop",
+     "bias_row_drop", "multiblock"], ("bfloat16", "float16")))
+def test_plain_bf16_out_rounds_p_where_the_reference_does(name, dtype,
+                                                          monkeypatch):
+    """bf16 and fp16 operands with dropout: the plain forward rounds the
+    dropped p to the operand type before p·V, under the running max of the
+    reference's key blocks, so its out equals the interpret-mode kernel's
+    in all but under 0.1% (bf16) or 0.5% (fp16) of elements (with p·V in
+    fp32, 35-42% differed in bf16 and 34-41% in fp16; rounding under the
+    global max alone left 16% of the bf16 multi-block case).  fp16's
+    finer ulps let more fp32 summation-order ties cross (0.07-0.18%
+    measured).  "multiblock": see :func:`_rounding_case`."""
+    case, D, causal, p = _rounding_case(name, monkeypatch)
+    want_out, _ = jax_flash(case, p, causal, D ** -0.5, dtype)
+    got_out, _ = port_flash(case, p, causal, D ** -0.5,
+                            dtype=getattr(torch, dtype))
+    assert (got_out != want_out).mean() < (1e-3 if dtype == "bfloat16"
+                                           else 5e-3)
 
 
 def test_params_mirror_the_header():
@@ -471,14 +503,15 @@ CARD_CASES = {
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", sorted(CARD_CASES))
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_kernels_match_plain_on_card(cuda, name, dtype, monkeypatch):
     """The CUDA kernels vs the plain version on the same values: for bf16
-    the tensor-core forward and backward (dk/dv; dq with dbias), for fp32
-    the fp32 forward and backward (dk/dv, dq, dbias).  fp32 within 1e-4
-    (out) and 1e-3 of each grad's max; bf16 against the plain version on
-    the same bf16 tensors, which rounds p, p_drop and dS as the kernels
-    do, within 2e-2 of each tensor's max."""
+    and fp16 the tensor-core forward and backward of that type (dk/dv; dq
+    with dbias), for fp32 the fp32 forward and backward (dk/dv, dq,
+    dbias).  fp32 within 1e-4 (out) and 1e-3 of each grad's max; bf16 and
+    fp16 against the plain version on the same tensors, which rounds p,
+    p_drop and dS as the kernels do, within 2e-2 (bf16) or 5e-3 (fp16, 3
+    more mantissa bits) of each tensor's max."""
     B, T, H, D, bias_kind, pad_kind, causal, p, packed = CARD_CASES[name]
     if packed:
         monkeypatch.setattr(fa, "SMS", 1)
@@ -488,34 +521,39 @@ def test_kernels_match_plain_on_card(cuda, name, dtype, monkeypatch):
     before = dict(fa.launches)
     got_out, got_grads = port_flash(case, p, causal, D ** -0.5, cuda, dt)
     torch.cuda.synchronize()
-    bf16 = dtype == "bfloat16"
-    want = {"flash_fwd": int(not bf16), "flash_fwd_bf16": int(bf16),
-            "flash_bwd_dkdv": int(bf16),
-            "flash_bwd_dq": int(bf16), "flash_dkdv": int(not bf16),
-            "flash_dq": int(not bf16),
-            "flash_dbias": int(not bf16 and bias_kind is not None)}
-    assert {n: fa.launches[n] - before[n] for n in want} == want
+    bf16, fp16 = dtype == "bfloat16", dtype == "float16"
+    fp32 = not (bf16 or fp16)
+    want = {"flash_fwd": int(fp32), "flash_fwd_bf16": int(bf16),
+            "flash_bwd_dkdv": int(bf16), "flash_bwd_dq": int(bf16),
+            "flash_fwd_fp16": int(fp16), "flash_bwd_dkdv_fp16": int(fp16),
+            "flash_bwd_dq_fp16": int(fp16), "flash_dkdv": int(fp32),
+            "flash_dq": int(fp32),
+            "flash_dbias": int(fp32 and bias_kind is not None)}
+    assert {n: fa.launches[n] - before[n] for n in fa.launches} == want
     want_out, want_grads = port_flash(case, p, causal, D ** -0.5, dtype=dt)
-    tol_out = 2e-2 * np.abs(want_out).max() if bf16 else 1e-4
+    rel = 1e-3 if fp32 else 2e-2 if bf16 else 5e-3
+    tol_out = 1e-4 if fp32 else rel * np.abs(want_out).max()
     np.testing.assert_allclose(got_out, want_out, atol=tol_out, rtol=0)
     for gname, g, w in zip("q k v bias".split(), got_grads, want_grads):
-        rel = 2e-2 if bf16 else 1e-3
         np.testing.assert_allclose(g, w, atol=rel * np.abs(w).max(), rtol=0,
                                    err_msg=gname)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("packed", [False, True])
-def test_bf16_backward_is_bit_identical_on_card(cuda, packed, monkeypatch):
-    """Two bf16 backward calls on the same inputs give the same bits: no
-    atomics, the dbias partials summed in a fixed order."""
+@pytest.mark.parametrize("packed,dtype",
+                         _by_dtype([False, True], ("bfloat16", "float16")))
+def test_bf16_backward_is_bit_identical_on_card(cuda, packed, dtype,
+                                                monkeypatch):
+    """Two bf16 (or fp16) backward calls on the same inputs give the same
+    bits: no atomics, the dbias partials summed in a fixed order."""
     if packed:
         monkeypatch.setattr(fa, "SMS", 1)
     B, T, H, D = 5, 256, 2, 64
     q, k, v, w, bias, pad, seed = make_case(np.random.RandomState(9), B, T,
                                             H, D, "full", "tail")
     dev = lambda x: torch.from_numpy(x).to(cuda)  # noqa: E731
-    q, k, v, w, bias = (dev(x).to(torch.bfloat16) for x in (q, k, v, w, bias))
+    dt = getattr(torch, dtype)
+    q, k, v, w, bias = (dev(x).to(dt) for x in (q, k, v, w, bias))
     pad, seed = dev(pad), dev(seed)
     geom = fa.geometry(T, T, bias)
     args = (pad, 0.1, seed, False, D ** -0.5, geom)
@@ -529,19 +567,21 @@ def test_bf16_backward_is_bit_identical_on_card(cuda, packed, monkeypatch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["bias_full_pad_drop", "causal_drop",
-                                  "d128", "b5"])
-def test_bf16_forward_is_bit_identical_on_card(cuda, name):
-    """Two bf16 forward calls on the same inputs give the same bits, and
-    the lse within 2e-4 of the plain version's."""
+@pytest.mark.parametrize("name,dtype", _by_dtype(
+    ["bias_full_pad_drop", "causal_drop", "d128", "b5"],
+    ("bfloat16", "float16")))
+def test_bf16_forward_is_bit_identical_on_card(cuda, name, dtype):
+    """Two bf16 (or fp16) forward calls on the same inputs give the same
+    bits, and the lse within 2e-4 of the plain version's."""
     B, T, H, D, bias_kind, pad_kind, causal, p, _ = CARD_CASES[name]
     q, k, v, _, bias, pad, seed = make_case(np.random.RandomState(13), B, T,
                                             H, D, bias_kind, pad_kind)
     def dev(x):
         return None if x is None else torch.from_numpy(x).to(cuda)
 
-    q, k, v = (dev(x).to(torch.bfloat16) for x in (q, k, v))
-    bias = None if bias is None else dev(bias).to(torch.bfloat16)
+    dt = getattr(torch, dtype)
+    q, k, v = (dev(x).to(dt) for x in (q, k, v))
+    bias = None if bias is None else dev(bias).to(dt)
     pad, seed = dev(pad), dev(seed)
     geom = fa.geometry(T, T, bias)
     args = (pad, p, seed, causal, D ** -0.5, geom)

@@ -28,7 +28,8 @@
 // Layouts: q, k, v and dO are [B, T, H, D] read by strides (the last dim
 // contiguous), so the module's fused-QKV view needs no copy; out, dq, dk,
 // dv are contiguous [B, T, H, D]; lse and delta [B, H, Tq] fp32; bias
-// [1, 1|H, 1|Tq, Tk] (fp32 or bf16) by strides, 0 on a broadcast dim; pad
+// [1, 1|H, 1|Tq, Tk] (fp32, bf16 or fp16) by strides, 0 on a broadcast
+// dim; pad
 // [B, Tk] int32; seed [B] int32; dbias [H, Tq, Tk] fp32, summed over the
 // batch in a fixed order (no atomics).  Operands, math and outputs are
 // fp32 (the kernels are templated on the operand type; only float is
@@ -49,6 +50,7 @@
 // CUDA cores (TF32 tensor cores would change what fp32 means).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -97,9 +99,11 @@ __device__ __forceinline__ void load_rows(float* dst, const void* src,
 __device__ __forceinline__ float bias_at(const FlashParams& p, int h, int r,
                                          int c) {
   const long long off = h * p.sb_h + r * p.sb_q + c;
-  return p.bias_bf16
-             ? __bfloat162float(static_cast<const __nv_bfloat16*>(p.bias)[off])
-             : static_cast<const float*>(p.bias)[off];
+  if (p.bias_type == kBiasBf16)
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(p.bias)[off]);
+  if (p.bias_type == kBiasF16)
+    return __half2float(static_cast<const __half*>(p.bias)[off]);
+  return static_cast<const float*>(p.bias)[off];
 }
 
 // The scaled dot product of (r, c) plus bias, pad and causal terms, added

@@ -1,7 +1,9 @@
-// Flash attention backward for bf16 operands on the tensor cores of Hopper
-// (sm_90a): two kernels, flash_bwd_dkdv and flash_bwd_dq (with dbias).
+// Flash attention backward for bf16 and fp16 operands on the tensor cores
+// of Hopper (sm_90a): two kernels, flash_bwd_dkdv and flash_bwd_dq (with
+// dbias), each one body (dkdv_body, dq_body) instantiated for each
+// operand type T (the fp16 kernels' names end in _fp16).
 //
-// Replaces, for bf16 operands, the Pallas TPU backward kernels of
+// Replaces, for bf16 and fp16 operands, the Pallas TPU backward kernels of
 // unicore_tpu/ops/pallas/flash_attention.py: _bwd_hb_kernel (:164, the
 // fused single-block pass BERT takes at T = 512), _dkv_kernel (:298),
 // _dq_kernel (:362), _joint_bwd_kernel (:406) and _dbias_kernel (:488).
@@ -14,13 +16,14 @@
 //   p      = exp(s - lse[r]),   keep = dropout bits (prng.cuh) < thresh
 //   p_drop = keep ? p / keep_prob : 0,   dP = keep ? <dO[r], v[c]> / keep_prob : 0
 //   dS     = p * (dP - delta[r])                           (fp32)
-//   dv[c]  = sum_r bf16(p_drop) dO[r]
-//   dk[c]  = scale * sum_r bf16(dS) q[r]
-//   dq[r]  = scale * sum_c bf16(dS) k[c]
+//   dv[c]  = sum_r T(p_drop) dO[r]
+//   dk[c]  = scale * sum_r T(dS) q[r]
+//   dq[r]  = scale * sum_c T(dS) k[c]
 //   dbias  = sum_b dS                                      (fp32)
 //
-// p_drop and dS are rounded to bf16 before their products and dbias sums
-// the fp32 dS, where the reference casts (its :214, :223-224, :234).
+// p_drop and dS are rounded to the operand type T before their products
+// and dbias sums the fp32 dS, where the reference casts (its :214,
+// :223-224, :234); the caller casts dbias to the bias's type.
 // Element (r, c) of head h draws the TPU kernels' bits: seed
 // seed[b] + (h * n_i + r / gbq) * n_j + c / gbk at index
 // (r % gbq) * gbk + c % gbk, (gbq, gbk) the REFERENCE's block geometry
@@ -28,7 +31,7 @@
 // one seed and its indices are a base plus r_local * gbk + c_local.
 //
 // Design.  Blocks of 4 warps over 64 x 64 tiles; each warp owns 16 rows
-// of the tile.  Every product is mma.sync.m16n8k16 (bf16 operands, fp32
+// of the tile.  Every product is mma.sync.m16n8k16 (T operands, fp32
 // accumulators) with operands from shared memory by ldmatrix, and
 // ldmatrix.trans for the operands the products read transposed (dO and q
 // for dv and dk, k for dq); the score-shaped accumulators become the A
@@ -71,9 +74,10 @@
 // Bound: operations.  The backward needs 10 B H Tq Tk D flops on unpadded
 // pairs; this design does 14 (8 in dk/dv, 6 in dq: S and dP twice) on
 // unskipped tiles, plus the exp and the counter hash of every element in
-// both kernels, against 989 TFLOP/s of bf16 tensor cores.
+// both kernels, against 989 TFLOP/s of bf16 (or fp16) tensor cores.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -111,22 +115,22 @@ __device__ __forceinline__ Grad element(const FlashParams& p, float dot,
 
 // ---------------------------------------------------------- kernels ----
 
-// At most 168 registers for D <= 64, so that three blocks share an SM.
-template <int kD>
-__global__ void __launch_bounds__(kThreads, kD <= 64 ? 3 : 1)
-    flash_bwd_dkdv_kernel(const FlashParams p) {
+// kBias: kNoBias without a bias, else the bias's type code.
+template <int kD, typename T, int kBias>
+__device__ __forceinline__ void dkdv_body(const FlashParams& p) {
   constexpr int kLd = kD + 8;
   constexpr int kElems = kTile * kLd;
   constexpr int kN = kD / 8;  // accumulator column blocks
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);
-  bf16* v_s = k_s + kElems;
-  bf16* q_s = v_s + kElems;       // [2][kElems]
-  bf16* do_s = q_s + 2 * kElems;  // [2][kElems]
+  T* k_s = reinterpret_cast<T*>(smem);
+  T* v_s = k_s + kElems;
+  T* q_s = v_s + kElems;       // [2][kElems]
+  T* do_s = q_s + 2 * kElems;  // [2][kElems]
   float* lse_s = reinterpret_cast<float*>(do_s + 2 * kElems);  // [2][64]
   float* dl_s = lse_s + 2 * kTile;                              // [2][64]
   char* bias_s = reinterpret_cast<char*>(dl_s + 2 * kTile);     // [2][tile]
-  const int bias_tile = bias_tile_bytes(p.bias_bf16);
+  constexpr int bias_tile =
+      kBias == kNoBias ? 0 : bias_tile_bytes(bias_item(kBias));
 
   const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -155,7 +159,7 @@ __global__ void __launch_bounds__(kThreads, kD <= 64 ? 3 : 1)
                   q0, D);
     load_row64(lse_s + stage * kTile, p.lse + row_bh + q0);
     load_row64(dl_s + stage * kTile, p.delta + row_bh + q0);
-    if (p.bias) load_bias(bias_s + stage * bias_tile, p, h, q0, k0);
+    if (kBias != kNoBias) load_bias(bias_s + stage * bias_tile, p, h, q0, k0);
   };
   if (qt < nq) {
     if (D < kD) {
@@ -184,8 +188,8 @@ __global__ void __launch_bounds__(kThreads, kD <= 64 ? 3 : 1)
     cp_async_wait_1();
     __syncthreads();
     const int q0 = qt * kTile;
-    const bf16* qs = q_s + stage * kElems;
-    const bf16* dos = do_s + stage * kElems;
+    const T* qs = q_s + stage * kElems;
+    const T* dos = do_s + stage * kElems;
     const float* lse = lse_s + stage * kTile;
     const float* dl = dl_s + stage * kTile;
     const char* bs = bias_s + stage * bias_tile;
@@ -209,10 +213,10 @@ __global__ void __launch_bounds__(kThreads, kD <= 64 ? 3 : 1)
                           ks * 16 + ((lane >> 3) & 1) * 8;
         ldsm_x4(qb, qs + b_off);
         ldsm_x4(ob, dos + b_off);
-        mma(st[2 * np], ka, qb[0], qb[1]);
-        mma(st[2 * np + 1], ka, qb[2], qb[3]);
-        mma(dpt[2 * np], va, ob[0], ob[1]);
-        mma(dpt[2 * np + 1], va, ob[2], ob[3]);
+        mma<T>(st[2 * np], ka, qb[0], qb[1]);
+        mma<T>(st[2 * np + 1], ka, qb[2], qb[3]);
+        mma<T>(dpt[2 * np], va, ob[0], ob[1]);
+        mma<T>(dpt[2 * np + 1], va, ob[2], ob[3]);
       }
     }
 
@@ -232,16 +236,17 @@ __global__ void __launch_bounds__(kThreads, kD <= 64 ? 3 : 1)
           const int kl = kl0 + (e >> 1) * 8, ql = n * 8 + 2 * t + (e & 1);
           const Grad gr = element(
               p, st[n][e], dpt[n][e],
-              p.bias ? bias_smem(bs, p.bias_bf16, ql, kl) : 0.f, padt[e >> 1],
+              kBias != kNoBias ? bias_smem(bs, kBias, ql, kl) : 0.f,
+              padt[e >> 1],
               p.causal && k0 + kl > q0 + ql, lse[ql], dl[ql],
               p.dropout && kept(p, drop, ql, kl));
           pd[e] = gr.p_drop;
           ds[e] = gr.ds;
         }
-        pa[2 * half] = pack_bf16(pd[0], pd[1]);
-        pa[2 * half + 1] = pack_bf16(pd[2], pd[3]);
-        da[2 * half] = pack_bf16(ds[0], ds[1]);
-        da[2 * half + 1] = pack_bf16(ds[2], ds[3]);
+        pa[2 * half] = pack<T>(pd[0], pd[1]);
+        pa[2 * half + 1] = pack<T>(pd[2], pd[3]);
+        da[2 * half] = pack<T>(ds[0], ds[1]);
+        da[2 * half + 1] = pack<T>(ds[2], ds[3]);
       }
 #pragma unroll
       for (int dp = 0; dp < kD / 16; ++dp) {
@@ -250,10 +255,10 @@ __global__ void __launch_bounds__(kThreads, kD <= 64 ? 3 : 1)
                         dp * 16 + (lane >> 4) * 8;
         ldsm_x4_t(ob, dos + off);
         ldsm_x4_t(qb, qs + off);
-        mma(dv[2 * dp], pa, ob[0], ob[1]);
-        mma(dv[2 * dp + 1], pa, ob[2], ob[3]);
-        mma(dk[2 * dp], da, qb[0], qb[1]);
-        mma(dk[2 * dp + 1], da, qb[2], qb[3]);
+        mma<T>(dv[2 * dp], pa, ob[0], ob[1]);
+        mma<T>(dv[2 * dp + 1], pa, ob[2], ob[3]);
+        mma<T>(dk[2 * dp], da, qb[0], qb[1]);
+        mma<T>(dk[2 * dp + 1], da, qb[2], qb[3]);
       }
     }
     __syncthreads();  // this stage is refilled by the next iteration
@@ -268,22 +273,19 @@ __global__ void __launch_bounds__(kThreads, kD <= 64 ? 3 : 1)
           ((static_cast<long long>(b) * p.Tk + k0 + kl0 + 8 * i) * p.H + h) *
               D +
           n * 8 + 2 * t;
-      *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.dk) + off) =
-          __floats2bfloat162_rn(dk[n][2 * i] * p.scale,
-                                dk[n][2 * i + 1] * p.scale);
-      *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.dv) + off) =
-          __floats2bfloat162_rn(dv[n][2 * i], dv[n][2 * i + 1]);
+      store2<T>(static_cast<T*>(p.dk) + off, dk[n][2 * i] * p.scale,
+                dk[n][2 * i + 1] * p.scale);
+      store2<T>(static_cast<T*>(p.dv) + off, dv[n][2 * i], dv[n][2 * i + 1]);
     }
   }
 }
 
-// kBias: p.bias is set.  The bias pairs of a key tile are loaded once
-// into registers and serve the group's rows; without a bias those
-// registers are not spent.
-template <int kD, bool kBias>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const FlashParams p) {
-  constexpr int kLd = kD + 8;  // of bf16 tiles and of the fp32 dq rows
+// kBias: kNoBias without a bias, else the bias's type code.  The bias
+// pairs of a key tile are loaded once into registers and serve the
+// group's rows; without a bias those registers are not spent.
+template <int kD, typename T, int kBias>
+__device__ __forceinline__ void dq_body(const FlashParams& p) {
+  constexpr int kLd = kD + 8;  // of T tiles and of the fp32 dq rows
   constexpr int kElems = kTile * kLd;
   constexpr int kN = kD / 8;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -291,8 +293,8 @@ __global__ void __launch_bounds__(kThreads)
   const int b_lo = static_cast<int>(static_cast<long long>(grp) * p.B / p.groups);
   const int rows =
       static_cast<int>(static_cast<long long>(grp + 1) * p.B / p.groups) - b_lo;
-  bf16* kv_s = reinterpret_cast<bf16*>(smem);  // [2 stages][k, v][kElems]
-  bf16* qo_s = kv_s + 4 * kElems;              // [rows][q, dO][kElems]
+  T* kv_s = reinterpret_cast<T*>(smem);  // [2 stages][k, v][kElems]
+  T* qo_s = kv_s + 4 * kElems;           // [rows][q, dO][kElems]
   float* acc_s = reinterpret_cast<float*>(qo_s + 2 * rows * kElems);
   float* stat_s = acc_s + rows * kElems;  // [rows][lse, delta][64]
   int* pad_s = reinterpret_cast<int*>(stat_s + 2 * rows * kTile);  // [2][64]
@@ -382,10 +384,10 @@ __global__ void __launch_bounds__(kThreads)
     const int k0 = kt * kTile;
     if (p.dbias)
       while (db_kt < kt) flush_db();
-    const bf16* qs = qo_s + 2 * r * kElems;
-    const bf16* dos = qs + kElems;
-    const bf16* ks = kv_s + 2 * stage * kElems;
-    const bf16* vs = ks + kElems;
+    const T* qs = qo_s + 2 * r * kElems;
+    const T* dos = qs + kElems;
+    const T* ks = kv_s + 2 * stage * kElems;
+    const T* vs = ks + kElems;
     const int* pads = pad_s + stage * kTile;
     const float* st = stat_s + 2 * r * kTile;
     const float lse[2] = {st[ql0], st[ql0 + 8]};
@@ -393,12 +395,13 @@ __global__ void __launch_bounds__(kThreads)
 
     // this thread's bias pairs of key tile kt (rows ql0, ql0 + 8; keys
     // 8 n + 2 t, + 1), loaded as the products start
-    if (kBias && kt != bias_kt) {
+    if (kBias != kNoBias && kt != bias_kt) {
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int n = 0; n < 8; ++n)
-          bv[i][n] = bias2_at(p, h, q0 + ql0 + 8 * i, k0 + n * 8 + 2 * t);
+          bv[i][n] =
+              bias2_at<kBias>(p, h, q0 + ql0 + 8 * i, k0 + n * 8 + 2 * t);
       bias_kt = kt;
     }
 
@@ -421,10 +424,10 @@ __global__ void __launch_bounds__(kThreads)
                           kd * 16 + ((lane >> 3) & 1) * 8;
         ldsm_x4(kb, ks + b_off);
         ldsm_x4(vb, vs + b_off);
-        mma(s[2 * np], qa, kb[0], kb[1]);
-        mma(s[2 * np + 1], qa, kb[2], kb[3]);
-        mma(dpv[2 * np], oa, vb[0], vb[1]);
-        mma(dpv[2 * np + 1], oa, vb[2], vb[3]);
+        mma<T>(s[2 * np], qa, kb[0], kb[1]);
+        mma<T>(s[2 * np + 1], qa, kb[2], kb[3]);
+        mma<T>(dpv[2 * np], oa, vb[0], vb[1]);
+        mma<T>(dpv[2 * np + 1], oa, vb[2], vb[3]);
       }
     }
 
@@ -454,7 +457,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int i = 0; i < 2; ++i) {  // rows ql0 + 8 i
           const int ql = ql0 + 8 * i;
-          const float2 bias2 = kBias ? bv[i][n] : make_float2(0.f, 0.f);
+          const float2 bias2 =
+              kBias != kNoBias ? bv[i][n] : make_float2(0.f, 0.f);
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             const int e = 2 * i + j;
@@ -467,16 +471,16 @@ __global__ void __launch_bounds__(kThreads)
             if (p.dbias) db[n][e] += gr.ds;
           }
         }
-        da[2 * half] = pack_bf16(ds[0], ds[1]);
-        da[2 * half + 1] = pack_bf16(ds[2], ds[3]);
+        da[2 * half] = pack<T>(ds[0], ds[1]);
+        da[2 * half + 1] = pack<T>(ds[2], ds[3]);
       }
 #pragma unroll
       for (int dp = 0; dp < kD / 16; ++dp) {
         uint32_t kb[4];
         ldsm_x4_t(kb, ks + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd +
                           dp * 16 + (lane >> 4) * 8);
-        mma(c[2 * dp], da, kb[0], kb[1]);
-        mma(c[2 * dp + 1], da, kb[2], kb[3]);
+        mma<T>(c[2 * dp], da, kb[0], kb[1]);
+        mma<T>(c[2 * dp + 1], da, kb[2], kb[3]);
       }
     }
 #pragma unroll
@@ -491,7 +495,7 @@ __global__ void __launch_bounds__(kThreads)
   if (p.dbias)
     while (db_kt < nk) flush_db();
 
-  // dq * scale in bf16, from the warp's own accumulator rows (zeroed by
+  // dq * scale in T, from the warp's own accumulator rows (zeroed by
   // all threads, so a group with no live pair needs the barrier)
   __syncthreads();
   for (int r = 0; r < rows; ++r) {
@@ -507,64 +511,120 @@ __global__ void __launch_bounds__(kThreads)
         const long long off =
             ((static_cast<long long>(b_lo + r) * p.Tq + q0 + ql) * p.H + h) * D +
             n * 8 + 2 * t;
-        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.dq) + off) =
-            __floats2bfloat162_rn(v2.x * p.scale, v2.y * p.scale);
+        store2<T>(static_cast<T*>(p.dq) + off, v2.x * p.scale,
+                  v2.y * p.scale);
       }
     }
   }
 }
 
-// Dynamic shared memory of each kernel, in bytes; ops/flash_attention.py
-// repeats dq_smem to pick the batch groups.
+// The kernels, one name per operand type, so a profile tells them apart.
+// dk/dv: at most 168 registers for D <= 64, so that three blocks share an
+// SM.
+template <int kD, int kBias>
+__global__ void __launch_bounds__(kThreads, kD <= 64 ? 3 : 1)
+    flash_bwd_dkdv_kernel(const FlashParams p) {
+  dkdv_body<kD, bf16, kBias>(p);
+}
+
+template <int kD, int kBias>
+__global__ void __launch_bounds__(kThreads, kD <= 64 ? 3 : 1)
+    flash_bwd_dkdv_fp16_kernel(const FlashParams p) {
+  dkdv_body<kD, f16, kBias>(p);
+}
+
+template <int kD, int kBias>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_kernel(const FlashParams p) {
+  dq_body<kD, bf16, kBias>(p);
+}
+
+template <int kD, int kBias>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_fp16_kernel(const FlashParams p) {
+  dq_body<kD, f16, kBias>(p);
+}
+
+// Dynamic shared memory of each kernel, in bytes (T is 2 bytes);
+// ops/flash_attention.py repeats dq_smem to pick the batch groups.
 size_t dkdv_smem(int kD, const FlashParams& p) {
-  const size_t bias = p.bias ? 2 * bias_tile_bytes(p.bias_bf16) : 0;
-  return 6 * kTile * (kD + 8) * sizeof(bf16) + 4 * kTile * sizeof(float) +
-         bias;
+  const size_t bias =
+      p.bias ? 2 * bias_tile_bytes(bias_item(p.bias_type)) : 0;
+  return 6 * kTile * (kD + 8) * 2 + 4 * kTile * sizeof(float) + bias;
 }
 constexpr size_t dq_smem(int kD, int rows) {
-  return 4 * kTile * (kD + 8) * sizeof(bf16) + 2 * kTile * sizeof(int) +
+  return 4 * kTile * (kD + 8) * 2 + 2 * kTile * sizeof(int) +
          static_cast<size_t>(rows) *
-             (2 * kTile * (kD + 8) * sizeof(bf16) +
-              kTile * (kD + 8) * sizeof(float) + 2 * kTile * sizeof(float));
+             (2 * kTile * (kD + 8) * 2 + kTile * (kD + 8) * sizeof(float) +
+              2 * kTile * sizeof(float));
 }
 
-template <int kD>
-int dkdv(const FlashParams& p, cudaStream_t st) {
-  return flash_launch(flash_bwd_dkdv_kernel<kD>, dim3(p.Tk / kTile, p.H, p.B),
-                      kThreads, dkdv_smem(kD, p), p, st);
+template <typename T, int kD, int kBias>
+int dkdv_launch(const FlashParams& p, cudaStream_t st) {
+  const dim3 grid(p.Tk / kTile, p.H, p.B);
+  if constexpr (Elem<T>::kBiasType == kBiasBf16)
+    return flash_launch(flash_bwd_dkdv_kernel<kD, kBias>, grid, kThreads,
+                        dkdv_smem(kD, p), p, st);
+  else
+    return flash_launch(flash_bwd_dkdv_fp16_kernel<kD, kBias>, grid,
+                        kThreads, dkdv_smem(kD, p), p, st);
 }
 
-template <int kD>
-int dq(const FlashParams& p, cudaStream_t st) {
+template <typename T, int kD, int kBias>
+int dq_launch(const FlashParams& p, cudaStream_t st) {
   const int rows = (p.B + p.groups - 1) / p.groups;
   const dim3 grid(p.Tq / kTile, p.H, p.groups);
-  return p.bias ? flash_launch(flash_bwd_dq_kernel<kD, true>, grid, kThreads,
-                               dq_smem(kD, rows), p, st)
-                : flash_launch(flash_bwd_dq_kernel<kD, false>, grid, kThreads,
-                               dq_smem(kD, rows), p, st);
+  if constexpr (Elem<T>::kBiasType == kBiasBf16)
+    return flash_launch(flash_bwd_dq_kernel<kD, kBias>, grid, kThreads,
+                        dq_smem(kD, rows), p, st);
+  else
+    return flash_launch(flash_bwd_dq_fp16_kernel<kD, kBias>, grid, kThreads,
+                        dq_smem(kD, rows), p, st);
+}
+
+// Each kernel instantiated for no bias, an fp32 bias and a bias of the
+// operands' type (what takes<T> admits).
+template <typename T, int kD>
+int dkdv(const FlashParams& p, cudaStream_t st) {
+  if (p.bias == nullptr) return dkdv_launch<T, kD, kNoBias>(p, st);
+  if (p.bias_type == kBiasF32) return dkdv_launch<T, kD, kBiasF32>(p, st);
+  return dkdv_launch<T, kD, Elem<T>::kBiasType>(p, st);
+}
+
+template <typename T, int kD>
+int dq(const FlashParams& p, cudaStream_t st) {
+  if (p.bias == nullptr) return dq_launch<T, kD, kNoBias>(p, st);
+  if (p.bias_type == kBiasF32) return dq_launch<T, kD, kBiasF32>(p, st);
+  return dq_launch<T, kD, Elem<T>::kBiasType>(p, st);
 }
 
 // What the kernels assume and the caller guarantees; checked again here.
+// The bias may be fp32 or of the operands' type.
+template <typename T>
 bool takes(const FlashParams& p) {
   return takes_tiles(p) && p.groups >= 1 && p.groups <= p.B &&
          (p.B + p.groups - 1) / p.groups <= kMaxRows &&
-         (p.dbias != nullptr || p.groups == p.B);
+         (p.dbias != nullptr || p.groups == p.B) &&
+         (p.bias == nullptr || p.bias_type == kBiasF32 ||
+          p.bias_type == Elem<T>::kBiasType);
 }
 
 }  // namespace
 
 // Launch on `stream`; each returns the CUDA error (0 on success), or
 // cudaErrorInvalidValue for parameters the kernels do not take.
-#define UNICORE_FLASH_BWD_ENTRY(NAME)                                       \
-  extern "C" int unicore_flash_bwd_##NAME(const FlashParams* p,             \
-                                          void* stream) {                   \
+#define UNICORE_FLASH_BWD_ENTRY(NAME, SUFFIX, T)                            \
+  extern "C" int unicore_flash_bwd_##NAME##SUFFIX(const FlashParams* p,     \
+                                                  void* stream) {           \
     if (p->B == 0 || p->H == 0 || p->Tq == 0 || p->Tk == 0) return 0;       \
-    if (!takes(*p)) return static_cast<int>(cudaErrorInvalidValue);         \
+    if (!takes<T>(*p)) return static_cast<int>(cudaErrorInvalidValue);      \
     cudaStream_t st = static_cast<cudaStream_t>(stream);                    \
-    return p->D <= 32   ? NAME<32>(*p, st)                                  \
-           : p->D <= 64 ? NAME<64>(*p, st)                                  \
-                        : NAME<128>(*p, st);                                \
+    return p->D <= 32   ? NAME<T, 32>(*p, st)                               \
+           : p->D <= 64 ? NAME<T, 64>(*p, st)                               \
+                        : NAME<T, 128>(*p, st);                             \
   }
 
-UNICORE_FLASH_BWD_ENTRY(dkdv)
-UNICORE_FLASH_BWD_ENTRY(dq)
+UNICORE_FLASH_BWD_ENTRY(dkdv, , bf16)
+UNICORE_FLASH_BWD_ENTRY(dq, , bf16)
+UNICORE_FLASH_BWD_ENTRY(dkdv, _fp16, f16)
+UNICORE_FLASH_BWD_ENTRY(dq, _fp16, f16)

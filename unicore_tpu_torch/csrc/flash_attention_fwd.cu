@@ -1,7 +1,8 @@
-// Flash attention forward for bf16 operands on the tensor cores of Hopper
-// (sm_90a): flash_fwd_bf16.
+// Flash attention forward for bf16 and fp16 operands on the tensor cores
+// of Hopper (sm_90a): flash_fwd_bf16 and flash_fwd_fp16, one body
+// (fwd_body) instantiated for each operand type T.
 //
-// Replaces, for bf16 operands, the Pallas TPU forward kernels of
+// Replaces, for bf16 and fp16 operands, the Pallas TPU forward kernels of
 // unicore_tpu/ops/pallas/flash_attention.py: _fwd_hb_kernel (:121, the
 // single-block pass BERT takes at T = 512, pallas_call :825) and
 // _fwd_kernel (:241, the multi-block online softmax, pallas_call :786).
@@ -11,14 +12,16 @@
 //   s      = scale * <q[r], k[c]> + bias[h,r,c] + (pad[b,c] ? -1e30 : 0)
 //            + (causal && c > r ? -1e30 : 0)        (added in that order)
 //   m      = max_c s,   l = sum_c exp(s - m)         (undropped, fp32)
-//   out[r] = sum_c bf16(keep ? exp(s - m) / keep_prob : 0) v[c] / l_safe
+//   out[r] = sum_c T(keep ? exp(s - m) / keep_prob : 0) v[c] / l_safe
 //   lse[r] = m + log(l_safe)    (fp32; l_safe = l, or 1 where l == 0)
 //
 // with the max and the sum taken online over 64-key tiles: a tile's p is
 // exp(s - m_run) under the running max, and the accumulators rescale by
 // exp(m_old - m_new) when the max grows, as the reference's multi-block
-// kernel does over its key blocks.  p is rounded to bf16 before the p.V
-// product, where the reference casts (its :157, :283).  Element (r, c)
+// kernel does over its key blocks.  p is rounded to T before the p.V
+// product, where the reference casts (its :157, :283: to v's type).  The
+// scores, the max, exp, the sums and the dropout hash stay fp32 in both
+// instantiations; out rounds to T once at the end.  Element (r, c)
 // of head h draws the TPU kernels' dropout bits (prng.cuh) through the
 // REFERENCE's block geometry (geo_*): see mma_bf16.cuh.
 //
@@ -27,11 +30,11 @@
 // its A fragments stay in registers (ldmatrix).  A loop over key tiles
 // keeps the next tile's k, v, bias and pad in flight by 16-byte cp.async
 // (two stages) while this one computes:
-//   S = Q K^T by mma.sync.m16n8k16 (bf16 operands, fp32 accumulators);
+//   S = Q K^T by mma.sync.m16n8k16 (T operands, fp32 accumulators);
 //   in registers, at each accumulator's (r, c): the scale, bias, pad and
 //     causal terms, the row max by quad shuffles, the rescale of l and of
 //     the output accumulators, p = expf(s - m), the dropout bits;
-//   P rounded to bf16 and packed as A fragments (P never touches shared
+//   P rounded to T and packed as A fragments (P never touches shared
 //     memory), and O += P V with V through ldmatrix.trans.
 // q, k and v are read by strides (the fused [B, T, 3, H, D] projection
 // needs no copy) into rows with D zero-filled up to 32, 64 or 128.  The
@@ -45,8 +48,9 @@
 // Bound.  The forward needs 4 B H Tq Tk D flops on unpadded pairs and
 // reads q, k, v and the bias once and writes out and lse.  At BERT's
 // shape (B 16, H 12, T 512, D 64, ~100 padded keys a row) that is ~10.4
-// GFLOP (0.0105 ms at 989 TFLOP/s) against ~57 MB (0.017 ms at 3.35
-// TB/s): bytes bound it, the [12, 512, 512] bf16 bias a quarter of them;
+// GFLOP (0.0105 ms at 989 TFLOP/s, the bf16 and the fp16 rate alike)
+// against ~57 MB (0.017 ms at 3.35 TB/s): bytes bound it, the
+// [12, 512, 512] 2-byte bias a quarter of them;
 // without a bias at T >= 1024 the flops do.  This design reads k and v
 // once per query tile and the bias once per batch row (again and again
 // from L2, not device memory) and does exactly the 4 units on unskipped
@@ -55,6 +59,7 @@
 // mma.sync products (whose ceiling is about two thirds of 989 TFLOP/s).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -70,23 +75,23 @@ namespace {
 // elements (none for 0), two tiles of pad.  ops/flash_attention.py
 // repeats it (fwd_smem_bytes).
 constexpr size_t fwd_smem(int kD, int kBiasItem) {
-  return 4 * kTile * (kD + 8) * sizeof(bf16) +
-         (kBiasItem ? 2 * bias_tile_bytes(kBiasItem == 2) : 0) +
+  return 4 * kTile * (kD + 8) * 2 +
+         (kBiasItem ? 2 * bias_tile_bytes(kBiasItem) : 0) +
          2 * kTile * sizeof(int);
 }
 
-// kBiasItem: 0 without a bias, else the bias's element size (2: bf16,
-// 4: fp32).
-template <int kD, int kBiasItem>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_bf16_kernel(const FlashParams p) {
+// T: the operand type (bf16 or f16).  kBias: kNoBias without a bias,
+// else the bias's type code (kBiasF32, or T's own).
+template <int kD, typename T, int kBias>
+__device__ __forceinline__ void fwd_body(const FlashParams& p) {
   constexpr int kLd = kD + 8;
   constexpr int kElems = kTile * kLd;
   constexpr int kN = kD / 8;  // output column blocks
-  constexpr int kBiasTile = kBiasItem ? bias_tile_bytes(kBiasItem == 2) : 0;
+  constexpr int kBiasItem = kBias == kNoBias ? 0 : bias_item(kBias);
+  constexpr int kBiasTile = kBiasItem ? bias_tile_bytes(kBiasItem) : 0;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* kv_s = reinterpret_cast<bf16*>(smem);  // [2 stages][k, v][kElems]
-  bf16* q_s = kv_s + 2 * kElems;               // = stage 1's k tile
+  T* kv_s = reinterpret_cast<T*>(smem);  // [2 stages][k, v][kElems]
+  T* q_s = kv_s + 2 * kElems;            // = stage 1's k tile
   char* bias_s = reinterpret_cast<char*>(kv_s + 4 * kElems);   // [2][tile]
   int* pad_s = reinterpret_cast<int*>(bias_s + 2 * kBiasTile);  // [2][64]
 
@@ -148,8 +153,8 @@ __global__ void __launch_bounds__(kThreads)
     cp_async_wait_1();
     __syncthreads();
     const int k0 = cur * kTile;
-    const bf16* ks = kv_s + 2 * stage * kElems;
-    const bf16* vs = ks + kElems;
+    const T* ks = kv_s + 2 * stage * kElems;
+    const T* vs = ks + kElems;
     const char* bs = bias_s + stage * kBiasTile;
     const int* pads = pad_s + stage * kTile;
 
@@ -166,8 +171,8 @@ __global__ void __launch_bounds__(kThreads)
         uint32_t kb[4];
         ldsm_x4(kb, ks + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * kLd +
                         kd * 16 + ((lane >> 3) & 1) * 8);
-        mma(s[2 * np], qa[kd], kb[0], kb[1]);
-        mma(s[2 * np + 1], qa[kd], kb[2], kb[3]);
+        mma<T>(s[2 * np], qa[kd], kb[0], kb[1]);
+        mma<T>(s[2 * np + 1], qa[kd], kb[2], kb[3]);
       }
     }
 
@@ -178,7 +183,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int ql = ql0 + 8 * i, cl = n * 8 + 2 * t;
-        const float2 bb = kBiasItem ? bias2_smem(bs, kBiasItem == 2, ql, cl)
+        const float2 bb = kBiasItem ? bias2_smem(bs, kBias, ql, cl)
                                     : make_float2(0.f, 0.f);
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
@@ -205,7 +210,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 
-    // by 16 keys: p (l sums it undropped), the dropped p rounded to bf16
+    // by 16 keys: p (l sums it undropped), the dropped p rounded to T
     // as A fragments, then O += P V
     const DropTile drop =
         p.dropout ? drop_tile(p, seed_b, h, q0, k0) : DropTile{0u, 0u, 0u};
@@ -228,22 +233,22 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
       uint32_t pa[4];
-      pack_a(pa, pu[0], pu[1]);
+      pack_a<T>(pa, pu[0], pu[1]);
 #pragma unroll
       for (int dp = 0; dp < kD / 16; ++dp) {
         uint32_t vb[4];
         ldsm_x4_t(vb, vs +
                           (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd +
                           dp * 16 + (lane >> 4) * 8);
-        mma(o[2 * dp], pa, vb[0], vb[1]);
-        mma(o[2 * dp + 1], pa, vb[2], vb[3]);
+        mma<T>(o[2 * dp], pa, vb[0], vb[1]);
+        mma<T>(o[2 * dp + 1], pa, vb[2], vb[3]);
       }
     }
     __syncthreads();  // this stage is refilled by the next iteration
     cur = nxt;
   }
 
-  // the row sums over the quad, then out = O / l_safe in bf16 and lse
+  // the row sums over the quad, then out = O / l_safe in T and lse
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float l = l_run[i];
@@ -251,14 +256,13 @@ __global__ void __launch_bounds__(kThreads)
     l += __shfl_xor_sync(kFull, l, 2);
     const float l_safe = l == 0.f ? 1.f : l;
     const int r = q0 + ql0 + 8 * i;
-    bf16* out = static_cast<bf16*>(p.out) +
-                ((static_cast<long long>(b) * p.Tq + r) * p.H + h) * D;
+    T* out = static_cast<T*>(p.out) +
+             ((static_cast<long long>(b) * p.Tq + r) * p.H + h) * D;
 #pragma unroll
     for (int n = 0; n < kN; ++n) {
       if (n * 8 >= D) continue;
-      *reinterpret_cast<__nv_bfloat162*>(out + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(o[n][2 * i] / l_safe,
-                                o[n][2 * i + 1] / l_safe);
+      store2<T>(out + n * 8 + 2 * t, o[n][2 * i] / l_safe,
+                o[n][2 * i + 1] / l_safe);
     }
     if (t == 0)
       p.lse[(static_cast<long long>(b) * p.H + h) * p.Tq + r] =
@@ -266,24 +270,44 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int kD, int kBiasItem>
+// One kernel name per operand type, so a profile tells them apart.
+template <int kD, int kBias>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_bf16_kernel(const FlashParams p) {
+  fwd_body<kD, bf16, kBias>(p);
+}
+
+template <int kD, int kBias>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_fp16_kernel(const FlashParams p) {
+  fwd_body<kD, f16, kBias>(p);
+}
+
+template <typename T, int kD, int kBias>
 int launch(const FlashParams& p, cudaStream_t st) {
-  return flash_launch(flash_fwd_bf16_kernel<kD, kBiasItem>,
-                      dim3(p.Tq / kTile, p.H, p.B), kThreads,
-                      fwd_smem(kD, kBiasItem), p, st);
+  constexpr size_t smem =
+      fwd_smem(kD, kBias == kNoBias ? 0 : bias_item(kBias));
+  const dim3 grid(p.Tq / kTile, p.H, p.B);
+  if constexpr (Elem<T>::kBiasType == kBiasBf16)
+    return flash_launch(flash_fwd_bf16_kernel<kD, kBias>, grid, kThreads,
+                        smem, p, st);
+  else
+    return flash_launch(flash_fwd_fp16_kernel<kD, kBias>, grid, kThreads,
+                        smem, p, st);
 }
 
-template <int kD>
+// The bias may be fp32 or of the operands' type.
+template <typename T, int kD>
 int fwd(const FlashParams& p, cudaStream_t st) {
-  if (p.bias == nullptr) return launch<kD, 0>(p, st);
-  return p.bias_bf16 ? launch<kD, 2>(p, st) : launch<kD, 4>(p, st);
+  constexpr int kOwn = Elem<T>::kBiasType;
+  if (p.bias == nullptr) return launch<T, kD, kNoBias>(p, st);
+  if (p.bias_type == kBiasF32) return launch<T, kD, kBiasF32>(p, st);
+  if (p.bias_type == kOwn) return launch<T, kD, kOwn>(p, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-}  // namespace
-
-// Launch on `stream`; returns the CUDA error (0 on success), or
-// cudaErrorInvalidValue for parameters the kernel does not take.
-extern "C" int unicore_flash_fwd_bf16(const FlashParams* p, void* stream) {
+template <typename T>
+int fwd_entry(const FlashParams* p, void* stream) {
   if (p->B == 0 || p->H == 0 || p->Tq == 0 || p->Tk == 0) return 0;
   if (!takes_tiles(*p) || p->out == nullptr || p->lse == nullptr ||
       p->seed == nullptr)
@@ -291,10 +315,22 @@ extern "C" int unicore_flash_fwd_bf16(const FlashParams* p, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (padded_head_dim(p->D)) {
     case 32:
-      return fwd<32>(*p, st);
+      return fwd<T, 32>(*p, st);
     case 64:
-      return fwd<64>(*p, st);
+      return fwd<T, 64>(*p, st);
     default:
-      return fwd<128>(*p, st);
+      return fwd<T, 128>(*p, st);
   }
+}
+
+}  // namespace
+
+// Launch on `stream`; each returns the CUDA error (0 on success), or
+// cudaErrorInvalidValue for parameters the kernel does not take.
+extern "C" int unicore_flash_fwd_bf16(const FlashParams* p, void* stream) {
+  return fwd_entry<bf16>(p, stream);
+}
+
+extern "C" int unicore_flash_fwd_fp16(const FlashParams* p, void* stream) {
+  return fwd_entry<f16>(p, stream);
 }

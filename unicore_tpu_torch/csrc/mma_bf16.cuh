@@ -1,14 +1,18 @@
-// Building blocks of the bf16 tensor-core flash kernels for Hopper
-// (sm_90a), shared by flash_attention_fwd.cu (the forward) and
-// flash_attention_bwd.cu (the backward).
+// Building blocks of the tensor-core flash kernels for Hopper (sm_90a),
+// shared by flash_attention_fwd.cu (the forward) and
+// flash_attention_bwd.cu (the backward), for bf16 and for fp16 operands.
 //
-// - mma.sync.m16n8k16 (bf16 operands, fp32 accumulators), ldmatrix and
-//   ldmatrix.trans, 16-byte cp.async with a two-stage pipeline.
+// - mma.sync.m16n8k16 (bf16 or fp16 operands, fp32 accumulators),
+//   ldmatrix and ldmatrix.trans, 16-byte cp.async with a two-stage
+//   pipeline.  Both operand types are 2 bytes, so the tiles, the ldmatrix
+//   loads, the fragment map and the shared memory are the same; Elem<T>
+//   holds what differs: the mma instruction and the rounding of an fp32
+//   pair to the operand type (round to nearest even, by the intrinsics).
 // - The accumulator fragment map: lane (g = lane / 4, t = lane % 4) of a
 //   warp's 16-row tile holds, for each 8-column block n, elements
 //   e = 0..3 at row g + 8 (e / 2) and column 8 n + 2 t + e % 2
-//   (acc_row, acc_col).  The same four values, packed as bf16 pairs,
-//   are the A operand of the next product over those 16 columns.
+//   (acc_row, acc_col).  The same four values, packed as operand-type
+//   pairs, are the A operand of the next product over those 16 columns.
 // - 64-row tiles in shared memory with D zero-filled to 32, 64 or 128
 //   plus 16 bytes of pad (row stride kD + 8), so ldmatrix's eight rows
 //   fall in distinct banks.
@@ -21,6 +25,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -28,6 +33,7 @@
 #include "prng.cuh"
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 constexpr int kTile = 64;   // query and key rows of a tile
 constexpr int kWarps = 4;   // 16 rows of the tile each
@@ -70,14 +76,14 @@ __device__ __forceinline__ void cp_async_wait_1() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
@@ -85,43 +91,91 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
       : "r"(smem_addr(p)));
 }
 
-// c += a * b: a 16 x 16 (row), b 16 x 8 (col), bf16; c fp32.  Not
-// volatile: a pure function of its operands, free to be scheduled.
+// ------------------------------------------------- operand types ----
+
+// What differs between the two operand types.  mma: c += a * b, a 16 x 16
+// (row), b 16 x 8 (col), c fp32; not volatile, a pure function of its
+// operands, free to be scheduled.  pair: two floats rounded to nearest
+// even, lo in the low half.  kBiasType: the bias code of this type.
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<bf16> {
+  using Pair = __nv_bfloat162;
+  static constexpr int kBiasType = kBiasBf16;
+  static __device__ __forceinline__ Pair pair(float lo, float hi) {
+    return __floats2bfloat162_rn(lo, hi);
+  }
+  static __device__ __forceinline__ bf16 zero() { return __float2bfloat16(0.f); }
+  static __device__ __forceinline__ void mma(float (&c)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+};
+
+template <>
+struct Elem<f16> {
+  using Pair = __half2;
+  static constexpr int kBiasType = kBiasF16;
+  static __device__ __forceinline__ Pair pair(float lo, float hi) {
+    return __floats2half2_rn(lo, hi);
+  }
+  static __device__ __forceinline__ f16 zero() { return __float2half_rn(0.f); }
+  static __device__ __forceinline__ void mma(float (&c)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+};
+
+template <typename T>
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
                                     uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  Elem<T>::mma(c, a, b0, b1);
 }
 
-// Two floats as a bf16 pair (round to nearest even), lo in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+// Two floats as a T pair in one register, lo in the low half.
+template <typename T>
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const typename Elem<T>::Pair v = Elem<T>::pair(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// Two floats rounded to T at dst and dst + 1 (dst 4-byte aligned).
+template <typename T>
+__device__ __forceinline__ void store2(T* dst, float lo, float hi) {
+  *reinterpret_cast<typename Elem<T>::Pair*>(dst) = Elem<T>::pair(lo, hi);
+}
+
 // The A fragments (rows this warp's 16; k = keys 16 kk .. 16 kk + 15) of
-// accumulators s[2 kk] and s[2 kk + 1], rounded to bf16.
+// accumulators s[2 kk] and s[2 kk + 1], rounded to T.
+template <typename T>
 __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&lo)[4],
                                        const float (&hi)[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
+  a[0] = pack<T>(lo[0], lo[1]);
+  a[1] = pack<T>(lo[2], lo[3]);
+  a[2] = pack<T>(hi[0], hi[1]);
+  a[3] = pack<T>(hi[2], hi[3]);
 }
 
 // ----------------------------------------------------------- tiles ----
 
-// Rows [row0, row0 + 64) of head h, batch row b of a [B, T, H, D] bf16
+// Rows [row0, row0 + 64) of head h, batch row b of a [B, T, H, D] T
 // tensor read by strides, into dst[64][kD + 8] by 16-byte cp.async.
-template <int kD>
-__device__ __forceinline__ void load_tile(bf16* dst, const void* src,
+template <int kD, typename T>
+__device__ __forceinline__ void load_tile(T* dst, const void* src,
                                           long long sb, long long st,
                                           long long sh, int b, int h,
                                           int row0, int D) {
-  const bf16* base = static_cast<const bf16*>(src) + b * sb + h * sh +
+  const T* base = static_cast<const T*>(src) + b * sb + h * sh +
                      static_cast<long long>(row0) * st;
   const int chunks = D >> 3;
   for (int i = threadIdx.x; i < kTile * chunks; i += kThreads) {
@@ -139,16 +193,38 @@ __device__ __forceinline__ void load_row64(void* dst, const void* src) {
 
 // Zero columns [D, kD) of a tile: they enter the products over d, and
 // cp.async never writes them.
-template <int kD>
-__device__ __forceinline__ void zero_cols(bf16* tile, int D) {
+template <int kD, typename T>
+__device__ __forceinline__ void zero_cols(T* tile, int D) {
   const int w = kD - D;
   for (int i = threadIdx.x; i < kTile * w; i += kThreads) {
     const int r = i / w;
-    tile[r * (kD + 8) + D + (i - r * w)] = __float2bfloat16(0.f);
+    tile[r * (kD + 8) + D + (i - r * w)] = Elem<T>::zero();
   }
 }
 
 // ------------------------------------------------------------ bias ----
+
+// The bias is fp32, bf16 or fp16 (FlashParams::bias_type); its values
+// enter the scores as fp32.  The kernels take the type as a template
+// argument (kNoBias: no bias), so the per-element reads below fold to one
+// load and one conversion.
+constexpr int kNoBias = -1;
+
+// The bias value at `at`, of type `type`, as a float.
+__device__ __forceinline__ float bias_value(const char* at, int type) {
+  if (type == kBiasBf16) return __bfloat162float(*reinterpret_cast<const bf16*>(at));
+  if (type == kBiasF16) return __half2float(*reinterpret_cast<const f16*>(at));
+  return *reinterpret_cast<const float*>(at);
+}
+
+// The bias values at `at` and the next element (`at` 2-element aligned).
+__device__ __forceinline__ float2 bias_pair(const char* at, int type) {
+  if (type == kBiasBf16)
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(at));
+  if (type == kBiasF16)
+    return __half22float2(*reinterpret_cast<const __half2*>(at));
+  return *reinterpret_cast<const float2*>(at);
+}
 
 // The bias rows [q0, q0 + 64) x keys [k0, k0 + 64) of head h into
 // dst[64][64 * item + 16 bytes] by 16-byte cp.async (16 bytes of pad: a
@@ -156,7 +232,7 @@ __device__ __forceinline__ void zero_cols(bf16* tile, int D) {
 // distinct banks).
 __device__ __forceinline__ void load_bias(char* dst, const FlashParams& p,
                                           int h, int q0, int k0) {
-  const int item = p.bias_bf16 ? 2 : 4, chunks = 4 * item;
+  const int item = bias_item(p.bias_type), chunks = 4 * item;
   const int ld = kTile * item + 16;
   const char* base = static_cast<const char*>(p.bias) +
                      (h * p.sb_h + q0 * p.sb_q + k0) * item;
@@ -166,39 +242,33 @@ __device__ __forceinline__ void load_bias(char* dst, const FlashParams& p,
   }
 }
 
-// Bytes of one bias tile staged by load_bias.
-__host__ __device__ constexpr int bias_tile_bytes(int is_bf16) {
-  return kTile * (kTile * (is_bf16 ? 2 : 4) + 16);
+// Bytes of one bias tile of `item`-byte elements staged by load_bias.
+__host__ __device__ constexpr int bias_tile_bytes(int item) {
+  return kTile * (kTile * item + 16);
 }
 
-// Element (r, c) of a bias tile staged by load_bias.
-__device__ __forceinline__ float bias_smem(const char* tile, int is_bf16,
-                                           int r, int c) {
-  return is_bf16 ? __bfloat162float(reinterpret_cast<const bf16*>(
-                       tile + r * (2 * kTile + 16))[c])
-                 : reinterpret_cast<const float*>(
-                       tile + r * (4 * kTile + 16))[c];
+// Element (r, c) of a bias tile of type `type` staged by load_bias.
+__device__ __forceinline__ float bias_smem(const char* tile, int type, int r,
+                                           int c) {
+  const int item = bias_item(type);
+  return bias_value(tile + r * (kTile * item + 16) + c * item, type);
 }
 
 // Elements (r, c) and (r, c + 1), c even, of a bias tile staged by
 // load_bias.
-__device__ __forceinline__ float2 bias2_smem(const char* tile, int is_bf16,
+__device__ __forceinline__ float2 bias2_smem(const char* tile, int type,
                                              int r, int c) {
-  if (is_bf16)
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-        tile + r * (2 * kTile + 16) + 2 * c));
-  return *reinterpret_cast<const float2*>(tile + r * (4 * kTile + 16) + 4 * c);
+  const int item = bias_item(type);
+  return bias_pair(tile + r * (kTile * item + 16) + c * item, type);
 }
 
-// bias[h, r, c] and bias[h, r, c + 1], c even.
+// bias[h, r, c] and bias[h, r, c + 1], c even, of a bias of type kType.
+template <int kType>
 __device__ __forceinline__ float2 bias2_at(const FlashParams& p, int h, int r,
                                            int c) {
   const long long off = h * p.sb_h + r * p.sb_q + c;
-  if (p.bias_bf16)
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-        static_cast<const bf16*>(p.bias) + off));
-  return *reinterpret_cast<const float2*>(static_cast<const float*>(p.bias) +
-                                          off);
+  return bias_pair(static_cast<const char*>(p.bias) + off * bias_item(kType),
+                   kType);
 }
 
 // --------------------------------------------------------- dropout ----
@@ -282,7 +352,7 @@ __host__ inline bool takes_tiles(const FlashParams& p) {
                          p.lse, p.delta, p.pad, p.bias};
   for (const void* x : tiles)
     if (!aligned16(x)) return false;
-  const int bias_step = p.bias_bf16 ? 8 : 4;  // elements of 16 bytes
+  const int bias_step = 16 / bias_item(p.bias_type);  // elements of 16 B
   if (p.bias && (p.sb_q % bias_step != 0 || p.sb_h % bias_step != 0))
     return false;
   return p.D >= 8 && p.D <= 128 && p.D % 8 == 0 && p.Tq % kTile == 0 &&

@@ -64,6 +64,13 @@ class EvoformerModel(BaseUnicoreModel):
             v = getattr(args, name, None)
             return default if v is None else v
 
+        if getattr(args, "fp16", False):
+            # the port runs the Evoformer in the compute type, and its
+            # materialized attention's kernels take fp32 and bf16 only
+            raise NotImplementedError(
+                "--fp16 with the Evoformer: the fp16 softmax_dropout "
+                "kernels are not ported yet (ROADMAP.md B3(i)); train it "
+                "under --bf16")
         if arg("structure_module", False):
             raise NotImplementedError(
                 "--structure-module True: the structure module (IPA and the "

@@ -35,7 +35,7 @@ from torch import nn
 from ..ops.flash_attention import eligible, flash_attention
 from ..ops.paged_attention import ragged_paged_attention
 from ..ops.softmax_dropout import softmax_dropout
-from ..utils import causal_iota_mask
+from ..utils import causal_iota_mask, rounded_constant
 from .dense import FlaxDense
 from .rotary import apply_rotary_qk
 
@@ -70,7 +70,9 @@ def _attend(q, k, v, scaling, dropout, key_padding_mask, bias, training,
             q, k, v, bias=bias4, key_padding_mask=key_padding_mask,
             dropout_prob=dropout, generator=generator, is_training=training,
             scale=scaling)
-    s = torch.einsum("bqhd,bkhd->bhqk", q * scaling, k)
+    # jax rounds the Python scalar to q's dtype before the product
+    s = torch.einsum("bqhd,bkhd->bhqk",
+                     q * rounded_constant(scaling, q.dtype), k)
     if key_padding_mask is not None:
         s = s + _padding_bias(key_padding_mask).to(q.dtype)
     probs = softmax_dropout(s, dropout, is_training=training, bias=bias,
@@ -129,7 +131,8 @@ class SelfMultiheadAttention(nn.Module):
         return self.out_proj(o.reshape(bsz, tgt_len, self.embed_dim))
 
     def _causal_attend(self, q, k, v, key_padding_mask):
-        s = torch.einsum("bqhd,bkhd->bhqk", q * self.scaling, k)
+        s = torch.einsum("bqhd,bkhd->bhqk",
+                         q * rounded_constant(self.scaling, q.dtype), k)
         if key_padding_mask is not None:
             s = s.masked_fill(key_padding_mask.bool()[:, None, None, :],
                               float("-inf"))

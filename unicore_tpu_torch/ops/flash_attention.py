@@ -5,18 +5,20 @@ Replaces the Pallas TPU kernels of ``unicore_tpu/ops/pallas/
 flash_attention.py`` — the single-block head-batched forward and fused
 backward (``_fwd_hb_kernel``, ``_bwd_hb_kernel``) that BERT at T = 512
 takes, and the multi-block forward and dq/dkv/joint/dbias passes of
-longer sequences.  The kernels: for bf16 operands, the training path,
-``unicore_tpu_torch/csrc/flash_attention_fwd.cu`` holds the tensor-core
-forward and ``csrc/flash_attention_bwd.cu`` the tensor-core backward in
-two kernels (dk/dv; dq with the dbias partials of a batch group), both
-built from ``csrc/mma_bf16.cuh``; for fp32 operands
+longer sequences.  The kernels: for bf16 and fp16 operands, the training
+paths (``--bf16``, ``--fp16``), ``unicore_tpu_torch/csrc/
+flash_attention_fwd.cu`` holds the tensor-core forward and
+``csrc/flash_attention_bwd.cu`` the tensor-core backward in two kernels
+(dk/dv; dq with the dbias partials of a batch group), both built from
+``csrc/mma_bf16.cuh`` and instantiated once per operand type; for fp32
+operands
 ``csrc/flash_attention.cu`` holds the forward and the backward (dk/dv,
 dq and dbias passes, fp32 FMA on the CUDA cores).  All share
 ``csrc/flash_params.cuh``; the dropout bits are ``csrc/prng.cuh``.
 
 Bound on the card: arithmetic.  The forward needs 4·B·H·Tq·Tk·D flops and
-the backward 10·B·H·Tq·Tk·D, against the bf16 tensor-core rate for bf16
-operands and the fp32 rate for fp32 ones (see the sources' notes).
+the backward 10·B·H·Tq·Tk·D, against the tensor-core rate for bf16 and
+fp16 operands and the fp32 rate for fp32 ones (see the sources' notes).
 
 Semantics are the JAX function's, including its dropout masks bit for
 bit: element (b, h, r, c) keeps iff its counter-hash bits under seed
@@ -40,16 +42,22 @@ from . import build, prng
 
 NEG_INF = -1e30
 MAX_KERNEL_HEAD_DIM = 128
-_DTYPES = (torch.float32, torch.bfloat16)
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# the tensor-core kernels' operand types, and the suffix of each one's
+# kernel names (the bf16 kernels' names predate the fp16 ones)
+_TENSOR_CORE = {torch.bfloat16: "", torch.float16: "_fp16"}
+# FlashParams::bias_type (csrc/flash_params.cuh)
+_BIAS_TYPE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # launches per kernel, counted where each wrapper launches its kernel:
-# the fp32 forward and backward (three kernels); the bf16 forward and
-# backward (two kernels)
+# the fp32 forward and backward (three kernels); the bf16 and the fp16
+# forward and backward (two kernels each)
 launches = {"flash_fwd": 0, "flash_dkdv": 0, "flash_dq": 0,
             "flash_dbias": 0, "flash_fwd_bf16": 0, "flash_bwd_dkdv": 0,
-            "flash_bwd_dq": 0}
+            "flash_bwd_dq": 0, "flash_fwd_fp16": 0, "flash_bwd_dkdv_fp16": 0,
+            "flash_bwd_dq_fp16": 0}
 
-# the bf16 kernels' tiling (csrc/mma_bf16.cuh): 64-row tiles, D
+# the tensor-core kernels' tiling (csrc/mma_bf16.cuh): 64-row tiles, D
 # zero-filled to 32, 64 or 128; at most 32 batch rows a dq group
 BWD_TILE, BWD_MAX_ROWS = 64, 32
 SMS = 132                    # H100 SXM
@@ -218,8 +226,9 @@ def flash_bwd_plain(q, k, v, bias, pad, dropout_prob, seed, causal, scale,
 
 
 def group_rows(bsz, groups):
-    """The batch rows of each dq group of the bf16 backward: group g takes
-    rows g·B/G up to (g+1)·B/G (integer division), as the kernel does."""
+    """The batch rows of each dq group of the tensor-core backward: group
+    g takes rows g·B/G up to (g+1)·B/G (integer division), as the kernel
+    does."""
     return [range(g * bsz // groups, (g + 1) * bsz // groups)
             for g in range(groups)]
 
@@ -235,9 +244,10 @@ def _bwd_head_dim(d):
 
 
 def fwd_smem_bytes(d, bias_itemsize):
-    """Dynamic shared memory of the bf16 forward kernel (its ``fwd_smem``):
-    double-buffered k and v tiles (the q tile shares stage 1's k), bias
-    tiles of ``bias_itemsize``-byte elements (0: no bias) and pad."""
+    """Dynamic shared memory of the tensor-core forward kernel (its
+    ``fwd_smem``): double-buffered k and v tiles (the q tile shares stage
+    1's k), bias tiles of ``bias_itemsize``-byte elements (0: no bias) and
+    pad."""
     ld = _bwd_head_dim(d) + 8
     bias = (2 * BWD_TILE * (BWD_TILE * bias_itemsize + 16)
             if bias_itemsize else 0)
@@ -245,9 +255,10 @@ def fwd_smem_bytes(d, bias_itemsize):
 
 
 def dq_smem_bytes(d, rows):
-    """Dynamic shared memory of the bf16 dq kernel (its ``dq_smem``):
-    double-buffered k and v tiles and pad, and for each batch row of the
-    group its q and dO tiles, lse, delta and fp32 dq accumulator."""
+    """Dynamic shared memory of the tensor-core dq kernel (its
+    ``dq_smem``): double-buffered k and v tiles and pad, and for each batch
+    row of the group its q and dO tiles, lse, delta and fp32 dq
+    accumulator."""
     ld = _bwd_head_dim(d) + 8
     tile = BWD_TILE * ld * 2
     return (4 * tile + 2 * BWD_TILE * 4
@@ -255,11 +266,11 @@ def dq_smem_bytes(d, rows):
 
 
 def pick_groups(bsz, tq, heads, d, want_dbias):
-    """Batch groups G of the bf16 dq kernel (grid: query tiles x heads x
-    G).  Without a bias gradient G = B, one row a block.  With it, enough
-    groups that the grid fills every SM twice, and few enough rows a group
-    that two blocks fit an SM's shared memory (one, where a single row's
-    accumulator already does not)."""
+    """Batch groups G of the tensor-core dq kernel (grid: query tiles x
+    heads x G).  Without a bias gradient G = B, one row a block.  With it,
+    enough groups that the grid fills every SM twice, and few enough rows
+    a group that two blocks fit an SM's shared memory (one, where a single
+    row's accumulator already does not)."""
     if not want_dbias:
         return bsz
     fill = -(-2 * SMS // ((tq // BWD_TILE) * heads))
@@ -277,7 +288,7 @@ _PTRS = ("q", "k", "v", "bias", "pad", "seed", "out", "lse", "dout",
          "delta", "dq", "dk", "dv", "dbias")
 _STRIDES = ("sq_b", "sq_t", "sq_h", "sk_b", "sk_t", "sk_h", "sv_b", "sv_t",
             "sv_h", "sd_b", "sd_t", "sd_h", "sb_h", "sb_q")
-_INTS = ("B", "H", "Tq", "Tk", "D", "bias_bf16", "causal", "dropout",
+_INTS = ("B", "H", "Tq", "Tk", "D", "bias_type", "causal", "dropout",
          "geo_bq", "geo_bk", "geo_ni", "geo_nj", "groups")
 
 
@@ -290,11 +301,14 @@ class _Params(ctypes.Structure):
                    ("keep_thresh", ctypes.c_uint32)])
 
 
-# the source of each kernel's entry: the bf16 forward and backward on the
-# tensor cores, the fp32 kernels on the CUDA cores
+# the source of each kernel's entry: the bf16 and fp16 forward and
+# backward on the tensor cores, the fp32 kernels on the CUDA cores
 _SOURCES = {"fwd_bf16": "flash_attention_fwd",
+            "fwd_fp16": "flash_attention_fwd",
             "bwd_dkdv": "flash_attention_bwd",
-            "bwd_dq": "flash_attention_bwd"}
+            "bwd_dq": "flash_attention_bwd",
+            "bwd_dkdv_fp16": "flash_attention_bwd",
+            "bwd_dq_fp16": "flash_attention_bwd"}
 
 
 @functools.cache
@@ -326,11 +340,14 @@ def _last_dim_unit(x):
 def _check(q, k, v, bias, pad, seed, causal):
     """Raise unless the operands fit the kernels."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("flash kernels take float32 or bfloat16 q, k, v of "
-                        f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if bias is not None and bias.dtype not in _DTYPES:
-        raise TypeError(f"flash bias must be float32 or bfloat16, got "
-                        f"{bias.dtype}")
+        raise TypeError("flash kernels take float32, bfloat16 or float16 "
+                        f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if bias is not None and (bias.dtype not in _DTYPES or (
+            q.dtype in _TENSOR_CORE
+            and bias.dtype not in (torch.float32, q.dtype))):
+        raise TypeError(f"flash bias must be float32 or of q's dtype, got "
+                        f"{bias.dtype} for {q.dtype} q")
     dev = q.device
     for x in (k, v, bias, pad, seed):
         if x is not None and x.device != dev:
@@ -368,7 +385,7 @@ def _params(q, k, v, bias, pad, seed, dropout_prob, causal, scale, geom):
     prm.sv_b, prm.sv_t, prm.sv_h = v.stride()[:3]
     if bias is not None:
         prm.bias = bias.data_ptr()
-        prm.bias_bf16 = int(bias.dtype == torch.bfloat16)
+        prm.bias_type = _BIAS_TYPE[bias.dtype]
         prm.sb_h = bias.stride(1) if bias.shape[1] != 1 else 0
         prm.sb_q = bias.stride(2) if bias.shape[2] != 1 else 0
     if pad is not None:
@@ -397,7 +414,8 @@ def _operands(q, k, v, bias, pad, seed):
 
 
 def _tiles_aligned(q, k, v, bias, pad, dout=None):
-    """The bf16 kernels' operands as their 16-byte copies read them."""
+    """The tensor-core kernels' operands as their 16-byte copies read
+    them."""
     q, k, v = (build.aligned16(x, strided=True) for x in (q, k, v))
     if dout is not None:
         dout = build.aligned16(dout, strided=True)
@@ -411,34 +429,36 @@ def _tiles_aligned(q, k, v, bias, pad, dout=None):
 def flash_fwd_cuda(q, k, v, bias, pad, dropout_prob, seed, causal, scale,
                    geom):
     """Launch the forward kernel: ``(out, lse)`` as
-    :func:`flash_fwd_plain`.  bf16 operands take the tensor-core kernel,
-    fp32 ones the fp32 kernel."""
+    :func:`flash_fwd_plain`.  bf16 and fp16 operands take the tensor-core
+    kernel of their type, fp32 ones the fp32 kernel."""
     _check(q, k, v, bias, pad, seed, causal)
     q, k, v, bias, pad, seed = _operands(q, k, v, bias, pad, seed)
-    bf16 = q.dtype == torch.bfloat16
-    if bf16:
+    tc = q.dtype in _TENSOR_CORE
+    if tc:
         q, k, v, bias, pad, _ = _tiles_aligned(q, k, v, bias, pad)
     bsz, tq, heads, d = q.shape
     out = torch.empty((bsz, tq, heads, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((bsz, heads, tq), dtype=torch.float32, device=q.device)
     prm = _params(q, k, v, bias, pad, seed, dropout_prob, causal, scale, geom)
     prm.out, prm.lse = out.data_ptr(), lse.data_ptr()
-    _launch("fwd_bf16" if bf16 else "fwd", prm, q.device)
+    _launch({torch.bfloat16: "fwd_bf16", torch.float16: "fwd_fp16"}.get(
+        q.dtype, "fwd"), prm, q.device)
     return out, lse
 
 
 def flash_bwd_cuda(q, k, v, bias, pad, dropout_prob, seed, causal, scale,
                    geom, lse, delta, dout, want_dbias):
     """Launch the backward kernels: ``(dq, dk, dv, dbias_full)`` as
-    :func:`flash_bwd_plain`.  bf16 operands take the two tensor-core
-    kernels (dk/dv; dq with the per-group dbias partials, summed here),
-    fp32 ones the three fp32 kernels (dk/dv, dq, and dbias when asked)."""
+    :func:`flash_bwd_plain`.  bf16 and fp16 operands take the two
+    tensor-core kernels of their type (dk/dv; dq with the per-group dbias
+    partials, summed here), fp32 ones the three fp32 kernels (dk/dv, dq,
+    and dbias when asked)."""
     _check(q, k, v, bias, pad, seed, causal)
     q, k, v, bias, pad, seed = _operands(q, k, v, bias, pad, seed)
     dout = _last_dim_unit(dout.to(q.dtype))
     lse, delta = lse.contiguous(), delta.contiguous()
-    bf16 = q.dtype == torch.bfloat16
-    if bf16:
+    tc = q.dtype in _TENSOR_CORE
+    if tc:
         q, k, v, bias, pad, dout = _tiles_aligned(q, k, v, bias, pad, dout)
         lse, delta = build.aligned16(lse), build.aligned16(delta)
     bsz, tq, heads, d = q.shape
@@ -451,15 +471,16 @@ def flash_bwd_cuda(q, k, v, bias, pad, dropout_prob, seed, causal, scale,
                                     dout.data_ptr())
     prm.sd_b, prm.sd_t, prm.sd_h = dout.stride()[:3]
     prm.dq, prm.dk, prm.dv = dq.data_ptr(), dk.data_ptr(), dv.data_ptr()
-    if bf16:
+    if tc:
         prm.groups = pick_groups(bsz, tq, heads, d, want_dbias)
         parts = None
         if want_dbias:
             parts = torch.empty((prm.groups, heads, tq, tk),
                                 dtype=torch.float32, device=q.device)
             prm.dbias = parts.data_ptr()
-        _launch("bwd_dkdv", prm, q.device)
-        _launch("bwd_dq", prm, q.device)
+        suffix = _TENSOR_CORE[q.dtype]
+        _launch("bwd_dkdv" + suffix, prm, q.device)
+        _launch("bwd_dq" + suffix, prm, q.device)
         return dq, dk, dv, None if parts is None else sum_partials(parts)
     _launch("dkdv", prm, q.device)
     _launch("dq", prm, q.device)

@@ -58,7 +58,26 @@ def get_training_parser(input_args=None):
                         "logged step (no TensorBoard event files)")
     g.add_argument("--bf16", action="store_true",
                    help="bf16 forward/backward over fp32 master params")
-    g.add_argument("--fp16", action="store_true")
+    g.add_argument("--fp16", action="store_true",
+                   help="fp16 forward/backward over fp32 master params, "
+                        "with dynamic loss scaling (takes precedence over "
+                        "--bf16)")
+    g.add_argument("--fp16-init-scale", default=2 ** 7, type=int,
+                   help="default loss-scale initial value")
+    g.add_argument("--fp16-scale-window", type=int,
+                   help="number of clean updates before doubling the loss "
+                        "scale")
+    # parsed as the JAX package parses them; neither package reads them
+    g.add_argument("--fp16-scale-tolerance", default=0.0, type=float,
+                   help="tolerated fraction of overflows within the scale "
+                        "window (no effect: the in-step scaler treats 0 as "
+                        "exact)")
+    g.add_argument("--min-loss-scale", default=1e-4, type=float,
+                   metavar="D",
+                   help="minimum fp16 loss scale, after which training "
+                        "aborts")
+    g.add_argument("--threshold-loss-scale", type=float,
+                   help="threshold fp16 loss scale from below (no effect)")
     g.add_argument("--bf16-sr", action="store_true",
                    help="stochastic rounding on the fp32-master -> bf16 "
                         "param copy, fresh seeds every micro-batch")

@@ -3,11 +3,13 @@ the part the BERT path runs).
 
 One update: the micro-batches of ``--update-freq`` run forward and
 backward one after another, their summed losses' gradients accumulate in
-fp32, then the gradients are divided by the summed sample size, their
-global norm is taken, they are clipped to ``--clip-norm``, and the
-optimizer steps — unless the norm is not finite, in which case the update
-is skipped (params and moments untouched) and, as in the reference
-without a loss scaler, the step raises ``FloatingPointError``.
+fp32, then the gradients are divided by the summed sample size (times the
+loss scale, under ``--fp16``), their global norm is taken, they are
+clipped to ``--clip-norm``, and the optimizer steps — unless a gradient
+or the norm is not finite (an overflow), in which case the update is
+skipped: params and moments untouched, the update count unchanged.
+Without a loss scaler the step then raises ``FloatingPointError``, as the
+reference does.
 
 ``--bf16`` keeps fp32 master parameters and runs forward and backward on
 a bf16 copy of the model refreshed from them before each update (the
@@ -18,13 +20,25 @@ by stochastic rounding before every micro-batch instead, with fresh
 seeds, as the reference's step does; ``--optim-bf16-moments`` stores
 Adam's moments in bf16, re-quantized by stochastic rounding.
 
+``--fp16`` (which takes precedence over ``--bf16``, as in the reference)
+runs the compute copy in fp16 and scales each micro-batch's fp32 loss by
+the dynamic loss scale (``optim/dynamic_loss_scaler.py``; its state two
+device scalars, ``--fp16-init-scale``, ``--fp16-scale-window``).  An
+overflow skips the update in place, as the JAX trainer's state bypass
+does: the scaler halves (its floor ``--min-loss-scale / 2``), and the
+step raises ``FloatingPointError`` only when the scale it used was
+already at or below ``--min-loss-scale``.  Every update logs
+``loss_scale``, the scale it used.
+
 Checkpoints (:meth:`Trainer.state_dict`, :meth:`Trainer.load_checkpoint`)
 hold the JAX trainer's tree: ``"model"`` is ``{"step", "params",
 "opt_state", "guard"}`` of numpy arrays in the flax layout (the model's
 ``flax_tree``), so either package resumes the other's file.  The port's
 dropout generator is state the JAX trainer does not have; its bytes ride
 ``optimizer_history`` under ``"torch_generator_state"``, which the JAX
-trainer ignores.
+trainer ignores.  Under ``--fp16`` the tree has the JAX trainer's
+``"scaler": {"scale", "growth_tracker"}`` slot, and ``dispatch_count``
+counts every dispatched step, skipped ones included.
 
 Flags of the JAX trainer this slice does not port raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` item
@@ -34,7 +48,6 @@ Flags of the JAX trainer this slice does not port raise
 import argparse
 import copy
 import logging
-import math
 import os
 import time
 
@@ -45,14 +58,15 @@ from . import checkpoint_utils
 from .device import resolve_device
 from .logging import metrics
 from .optim import build_optimizer
-from .optim.fp16_optimizer import sync_master_to_model
+from .optim.dynamic_loss_scaler import scaler_init, scaler_update
+from .optim.fp16_optimizer import (default_scale_window, grads_finite,
+                                   sync_master_to_model)
 from .optim.lr_scheduler import build_lr_scheduler
 
 logger = logging.getLogger(__name__)
 
 # (attribute, value meaning "off", flag, ROADMAP.md item)
 UNPORTED = (
-    ("fp16", False, "--fp16", "A6"),
     ("ema_decay", -1.0, "--ema-decay", "A7"),
     ("zero1", False, "--zero1", "A8"),
     ("comms_overlap", False, "--comms-overlap", "A8"),
@@ -93,8 +107,12 @@ class Trainer:
         self.loss = loss
         self.device = resolve_device(device)
         self.model = model.to(self.device)
-        self.compute_dtype = torch.bfloat16 if getattr(args, "bf16", False) \
-            else torch.float32
+        self.compute_dtype = torch.float32
+        if getattr(args, "fp16", False):
+            self.compute_dtype = torch.float16
+        elif getattr(args, "bf16", False):
+            self.compute_dtype = torch.bfloat16
+        self.use_scaler = self.compute_dtype == torch.float16
         if self.compute_dtype == torch.float32:
             self.compute_model = self.model
         else:
@@ -106,6 +124,16 @@ class Trainer:
                 "--bf16-sr requires --bf16 (stochastic rounding applies to "
                 "the fp32->bf16 master->model cast only)")
         self.clip_norm = float(getattr(args, "clip_norm", 0.0) or 0.0)
+        update_freq = getattr(args, "update_freq", 1)
+        if isinstance(update_freq, (list, tuple)):
+            update_freq = update_freq[0]
+        self.scale_window = (getattr(args, "fp16_scale_window", None)
+                             or default_scale_window(1, update_freq))
+        self.min_loss_scale = float(getattr(args, "min_loss_scale", 1e-4))
+        self.scaler = (scaler_init(float(getattr(args, "fp16_init_scale",
+                                                 2 ** 7)),
+                                   device=self.device)
+                       if self.use_scaler else None)
         self.seed = int(getattr(args, "seed", 1))
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.seed)
@@ -123,6 +151,9 @@ class Trainer:
                                                self.total_train_steps)
         self.lr_scheduler.step_update(0)
         self._num_updates = 0
+        # steps dispatched, skipped ones included (the JAX trainer's
+        # dropout-stream counter, which checkpoints carry)
+        self._dispatch_count = 0
         self._start_time = time.time()
         self._previous_training_time = 0.0
 
@@ -158,7 +189,9 @@ class Trainer:
         collated numpy batches).  Returns the summed logging output as a
         one-element list."""
         self.compute_model.train()
+        self._dispatch_count += 1
         self.optimizer.set_lr(self.lr_scheduler.step_update(self._num_updates))
+        scale = self.scaler["scale"] if self.use_scaler else None
         if not self.bf16_sr:
             self._sync_compute_params()
         for p in self.model.parameters():
@@ -171,34 +204,60 @@ class Trainer:
             sample = _to_device(sample, self.device)
             loss, ss, log = self.loss(self.compute_model, sample,
                                       generator=self.generator)
-            loss.float().backward()
+            loss = loss.float()
+            if scale is not None:
+                loss = loss * scale
+            loss.backward()
             self._fold_compute_grads()
             sample_size = sample_size + ss
             for k, v in log.items():
                 logs[k] = logs.get(k, 0.0) + v
         grads = [p.grad for p in self.model.parameters()
                  if p.grad is not None]
-        torch._foreach_div_(grads, torch.clamp(sample_size, min=1.0))
+        # unscale and normalize in one divide, as the reference
+        denom = torch.clamp(sample_size, min=1.0)
+        if scale is not None:
+            denom = denom * scale
+        torch._foreach_div_(grads, denom)
         grad_norm = torch.linalg.vector_norm(
             torch.stack(torch._foreach_norm(grads)))
         if self.clip_norm > 0:
             torch._foreach_mul_(
                 grads, torch.clamp(self.clip_norm / (grad_norm + 1e-6),
                                    max=1.0))
-        grad_norm = float(grad_norm)
-        if not math.isfinite(grad_norm):
-            metrics.log_scalar("n_skipped", 1, priority=600, round=0)
-            raise FloatingPointError(
-                f"Non-finite gradients detected (grad norm {grad_norm}); "
-                "the update was skipped")
-        if getattr(self.optimizer, "wants_update_rng", False):
-            self.optimizer.step(generator=self.generator)
-        else:
-            self.optimizer.step()
-        self.set_num_updates(self._num_updates + 1)
+        overflow = ~(grads_finite(grads) & torch.isfinite(grad_norm))
+        stats = [grad_norm.float(), overflow.float()]
+        if self.use_scaler:
+            self.scaler = scaler_update(self.scaler, overflow,
+                                        self.scale_window,
+                                        min_scale=self.min_loss_scale / 2.0)
+            stats.append(scale)  # the scale this step used
+        # the step's one host sync
+        grad_norm, overflow, *used = torch.stack(stats).tolist()
+        scale = used[0] if used else None
         logging_outputs = [logs]
-        self._reduce_and_log_stats(logging_outputs, float(sample_size),
-                                   grad_norm)
+        if overflow:
+            metrics.log_scalar("n_skipped", 1, priority=600, round=0)
+            if not self.use_scaler:
+                raise FloatingPointError(
+                    f"Non-finite gradients detected (grad norm {grad_norm});"
+                    " the update was skipped")
+            if scale <= self.min_loss_scale:
+                raise FloatingPointError(
+                    f"Minimum loss scale reached ({scale}). Your loss is "
+                    "probably exploding.")
+            logger.info("non-finite gradients detected at loss scale %s, "
+                        "skipping update", scale)
+        else:
+            if getattr(self.optimizer, "wants_update_rng", False):
+                self.optimizer.step(generator=self.generator)
+            else:
+                self.optimizer.step()
+            self.set_num_updates(self._num_updates + 1)
+            self._reduce_and_log_stats(logging_outputs, float(sample_size),
+                                       grad_norm)
+        if self.use_scaler:
+            metrics.log_scalar("loss_scale", scale, priority=700, round=4)
         return logging_outputs
 
     @torch.no_grad()
@@ -317,6 +376,10 @@ class Trainer:
                       **{k: np.zeros((), np.int32)
                          for k in ("count", "streak", "skips", "spikes")}},
         }
+        if self.use_scaler:
+            model["scaler"] = {
+                "scale": self.scaler["scale"].cpu().numpy(),
+                "growth_tracker": self.scaler["growth_tracker"].cpu().numpy()}
         if not getattr(self.args, "no_save_optimizer_state", False):
             opt = self.optimizer.state_dict()
             model["opt_state"] = {"step": opt["step"],
@@ -330,9 +393,9 @@ class Trainer:
                 "optimizer_name": self.optimizer.__class__.__name__,
                 "lr_scheduler_state": self.lr_scheduler.state_dict(),
                 "num_updates": self._num_updates,
-                # the JAX trainer's dropout-stream counter; the port has
-                # no skipped dispatches that advance it past the updates
-                "dispatch_count": self._num_updates,
+                # the JAX trainer's dropout-stream counter: every
+                # dispatched step, skipped ones included
+                "dispatch_count": self._dispatch_count,
                 "torch_generator_state":
                     self.generator.get_state().numpy().copy(),
             }],
@@ -389,6 +452,8 @@ class Trainer:
             else:
                 logger.warning("checkpoint: %s holds no optimizer state; "
                                "keeping fresh moments", filename)
+            self._load_scaler(model_state.get("scaler"), reset_optimizer,
+                              filename)
         if not reset_lr_scheduler:
             self.lr_scheduler.load_state_dict(
                 last.get("lr_scheduler_state", {}))
@@ -396,6 +461,9 @@ class Trainer:
             step = (0 if model_state is None
                     else int(model_state.get("step", 0)))
             self.set_num_updates(last.get("num_updates", step))
+            dispatched = last.get("dispatch_count")
+            self._dispatch_count = (self._num_updates if dispatched is None
+                                    else int(dispatched))
             self._load_generator(last.get("torch_generator_state"))
         self.task.load_state_dict(state.get("task_state", {}))
         extra_state = state.get("extra_state", {}) or {}
@@ -407,6 +475,28 @@ class Trainer:
                     extra_state.get("train_iterator", {}).get("epoch", 0),
                     self.get_num_updates())
         return extra_state
+
+    def _load_scaler(self, saved, reset_optimizer, filename):
+        """The loss scaler's slot, as the JAX trainer merges it: restored
+        under ``--fp16`` (fresh with ``--reset-optimizer`` or when the file
+        has none), dropped otherwise."""
+        if not self.use_scaler:
+            if saved is not None:
+                logger.warning("checkpoint: dropping %s's loss scaler (not "
+                               "training under --fp16)", filename)
+            return
+        if reset_optimizer:
+            return
+        if saved is None:
+            logger.warning("checkpoint: %s holds no loss scaler; keeping "
+                           "the fresh one", filename)
+            return
+        self.scaler = {
+            "scale": torch.tensor(np.asarray(saved["scale"], np.float32),
+                                  device=self.device),
+            "growth_tracker": torch.tensor(
+                np.asarray(saved["growth_tracker"], np.int32),
+                device=self.device)}
 
     def _load_generator(self, saved):
         """Restore the dropout generator's bytes.  A JAX-written file holds

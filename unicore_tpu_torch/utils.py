@@ -12,28 +12,76 @@ import torch.nn.functional as F
 
 
 @functools.lru_cache(maxsize=None)
-def _rounded(value, dtype):
-    """``value`` rounded to ``dtype``, as ``np.float64(value).astype``
-    rounds jax's constants.  Multiplied into a tensor of that dtype it
-    gives jax's product: torch forms it in fp32 from the exact operands
-    and rounds once, as XLA does."""
+def rounded_constant(value, dtype):
+    """``value`` rounded to ``dtype``, as jax rounds a constant or a
+    weakly typed Python scalar to the dtype of the array it meets.
+    Multiplied into a tensor of that dtype it gives jax's product: torch
+    forms it in fp32 from the exact operands and rounds once, as XLA
+    does."""
     return torch.tensor(value, dtype=dtype).item()
 
 
-def gelu(x):
-    """``jax.nn.gelu(x, approximate=False)`` op for op: each op rounds to
-    x's dtype, so under bf16 the result is flax's bit for bit (``F.gelu``
-    rounds once from fp32).  ``x * -c`` is jax's ``-x * c``: negation is
+class _Gelu(torch.autograd.Function):
+    """``jax.nn.gelu(x, approximate=False)`` and the gradient JAX forms
+    for it, op for op in x's dtype: each op rounds, so under bf16 and fp16
+    both are flax's bit for bit (``F.gelu`` rounds once from fp32, and
+    autograd's chain of the forward's ops rounds elsewhere than JAX's
+    transposed JVP).  ``x * -c`` is jax's ``-x * c``: negation is
     exact."""
-    return 0.5 * x * torch.erfc(x * -_rounded(math.sqrt(0.5), x.dtype))
+
+    @staticmethod
+    def forward(ctx, x):
+        d = x * -rounded_constant(math.sqrt(0.5), x.dtype)
+        e = torch.erfc(d)
+        ctx.save_for_backward(x, d, e)
+        return 0.5 * x * e
+
+    @staticmethod
+    def backward(ctx, g):
+        x, d, e = ctx.saved_tensors
+        dt = x.dtype
+        # erfc'(d) = -2/sqrt(pi) exp(-d^2), applied as JAX transposes it
+        n = rounded_constant(-2 / math.sqrt(math.pi), dt) * ((0.5 * x) * g) \
+            * torch.exp(-(d * d))
+        return -(n * rounded_constant(math.sqrt(0.5), dt)) + 0.5 * (g * e)
+
+
+class _GeluTanh(torch.autograd.Function):
+    """``jax.nn.gelu(x, approximate=True)`` and JAX's gradient of it, op
+    for op (``x ** 3`` is ``integer_pow``: two rounded products; its
+    derivative ``3 * x ** 2``).  In fp16 ``x ** 3`` overflows above
+    |x| ≈ 40.3 and the forward saturates to x (or -0) exactly as JAX's
+    does; where ``3 * x ** 2`` overflows too (|x| > 147.8) JAX's gradient
+    is 0 · inf = NaN, and so is this one."""
+
+    @staticmethod
+    def forward(ctx, x):
+        cube = rounded_constant(0.044715, x.dtype) * (x * x * x)
+        h = torch.tanh(rounded_constant(math.sqrt(2 / math.pi), x.dtype)
+                       * (x + cube))
+        ctx.save_for_backward(x, h)
+        return x * (0.5 * (1.0 + h))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, h = ctx.saved_tensors
+        dt = x.dtype
+        o = (0.5 * (x * g)) * (1.0 - h)
+        r = rounded_constant(math.sqrt(2 / math.pi), dt) * (o + o * h)
+        s = g * (0.5 * (1.0 + h)) + r
+        return s + (rounded_constant(0.044715, dt) * r) * (3.0 * (x * x))
+
+
+def gelu(x):
+    """``jax.nn.gelu(x, approximate=False)``, forward and gradient op for
+    op (:class:`_Gelu`)."""
+    return _Gelu.apply(x)
 
 
 def gelu_tanh(x):
-    """``jax.nn.gelu(x, approximate=True)`` op for op (``x ** 3`` is
-    ``integer_pow``: two rounded products)."""
-    cube = _rounded(0.044715, x.dtype) * (x * x * x)
-    inner = _rounded(math.sqrt(2 / math.pi), x.dtype) * (x + cube)
-    return x * (0.5 * (1.0 + torch.tanh(inner)))
+    """``jax.nn.gelu(x, approximate=True)``, forward and gradient op for
+    op (:class:`_GeluTanh`)."""
+    return _GeluTanh.apply(x)
 
 
 def get_activation_fn(activation):
