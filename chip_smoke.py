@@ -101,15 +101,20 @@ code is non-zero:
    versions at the Evoformer's three attention shapes (row with pair
    bias [1, 128, 8, 256, 256], column [1, 256, 8, 128, 128], triangle
    [1, 256, 4, 256, 256]; mask [1, G, 1, 1, K] fp32, bias [1, 1, H, Q,
-   K]), dropout 0.1, fp32 (within 1e-5) and bf16 (within 2e-2 of each
-   tensor's max), equal keep patterns; the backward's dx and dbias held
-   exactly on its keep bits (``check_backward``: element by element
-   against the plain backward of the kernel's softmax, within a bound a
-   wrong bit exceeds wherever g is not 0); times beside the bytes bound
-   (the backward's beside the recorded time of the element-by-element
-   backward it replaced), the plain version and
-   ``torch.softmax`` of the pre-added scores (and its backward) — not
-   the same function, no dropout.  Then
+   K]) in fp32, bf16 and fp16, and at Uni-Mol's (x and its pair bias
+   [16, 64, 256, 256], no mask) in bf16 and fp16; dropout 0.1.  out and
+   the softmax within 1e-5 (fp32), 2e-2 of each tensor's max (bf16) or
+   one fp16 ulp at every element (fp16), dx within 2e-3 of its max
+   (fp16), equal keep patterns, two calls bit for bit; the backward's dx
+   and dbias held exactly on its keep bits (``check_backward``: element
+   by element against the plain backward of the kernel's softmax, within
+   a bound a wrong bit exceeds wherever g is not 0), a bias of x's shape
+   getting dx itself; times beside the bytes bound (the backward's
+   beside the recorded time of the element-by-element backward it
+   replaced), the plain version and ``torch.softmax`` of the pre-added
+   scores (and its backward) — not the same function, no dropout; the
+   bf16 and fp16 kernels timed in turns (bf16, fp16, fp16, bf16) at the
+   triangle and Uni-Mol shapes.  Then
    softmax_dropout_route: an Evoformer row attention at R = 200 (off the
    kernels' grid) takes the reference's jnp route, the plain version on
    the card, counted apart from the kernels, equal to the CPU.
@@ -133,12 +138,26 @@ code is non-zero:
    time, residue pairs/s and peak memory, then the idle share, the
    softmax_dropout kernels' time and the top kernels of a
    ``torch.profiler`` window of 2 more updates.
-13. the ``kernels`` line (rows 1-11 of the TPU kernel table, rows 2-8
-   once for the bf16 kernels and once for the fp16 ones, their launches
-   from the train and train_fp16 phases; the backward rows carry the
-   row's whole backward time beside the bound of the backward as one
-   function), the card's name and power limit, and the closing
-   ``{"ok": true, ...}`` line.
+13. mol_train_fp16 — the port's CLI, in process, trains a seeded random
+   ``unimol_base`` (15 layers, width 512, FFN 2048, 64 heads of 8, 64
+   pair channels, 128 Gaussian kernels) under ``--fp16
+   --fp16-init-scale 4 --fp16-scale-window 256 --max-atoms 256``, batch
+   16, Adam (0.9, 0.99), lr 1e-4, dropout 0.1, loss weights 1 / 5 / 10,
+   for 20 updates on 1,024 molecules of 16-256 atoms written by the
+   port's ``make_data``.  Every applied update's loss finite, the mean
+   of the last 5 below the first, at most 4 skips, every dispatch 15
+   fp16 softmax_dropout forward and 15 backward launches, the plain
+   route and flash never.  Reports step times, molecules/s, peak memory,
+   the loss-scale sequence, the real-atom share of the padded rows, then
+   the idle share, the softmax_dropout kernels' time and the top kernels
+   of a ``torch.profiler`` window of 3 more updates.
+14. the ``kernels`` line (rows 1-11 of the TPU kernel table, rows 2-10
+   once for the bf16 kernels and once for the fp16 ones, the flash rows'
+   launches from the train and train_fp16 phases, the softmax_dropout
+   rows' from evoformer_train (bf16) and mol_train_fp16 (fp16); the
+   backward rows carry the row's whole backward time beside the bound of
+   the backward as one function), the card's name and power limit, and
+   the closing ``{"ok": true, ...}`` line.
 
 Exits non-zero without a card, and without the repository around it.
 """
@@ -882,11 +901,16 @@ def flash_multiblock_phase(flush):
 
 
 # the Evoformer's attention shapes at S=128, R=256 (c_m 256 over 8 heads,
-# c_z 128 over 4): (name, x [1, G, H, Q, K], with the pair bias)
+# c_z 128 over 4): (name, x [1, G, H, Q, K], with the pair bias), and
+# Uni-Mol's scores at --max-atoms 256, batch 16, 64 heads ([B, H, N, N],
+# its per-batch pair bias of the same shape, no mask)
 SD_P = 0.1
 SD_CASES = (("row", (1, 128, 8, 256, 256), True),
             ("column", (1, 256, 8, 128, 128), False),
-            ("triangle", (1, 256, 4, 256, 256), True))
+            ("triangle", (1, 256, 4, 256, 256), True),
+            ("unimol", (16, 64, 256, 256), True))
+SD_DTYPES = {"unimol": (torch.bfloat16, torch.float16)}  # else all three
+SD_TURNS = ("triangle", "unimol")  # bf16 and fp16 timed in turns
 # the element-by-element backward this kernel replaced, at these cases,
 # as PERF.md's row 10 records it in brackets (H100 80GB HBM3, 700 W):
 # reported beside this run's time, not measured by it
@@ -896,29 +920,49 @@ SD_BWD_REPLACED_MS = {"float32": {"row": 0.341, "column": 0.162,
                               "triangle": 0.287}}
 
 
+def sd_operands(name, shape, with_bias, dtype):
+    """x, g, mask and bias of one softmax_dropout case, drawn in fp32 from
+    a generator seeded by the case and rounded to ``dtype`` (so the types
+    see the same values).  Evoformer cases: an fp32 MSA / pair mask (a
+    random tail of keys per group at -1e9) and the pair bias [1, 1, H, Q,
+    K]; Uni-Mol: no mask, the bias of x's shape."""
+    gen = torch.Generator(device="cuda").manual_seed(len(name))
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    if name == "unimol":
+        bias = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        return x, g, None, bias
+    _, G, H, Q, K = shape
+    valid = torch.randint(K // 2, K + 1, (G,), generator=gen, device="cuda")
+    cols = torch.arange(K, device="cuda")
+    mask = torch.where(cols[None, :] < valid[:, None], 0.0,
+                       -1e9).reshape(1, G, 1, 1, K)
+    bias = (torch.randn((1, 1, H, Q, K), generator=gen,
+                        device="cuda").to(dtype) if with_bias else None)
+    return x, g, mask, bias
+
+
+def fp16_ulp_distance(a, b):
+    """max |a - b| over the elements in fp16 ulps at b's magnitude (2^-24
+    below fp16's least normal)."""
+    mag = b.float().abs()
+    ulp = torch.where(mag < 2.0 ** -14, torch.full_like(mag, 2.0 ** -24),
+                      torch.exp2(torch.floor(torch.log2(mag)) - 10))
+    return float(((a.float() - b.float()).abs() / ulp).max())
+
+
 def softmax_dropout_phase(flush):
     """The softmax_dropout kernels vs their plain versions at the
-    Evoformer shapes, fp32 and bf16; returns {dtype: {case: report}}."""
+    Evoformer shapes (fp32, bf16, fp16) and Uni-Mol's (bf16, fp16);
+    returns {dtype: {case: report}, "turns": {case: [...]}}."""
     from unicore_tpu_torch.ops import softmax_dropout as sd
 
     reports = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        dt = str(dtype).replace("torch.", "")
-        reports[dt] = {}
-        for name, shape, with_bias in SD_CASES:
-            gen = torch.Generator(device="cuda").manual_seed(len(name))
-            _, G, H, Q, K = shape
-            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            # the MSA / pair mask: a random tail of keys per group, -1e9
-            valid = torch.randint(K // 2, K + 1, (G,), generator=gen,
-                                  device="cuda")
-            cols = torch.arange(K, device="cuda")
-            mask = torch.where(cols[None, :] < valid[:, None], 0.0,
-                               -1e9).reshape(1, G, 1, 1, K)
-            bias = (torch.randn((1, 1, H, Q, K), generator=gen,
-                                device="cuda").to(dtype)
-                    if with_bias else None)
+    for name, shape, with_bias in SD_CASES:
+        for dtype in SD_DTYPES.get(name, (torch.float32, torch.bfloat16,
+                                          torch.float16)):
+            dt = str(dtype).replace("torch.", "")
+            x, g, mask, bias = sd_operands(name, shape, with_bias, dtype)
             q_blk = sd.pick_q_blk_for(x, mask, bias)
             seed = torch.tensor([1234567], dtype=torch.int32, device="cuda")
 
@@ -940,47 +984,66 @@ def softmax_dropout_phase(flush):
                 return sd.softmax_dropout_bwd_plain(g, sm_p, SD_P, seed,
                                                     q_blk)
 
-            dx_k = kernel_bwd()
+            dx_k, dx_p = kernel_bwd(), plain_bwd()
+            again = (*kernel_fwd(), kernel_bwd())
             torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(
+                    again, (out_k, sm_k, dx_k))):
+                raise AssertionError(f"{dt} {name}: two calls differ")
+            del again
             if not torch.equal(out_k == 0, out_p == 0):
                 n = int(((out_k == 0) != (out_p == 0)).sum())
                 raise AssertionError(f"{dt} {name}: keep patterns differ "
                                      f"at {n} elements")
             # dx and dbias exactly on the backward's keep bits: against the
             # plain backward of the kernel's own softmax, element by element
-            # (a non-finite element fails too)
-            errs = sd.check_backward(
-                dx_k, g, sm_k, SD_P, seed, q_blk,
-                dbias=(sd._reduce_to(dx_k, bias.shape, bias.dtype)
-                       if with_bias else None))
+            # (a non-finite element fails too); a bias of x's shape gets
+            # dx itself
+            dbias = (sd._reduce_to(dx_k, bias.shape, bias.dtype)
+                     if with_bias else None)
+            if with_bias and bias.shape == x.shape \
+                    and dbias.data_ptr() != dx_k.data_ptr():
+                raise AssertionError(f"{dt} {name}: dbias is not dx")
+            errs = sd.check_backward(dx_k, g, sm_k, SD_P, seed, q_blk,
+                                     dbias=dbias)
+            ulps = {}
             for what, a, b in (("out", out_k, out_p),
-                               ("softmax", sm_k, sm_p)):
+                               ("softmax", sm_k, sm_p), ("dx", dx_k, dx_p)):
                 a, b = a.float(), b.float()
                 if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
                     raise AssertionError(f"{dt} {name} {what}: non-finite")
                 err = float((a - b).abs().max())
-                tol = (1e-5 if dtype == torch.float32
-                       else 2e-2 * float(b.abs().max()))
-                if err > tol:
+                scale = float(b.abs().max())
+                if dtype == torch.float16 and what != "dx":
+                    ulps[what] = fp16_ulp_distance(a, b)
+                    ok = ulps[what] <= 1.0
+                    limit = "one fp16 ulp"
+                else:
+                    tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2,
+                           torch.float16: 2e-3}[dtype]
+                    tol = tol if dtype == torch.float32 else tol * scale
+                    ok, limit = err <= tol, tol
+                if not ok:
                     raise AssertionError(f"{dt} {name} {what}: max |kernel "
-                                         f"- plain| {err} > {tol}")
-                errs[what] = err
+                                         f"- plain| {err} > {limit}")
+                errs[what if what != "dx" else "dx_vs_plain"] = err
             ms = kernel_times_ms(
                 lambda: (kernel_fwd(), kernel_bwd()), flush,
                 ("softmax_dropout_fwd", "softmax_dropout_bwd"), iters=10)
             # the library yardstick: torch's softmax of the scores with
             # mask and bias already added, and its backward — not the same
             # function (no dropout, no fused adds); the port never calls it
-            pre = x.float() + mask
-            if with_bias:
-                pre = pre + bias.float()
+            pre = x.float()
+            for op in (mask, bias):
+                if op is not None:
+                    pre = pre + op.float()
             pre = pre.to(dtype)
             y_lib = torch.softmax(pre, dim=-1)
-            nbytes = {"fwd": (3 * x.numel() * x.element_size()
-                              + mask.numel() * 4
-                              + (bias.numel() * bias.element_size()
-                                 if with_bias else 0)),
-                      "bwd": 3 * x.numel() * x.element_size()}
+            item = x.element_size()
+            nbytes = {"fwd": (3 * x.numel() * item
+                              + sum(op.numel() * op.element_size()
+                                    for op in (mask, bias) if op is not None)),
+                      "bwd": 3 * x.numel() * item}
             bound = {kind: n / HBM_BYTES_PER_S * 1e3
                      for kind, n in nbytes.items()}
             report = {
@@ -990,9 +1053,10 @@ def softmax_dropout_phase(flush):
                 "bwd_ms": ms["softmax_dropout_bwd"],
                 "bound_fwd_ms": bound["fwd"],
                 "bound_bwd_ms": bound["bwd"],
+                "fwd_share_of_bound": bound["fwd"]
+                / ms["softmax_dropout_fwd"],
                 "bwd_share_of_bound": bound["bwd"]
                 / ms["softmax_dropout_bwd"],
-                "replaced_bwd_ms_recorded": SD_BWD_REPLACED_MS[dt][name],
                 "plain_fwd_ms": time_ms(plain_fwd, flush, iters=3),
                 "plain_bwd_ms": time_ms(plain_bwd, flush, iters=3),
                 "library_fwd_ms": time_ms(
@@ -1002,12 +1066,51 @@ def softmax_dropout_phase(flush):
                                                          dtype),
                     flush, iters=10),
             }
+            if ulps:
+                report["max_fp16_ulps"] = ulps
+            recorded = SD_BWD_REPLACED_MS.get(dt, {}).get(name)
+            if recorded is not None:
+                report["replaced_bwd_ms_recorded"] = recorded
             emit("softmax_dropout", dtype=dt, case=name, **report)
-            reports[dt][name] = report
-            del x, g, mask, bias, out_k, sm_k, out_p, sm_p, dx_k
-            del pre, y_lib
+            reports.setdefault(dt, {})[name] = report
+            del x, g, mask, bias, out_k, sm_k, out_p, sm_p, dx_k, dx_p
+            del pre, y_lib, dbias
             torch.cuda.empty_cache()
+    reports["turns"] = {name: softmax_dropout_turns(flush, name)
+                        for name in SD_TURNS}
+    emit("softmax_dropout_turns", turns=reports["turns"])
     return reports
+
+
+def softmax_dropout_turns(flush, name):
+    """The bf16 and fp16 kernels on one case's operands (the same values
+    rounded to each type), forward and backward timed in turns in one
+    call — bf16, fp16, fp16, bf16 — each turn the two kernels' mean device
+    time over 10 calls."""
+    from unicore_tpu_torch.ops import softmax_dropout as sd
+
+    shape, with_bias = {n: (s, b) for n, s, b in SD_CASES}[name]
+    calls = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        x, g, mask, bias = sd_operands(name, shape, with_bias, dtype)
+        seed = torch.tensor([1234567], dtype=torch.int32, device="cuda")
+        q_blk = sd.pick_q_blk_for(x, mask, bias)
+        _, sm = sd.softmax_dropout_fwd_cuda(x, mask, bias, SD_P, seed, q_blk,
+                                            True)
+        calls[dtype] = (lambda x=x, g=g, mask=mask, bias=bias, seed=seed,
+                        q_blk=q_blk, sm=sm: (
+            sd.softmax_dropout_fwd_cuda(x, mask, bias, SD_P, seed, q_blk,
+                                        True),
+            sd.softmax_dropout_bwd_cuda(g, sm, SD_P, seed, q_blk)))
+    turns = []
+    for dtype in (torch.bfloat16, torch.float16, torch.float16,
+                  torch.bfloat16):
+        turns.append({"dtype": str(dtype).replace("torch.", ""),
+                      **kernel_times_ms(calls[dtype], flush, (
+                          "softmax_dropout_fwd", "softmax_dropout_bwd"))})
+    del calls
+    torch.cuda.empty_cache()
+    return turns
 
 
 def softmax_dropout_route_case(flush):
@@ -1302,10 +1405,11 @@ def reset_peak_memory():
     return torch.cuda.memory_allocated() / 1e9
 
 
-def profile_updates(trainer, n=3):
+def profile_updates(trainer, n=3, named=()):
     """Device busy and idle time, launches and top kernels of ``n`` more
     updates of ``trainer`` on epoch 2's first batches, under
-    ``torch.profiler``."""
+    ``torch.profiler``; with ``named``, each named kernel's device time
+    in the window too."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1322,7 +1426,10 @@ def profile_updates(trainer, n=3):
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    out = {name: sum(e.self_device_time_total for e in kernels
+                     if f"{name}_kernel" in e.key) / 1e3 for name in named}
+    return {**({"named_ms": out} if named else {}),
+            "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
             "kernel_launches": sum(e.count for e in kernels),
             "top_kernels": [{"name": e.key[:80], "count": e.count,
@@ -1860,6 +1967,158 @@ def evoformer_train_phase():
     return launches
 
 
+MOL_UPDATES, MOL_BATCH, MOL_ATOMS, MOL_MOLECULES = 20, 16, 256, 1024
+MOL_MAX_SKIPS = 4  # at least 16 of the first 20 dispatches apply
+
+
+def mol_args(corpus, logdir):
+    """Uni-Mol's published pretraining recipe as far as the task's and
+    loss's flags reach: unimol_base at --max-atoms 256 under --fp16 with
+    the recipe's loss scaler (initial scale 4, window 256), Adam (0.9,
+    0.99) eps 1e-6, weight decay 1e-4, clip 1.0, lr 1e-4 on
+    polynomial_decay, dropout and attention dropout 0.1, loss weights
+    token 1, coordinate 5, distance 10; batch 16, 20 updates, no
+    validation."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return [
+        corpus, "--user-dir",
+        os.path.join(here, "unicore_tpu_torch", "examples", "mol"),
+        "--task", "mol", "--loss", "unimol", "--arch", "unimol_base",
+        "--max-atoms", str(MOL_ATOMS), "--fp16", "--fp16-init-scale", "4",
+        "--fp16-scale-window", "256", "--optimizer", "adam",
+        "--adam-betas", "(0.9, 0.99)", "--adam-eps", "1e-6",
+        "--weight-decay", "1e-4", "--clip-norm", "1.0",
+        "--lr-scheduler", "polynomial_decay", "--lr", "1e-4",
+        "--warmup-updates", "4", "--total-num-update", str(MOL_UPDATES),
+        "--dropout", "0.1", "--attention-dropout", "0.1",
+        "--masked-token-loss", "1", "--masked-coord-loss", "5",
+        "--masked-dist-loss", "10", "--batch-size", str(MOL_BATCH),
+        "--update-freq", "1", "--seed", "1", "--max-update", str(MOL_UPDATES),
+        "--log-interval", "1", "--log-format", "none",
+        "--tensorboard-logdir", logdir, "--disable-validation",
+        "--required-batch-size-multiple", "1", "--num-workers", "0",
+        "--no-save"]
+
+
+def mol_train_fp16_phase():
+    """The port's CLI trains a seeded random unimol_base (15 layers, width
+    512, FFN 2048, 64 heads of 8, 64 pair channels, 128 Gaussian kernels)
+    under --fp16 at --max-atoms 256 on 1,024 synthetic molecules of
+    16-256 atoms (the port's make_data).  Checks: every applied update's
+    loss finite, the mean of the last 5 below the first, at most 4 skips
+    in reaching 20 updates, each dispatch 15 softmax_dropout forward and
+    15 backward launches (one a layer, fp16 scores [16, 64, 256, 256]),
+    the plain route and the flash kernels never.  Reports step times,
+    molecules/s, peak memory, the loss-scale sequence, the real-atom share
+    of the padded rows, and a profiled window of 3 updates; returns the
+    softmax_dropout launch counts."""
+    from unicore_tpu_torch import trainer as trainer_mod
+    from unicore_tpu_torch.cli.train import cli_main
+    from unicore_tpu_torch.examples.mol.make_data import write_corpus
+    from unicore_tpu_torch.ops import flash_attention as fa
+    from unicore_tpu_torch.ops import softmax_dropout as sd
+
+    Trainer = trainer_mod.Trainer
+    train_step = Trainer.train_step
+    steps = []
+
+    def timed(self, samples):
+        before = dict(sd.launches)
+        scale = float(self.scaler["scale"])
+        n = self.get_num_updates()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = train_step(self, samples)
+        torch.cuda.synchronize()
+        toks = np.asarray(samples[0]["net_input"]["src_tokens"])
+        steps.append({
+            "s": time.perf_counter() - t, "scale": scale,
+            "applied": self.get_num_updates() > n,
+            "launches": {k: sd.launches[k] - before[k] for k in before},
+            "real_share": float((toks != self.task.dictionary.pad()).mean()),
+            "width": int(toks.shape[1])})
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_corpus(tmp, train=MOL_MOLECULES, valid=8, min_atoms=16,
+                     max_atoms=MOL_ATOMS, atom_types=8, seed=7)
+        corpus_s = time.perf_counter() - t0
+        logdir = os.path.join(tmp, "log")
+        Trainer.train_step = timed
+        for counts in (fa.launches, sd.launches, sd.plain_route):
+            for name in counts:
+                counts[name] = 0
+        start_gb = reset_peak_memory()
+        t0 = time.perf_counter()
+        try:
+            loop = cli_main(mol_args(tmp, logdir))
+        finally:
+            Trainer.train_step = train_step
+        run_s = time.perf_counter() - t0
+        launches = {**sd.launches, "flash": sum(fa.launches.values()),
+                    "softmax_dropout_plain_route": sum(
+                        sd.plain_route.values())}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        run_steps = list(steps)
+        with open(os.path.join(logdir, "train_inner.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        prof = profile_updates(loop.trainer, named=(
+            "softmax_dropout_fwd", "softmax_dropout_bwd"))
+    trainer = loop.trainer
+    layers = trainer.model.encoder_layers
+    dispatches = len(run_steps)
+    skips = sum(not st["applied"] for st in run_steps)
+    # a skipped step logs no loss
+    losses = [r["loss"] for r in records if r.get("loss") is not None]
+    if len(losses) != MOL_UPDATES or not np.isfinite(losses).all():
+        raise AssertionError(f"mol losses {losses}")
+    if not np.mean(losses[-5:]) < losses[0]:
+        raise AssertionError(f"mol loss did not fall: {losses}")
+    if skips > MOL_MAX_SKIPS or dispatches != MOL_UPDATES + skips:
+        raise AssertionError(f"{skips} skips in {dispatches} dispatches")
+    per_step = {"softmax_dropout_fwd": layers, "softmax_dropout_bwd": layers}
+    bad = [i for i, st in enumerate(run_steps) if st["launches"] != per_step]
+    if bad:
+        raise AssertionError(f"softmax_dropout launches per dispatch "
+                             f"{[run_steps[i]['launches'] for i in bad]}, "
+                             f"want {per_step}")
+    want = {**{k: v * dispatches for k, v in per_step.items()}, "flash": 0,
+            "softmax_dropout_plain_route": 0}
+    if launches != want:
+        raise AssertionError(f"mol launches {launches}, want {want}")
+    if any(st["width"] != MOL_ATOMS for st in run_steps):
+        raise AssertionError("a batch not padded to --max-atoms")
+    warm = np.array([st["s"] for st in run_steps[2:]])
+    med_s = float(np.median(warm))
+    stats = {k: records[-1].get(k) for k in (
+        "token_loss", "coord_loss", "dist_loss", "coord_rmsd")}
+    emit("mol_train_fp16", model="unimol_base", dtype="fp16",
+         flags="--fp16 --fp16-init-scale 4 --fp16-scale-window 256 "
+               "--max-atoms 256 --dropout 0.1 --attention-dropout 0.1",
+         batch=MOL_BATCH, max_atoms=MOL_ATOMS, layers=layers,
+         parameters=sum(p.numel() for p in trainer.model.parameters()),
+         molecules=MOL_MOLECULES, updates=MOL_UPDATES,
+         dispatches=dispatches, skips=skips, corpus_s=corpus_s,
+         run_s=run_s, losses=losses, first_loss=losses[0],
+         last5_mean=float(np.mean(losses[-5:])), last_stats=stats,
+         loss_scale_per_step=[st["scale"] for st in run_steps],
+         step_ms_median=med_s * 1e3,
+         step_ms_spread=[float(np.min(warm)) * 1e3,
+                         float(np.percentile(warm, 25)) * 1e3,
+                         float(np.percentile(warm, 75)) * 1e3,
+                         float(np.max(warm)) * 1e3],
+         step_ms_all=[st["s"] * 1e3 for st in run_steps],
+         molecules_per_s=MOL_BATCH / med_s,
+         real_atom_share=float(np.mean([st["real_share"]
+                                        for st in run_steps])),
+         peak_mem_gb=peak_gb, mem_at_start_gb=start_gb,
+         launches=launches, launches_per_update=per_step)
+    emit("mol_train_fp16_profile",
+         window="3 updates, batch 16 x 256 atoms, fp16", **prof)
+    return launches
+
+
 PALLAS = "unicore_tpu/ops/pallas/"
 
 
@@ -1896,12 +2155,14 @@ def flash_row(row, name, replaces, case, launches):
 
 
 def kernels_line(cases, serve_launches, flash, multiblock, train_launches,
-                 sd, sr, evo_launches, fp16_launches):
+                 sd, sr, evo_launches, fp16_launches, mol_launches):
     """One row per TPU kernel of the table in PERF.md (rows 1-11); a row
     realized by two CUDA kernels (4, 8) has one entry for each, and the
-    flash rows (2-8) one for each of the bf16 and the fp16 kernels.  A
-    flash row's launches count its CUDA kernel on the BERT training path
-    of its type (the train phase for bf16, train_fp16 for fp16)."""
+    flash rows (2-8) and the softmax_dropout rows (9-10) one for each of
+    the bf16 and the fp16 instantiations.  A flash row's launches count
+    its CUDA kernel on the BERT training path of its type (the train
+    phase for bf16, train_fp16 for fp16); a softmax_dropout row's on the
+    Evoformer's bf16 path or Uni-Mol's fp16 one."""
     decode = cases["decode"]
     rows = [{
         "row": 1, "name": "ragged_paged_attention", "route": "cuda",
@@ -1949,29 +2210,38 @@ def kernels_line(cases, serve_launches, flash, multiblock, train_launches,
         name16 = name.replace("_bf16", "") + "_fp16"
         rows.append(flash_row(row, name16, replaces, fp16[id(case)],
                               fp16_launches[name16]))
-    # softmax_dropout: the bf16 triangle attention (the largest) leads
-    main = sd["bfloat16"]["triangle"]
-    for row, kind, body, errs in ((9, "fwd", ":64", ("out", "softmax")),
-                                  (10, "bwd", ":87", ("dx", "dbias"))):
-        name = f"softmax_dropout_{kind}"
-        rows.append({
-            "row": row, "name": name, "route": "cuda",
-            "source": "unicore_tpu_torch/csrc/softmax_dropout.cu",
-            "replaces": PALLAS + "softmax_dropout.py" + body,
-            "launches": evo_launches[name],
-            "max_abs_err": max(c["max_abs_err"].get(e, 0.0)
-                               for c in sd["bfloat16"].values()
-                               for e in errs),
-            "ms": main[f"{kind}_ms"], "plain_ms": main[f"plain_{kind}_ms"],
-            "bound_ms": main[f"bound_{kind}_ms"], "bound_by": "bytes",
-            # torch's softmax (backward) of pre-added scores: no dropout
-            "library_ms": main[f"library_{kind}_ms"],
-            "cases": {f"{dt}/{case}": {
-                "ms": r[f"{kind}_ms"], "bound_ms": r[f"bound_{kind}_ms"],
-                "plain_ms": r[f"plain_{kind}_ms"],
-                "library_ms": r[f"library_{kind}_ms"]}
-                for dt, by_case in sd.items() for case, r in by_case.items()},
-        })
+    # softmax_dropout: bf16 on the Evoformer's path, led by its triangle
+    # attention (the largest); fp16 on Uni-Mol's, at its scores' shape
+    by_type = {dt: r for dt, r in sd.items() if dt != "turns"}
+    for dt, lead, path_launches in (("bfloat16", "triangle", evo_launches),
+                                    ("float16", "unimol", mol_launches)):
+        main = by_type[dt][lead]
+        for row, kind, body, errs in ((9, "fwd", ":64", ("out", "softmax")),
+                                      (10, "bwd", ":87", ("dx", "dbias"))):
+            name = f"softmax_dropout_{kind}"
+            rows.append({
+                "row": row, "name": name, "dtype": dt, "route": "cuda",
+                "source": "unicore_tpu_torch/csrc/softmax_dropout.cu",
+                "replaces": PALLAS + "softmax_dropout.py" + body,
+                "launches": path_launches[name],
+                "max_abs_err": max(c["max_abs_err"].get(e, 0.0)
+                                   for c in by_type[dt].values()
+                                   for e in errs),
+                "ms": main[f"{kind}_ms"],
+                "plain_ms": main[f"plain_{kind}_ms"],
+                "bound_ms": main[f"bound_{kind}_ms"], "bound_by": "bytes",
+                # torch's softmax (backward) of pre-added scores: no dropout
+                "library_ms": main[f"library_{kind}_ms"],
+                "shape": main["shape"],
+                "turns_ms": [[t["dtype"], t[name]]
+                             for t in sd["turns"][lead]],
+                "cases": {f"{t}/{case}": {
+                    "ms": r[f"{kind}_ms"], "bound_ms": r[f"bound_{kind}_ms"],
+                    "plain_ms": r[f"plain_{kind}_ms"],
+                    "library_ms": r[f"library_{kind}_ms"]}
+                    for t, by_case in by_type.items()
+                    for case, r in by_case.items()},
+            })
     # the SR sync of every evoformer_base leaf in one table launch
     table = sr["table"]
     rows.append({
@@ -2027,9 +2297,11 @@ def main():
     emit("checkpoint", **checkpoint_phase())
     torch.cuda.empty_cache()
     evo_launches = evoformer_train_phase()
+    torch.cuda.empty_cache()
+    mol_launches = mol_train_fp16_phase()
     rows = kernels_line(cases, launches, flash, multiblock,
                         train["launches"], sd, sr, evo_launches,
-                        fp16_launches)
+                        fp16_launches, mol_launches)
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -8,7 +8,8 @@ With dropout on, the zeros of out (the keep pattern) must be equal
 exactly.  Tolerances: fp32 — out 1e-6, dx and dbias 1e-5 (both sides
 exact fp32, exp and summation order differ); bf16 — 1e-2 of each
 tensor's max (a bf16 ulp at 1 is 7.8e-3: both sides round the same fp32
-value, which may sit on either side of a rounding boundary).  Where a card
+value, which may sit on either side of a rounding boundary); fp16 — 2e-3
+of each tensor's max (its ulp at 1 is 9.8e-4, the same argument).  Where a card
 is present, the CUDA kernels vs the plain version, and the backward's keep
 bits exactly (``check_backward``: a per-element bound that any wrong keep
 bit exceeds wherever g is not 0).
@@ -32,7 +33,8 @@ CASES = {
                                  (1, 3, 4, 16, 128)),
     "rows_in_two_blocks": ((1, 32, 8192), (1, 1, 8192), None),
 }
-DTYPES = {"float32": (np.float32, 1e-6, 1e-5), "bfloat16": (None, 1e-2, 1e-2)}
+DTYPES = {"float32": (np.float32, 1e-6, 1e-5), "bfloat16": (None, 1e-2, 1e-2),
+          "float16": (None, 2e-3, 2e-3)}
 
 
 def make_case(name, dtype):
@@ -43,10 +45,10 @@ def make_case(name, dtype):
         (rng.rand(*ms) > 0.3).astype(np.float32) - 1.0) * 1e4
     bias = None if bs is None else rng.randn(*bs).astype(np.float32)
     w = rng.randn(*xs).astype(np.float32)
-    if dtype == "bfloat16":  # both sides see the same bf16 values
+    if dtype != "float32":  # both sides see the same 2-byte values
         x, bias = (None if a is None else
-                   torch.from_numpy(a).bfloat16().float().numpy()
-                   for a in (x, bias))
+                   torch.from_numpy(a).to(getattr(torch, dtype)).float()
+                   .numpy() for a in (x, bias))
     return x, mask, bias, w
 
 
@@ -58,7 +60,7 @@ def jax_run(case, dtype, p, key_seed):
     from unicore_tpu.ops.pallas import softmax_dropout as jsd
 
     x, mask, bias, w = case
-    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    jdt = getattr(jnp, dtype)
     key = jax.random.PRNGKey(key_seed)
     xj = jnp.asarray(x, jdt)
     mj = None if mask is None else jnp.asarray(mask)
@@ -134,7 +136,8 @@ def test_pick_q_blk_matches_jax():
     for q in (1, 8, 16, 24, 100, 128, 256, 512, 2048):
         for k in (128, 256, 1024, 4096, 8192):
             for jdt, tdt in ((jnp.float32, torch.float32),
-                             (jnp.bfloat16, torch.bfloat16)):
+                             (jnp.bfloat16, torch.bfloat16),
+                             (jnp.float16, torch.float16)):
                 for m, b in ((None, None), (1, None), (None, 1), (1, 1)):
                     xj = jnp.zeros((1, q, k), jdt)
                     xt = torch.zeros((1, q, k), dtype=tdt)
@@ -240,7 +243,8 @@ def test_generator_draws_the_seed_and_eval_is_deterministic():
         sd.softmax_dropout(x, 0.3)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_forward_operands_are_16_byte_aligned(dtype):
     """The forward's operands as its 16-byte runs read them: an aligned
     tensor, a broadcast operand and a view of every other row pass as
@@ -266,7 +270,37 @@ def test_forward_operands_are_16_byte_aligned(dtype):
     assert sx == [0, 0, 512, 128]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_dtype,op_dtype", [
+    (torch.float16, torch.bfloat16), (torch.bfloat16, torch.float16),
+    (torch.float32, torch.float16), (torch.float16, torch.float64)])
+def test_forward_operands_widen_other_types_to_fp32(x_dtype, op_dtype):
+    """mask and bias reach the forward in fp32 or in x's type (the
+    kernels' instantiations); any other type is widened to fp32, with the
+    same values, and an operand of x's type passes as it is."""
+    x = torch.randn(2, 4, 128).to(x_dtype)
+    mask = torch.randn(2, 1, 128).to(op_dtype)
+    bias = torch.randn(1, 4, 128).to(x_dtype)
+    _, _, ops = sd.fwd_operands(x, mask, bias)
+    (_, got_mask, _), (_, got_bias, _) = ops
+    assert got_mask.dtype == torch.float32
+    assert torch.equal(got_mask, mask.float())
+    assert got_bias is bias
+
+
+def test_bias_of_x_shape_gets_dx_itself():
+    """Uni-Mol's per-batch bias has x's shape: its gradient is dx, a view
+    of the same storage in dx's type (the reference's sum over no axes),
+    with no reduction and no copy; a broadcast bias is still summed in
+    fp32 and rounded once."""
+    dx = torch.randn(2, 3, 16, 128).half()
+    got = sd._reduce_to(dx, (2, 3, 16, 128), torch.float16)
+    assert got.data_ptr() == dx.data_ptr() and torch.equal(got, dx)
+    summed = sd._reduce_to(dx, (1, 3, 16, 128), torch.float16)
+    assert torch.equal(summed, dx.float().sum(0, keepdim=True).half())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_backward_operands_are_16_byte_aligned(dtype):
     """g and sm as the backward's 16-byte runs read them: aligned
     contiguous tensors pass as they are; an fp32 g for a bf16 softmax is
@@ -290,15 +324,18 @@ def test_backward_operands_are_16_byte_aligned(dtype):
         assert torch.equal(got, off)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_backward_check_sees_one_flipped_keep_bit(name, dtype):
     """``check_backward`` passes the plain dx against itself (dx and
     dbias), and fails once a single keep bit of the plain version's mask
     is flipped on an element whose softmax is below 1e-4 of its row's max
     and whose |g| is at least 0.1 — where a bound relative to the
-    tensor's max sees nothing.  x is scaled by 4 so that every row's
-    softmax spans such decades."""
+    tensor's max sees nothing — and whose y·|g| is at least 4 steps of
+    the type's subnormal range (in fp16, 2^-24: a flip below that rounds
+    to the same dx).  x is scaled by 4 so that every row's softmax spans
+    such decades."""
     x, mask, bias, w = make_case(name, str(dtype).replace("torch.", ""))
     xt = (4 * torch.from_numpy(x)).to(dtype)
     mt = None if mask is None else torch.from_numpy(mask)
@@ -331,8 +368,9 @@ def test_backward_check_sees_one_flipped_keep_bit(name, dtype):
                       else sd._reduce_to(right, bt.shape, bt.dtype))
 
     y = sm.float()
+    step = torch.finfo(dtype).tiny * torch.finfo(dtype).eps
     small = ((y > 0) & (y < 1e-4 * y.amax(dim=-1, keepdim=True))
-             & (g.float().abs() >= 0.1))
+             & (g.float().abs() >= 0.1) & (y * g.float().abs() >= 4 * step))
     i = int(torch.nonzero(small.reshape(-1))[0])
     keep.reshape(-1)[i] ^= True
     gp = torch.where(keep, g.float() * (1.0 / 0.9), 0.0)
@@ -514,9 +552,32 @@ def test_backward_entry_rejects_what_it_does_not_take(cuda, fault):
         prm.rows = 1 << 31
     before = sd.launches["softmax_dropout_bwd"]
     with pytest.raises(build.KernelError, match="bwd launch failed"):
-        sd._launch("bwd", prm, False, cuda)
+        sd._launch("bwd", prm, torch.float32, cuda)
     torch.cuda.synchronize()
     assert sd.launches["softmax_dropout_bwd"] == before
+
+
+@pytest.mark.gpu
+def test_forward_entry_rejects_a_mask_of_another_type(cuda):
+    """The forward's C entry takes mask and bias in fp32 or in x's type
+    only: an fp16 x with a bf16 mask (which ``fwd_operands`` never sends)
+    is refused before any launch: KernelError, no launch counted."""
+    from unicore_tpu_torch.ops import build
+
+    x = torch.zeros((4, 128), dtype=torch.float16, device=cuda)
+    mask = torch.zeros((4, 128), dtype=torch.bfloat16, device=cuda)
+    out = torch.empty_like(x)
+    seed = torch.tensor([1], dtype=torch.int32, device=cuda)
+    prm = sd._params(4, 128, 4, 0.1, seed, 1)
+    prm.x, prm.mask, prm.out = x.data_ptr(), mask.data_ptr(), out.data_ptr()
+    prm.sx[:], prm.smk[:] = [0, 0, 0, 128], [0, 0, 0, 128]
+    prm.L1 = prm.L2 = 1
+    prm.mask_type = sd._TYPE_CODE[torch.bfloat16]
+    before = sd.launches["softmax_dropout_fwd"]
+    with pytest.raises(build.KernelError, match="fwd launch failed"):
+        sd._launch("fwd", prm, torch.float16, cuda)
+    torch.cuda.synchronize()
+    assert sd.launches["softmax_dropout_fwd"] == before
 
 
 @pytest.mark.gpu
@@ -524,10 +585,11 @@ def test_backward_entry_rejects_what_it_does_not_take(cuda, fault):
 @pytest.mark.parametrize("k", [128, 1024, 2048])
 def test_forward_matches_plain_on_card(cuda, k, dtype):
     """The forward kernel vs the plain version at K = 128 (four lanes a
-    bf16 row), 1024 (a warp) and 2048 (a block), with a bf16 mask and an
-    fp32 bias whatever x's type, and 210 rows (not a multiple of a
-    block's rows): equal keep patterns; out and the softmax within 1e-5
-    (fp32) or 2e-2 of each tensor's max (bf16)."""
+    bf16 or fp16 row), 1024 (a warp) and 2048 (a block), with a bf16 mask
+    (widened to fp32 unless x is bf16) and an fp32 bias whatever x's
+    type, and 210 rows (not a multiple of a block's rows): equal keep
+    patterns; out and the softmax within 1e-5 (fp32) or 2e-2 of each
+    tensor's max (bf16, fp16)."""
     gen = torch.Generator().manual_seed(k)
     x = torch.randn((2, 3, 5, 7, k), generator=gen).to(getattr(torch, dtype))
     mask = (((torch.rand((2, 3, 1, 1, k), generator=gen) > 0.2).float() - 1.0)
@@ -557,9 +619,9 @@ def off_grid_case(k, dtype):
     x = rng.randn(2, 3, 24, k).astype(np.float32)
     mask = ((rng.rand(2, 1, 1, k) > 0.2).astype(np.float32) - 1.0) * 1e4
     bias = rng.randn(1, 3, 24, k).astype(np.float32)
-    if dtype == "bfloat16":
-        x, bias = (torch.from_numpy(a).bfloat16().float().numpy()
-                   for a in (x, bias))
+    if dtype != "float32":
+        x, bias = (torch.from_numpy(a).to(getattr(torch, dtype)).float()
+                   .numpy() for a in (x, bias))
     return x, mask, bias, rng.randn(2, 3, 24, k).astype(np.float32)
 
 

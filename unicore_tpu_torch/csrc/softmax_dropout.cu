@@ -24,10 +24,13 @@
 // Layouts: x, mask and bias are read by strides over (L0, L1, L2, Q) with
 // a unit last dim; a broadcast dim of mask or bias has stride 0, which
 // covers the Evoformer contracts (mask [B, G, 1, 1, K], bias
-// [1|B, 1|G, H, Q, K]) and BERT's [1, B, H, T, T] (a 4-D call gets a
-// leading 1).  x is fp32 or bf16, mask and bias fp32 or bf16 each: the
-// forward takes all three types as template parameters.  out, sm, g and
-// dx are contiguous [rows, K].
+// [1|B, 1|G, H, Q, K]), BERT's [1, B, H, T, T] (a 4-D call gets a
+// leading 1) and Uni-Mol's per-batch pair bias [1, B, H, N, N].  x is
+// fp32, bf16 or fp16 (a type code: SdType); mask and bias each fp32 or
+// x's own type, which bounds the forward's instantiations (the caller
+// widens any other type to fp32, exactly).  The forward takes all three
+// types as template parameters.  out, sm, g and dx are contiguous
+// [rows, K].
 //
 // Design.  Each row is owned by lanes of one warp when K <= 1024 and by
 // one block of 256 threads up to K = 8192, its values in registers; the
@@ -37,8 +40,9 @@
 // runs lane, lane + kTPR, ... so a row's accesses are contiguous, and
 // every load and store of x, out, sm, g and dx is one 16-byte access;
 // the forward reads mask and bias over the same columns in their own
-// types.  Up to K = 1024 a lane owns 4 runs (32 bf16 values: 4 lanes a
-// row of 128, 32 a row of 1024), enough work to amortize the row's index
+// types.  bf16 and fp16 share runs of 8 values and so every split.  Up
+// to K = 1024 a lane owns 4 runs (32 bf16 or fp16 values: 4 lanes a row
+// of 128, 32 a row of 1024), enough work to amortize the row's index
 // arithmetic and reductions; the index arithmetic is 32-bit, once a row
 // (row_info, RowInfo::drop).  With fewer than 32 lanes a row, several
 // rows share a warp, and the reductions shuffle over the whole warp (and
@@ -50,14 +54,17 @@
 // for its runs and reduces the row's dot sum_c g'[c] y[c] in fp32.
 //
 // Bound: bytes.  The forward reads x and writes out and sm (6 bytes an
-// element in bf16, plus the mask and bias at their own sizes); the
-// backward reads g and sm and writes dx (6 bytes an element in bf16).
+// element in bf16 or fp16, plus the mask and bias at their own sizes);
+// the backward reads g and sm and writes dx (6 bytes an element).
 // Against 3.35 TB/s that is ~0.12 ms for each pass of the Evoformer
-// triangle attention ([1, 256, 4, 256, 256] bf16).  The exp and the
+// triangle attention ([1, 256, 4, 256, 256] bf16), and 0.160 ms for the
+// forward of Uni-Mol's [16, 64, 256, 256] fp16 scores with their
+// same-shape bias (8 bytes an element).  The exp and the
 // counter hash of each element take instruction slots the 16-byte
 // accesses leave free.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -80,20 +87,51 @@ struct SoftmaxDropoutParams {
   long long sb[4];  // of bias, 0 on broadcast dims
   long long rows;   // L0 * L1 * L2 * Q
   int L1, L2, Q, K;
-  int mask_bf16, bias_bf16, dropout, q_blk;
+  int mask_type, bias_type;  // SdType codes: fp32 or x's type
+  int dropout, q_blk;
   float inv_keep;
   uint32_t keep_thresh;
 };
 
+// The type codes of x (the entries' argument), mask and bias.
+enum SdType { kF32 = 0, kBF16 = 1, kF16 = 2 };
+
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
+
+// The 2-byte types' pair conversions.
+template <typename H>
+struct Pair16;
+
+template <>
+struct Pair16<bf16> {
+  static __device__ __forceinline__ float2 to_float2(uint32_t w) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+  }
+  static __device__ __forceinline__ uint32_t from_floats(float lo, float hi) {
+    const __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&b);
+  }
+};
+
+template <>
+struct Pair16<f16> {
+  static __device__ __forceinline__ float2 to_float2(uint32_t w) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&w));
+  }
+  static __device__ __forceinline__ uint32_t from_floats(float lo, float hi) {
+    const __half2 b = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&b);
+  }
+};
 
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
 // N contiguous elements at p as floats, by 16-byte loads (one 8-byte
-// load for four bf16 values).
+// load for four 2-byte values).
 template <int N>
 __device__ __forceinline__ void load_run(const float* p, float (&v)[N]) {
 #pragma unroll
@@ -106,9 +144,9 @@ __device__ __forceinline__ void load_run(const float* p, float (&v)[N]) {
   }
 }
 
-template <int N>
-__device__ __forceinline__ void load_run(const bf16* p, float (&v)[N]) {
-  static_assert(N == 4 || N % 8 == 0, "runs of 4 or of 8k bf16 values");
+template <int N, typename H>
+__device__ __forceinline__ void load_run16(const H* p, float (&v)[N]) {
+  static_assert(N == 4 || N % 8 == 0, "runs of 4 or of 8k 2-byte values");
   uint32_t w[N / 2];
   if constexpr (N == 4) {
     const uint2 x = *reinterpret_cast<const uint2*>(p);
@@ -126,26 +164,43 @@ __device__ __forceinline__ void load_run(const bf16* p, float (&v)[N]) {
   }
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) {
-    const float2 f =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    const float2 f = Pair16<H>::to_float2(w[i]);
     v[2 * i] = f.x;
     v[2 * i + 1] = f.y;
   }
 }
 
-// A run of 16 bytes (4 fp32 or 8 bf16 values) in one store.
+template <int N>
+__device__ __forceinline__ void load_run(const bf16* p, float (&v)[N]) {
+  load_run16(p, v);
+}
+
+template <int N>
+__device__ __forceinline__ void load_run(const f16* p, float (&v)[N]) {
+  load_run16(p, v);
+}
+
+// A run of 16 bytes (4 fp32 or 8 bf16 or fp16 values) in one store, each
+// value rounded to nearest once.
 __device__ __forceinline__ void store_run(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
-__device__ __forceinline__ void store_run(bf16* p, const float (&v)[8]) {
+template <typename H>
+__device__ __forceinline__ void store_run16(H* p, const float (&v)[8]) {
   uint32_t w[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    w[i] = *reinterpret_cast<const uint32_t*>(&b);
-  }
+  for (int i = 0; i < 4; ++i)
+    w[i] = Pair16<H>::from_floats(v[2 * i], v[2 * i + 1]);
   *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ void store_run(bf16* p, const float (&v)[8]) {
+  store_run16(p, v);
+}
+
+__device__ __forceinline__ void store_run(f16* p, const float (&v)[8]) {
+  store_run16(p, v);
 }
 
 // Reduce over the kTPR threads that own a row: an aligned group of a
@@ -398,17 +453,21 @@ int split(const SoftmaxDropoutParams& p, cudaStream_t st) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// mask and bias are fp32 or T (entry checks it): for fp32 x, one
+// instantiation.
 template <typename T, typename MaskT>
 int fwd_bias_type(const SoftmaxDropoutParams& p, cudaStream_t st) {
-  return p.bias_bf16 ? split<FwdPass<T, MaskT, bf16>>(p, st)
-                     : split<FwdPass<T, MaskT, float>>(p, st);
+  return p.bias_type == kF32 ? split<FwdPass<T, MaskT, float>>(p, st)
+                             : split<FwdPass<T, MaskT, T>>(p, st);
 }
 
 template <typename T>
 int fwd(const SoftmaxDropoutParams& p, cudaStream_t st) {
-  return p.mask_bf16 ? fwd_bias_type<T, bf16>(p, st)
-                     : fwd_bias_type<T, float>(p, st);
+  return p.mask_type == kF32 ? fwd_bias_type<T, float>(p, st)
+                             : fwd_bias_type<T, T>(p, st);
 }
+
+int item_size(int type) { return type == kF32 ? 4 : 2; }
 
 bool aligned16(const void* x) {
   return (reinterpret_cast<uintptr_t>(x) & 15u) == 0;
@@ -423,8 +482,8 @@ bool fwd_takes(const SoftmaxDropoutParams& p, int x_item) {
     const long long* strides;
     int item;
   } ops[] = {{p.x, p.sx, x_item},
-             {p.mask, p.smk, p.mask_bf16 ? 2 : 4},
-             {p.bias, p.sb, p.bias_bf16 ? 2 : 4}};
+             {p.mask, p.smk, item_size(p.mask_type)},
+             {p.bias, p.sb, item_size(p.bias_type)}};
   for (const auto& op : ops) {
     if (!aligned16(op.ptr)) return false;
     for (int d = 0; d < 4; ++d)
@@ -440,32 +499,47 @@ bool bwd_takes(const SoftmaxDropoutParams& p) {
   return aligned16(p.g) && aligned16(p.sm) && aligned16(p.dx);
 }
 
-int entry(const SoftmaxDropoutParams* p, int is_bf16, bool forward,
+// An operand's type: fp32, or x's own type.
+bool op_type_ok(const void* op, int type, int x_type) {
+  return !op || type == kF32 || type == x_type;
+}
+
+int entry(const SoftmaxDropoutParams* p, int x_type, bool forward,
           void* stream) {
   if (p->rows == 0) return 0;
   if (p->K <= 0 || p->K % 128 || p->rows >= (1LL << 31) || p->Q <= 0 ||
-      p->q_blk <= 0 || p->Q % p->q_blk)
+      p->q_blk <= 0 || p->Q % p->q_blk || x_type < kF32 || x_type > kF16)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (!(forward ? fwd_takes(*p, is_bf16 ? 2 : 4) : bwd_takes(*p)))
+  if (forward && !(op_type_ok(p->mask, p->mask_type, x_type) &&
+                   op_type_ok(p->bias, p->bias_type, x_type)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!(forward ? fwd_takes(*p, item_size(x_type)) : bwd_takes(*p)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (forward) return is_bf16 ? fwd<bf16>(*p, st) : fwd<float>(*p, st);
-  return is_bf16 ? split<BwdPass<bf16>>(*p, st)
-                 : split<BwdPass<float>>(*p, st);
+  if (forward) {
+    if (x_type == kBF16) return fwd<bf16>(*p, st);
+    if (x_type == kF16) return fwd<f16>(*p, st);
+    return fwd<float>(*p, st);
+  }
+  if (x_type == kBF16) return split<BwdPass<bf16>>(*p, st);
+  if (x_type == kF16) return split<BwdPass<f16>>(*p, st);
+  return split<BwdPass<float>>(*p, st);
 }
 
 }  // namespace
 
-// Launch on `stream`; each returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for parameters the kernels do not take (K not a
-// multiple of 128 or above 8192, rows >= 2^31, an operand off 16 bytes).
-// The caller checks types and shapes and gives 16-byte aligned operands.
+// Launch on `stream` for x of type `x_type` (SdType); each returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for
+// parameters the kernels do not take (K not a multiple of 128 or above
+// 8192, rows >= 2^31, an operand off 16 bytes, a type code out of range,
+// a mask or bias neither fp32 nor x's type).  The caller checks types
+// and shapes and gives 16-byte aligned operands.
 extern "C" int unicore_softmax_dropout_fwd(const SoftmaxDropoutParams* p,
-                                           int bf16, void* stream) {
-  return entry(p, bf16, true, stream);
+                                           int x_type, void* stream) {
+  return entry(p, x_type, true, stream);
 }
 
 extern "C" int unicore_softmax_dropout_bwd(const SoftmaxDropoutParams* p,
-                                           int bf16, void* stream) {
-  return entry(p, bf16, false, stream);
+                                           int x_type, void* stream) {
+  return entry(p, x_type, false, stream);
 }

@@ -5,7 +5,8 @@ regressed from the final pair representation and symmetrized.
 The flax model infers its input widths at init; this one takes them from
 the task's records (the MSA alphabet and the pair feature bins).  The
 structure module (IPA and the backbone update) is not ported:
-``--structure-module True`` raises, naming ``ROADMAP.md`` A10.
+``--structure-module True`` raises, naming ``ROADMAP.md`` A10, and
+``--fp16`` raises, naming A17.
 Parameter names follow the flax tree (``blocks.{i}.row_attn.q_proj``,
 ...), which :mod:`.convert` maps one to one.
 """
@@ -65,12 +66,15 @@ class EvoformerModel(BaseUnicoreModel):
             return default if v is None else v
 
         if getattr(args, "fp16", False):
-            # the port runs the Evoformer in the compute type, and its
-            # materialized attention's kernels take fp32 and bf16 only
+            # the reference's flax model promotes its fp32 inputs and so
+            # runs in fp32 under --fp16; the port casts them to the
+            # compute type, a difference held against it in bf16 only
             raise NotImplementedError(
-                "--fp16 with the Evoformer: the fp16 softmax_dropout "
-                "kernels are not ported yet (ROADMAP.md B3(i)); train it "
-                "under --bf16")
+                "--fp16 with the Evoformer: the reference runs the "
+                "Evoformer's activations in fp32 under --fp16, and the "
+                "port's cast of the inputs to the compute type is not held "
+                "against it in fp16 (ROADMAP.md A17); train it under "
+                "--bf16")
         if arg("structure_module", False):
             raise NotImplementedError(
                 "--structure-module True: the structure module (IPA and the "

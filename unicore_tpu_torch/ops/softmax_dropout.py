@@ -7,10 +7,12 @@ package's ``ops.softmax_dropout``:
 
     out = dropout(softmax(x + mask + bias))
 
-in fp32 whatever x's type, with out (and, for the backward, the softmax)
-in x's type.  mask and bias are additive and broadcast against x,
-including the 5-D Evoformer contracts (mask ``[b, g, 1, 1, k]`` /
-``[b, g, h, 1, k]``, bias ``[1, 1, h, q, k]`` / ``[1, g, h, q, k]``).  The
+in fp32 whatever x's type (fp32, bf16 or fp16), with out (and, for the
+backward, the softmax) in x's type.  mask and bias are additive and
+broadcast against x, including the 5-D Evoformer contracts (mask
+``[b, g, 1, 1, k]`` / ``[b, g, h, 1, k]``, bias ``[1, 1, h, q, k]`` /
+``[1, g, h, q, k]``) and Uni-Mol's per-batch pair bias of x's own shape,
+whose gradient is dx itself (no reduction, no copy).  The
 kernels are ``unicore_tpu_torch/csrc/softmax_dropout.cu``; the dropout
 bits are ``csrc/prng.cuh``.
 
@@ -48,7 +50,8 @@ from . import build, prng
 
 MAX_K = 8192
 MAX_KERNEL_DIMS = 5
-_DTYPES = (torch.float32, torch.bfloat16)
+# x's types and the CUDA source's codes for them (SdType)
+_TYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # launches per kernel, counted where each wrapper launches its kernel
 launches = {"softmax_dropout_fwd": 0, "softmax_dropout_bwd": 0}
@@ -202,7 +205,7 @@ class _Params(ctypes.Structure):
                 + [(n, ctypes.c_longlong * 4) for n in ("sx", "smk", "sb")]
                 + [("rows", ctypes.c_longlong)]
                 + [(n, ctypes.c_int) for n in
-                   ("L1", "L2", "Q", "K", "mask_bf16", "bias_bf16",
+                   ("L1", "L2", "Q", "K", "mask_type", "bias_type",
                     "dropout", "q_blk")]
                 + [("inv_keep", ctypes.c_float),
                    ("keep_thresh", ctypes.c_uint32)])
@@ -217,11 +220,12 @@ def _entry(name):
     return fn
 
 
-def _launch(name, params, bf16, device):
+def _launch(name, params, dtype, device):
+    """Launch pass ``name`` for x (or sm) of ``dtype``."""
     fn = _entry(name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(ctypes.byref(params), int(bf16), stream)
+        err = fn(ctypes.byref(params), _TYPE_CODE[dtype], stream)
     if err:
         raise build.KernelError(
             f"softmax_dropout kernel {name} launch failed: CUDA error {err}")
@@ -266,9 +270,9 @@ def _params(q, k, rows, dropout_prob, seed, q_blk):
 
 
 def _check(x, mask, bias, seed):
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"softmax_dropout kernels take float32 or bfloat16 "
-                        f"x, got {x.dtype}")
+    if x.dtype not in _TYPE_CODE:
+        raise TypeError(f"softmax_dropout kernels take float32, bfloat16 "
+                        f"or float16 x, got {x.dtype}")
     for op in (mask, bias, seed):
         if op is not None and op.device != x.device:
             raise ValueError(f"all operands must be on {x.device}, got one "
@@ -285,15 +289,17 @@ def _check(x, mask, bias, seed):
 def fwd_operands(x, mask, bias):
     """x, mask and bias as the forward kernel reads them: ``(x, x's
     strides over (L0, L1, L2, Q), [(name, operand, strides), ...])``.
-    Each operand fp32 or bf16, with a unit last dim, its address and
-    strides multiples of 16 bytes (else a contiguous copy), strides 0 on
-    dims of size 1 (mask and bias: on their broadcast dims)."""
+    mask and bias in fp32 or in x's type (any other type widened to
+    fp32, exactly: the kernels add them in fp32), each operand with a
+    unit last dim, its address and strides multiples of 16 bytes (else a
+    contiguous copy), strides 0 on dims of size 1 (mask and bias: on
+    their broadcast dims)."""
     x, sx = _bcast_strides(x, _lead5(x.shape), "x")
     ops = []
     for name, op in (("mask", mask), ("bias", bias)):
         if op is None:
             continue
-        if op.dtype not in _DTYPES:
+        if op.dtype not in (torch.float32, x.dtype):
             op = op.float()
         ops.append((name, *_bcast_strides(op, _lead5(x.shape), name)))
     return x, sx, ops
@@ -318,12 +324,12 @@ def softmax_dropout_fwd_cuda(x, mask, bias, dropout_prob, seed, q_blk,
     for name, op, strides in ops:  # ops stays alive until the launch
         setattr(prm, name, op.data_ptr())
         getattr(prm, {"mask": "smk", "bias": "sb"}[name])[:] = strides
-        setattr(prm, f"{name}_bf16", int(op.dtype == torch.bfloat16))
+        setattr(prm, f"{name}_type", _TYPE_CODE[op.dtype])
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     sm = torch.empty_like(out) if save_softmax else None
     prm.out = out.data_ptr()
     prm.sm = sm.data_ptr() if sm is not None else None
-    _launch("fwd", prm, x.dtype == torch.bfloat16, x.device)
+    _launch("fwd", prm, x.dtype, x.device)
     return out.reshape(shape), None if sm is None else sm.reshape(shape)
 
 
@@ -351,7 +357,7 @@ def softmax_dropout_bwd_cuda(g, sm, dropout_prob, seed, q_blk):
     dx = torch.empty_like(sm)
     prm = _params(q, k, sm.numel() // k, dropout_prob, seed, q_blk)
     prm.g, prm.sm, prm.dx = g.data_ptr(), sm.data_ptr(), dx.data_ptr()
-    _launch("bwd", prm, sm.dtype == torch.bfloat16, sm.device)
+    _launch("bwd", prm, sm.dtype, sm.device)
     return dx
 
 
@@ -374,8 +380,10 @@ def check_backward(dx, g, sm, dropout_prob, seed, q_blk, dbias=None):
     (K·2^-23 each, with room for g' rounded apart on each side); 2^-21
     the subtraction, the product and g' = g·inv_keep rounded on each
     side; (1 + ε)(· + ε·|plain|) the rounding of both results to dx's
-    dtype.  A wrong keep bit moves its element by |y·g|·inv_keep, far
-    above d wherever g ≠ 0, however small y is.  The reduced dbias is
+    dtype, plus one step of its subnormal range (fp16's 2^-24, where
+    rounding is absolute, not relative).  A wrong keep bit moves its
+    element by |y·g|·inv_keep, far above d wherever g ≠ 0 and y·g is
+    above that step, however small y is.  The reduced dbias is
     held within the sum of dx's bounds over the summed elements, two fp32
     sums of n terms (n·2^-23 of the summed magnitudes), and the rounding
     to its dtype.
@@ -394,7 +402,7 @@ def check_backward(dx, g, sm, dropout_prob, seed, q_blk, dbias=None):
     d = y.abs() * (y.shape[-1] * 2.0 ** -22 * gy.abs().sum(
         dim=-1, keepdim=True) + 2.0 ** -21 * (gp.abs() + dot.abs()))
     del y, gp, gy
-    bound = _bound(d, want, torch.finfo(dx.dtype).eps)
+    bound = _bound(d, want, dx.dtype)
     errs = {"dx": _held("dx", dx, want, bound)}
     if dbias is not None:
         shape = (1,) * (dx.dim() - dbias.dim()) + tuple(dbias.shape)
@@ -407,19 +415,22 @@ def check_backward(dx, g, sm, dropout_prob, seed, q_blk, dbias=None):
 
         b_sum, mag = total(bound), total(want.float().abs())
         want_db = _reduce_to(want, shape, dbias.dtype)
-        eps = max(torch.finfo(dx.dtype).eps, torch.finfo(dbias.dtype).eps)
         errs["dbias"] = _held(
             "dbias", dbias.reshape(shape), want_db,
-            _bound(b_sum + n * 2.0 ** -23 * (mag + b_sum), want_db, eps))
+            _bound(b_sum + n * 2.0 ** -23 * (mag + b_sum), want_db,
+                   dx.dtype, dbias.dtype))
     return errs
 
 
-def _bound(d, want, eps):
-    """(1 + eps)·(d + eps·|want|): d, then both sides rounded to a type
-    whose ulp is at most eps of the value (plus fp32's least normal, for
+def _bound(d, want, *dtypes):
+    """(1 + eps)·(d + eps·|want|) + step: d, then both sides rounded to
+    ``dtypes`` (eps the largest relative ulp among them; step the largest
+    spacing of their subnormal ranges, at least fp32's least normal, for
     values near 0)."""
-    return ((1 + eps) * (d + eps * want.float().abs())
-            + torch.finfo(torch.float32).tiny)
+    eps = max(torch.finfo(t).eps for t in dtypes)
+    step = max([torch.finfo(torch.float32).tiny]
+               + [torch.finfo(t).tiny * torch.finfo(t).eps for t in dtypes])
+    return (1 + eps) * (d + eps * want.float().abs()) + step
 
 
 def _held(what, got, want, bound):
@@ -462,11 +473,14 @@ def _run(path, name, plain, cuda):
 def _reduce_to(dx, shape, dtype):
     """dx summed in fp32 over the dims an operand of ``shape`` broadcasts,
     cast to dx's dtype (the reference's ``reduce_to``), then to the
-    operand's ``dtype``."""
+    operand's ``dtype``.  An operand of x's shape broadcasts over no dim:
+    its gradient is dx, a view of it in dx's dtype (the reference's sum
+    over no axes is dx unchanged)."""
     axes = [i for i, (s, xs) in enumerate(zip(shape, dx.shape))
             if s == 1 and xs != 1]
-    r = dx.sum(dim=axes, keepdim=True, dtype=torch.float32) if axes \
-        else dx.float()
+    if not axes:
+        return dx.reshape(shape).to(dtype)
+    r = dx.sum(dim=axes, keepdim=True, dtype=torch.float32)
     return r.reshape(shape).to(dx.dtype).to(dtype)
 
 
