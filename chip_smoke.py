@@ -10,7 +10,7 @@ code is non-zero:
    ``unicore_tpu_torch/csrc/`` with ``nvcc`` for sm_90a (one process per
    source — paged attention, the fp32 flash kernels, the bf16 and fp16
    flash forward, the bf16 and fp16 flash backward, softmax_dropout,
-   rounding — started together).
+   rounding, ema — started together).
 2. kernel — the paged-attention kernel vs its plain PyTorch version at
    the serve path's shapes (B=16, H=12, D=64, page size 16, fp32): pure
    decode (T=1), full prefill chunks (T=32) and a mixed batch with -1
@@ -125,7 +125,10 @@ code is non-zero:
    sigma of it; then the table of every evoformer_base leaf under its
    own seed, bit for bit per-leaf plain, timed in one launch against
    its bound and against one single-entry launch a leaf; times beside
-   the bound.
+   the bound.  Then ema: the EMA kernel over the same leaves in one
+   launch, bit for bit the CPU formula and the plain version on the
+   card, timed beside its bytes bound, the plain version and
+   ``torch._foreach_lerp_``.
 12. evoformer_train — the port's CLI, in process, trains a seeded random
    ``evoformer_base`` (8 blocks, c_m 256, c_z 128, 8 MSA and 4 pair
    heads) on S=128 MSA rows x R=256 residues under ``--bf16 --bf16-sr
@@ -138,7 +141,24 @@ code is non-zero:
    time, residue pairs/s and peak memory, then the idle share, the
    softmax_dropout kernels' time and the top kernels of a
    ``torch.profiler`` window of 2 more updates.
-13. mol_train_fp16 — the port's CLI, in process, trains a seeded random
+13. evoformer_unifold — the same model and shape under Uni-Fold's recipe
+   (``--bf16 --bf16-sr --dropout 0.1``, Adam (0.9, 0.999) eps 1e-6,
+   ``--clip-norm 0 --per-sample-clip-norm 0.1 --ema-decay 0.999``, lr
+   1e-3 on ``exponential_decay`` (warmup 4, ratio 0.95 per 50,000),
+   batch 1, ``--update-freq 2``): 10 updates on 20 records, saving at
+   update 5.  Losses finite and falling, the logged lr the schedule's
+   closed form, launches exact per update (softmax_dropout 4 x blocks x
+   2 each way, one SR table launch per example, one EMA launch, no
+   flash, no plain route), each update's EMA bit for bit the CPU
+   formula on the same tensors, the update-5 file's EMA the trainer's;
+   step time, samples/s, peak memory, then a profile window of 2 updates
+   with the EMA's and the per-sample clip's device and host time.  The
+   file resumed in a fresh trainer ends at update 10 with params and EMA
+   bit-equal to the first run's; a ``--load-from-ema`` start holds the
+   file's EMA as params; then one master weight poisoned with inf under
+   ``--bf16`` and no scaler: FloatingPointError, and the NaN detector
+   names that weight's module and leaf and no module before it.
+14. mol_train_fp16 — the port's CLI, in process, trains a seeded random
    ``unimol_base`` (15 layers, width 512, FFN 2048, 64 heads of 8, 64
    pair channels, 128 Gaussian kernels) under ``--fp16
    --fp16-init-scale 4 --fp16-scale-window 256 --max-atoms 256``, batch
@@ -151,19 +171,22 @@ code is non-zero:
    the loss-scale sequence, the real-atom share of the padded rows, then
    the idle share, the softmax_dropout kernels' time and the top kernels
    of a ``torch.profiler`` window of 3 more updates.
-14. the ``kernels`` line (rows 1-11 of the TPU kernel table, rows 2-10
+15. the ``kernels`` line (rows 1-11 of the TPU kernel table, rows 2-10
    once for the bf16 kernels and once for the fp16 ones, the flash rows'
    launches from the train and train_fp16 phases, the softmax_dropout
-   rows' from evoformer_train (bf16) and mol_train_fp16 (fp16); the
-   backward rows carry the row's whole backward time beside the bound of
-   the backward as one function), the card's name and power limit, and
-   the closing ``{"ok": true, ...}`` line.
+   rows' from evoformer_train (bf16) and mol_train_fp16 (fp16), rows
+   9-11 with evoformer_unifold's beside them; the backward rows carry
+   the row's whole backward time beside the bound of the backward as one
+   function; last the EMA kernel, which replaces no ``pallas_call``),
+   the card's name and power limit, and the closing ``{"ok": true, ...}``
+   line.
 
 Exits non-zero without a card, and without the repository around it.
 """
 
 import gc
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -184,6 +207,15 @@ TRAIN_UPDATES, TRAIN_BATCH = 20, 16
 TRAIN_FLASH = ("flash_fwd_bf16", "flash_bwd_dkdv", "flash_bwd_dq")
 TRAIN_FLASH_FP16 = ("flash_fwd_fp16", "flash_bwd_dkdv_fp16",
                     "flash_bwd_dq_fp16")
+
+
+def card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
 
 
 def emit(phase, **fields):
@@ -601,31 +633,39 @@ def flash_bounds(npad, itemsize, shape, with_bias):
     return out
 
 
-def kernel_times_ms(fn, flush, names, iters=10):
+def kernel_times_ms(fn, flush, names, iters=10, windows=2):
     """Mean device time of each named kernel over ``iters`` calls of
-    ``fn`` (``torch.profiler``; L2 flushed before each call)."""
+    ``fn`` (``torch.profiler``; L2 flushed before each call).  A window
+    whose trace lacks a named kernel (the card's profiler has dropped a
+    window's kernel records) is profiled again, up to ``windows`` in
+    all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    times = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        for name in names:
-            if f"{name}_kernel" in e.key:
-                times[name] = e.self_device_time_total / 1e3 / e.count
-    missing = [n for n in names if n not in times]
-    if missing:
-        raise AssertionError(f"profiler saw no device time for {missing}")
-    return times
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        times, seen = {}, []
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            seen.append(f"{e.key[:60]} x{e.count}")
+            for name in names:
+                if f"{name}_kernel" in e.key:
+                    times[name] = e.self_device_time_total / 1e3 / e.count
+        missing = [n for n in names if n not in times]
+        if not missing:
+            return times
+        print(f"kernel_times_ms: no device time for {missing} in a "
+              f"window that saw {seen}", file=sys.stderr, flush=True)
+    raise AssertionError(f"profiler saw no device time for {missing} in "
+                         f"{windows} windows")
 
 
 def sdpa_yardsticks(sdpa, sdpa_fwd_bwd, operands, flush, iters):
@@ -1288,6 +1328,62 @@ def rounding_table_case(flush):
         "plain_ms": time_ms(lambda: sr.fp32_to_bf16_sr_multi_plain(
             xs, seeds, want), flush, iters=2),
         "library_ms": None,
+    }
+
+
+EMA_DECAY = 0.999  # Uni-Fold's --ema-decay
+
+
+def ema_case(flush):
+    """The EMA kernel over every ``evoformer_base`` leaf in one launch:
+    bit for bit the CPU formula (``ema_update_plain`` on host copies of
+    the same tensors), timed beside its bytes bound (8 read, 4 written
+    per element), the plain version on the card, and
+    ``torch._foreach_lerp_`` (one PyTorch call, the EMA of
+    ``torch.optim.swa_utils``; it rounds otherwise)."""
+    from unicore_tpu_torch.ops import ema
+
+    sizes = evoformer_leaf_sizes()
+    gen = torch.Generator(device="cuda").manual_seed(999)
+    params = [torch.randn(n, generator=gen, device="cuda") for n in sizes]
+    start = [p + 0.01 * torch.randn(n, generator=gen, device="cuda")
+             for p, n in zip(params, sizes)]
+    got = [e.clone() for e in start]
+    before = ema.launches["ema_update"]
+    ema.ema_update_(got, params, EMA_DECAY)
+    launches = ema.launches["ema_update"] - before
+    want = ema.ema_update_plain([e.cpu() for e in start],
+                                [p.cpu() for p in params], EMA_DECAY)
+    on_card = ema.ema_update_plain([e.clone() for e in start], params,
+                                   EMA_DECAY)
+    torch.cuda.synchronize()
+    diff = sum(int((a.cpu().view(torch.int32) != b.view(torch.int32)).sum())
+               for a, b in zip(got, want))
+    diff_card = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                    for a, b in zip(got, on_card))
+    if diff or diff_card:
+        raise AssertionError(f"ema_update: {diff} elements differ from the "
+                             f"CPU formula, {diff_card} from the plain "
+                             "version on the card")
+    emas = [e.clone() for e in start]
+    n = sum(sizes)
+    lerp_w = float(np.float32(1.0) - np.float32(EMA_DECAY))
+    return {
+        "leaves": len(sizes), "n": n, "decay": EMA_DECAY,
+        "mismatches_cpu_formula": diff, "mismatches_plain_on_card": diff_card,
+        "launches_per_call": launches,
+        "ms": launches * kernel_times_ms(
+            lambda: ema.ema_update_(emas, params, EMA_DECAY), flush,
+            ("ema_update",), 20)["ema_update"],
+        "bound_ms": 12 * n / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "call_ms": time_ms(lambda: ema.ema_update_(emas, params, EMA_DECAY),
+                           flush, iters=20),
+        "plain_ms": time_ms(lambda: ema.ema_update_plain(emas, params,
+                                                         EMA_DECAY),
+                            flush, iters=3),
+        "library_ms": time_ms(lambda: torch._foreach_lerp_(emas, params,
+                                                           lerp_w),
+                              flush, iters=20),
     }
 
 
@@ -1967,6 +2063,345 @@ def evoformer_train_phase():
     return launches
 
 
+UNIFOLD_UPDATES, UNIFOLD_SAVE_AT, UNIFOLD_FREQ = 10, 5, 2
+# Uni-Fold's train scripts, as far as the port's flags reach; the warmup
+# cut from 1000 updates to 4 so that a 10-update run leaves it
+UNIFOLD_FLAGS = (
+    "--bf16", "--bf16-sr", "--dropout", "0.1", "--optimizer", "adam",
+    "--adam-betas", "(0.9, 0.999)", "--adam-eps", "1e-6",
+    "--clip-norm", "0.0", "--per-sample-clip-norm", "0.1",
+    "--ema-decay", str(EMA_DECAY), "--lr", "1e-3",
+    "--lr-scheduler", "exponential_decay", "--warmup-updates", "4",
+    "--decay-ratio", "0.95", "--decay-steps", "50000",
+    "--batch-size", "1", "--update-freq", str(UNIFOLD_FREQ))
+UNIFOLD_POISON = "blocks.3.row_attn.q_proj.weight"
+
+
+def unifold_args(corpus, logdir, *extra):
+    here = os.path.dirname(os.path.abspath(__file__))
+    return [
+        corpus, "--user-dir",
+        os.path.join(here, "unicore_tpu_torch", "examples", "evoformer"),
+        "--task", "evoformer", "--loss", "evoformer_mse", "--arch",
+        "evoformer_base", *UNIFOLD_FLAGS, "--seed", "1",
+        "--log-interval", "1", "--log-format", "none",
+        "--tensorboard-logdir", logdir, "--disable-validation",
+        "--required-batch-size-multiple", "1", "--num-workers", "0", *extra]
+
+
+def unifold_detector(trainer):
+    """Poison one named master weight with inf under --bf16 and no
+    scaler: the step must raise FloatingPointError, and the detector's
+    log must name that weight's module and leaf and no module that runs
+    before it.  Returns the detector's lines."""
+    from unicore_tpu_torch.nan_detector import flax_module_path
+
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    log = logging.getLogger("unicore_tpu_torch.nan_detector")
+    handler = Keep(level=logging.INFO)
+    log.addHandler(handler)
+    itr = trainer.get_train_iterator(epoch=1).next_epoch_itr()
+    group = [next(itr) for _ in range(UNIFOLD_FREQ)]
+    with torch.no_grad():
+        dict(trainer.model.named_parameters())[UNIFOLD_POISON][0, 0] = \
+            float("inf")
+    try:
+        trainer.train_step(group)
+        raised = False
+    except FloatingPointError:
+        raised = True
+    finally:
+        log.removeHandler(handler)
+    module = flax_module_path(UNIFOLD_POISON.rsplit(".", 1)[0])
+    leaf = f"params/{module}/kernel (1 values)"
+    named = [ln.split(" in ", 1)[1].split(" (")[0] for ln in lines
+             if "non-finite output in" in ln]
+    upstream = ("msa_embed/", "pair_embed/", "blocks_0/", "blocks_1/",
+                "blocks_2/")
+    leaves = [ln for ln in lines if "train state leaf" in ln]
+    if not raised or f"{module}/__call__/0" not in named or any(
+            n.startswith(upstream) for n in named) or len(leaves) != 1 \
+            or not leaves[0].endswith(leaf):
+        raise AssertionError(f"NaN detector: raised {raised}, log {lines}")
+    return {"poisoned": UNIFOLD_POISON, "raised": raised,
+            "modules_named": len(named), "first_modules": named[:6],
+            "leaves": leaves}
+
+
+def evoformer_unifold_phase():
+    """The port's CLI trains full-width evoformer_base under Uni-Fold's
+    recipe (UNIFOLD_FLAGS) for 10 updates, saving at update 5; returns
+    the launch counts of those updates and the phase's figures."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from unicore_tpu_torch import trainer as trainer_mod
+    from unicore_tpu_torch.checkpoint_utils import load_checkpoint_to_cpu
+    from unicore_tpu_torch.cli.train import cli_main
+    from unicore_tpu_torch.examples.evoformer.make_data import write_corpus
+    from unicore_tpu_torch.ops import ema
+    from unicore_tpu_torch.ops import flash_attention as fa
+    from unicore_tpu_torch.ops import rounding as sr
+    from unicore_tpu_torch.ops import softmax_dropout as sd
+    from unicore_tpu_torch.optim.lr_scheduler.schedules import (
+        exponential_decay)
+
+    Trainer = trainer_mod.Trainer
+    real = {"step": Trainer.train_step, "clip": Trainer._add_clipped,
+            "ema": trainer_mod.ema_update_}
+    step_s, per_step, updates = [], [], []
+
+    def counts():
+        return {**sd.launches, **sr.launches, **ema.launches,
+                "flash": sum(fa.launches.values()),
+                "softmax_dropout_plain_route": sum(sd.plain_route.values())}
+
+    def timed(self, samples):
+        before = counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real["step"](self, samples)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        after = counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        return out
+
+    def kept(emas, params, decay):  # each update's tensors, on the card
+        start = [e.clone() for e in emas]
+        out = real["ema"](emas, params, decay)
+        updates.append((start, [p.detach().clone() for p in params],
+                        [e.clone() for e in emas]))
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_corpus(tmp, n_res=EVO_R, n_seqs=EVO_S,
+                     train=UNIFOLD_UPDATES * UNIFOLD_FREQ, valid=1, seed=7)
+        corpus_s = time.perf_counter() - t0
+        a, b, c = (os.path.join(tmp, x) for x in "abc")
+        restore = os.path.join(a, f"checkpoint_1_{UNIFOLD_SAVE_AT}.pt")
+        for table in (fa.launches, sd.launches, sd.plain_route, sr.launches,
+                      ema.launches):
+            for name in table:
+                table[name] = 0
+        start_gb = reset_peak_memory()
+        Trainer.train_step, trainer_mod.ema_update_ = timed, kept
+        t0 = time.perf_counter()
+        try:
+            run_a = cli_main(unifold_args(
+                tmp, os.path.join(a, "log"), "--max-update",
+                str(UNIFOLD_UPDATES), "--save-interval-updates",
+                str(UNIFOLD_SAVE_AT), "--save-dir", a, "--tmp-save-dir", a))
+        finally:
+            Trainer.train_step, trainer_mod.ema_update_ = real["step"], \
+                real["ema"]
+        run_s = time.perf_counter() - t0
+        launches = counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        trainer = run_a.trainer
+        blocks, leaves = trainer.model.evoformer_layers, len(trainer.ema)
+        with open(os.path.join(a, "log", "train_inner.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        losses = [r["loss"] for r in records]
+        if len(losses) != UNIFOLD_UPDATES or not np.isfinite(losses).all():
+            raise AssertionError(f"losses {losses}")
+        if not np.mean(losses[-3:]) < losses[0]:
+            raise AssertionError(f"loss did not fall: {losses}")
+        lrs = [r["lr"] for r in records]
+        want_lr = [exponential_decay(r["step"], base_lr=1e-3,
+                                     decay_ratio=0.95, decay_steps=50000,
+                                     warmup_updates=4) for r in records]
+        if not np.allclose(lrs, want_lr, rtol=1e-12, atol=0):
+            raise AssertionError(f"lr {lrs}, closed form {want_lr}")
+        # per update: both passes of the 4 attentions of every block for
+        # each of the 2 examples; one SR table launch per example; one EMA
+        # table launch
+        want_step = {
+            "softmax_dropout_fwd": 4 * blocks * UNIFOLD_FREQ,
+            "softmax_dropout_bwd": 4 * blocks * UNIFOLD_FREQ,
+            "fp32_to_bf16_sr": -(-leaves // sr.capacity()) * UNIFOLD_FREQ,
+            "ema_update": -(-leaves // ema.capacity()),
+            "flash": 0, "softmax_dropout_plain_route": 0}
+        want = {k: v * UNIFOLD_UPDATES for k, v in want_step.items()}
+        if launches != want or any(
+                {k: d[k] for k in want_step} != want_step for d in per_step):
+            raise AssertionError(f"launches {launches}, want {want}; per "
+                                 f"update {per_step}")
+        # each update's EMA: the CPU formula on the same tensors, bit for bit
+        if len(updates) != UNIFOLD_UPDATES:
+            raise AssertionError(f"{len(updates)} EMA updates")
+        ema_mismatches = 0
+        for start, params, after in updates:
+            want_ema = ema.ema_update_plain([e.cpu() for e in start],
+                                            [p.cpu() for p in params],
+                                            EMA_DECAY)
+            ema_mismatches += sum(
+                int((x.cpu().view(torch.int32) != y.view(torch.int32)).sum())
+                for x, y in zip(after, want_ema))
+        if ema_mismatches:
+            raise AssertionError(f"EMA: {ema_mismatches} elements differ "
+                                 "from the CPU formula")
+        file_ema = trainer.model.named_from_flax(
+            load_checkpoint_to_cpu(restore)["model"]["ema"])
+        names = trainer._param_names()
+        at_save = updates[UNIFOLD_SAVE_AT - 1][2]
+        if not all(torch.equal(file_ema[n], e.cpu())
+                   for n, e in zip(names, at_save)):
+            raise AssertionError("the update-5 file's EMA is not the "
+                                 "trainer's")
+        end_params = [p.detach().clone() for p in trainer._master_params()]
+        end_ema = [e.clone() for e in trainer.ema]
+        del updates[:]
+        med_s = float(np.median(step_s[2:]))
+        emit("evoformer_unifold", card=card(), model="evoformer_base",
+             dtype="bf16",
+             flags=" ".join(UNIFOLD_FLAGS), msa_rows=EVO_S, residues=EVO_R,
+             blocks=blocks, parameter_leaves=leaves, updates=UNIFOLD_UPDATES,
+             corpus_s=corpus_s, run_s=run_s, losses_mse=losses, lrs=lrs,
+             step_ms_median=med_s * 1e3,
+             step_ms_all=[x * 1e3 for x in step_s],
+             samples_per_s=UNIFOLD_FREQ / med_s,
+             residue_pairs_per_s=UNIFOLD_FREQ * EVO_R * EVO_R / med_s,
+             peak_mem_gb=peak_gb, mem_at_start_gb=start_gb,
+             launches=launches, launches_per_update=want_step,
+             ema_bit_for_bit_updates=UNIFOLD_UPDATES)
+
+        # 3 more updates with no check's copies and no save's writer
+        # thread beside them: the step, and the host time of each
+        # per-sample clip and EMA call (no sync inside either)
+        host = {"per_sample_clip": [], "ema_update": []}
+
+        def clip_timed(self, *args):
+            t = time.perf_counter()
+            out = real["clip"](self, *args)
+            host["per_sample_clip"].append((time.perf_counter() - t) * 1e3)
+            return out
+
+        def ema_timed(*args):
+            t = time.perf_counter()
+            out = real["ema"](*args)
+            host["ema_update"].append((time.perf_counter() - t) * 1e3)
+            return out
+
+        itr = trainer.get_train_iterator(epoch=2).next_epoch_itr()
+        groups = [[next(itr) for _ in range(UNIFOLD_FREQ)] for _ in range(5)]
+        clean_ms = []
+        Trainer._add_clipped, trainer_mod.ema_update_ = clip_timed, ema_timed
+        try:
+            for group in groups[:3]:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                trainer.train_step(group)
+                torch.cuda.synchronize()
+                clean_ms.append((time.perf_counter() - t) * 1e3)
+        finally:
+            Trainer._add_clipped, trainer_mod.ema_update_ = real["clip"], \
+                real["ema"]
+
+        # where a step's time goes, and the EMA's and the clip's shares:
+        # 2 more updates under the profiler, both parts in named ranges
+        def clip(self, *args):
+            with record_function("per_sample_clip"):
+                return real["clip"](self, *args)
+
+        def ema_range(*args):
+            with record_function("ema_update"):
+                return real["ema"](*args)
+
+        Trainer._add_clipped, trainer_mod.ema_update_ = clip, ema_range
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for group in groups[3:]:
+                    trainer.train_step(group)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            Trainer._add_clipped, trainer_mod.ema_update_ = real["clip"], \
+                real["ema"]
+        events = prof.key_averages()
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        # each range twice: on the host (its host time and the device time
+        # of the kernels launched inside it) and on the device (the span
+        # from its first kernel's start to its last kernel's end)
+        ranges = {}
+        for e in events:
+            if e.key in ("per_sample_clip", "ema_update"):
+                side = "device" if e.device_type == DeviceType.CUDA else "host"
+                ranges[f"{e.key}/{side}"] = {
+                    "count": e.count, "host_ms": e.cpu_time_total / 1e3,
+                    "device_ms": e.device_time_total / 1e3}
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+        emit("evoformer_unifold_profile", card=card(),
+             window="2 updates, 2 examples each, S=128 x R=256, bf16, SR",
+             clean_step_ms=clean_ms, clean_host_ms=host,
+             wall_ms=wall_ms, device_busy_ms=busy_ms,
+             device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
+             kernel_launches=sum(e.count for e in kernels),
+             ema_kernel_ms=sum(e.self_device_time_total for e in kernels
+                               if "ema_update_kernel" in e.key) / 1e3,
+             ranges=ranges,
+             top_kernels=[{"name": e.key[:80], "count": e.count,
+                           "ms": e.self_device_time_total / 1e3}
+                          for e in top])
+        del run_a, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the file of update 5, resumed in a fresh trainer to update 10
+        run_b = cli_main(unifold_args(
+            tmp, os.path.join(b, "log"), "--max-update",
+            str(UNIFOLD_UPDATES), "--restore-file", restore, "--save-dir", b,
+            "--no-save"))
+        tb = run_b.trainer
+        resumed_equal = tb.get_num_updates() == UNIFOLD_UPDATES and all(
+            torch.equal(x.detach(), y) for x, y in zip(
+                tb._master_params(), end_params)) and all(
+            torch.equal(x, y) for x, y in zip(tb.ema, end_ema))
+        with open(os.path.join(b, "log", "train_inner.jsonl")) as f:
+            losses_b = [json.loads(line)["loss"] for line in f]
+        if not resumed_equal:
+            diff = max(float((x.detach() - y).abs().max()) for x, y in zip(
+                tb._master_params(), end_params))
+            raise AssertionError(f"resumed run: {tb.get_num_updates()} "
+                                 f"updates, params off by {diff}; losses "
+                                 f"{losses_b} against {losses[5:]}")
+        del run_b, tb, end_params, end_ema
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # a --load-from-ema start from the same file: its EMA as params
+        run_c = cli_main(unifold_args(
+            tmp, os.path.join(c, "log"), "--max-update",
+            str(UNIFOLD_SAVE_AT), "--restore-file", restore,
+            "--load-from-ema", "--save-dir", c, "--no-save"))
+        tc = run_c.trainer
+        from_ema = all(
+            torch.equal(p.detach().cpu(), file_ema[n])
+            and torch.equal(e.cpu(), file_ema[n])
+            for n, p, e in zip(names, tc._master_params(), tc.ema))
+        if not from_ema:
+            raise AssertionError("--load-from-ema: params are not the "
+                                 "file's EMA")
+        detector = unifold_detector(tc)
+        del run_c, tc
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("evoformer_unifold_checks", resumed_at=UNIFOLD_SAVE_AT,
+         resumed_bit_equal=resumed_equal, losses_b_mse=losses_b,
+         losses_b_equal=losses_b == losses[UNIFOLD_SAVE_AT:],
+         load_from_ema=from_ema, detector=detector)
+    return launches
+
+
 MOL_UPDATES, MOL_BATCH, MOL_ATOMS, MOL_MOLECULES = 20, 16, 256, 1024
 MOL_MAX_SKIPS = 4  # at least 16 of the first 20 dispatches apply
 
@@ -2155,14 +2590,18 @@ def flash_row(row, name, replaces, case, launches):
 
 
 def kernels_line(cases, serve_launches, flash, multiblock, train_launches,
-                 sd, sr, evo_launches, fp16_launches, mol_launches):
+                 sd, sr, evo_launches, fp16_launches, mol_launches,
+                 unifold_launches, ema_report):
     """One row per TPU kernel of the table in PERF.md (rows 1-11); a row
     realized by two CUDA kernels (4, 8) has one entry for each, and the
     flash rows (2-8) and the softmax_dropout rows (9-10) one for each of
     the bf16 and the fp16 instantiations.  A flash row's launches count
     its CUDA kernel on the BERT training path of its type (the train
     phase for bf16, train_fp16 for fp16); a softmax_dropout row's on the
-    Evoformer's bf16 path or Uni-Mol's fp16 one."""
+    Evoformer's bf16 path or Uni-Mol's fp16 one.  Rows 9-11 in bf16 also
+    give their launches on Uni-Fold's recipe (evoformer_unifold).  Last,
+    the EMA kernel, which no ``pallas_call`` stands behind (row null): the
+    JAX trainer's EMA is XLA code in its jitted step."""
     decode = cases["decode"]
     rows = [{
         "row": 1, "name": "ragged_paged_attention", "route": "cuda",
@@ -2219,7 +2658,11 @@ def kernels_line(cases, serve_launches, flash, multiblock, train_launches,
         for row, kind, body, errs in ((9, "fwd", ":64", ("out", "softmax")),
                                       (10, "bwd", ":87", ("dx", "dbias"))):
             name = f"softmax_dropout_{kind}"
-            rows.append({
+            callers = ({"evoformer_train": evo_launches[name],
+                        "evoformer_unifold": unifold_launches[name]}
+                       if dt == "bfloat16"
+                       else {"mol_train_fp16": mol_launches[name]})
+            rows.append({"launches_by_phase": callers,
                 "row": row, "name": name, "dtype": dt, "route": "cuda",
                 "source": "unicore_tpu_torch/csrc/softmax_dropout.cu",
                 "replaces": PALLAS + "softmax_dropout.py" + body,
@@ -2253,7 +2696,24 @@ def kernels_line(cases, serve_launches, flash, multiblock, train_launches,
         "ms": table["ms"], "plain_ms": table["plain_ms"],
         "bound_ms": table["bound_ms"], "bound_by": "bytes",
         "library_ms": None,
+        "launches_by_phase": {
+            "evoformer_train": evo_launches["fp32_to_bf16_sr"],
+            "evoformer_unifold": unifold_launches["fp32_to_bf16_sr"]},
         "per_leaf_launches_ms": table["per_leaf_launches_ms"], "cases": sr,
+    })
+    rows.append({
+        "row": None, "name": "ema_update", "dtype": "float32",
+        "route": "cuda", "source": "unicore_tpu_torch/csrc/ema.cu",
+        # no pallas_call: the EMA update of the JAX trainer's jitted step
+        "replaces": "unicore_tpu/trainer.py:1136",
+        "launches": unifold_launches["ema_update"],
+        "launches_by_phase": {
+            "evoformer_unifold": unifold_launches["ema_update"]},
+        "max_abs_err": 0.0,  # bit for bit (the phase raises otherwise)
+        "ms": ema_report["ms"], "plain_ms": ema_report["plain_ms"],
+        "bound_ms": ema_report["bound_ms"], "bound_by": "bytes",
+        # torch._foreach_lerp_: the same EMA in one call, rounded otherwise
+        "library_ms": ema_report["library_ms"], "case": ema_report,
     })
     return rows
 
@@ -2269,7 +2729,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     report = build.build(["paged_attention", "flash_attention",
                           "flash_attention_fwd", "flash_attention_bwd",
-                          "softmax_dropout", "rounding"])
+                          "softmax_dropout", "rounding", "ema"])
     emit("build", kernels={
         name: {"seconds": r["seconds"],
                "ptxas": [ln.strip() for ln in r["log"].splitlines()
@@ -2288,6 +2748,8 @@ def main():
     sd = softmax_dropout_phase(flush)
     emit("softmax_dropout_route", **softmax_dropout_route_case(flush))
     sr = rounding_phase(flush)
+    ema_report = ema_case(flush)
+    emit("ema", card=card(), **ema_report)
     del flush
     torch.cuda.empty_cache()
     train = train_phase()
@@ -2298,16 +2760,15 @@ def main():
     torch.cuda.empty_cache()
     evo_launches = evoformer_train_phase()
     torch.cuda.empty_cache()
+    unifold_launches = evoformer_unifold_phase()
+    torch.cuda.empty_cache()
     mol_launches = mol_train_fp16_phase()
     rows = kernels_line(cases, launches, flash, multiblock,
                         train["launches"], sd, sr, evo_launches,
-                        fp16_launches, mol_launches)
+                        fp16_launches, mol_launches, unifold_launches,
+                        ema_report)
     print(json.dumps({"kernels": rows}), flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

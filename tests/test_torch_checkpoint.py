@@ -237,17 +237,20 @@ def test_flax_tree_is_the_reference_tree(arch):
 
 # ------------------------------------------------------------ schedules --
 
-@pytest.mark.parametrize("name", ["fixed", "polynomial_decay"])
+SCHEDULERS = ["exponential_decay", "fixed", "polynomial_decay"]
+
+
+@pytest.mark.parametrize("name", SCHEDULERS)
 def test_lr_scheduler_state_round_trips(name):
     """Every ported scheduler: state saved mid-warmup, loaded into a fresh
     scheduler, gives the same lr at every later update."""
     from unicore_tpu_torch.optim import lr_scheduler
     from unicore_tpu_torch.optim.unicore_optimizer import UnicoreOptimizer
 
-    assert set(lr_scheduler.LR_SCHEDULER_REGISTRY) == {"fixed",
-                                                      "polynomial_decay"}
+    assert sorted(lr_scheduler.LR_SCHEDULER_REGISTRY) == SCHEDULERS
     args = make_args(lr_scheduler=name, warmup_updates=4, lr=[1e-3],
-                     lr_shrink=0.1)
+                     lr_shrink=0.1, decay_ratio=0.95, decay_steps=3,
+                     stair_decay=False)
 
     def build():
         opt = UnicoreOptimizer(args, [])
@@ -571,8 +574,7 @@ def test_failed_background_write_surfaces_at_the_next_boundary(
              str(tmp_path / "save"))
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--publish-dir", "pub"], "A12"), (["--load-from-ema"], "A7")])
+@pytest.mark.parametrize("flag,item", [(["--publish-dir", "pub"], "A12")])
 def test_cli_refuses_unported_checkpoint_flags(tmp_path, corpus, flag, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         _cli(corpus, tmp_path, "x", "--max-update", "1", "--save-dir",

@@ -271,9 +271,11 @@ def make_batches(n, bsz=2, n_res=16, n_seqs=8, seed=0):
     return out
 
 
-def trajectories(args, updates=5):
+def trajectories(args, updates=5, on_update=None):
     """Per-update loss / sample size of the JAX trainer and the port's,
-    from the same initial weights and batches."""
+    from the same initial weights and batches; ``on_update(u, jax
+    trainer, port trainer)`` runs after each update u when given, and
+    with u = -1 before the first."""
     import jax
     from examples.evoformer.loss import EvoformerMSELoss as FlaxLoss
     from examples.evoformer.model import EvoformerModel as FlaxEvoformer
@@ -297,6 +299,8 @@ def trajectories(args, updates=5):
                                    device="cpu")
     jmetrics.reset()
     metrics.reset()
+    if on_update is not None:
+        on_update(-1, ftrainer, trainer)
     want, got = [], []
     for u in range(updates):
         group = batches[2 * u:2 * u + 2]
@@ -305,6 +309,8 @@ def trajectories(args, updates=5):
         want.append(float(log["loss"]) / float(log["sample_size"]))
         log = trainer.train_step(group)[0]
         got.append(float(log["loss"]) / float(log["sample_size"]))
+        if on_update is not None:
+            on_update(u, ftrainer, trainer)
     return np.array(got), np.array(want), trainer
 
 

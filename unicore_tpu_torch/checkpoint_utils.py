@@ -556,10 +556,6 @@ class CheckpointManager:
         the first launch with the default ``--restore-file``, and then
         resets the optimizer, scheduler, meters and dataloader."""
         a = self.args
-        if getattr(a, "load_from_ema", False):
-            raise NotImplementedError(
-                "--load-from-ema: EMA is not ported to the PyTorch trainer "
-                "yet (ROADMAP.md A7)")
         suffix = getattr(a, "checkpoint_suffix", "") or ""
         resets = {
             "optimizer": a.reset_optimizer,
@@ -616,7 +612,8 @@ class CheckpointManager:
                 extra_state = trainer.load_checkpoint(
                     candidate, resets["optimizer"], resets["lr_scheduler"],
                     ast.literal_eval(self.args.optimizer_overrides),
-                    reset_meters=resets["meters"])
+                    reset_meters=resets["meters"],
+                    load_from_ema=getattr(self.args, "load_from_ema", False))
                 if candidate != path:
                     logger.warning(
                         "resumed from FALLBACK checkpoint %s (%s was torn); "

@@ -44,3 +44,7 @@ class EvoformerMSELoss(UnicoreLoss):
                            priority=190, round=1)
         metrics.log_derived("rmse",
                             lambda m: math.sqrt(max(m["loss"].avg, 0.0)))
+
+    @staticmethod
+    def logging_outputs_can_be_summed(is_train):
+        return True

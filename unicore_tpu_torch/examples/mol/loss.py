@@ -81,3 +81,7 @@ class UniMolLoss(UnicoreLoss):
             metrics.log_scalar(key, total / n, n, round=4)
         metrics.log_derived(
             "coord_rmsd", lambda m: math.sqrt(max(m["coord_loss"].avg, 0.0)))
+
+    @staticmethod
+    def logging_outputs_can_be_summed(is_train):
+        return True

@@ -79,3 +79,7 @@ class MaskedLMLoss(UnicoreLoss):
         metrics.log_scalar("loss", loss_sum / sample_size / math.log(2),
                            sample_size, round=3)
         metrics.log_scalar("seq_len", seq_len / bsz, 1, round=3)
+
+    @staticmethod
+    def logging_outputs_can_be_summed(is_train):
+        return True

@@ -46,3 +46,10 @@ class UnicoreLoss:
     @staticmethod
     def reduce_metrics(logging_outputs, split="train"):
         raise NotImplementedError
+
+    @staticmethod
+    def logging_outputs_can_be_summed(is_train):
+        """Whether the logging outputs of ``forward`` can be summed across
+        examples before ``reduce_metrics`` (``--per-sample-clip-norm``
+        needs it, as in the JAX trainer)."""
+        return False

@@ -12,4 +12,5 @@ def build_lr_scheduler(args, optimizer, total_train_steps):
     return build_lr_scheduler_(args, optimizer, total_train_steps)
 
 
-from . import fixed_schedule, polynomial_decay_schedule  # noqa: E402,F401
+from . import (exponential_decay_schedule, fixed_schedule,  # noqa: E402,F401
+               polynomial_decay_schedule)

@@ -2,6 +2,8 @@
 ``unicore_tpu/optim/lr_scheduler/schedules.py`` the port's schedulers
 need)."""
 
+import math
+
 
 def polynomial_decay(step, *, base_lr, end_lr, power, warmup_updates,
                      total_updates):
@@ -21,3 +23,18 @@ def fixed_warmup(step, *, base_lr, warmup_updates):
     if warmup_updates > 0 and step < warmup_updates:
         return ((step + 1) / float(warmup_updates)) * base_lr
     return base_lr
+
+
+def exponential_decay(step, *, base_lr, decay_ratio, decay_steps,
+                      warmup_updates, stair=False):
+    """Linear warmup to ``base_lr``, then ``base_lr * decay_ratio **
+    exponent``: ``(step - warmup_updates) / decay_steps``, or under
+    ``stair`` ``floor(step / decay_steps)`` (the reference's staircase
+    counts from step 0, not from the warmup's end)."""
+    if warmup_updates > 0 and step <= warmup_updates:
+        return (step / float(warmup_updates)) * base_lr
+    if stair:
+        exponent = math.floor(step / decay_steps)
+    else:
+        exponent = (step - warmup_updates) / float(decay_steps)
+    return base_lr * decay_ratio ** exponent

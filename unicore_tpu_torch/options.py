@@ -81,7 +81,11 @@ def get_training_parser(input_args=None):
     g.add_argument("--bf16-sr", action="store_true",
                    help="stochastic rounding on the fp32-master -> bf16 "
                         "param copy, fresh seeds every micro-batch")
-    g.add_argument("--ema-decay", default=-1.0, type=float)
+    g.add_argument("--ema-decay", default=-1.0, type=float,
+                   help="keep an fp32 EMA of the params with this decay "
+                        "(<=0 disables)")
+    g.add_argument("--validate-with-ema", action="store_true",
+                   help="run validation with the EMA params")
     g.add_argument("--task", default="bert",
                    choices=sorted(tasks.TASK_REGISTRY))
     g.add_argument("--loss", default="masked_lm",
@@ -135,8 +139,8 @@ def get_training_parser(input_args=None):
 
 def add_checkpoint_args(parser):
     """The JAX package's checkpoint group: the same names and defaults.
-    ``--publish-dir`` (A12) and ``--load-from-ema`` (A7) parse and are
-    refused by the checkpoint manager."""
+    ``--publish-dir`` (A12) parses and is refused by the checkpoint
+    manager."""
     g = parser.add_argument_group("Checkpointing")
     g.add_argument("--save-dir", metavar="DIR", default="checkpoints",
                    help="directory that receives checkpoint files")
@@ -213,7 +217,7 @@ def add_checkpoint_args(parser):
                    help="string appended to every checkpoint filename")
     g.add_argument("--load-from-ema", action="store_true",
                    help="initialize params from the EMA params in the "
-                        "checkpoint (not ported: ROADMAP.md A7)")
+                        "checkpoint")
     return g
 
 

@@ -100,6 +100,11 @@ class UnicoreTask:
     def load_state_dict(self, state_dict):
         self.state.merge_state_dict(state_dict)
 
+    @staticmethod
+    def logging_outputs_can_be_summed(loss, is_train):
+        """Delegates to the loss; overridable per task."""
+        return loss.logging_outputs_can_be_summed(is_train)
+
     def reduce_metrics(self, logging_outputs, loss, split="train"):
         from ..logging import metrics
 

@@ -30,10 +30,30 @@ step raises ``FloatingPointError`` only when the scale it used was
 already at or below ``--min-loss-scale``.  Every update logs
 ``loss_scale``, the scale it used.
 
+``--per-sample-clip-norm`` runs each micro-batch one example at a time,
+as the JAX step's scan over examples does: each example's fp32 gradient
+is scaled by ``min(1, clip / (|g| + 1e-6))``, its norm taken unscaled
+(divided by the loss scale), and summed; the coefficient stays on the
+device, so the loop adds no host sync, and under ``--bf16-sr`` every
+example draws its own stochastic rounding of the compute copy.  The
+division by the sample size and ``--clip-norm`` follow as without it.
+
+``--ema-decay`` keeps an fp32 EMA of the master parameters, a copy of
+them at construction (the JAX ``init_state``'s), updated after every
+applied update by ``ops/ema.py`` bit for bit as the JAX step does, and
+left as it is on a skipped one.  ``--validate-with-ema`` validates on
+it; the master weights are untouched.
+
+A non-finite step without a loss scaler runs the NaN detector
+(``nan_detector.py``) on the clean state before it raises: the modules
+whose outputs are non-finite on the step's first micro-batch, then the
+non-finite leaves of the params and Adam moments, by their flax paths.
+
 Checkpoints (:meth:`Trainer.state_dict`, :meth:`Trainer.load_checkpoint`)
 hold the JAX trainer's tree: ``"model"`` is ``{"step", "params",
 "opt_state", "guard"}`` of numpy arrays in the flax layout (the model's
-``flax_tree``), so either package resumes the other's file.  The port's
+``flax_tree``), with ``"ema"`` beside them under ``--ema-decay``, so
+either package resumes the other's file.  The port's
 dropout generator is state the JAX trainer does not have; its bytes ride
 ``optimizer_history`` under ``"torch_generator_state"``, which the JAX
 trainer ignores.  Under ``--fp16`` the tree has the JAX trainer's
@@ -57,6 +77,8 @@ import torch
 from . import checkpoint_utils
 from .device import resolve_device
 from .logging import metrics
+from .nan_detector import log_nonfinite_modules, log_nonfinite_state
+from .ops.ema import ema_update_
 from .optim import build_optimizer
 from .optim.dynamic_loss_scaler import scaler_init, scaler_update
 from .optim.fp16_optimizer import (default_scale_window, grads_finite,
@@ -67,7 +89,6 @@ logger = logging.getLogger(__name__)
 
 # (attribute, value meaning "off", flag, ROADMAP.md item)
 UNPORTED = (
-    ("ema_decay", -1.0, "--ema-decay", "A7"),
     ("zero1", False, "--zero1", "A8"),
     ("comms_overlap", False, "--comms-overlap", "A8"),
     ("fsdp_size", 1, "--fsdp-size", "A13"),
@@ -75,7 +96,6 @@ UNPORTED = (
     ("tensor_parallel_size", 1, "--tensor-parallel-size", "A13"),
     ("seq_parallel_size", 1, "--seq-parallel-size", "A13"),
     ("pack_sequences", False, "--pack-sequences", "A11"),
-    ("per_sample_clip_norm", 0.0, "--per-sample-clip-norm", "A7"),
     ("checkpoint_activations", False, "--checkpoint-activations", "A3"),
 )
 
@@ -89,6 +109,26 @@ def refuse_unported(args):
             raise NotImplementedError(
                 f"{flag} is not ported to the PyTorch trainer yet "
                 f"(ROADMAP.md {item})")
+
+
+def _examples(sample):
+    """The examples of a collated batch, each a batch of one: every
+    array leaf sliced along its first dim (the JAX step's scan over
+    examples)."""
+    def leaves(x):
+        if isinstance(x, dict):
+            for v in x.values():
+                yield from leaves(v)
+        elif hasattr(x, "shape"):
+            yield x
+
+    def take(x, i):
+        if isinstance(x, dict):
+            return {k: take(v, i) for k, v in x.items()}
+        return x[i:i + 1] if hasattr(x, "shape") else x
+
+    n = next(leaves(sample)).shape[0]
+    return [take(sample, i) for i in range(n)]
 
 
 def _to_device(sample, device):
@@ -124,6 +164,20 @@ class Trainer:
                 "--bf16-sr requires --bf16 (stochastic rounding applies to "
                 "the fp32->bf16 master->model cast only)")
         self.clip_norm = float(getattr(args, "clip_norm", 0.0) or 0.0)
+        self.per_sample_clip_norm = float(
+            getattr(args, "per_sample_clip_norm", 0.0) or 0.0)
+        if (self.per_sample_clip_norm > 0
+                and not task.logging_outputs_can_be_summed(loss, True)):
+            raise ValueError(
+                "--per-sample-clip-norm requires summable logging outputs "
+                "(per-example logs are accumulated inside the step)")
+        self.ema_decay = float(getattr(args, "ema_decay", -1) or -1)
+        # the JAX init_state's EMA: a copy of the params as they are now
+        self.ema = ([p.detach().clone(memory_format=torch.contiguous_format)
+                     for p in self._master_params()]
+                    if self.ema_decay > 0 else None)
+        self.validate_with_ema = bool(getattr(args, "validate_with_ema",
+                                              False))
         update_freq = getattr(args, "update_freq", 1)
         if isinstance(update_freq, (list, tuple)):
             update_freq = update_freq[0]
@@ -158,6 +212,11 @@ class Trainer:
         self._previous_training_time = 0.0
 
     # -- one update --------------------------------------------------------
+
+    def _master_params(self):
+        """The fp32 master parameters the checkpoint and the EMA carry,
+        in parameter order."""
+        return [p for p in self.model.parameters() if p.requires_grad]
 
     def _sync_compute_params(self, stochastic=False):
         """Refresh the compute copy from the master params: round to
@@ -194,24 +253,7 @@ class Trainer:
         scale = self.scaler["scale"] if self.use_scaler else None
         if not self.bf16_sr:
             self._sync_compute_params()
-        for p in self.model.parameters():
-            p.grad = None
-        sample_size = torch.zeros((), device=self.device)
-        logs = {}
-        for sample in samples:
-            if self.bf16_sr:
-                self._sync_compute_params(stochastic=True)
-            sample = _to_device(sample, self.device)
-            loss, ss, log = self.loss(self.compute_model, sample,
-                                      generator=self.generator)
-            loss = loss.float()
-            if scale is not None:
-                loss = loss * scale
-            loss.backward()
-            self._fold_compute_grads()
-            sample_size = sample_size + ss
-            for k, v in log.items():
-                logs[k] = logs.get(k, 0.0) + v
+        sample_size, logs = self._accumulate_grads(samples, scale)
         grads = [p.grad for p in self.model.parameters()
                  if p.grad is not None]
         # unscale and normalize in one divide, as the reference
@@ -239,9 +281,11 @@ class Trainer:
         if overflow:
             metrics.log_scalar("n_skipped", 1, priority=600, round=0)
             if not self.use_scaler:
+                self._detect_nonfinite(samples[0])
                 raise FloatingPointError(
-                    f"Non-finite gradients detected (grad norm {grad_norm});"
-                    " the update was skipped")
+                    f"Non-finite gradients detected (grad norm {grad_norm})"
+                    " and no fp16 loss scaler to absorb them; the update "
+                    "was skipped; see NanDetector log above.")
             if scale <= self.min_loss_scale:
                 raise FloatingPointError(
                     f"Minimum loss scale reached ({scale}). Your loss is "
@@ -253,6 +297,8 @@ class Trainer:
                 self.optimizer.step(generator=self.generator)
             else:
                 self.optimizer.step()
+            if self.ema is not None:
+                ema_update_(self.ema, self._master_params(), self.ema_decay)
             self.set_num_updates(self._num_updates + 1)
             self._reduce_and_log_stats(logging_outputs, float(sample_size),
                                        grad_norm)
@@ -260,13 +306,122 @@ class Trainer:
             metrics.log_scalar("loss_scale", scale, priority=700, round=4)
         return logging_outputs
 
+    def _accumulate_grads(self, samples, scale):
+        """Forward and backward over the micro-batches ``samples`` (one
+        example at a time under ``--per-sample-clip-norm``); the summed
+        fp32 gradients land in the master params' ``.grad``.  Returns the
+        summed sample size (a device scalar) and logging output.  No host
+        sync."""
+        for p in self.model.parameters():
+            p.grad = None
+        sample_size = torch.zeros((), device=self.device)
+        logs = {}
+        clipped = None
+        for sample in samples:
+            batches = (_examples(sample) if self.per_sample_clip_norm > 0
+                       else [sample])
+            for batch in batches:
+                ss, log = self._forward_backward(batch, scale)
+                if self.per_sample_clip_norm > 0:
+                    clipped = self._add_clipped(clipped, scale)
+                sample_size = sample_size + ss
+                for k, v in log.items():
+                    logs[k] = logs.get(k, 0.0) + v
+        if clipped is not None:
+            for p, g in zip(self.model.parameters(), clipped):
+                p.grad = g
+        return sample_size, logs
+
+    def _forward_backward(self, sample, scale):
+        """Forward and backward of one batch on the compute copy (after
+        its stochastic rounding under ``--bf16-sr``); the fp32 gradients
+        add into the master params' ``.grad``.  Returns the sample size
+        and the logging output."""
+        if self.bf16_sr:
+            self._sync_compute_params(stochastic=True)
+        sample = _to_device(sample, self.device)
+        loss, ss, log = self.loss(self.compute_model, sample,
+                                  generator=self.generator)
+        loss = loss.float()
+        if scale is not None:
+            loss = loss * scale
+        loss.backward()
+        self._fold_compute_grads()
+        return ss, log
+
+    @torch.no_grad()
+    def _add_clipped(self, clipped, scale):
+        """Take the gradients of one example off the master params, scale
+        them by ``min(1, clip / (|g| + 1e-6))`` (the norm unscaled) and add
+        them to ``clipped`` (a list in parameter order, None where no
+        example gave a gradient yet); returns it.  No host sync: the
+        coefficient stays on the device, and an inf gradient turns NaN
+        (inf * 0), which the overflow check then sees."""
+        params = list(self.model.parameters())
+        grads = [p.grad for p in params]
+        for p in params:
+            p.grad = None
+        live = [g for g in grads if g is not None]
+        norm = torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(live)))
+        if scale is not None:
+            norm = norm / scale
+        # a tensor divided by a tensor: ``number / tensor`` would multiply
+        # by a reciprocal, rounding twice
+        clip = norm.new_full((), self.per_sample_clip_norm)
+        torch._foreach_mul_(live, torch.clamp(clip / (norm + 1e-6), max=1.0))
+        if clipped is None:
+            return grads
+        both = [(a, g) for a, g in zip(clipped, grads)
+                if a is not None and g is not None]
+        if both:
+            torch._foreach_add_([a for a, _ in both], [g for _, g in both])
+        return [g if a is None else a for a, g in zip(clipped, grads)]
+
+    @torch.no_grad()
+    def _detect_nonfinite(self, sample):
+        """The NaN detector on the clean state (the failing update was
+        not applied): the modules with non-finite outputs on ``sample``,
+        then the non-finite leaves of params and Adam moments.  A failure
+        of the detector is logged and never masks the step's error."""
+        try:
+            log_nonfinite_modules(self.model, _to_device(sample, self.device))
+            log_nonfinite_state(self.detector_state(), header="train state")
+        except Exception as e:  # the detector must never mask the abort
+            logger.warning("NanDetector re-run failed: %s", e)
+
+    def detector_state(self):
+        """``{"params", "opt_state"}`` as the JAX trainer hands them to its
+        state detector: flax trees of numpy copies."""
+        return {"params": self._flax(self._master_params()),
+                "opt_state": self._flax_opt_state()}
+
     @torch.no_grad()
     def valid_step(self, sample):
-        """Loss of one validation batch, dropout off."""
-        self._sync_compute_params()
+        """Loss of one validation batch, dropout off; on the EMA weights
+        (cast to the compute type) under ``--validate-with-ema``."""
         self.compute_model.eval()
         sample = _to_device(sample, self.device)
-        _, _, log = self.loss(self.compute_model, sample)
+        if not (self.validate_with_ema and self.ema is not None):
+            self._sync_compute_params()
+            _, _, log = self.loss(self.compute_model, sample)
+            return [log]
+        if self.compute_model is not self.model:
+            sync_master_to_model(self.ema, [
+                p for p in self.compute_model.parameters() if p.requires_grad])
+            _, _, log = self.loss(self.compute_model, sample)
+            return [log]
+        # fp32: the model is its own compute copy; swap the EMA in and
+        # the master weights back, untouched
+        params = self._master_params()
+        saved = [p.data for p in params]
+        try:
+            for p, e in zip(params, self.ema):
+                p.data = e
+            _, _, log = self.loss(self.compute_model, sample)
+        finally:
+            for p, d in zip(params, saved):
+                p.data = d
         return [log]
 
     # -- bookkeeping (the reference's names) -------------------------------
@@ -362,13 +517,18 @@ class Trainer:
         named = self.model.named_from_flax(tree)
         return [named[n] for n in self._param_names()]
 
+    def _flax_opt_state(self):
+        """Adam's state as the JAX trainer's ``opt_state`` tree."""
+        opt = self.optimizer.state_dict()
+        return {"step": opt["step"], "exp_avg": self._flax(opt["exp_avg"]),
+                "exp_avg_sq": self._flax(opt["exp_avg_sq"])}
+
     def state_dict(self):
         """The checkpoint: numpy arrays and plain values only, so the JAX
         package reads it without torch."""
         model = {
             "step": np.asarray(self._num_updates, np.int32),
-            "params": self._flax([p for p in self.model.parameters()
-                                  if p.requires_grad]),
+            "params": self._flax(self._master_params()),
             # the JAX trainer's anomaly-guard scalars (its guard_init); the
             # port has no guard, and zeros load there without a warning
             "guard": {"loss_ema": np.zeros((), np.float32),
@@ -376,15 +536,14 @@ class Trainer:
                       **{k: np.zeros((), np.int32)
                          for k in ("count", "streak", "skips", "spikes")}},
         }
+        if self.ema is not None:
+            model["ema"] = self._flax(self.ema)
         if self.use_scaler:
             model["scaler"] = {
                 "scale": self.scaler["scale"].cpu().numpy(),
                 "growth_tracker": self.scaler["growth_tracker"].cpu().numpy()}
         if not getattr(self.args, "no_save_optimizer_state", False):
-            opt = self.optimizer.state_dict()
-            model["opt_state"] = {"step": opt["step"],
-                                  "exp_avg": self._flax(opt["exp_avg"]),
-                                  "exp_avg_sq": self._flax(opt["exp_avg_sq"])}
+            model["opt_state"] = self._flax_opt_state()
         return {
             "args": _plain_args(self.args),
             "model": model,
@@ -422,9 +581,12 @@ class Trainer:
 
     def load_checkpoint(self, filename, reset_optimizer=False,
                         reset_lr_scheduler=False, optimizer_overrides=None,
-                        reset_meters=False):
+                        reset_meters=False, load_from_ema=None):
         """Load a checkpoint of either package; returns its
-        ``extra_state`` (None when ``filename`` does not exist)."""
+        ``extra_state`` (None when ``filename`` does not exist).
+        ``load_from_ema`` (default ``--load-from-ema``) starts from the
+        file's EMA weights, unless ``reset_optimizer`` restores the params
+        alone."""
         if not os.path.exists(filename):
             logger.info("No existing checkpoint found %s", filename)
             return None
@@ -438,9 +600,17 @@ class Trainer:
                 self.args, list(self.model.parameters()))
             self.lr_scheduler = build_lr_scheduler(
                 self.args, self.optimizer, self.total_train_steps)
+        if load_from_ema is None:
+            load_from_ema = bool(getattr(self.args, "load_from_ema", False))
         model_state = state.get("model")
         if model_state is not None:
-            self.model.load_flax_params(model_state["params"])
+            params = model_state["params"]
+            if (load_from_ema and not reset_optimizer
+                    and model_state.get("ema") is not None):
+                logger.info("loading EMA weights as model params")
+                params = model_state["ema"]
+            self.model.load_flax_params(params)
+            self._load_ema(model_state.get("ema"), reset_optimizer, filename)
             if reset_optimizer:
                 logger.info("--reset-optimizer: restoring params only")
             elif "opt_state" in model_state:
@@ -475,6 +645,27 @@ class Trainer:
                     extra_state.get("train_iterator", {}).get("epoch", 0),
                     self.get_num_updates())
         return extra_state
+
+    @torch.no_grad()
+    def _load_ema(self, saved, reset_optimizer, filename):
+        """The EMA slot, as the JAX trainer merges it: restored under
+        ``--ema-decay``; with ``--reset-optimizer``, or from a file that
+        has none, the EMA made at construction stays (a copy of the
+        params before the load: the JAX trainer's fresh init too); dropped
+        without ``--ema-decay``."""
+        if self.ema is None:
+            if saved is not None:
+                logger.warning("checkpoint: dropping %s's EMA (not training "
+                               "under --ema-decay)", filename)
+            return
+        if reset_optimizer:
+            return
+        if saved is None:
+            logger.warning("checkpoint: %s holds no EMA; keeping the fresh "
+                           "one", filename)
+            return
+        for e, s in zip(self.ema, self._leaves(saved)):
+            e.copy_(s)
 
     def _load_scaler(self, saved, reset_optimizer, filename):
         """The loss scaler's slot, as the JAX trainer merges it: restored
