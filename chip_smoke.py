@@ -55,6 +55,16 @@ code is non-zero:
    + backward, pinned to its memory-efficient backend, TF32 off) times
    from CUDA events; beside them SDPA with its default backend (named)
    and pinned to cuDNN attention, or cuDNN's refusal of the call.
+   flash_causal — rows 3 and 8's kernels on the LM's causal
+   call at transformer_lm_base's shape (the same B, H, T, D, padding
+   and dropout): bf16 with the [1, 12, 512, 512] rel-pos bias, bf16
+   without a bias (rotary), fp16 and fp32 with the bias, each held as
+   above; the forward's keep bits read back exactly (q = k = 0 and a v
+   that spells four keys' bits in each output element) and compared
+   with the plain mask on every admitted pair; dbias exactly 0 above
+   the diagonal (the dq kernel writes its skipped tiles' partials as
+   0); times beside the causal ops bound and the bytes bound, the plain
+   versions and SDPA with the causal mask folded into its additive mask.
 7. train — the port's CLI, in process, trains a seeded random
    ``bert_base`` (12 layers, width 768, T=512, vocab 30522) under
    ``--bf16`` for 20 updates of batch 16 on a synthetic corpus (2,048
@@ -171,13 +181,38 @@ code is non-zero:
    the loss-scale sequence, the real-atom share of the padded rows, then
    the idle share, the softmax_dropout kernels' time and the top kernels
    of a ``torch.profiler`` window of 3 more updates.
-15. the ``kernels`` line (rows 1-11 of the TPU kernel table, rows 2-10
+15. lm_train — the port's CLI, in process, trains a seeded
+   random ``transformer_lm_base`` (12 layers, width 768, FFN 3072, 12
+   heads of 64, T=512, vocab 30522, the reference's rel-pos bias and
+   learned positions) under ``--bf16``, Adam, clip 1.0, lr 5e-4 on
+   ``fixed``, dropout 0.1, batch 16, on 512 records of the BERT phase's
+   Zipf law written by the LM's ``make_data``: run A 20 updates saving at
+   10, run B a fresh trainer resuming that file to 20.  First loss in
+   9-11.5 nats, the last 5 below it; every update of both runs 12 + 12
+   + 12 bf16 flash launches (forward, dk/dv, dq) and no other flash
+   kernel; B's losses and final params bit-equal to A's.  Step median,
+   tokens/s (unpadded target tokens; the padded-slot rate beside it),
+   peak memory, then a profiled window of 3 updates.
+   lm_serve_checkpoint — 10 ``--rotary True`` updates of the same model
+   saved without the optimizer state (36 flash launches an update, no
+   bias), served by ``unicore_tpu_torch.serve``'s ``--checkpoint
+   --dict --prompts`` in process: 8 prompts of 16-200 tokens, 16 greedy
+   tokens each, every stream equal to ``solo_greedy`` of the loaded
+   model (a divergence passes only at an fp32 tie, top-2 gap < 1e-4),
+   and the oracle held once to the plain versions (the shortest prompt
+   and its stream in one forward on the CPU: logits within 1e-3 of their
+   max, plain's greedy tokens the served ones but at a top-2 gap within
+   twice that distance); a 2-update rel-pos file refused with the JAX
+   decoder's message.
+16. the ``kernels`` line (rows 1-11 of the TPU kernel table, rows 2-10
    once for the bf16 kernels and once for the fp16 ones, the flash rows'
    launches from the train and train_fp16 phases, the softmax_dropout
    rows' from evoformer_train (bf16) and mol_train_fp16 (fp16), rows
    9-11 with evoformer_unifold's beside them; the backward rows carry
    the row's whole backward time beside the bound of the backward as one
-   function; last the EMA kernel, which replaces no ``pallas_call``),
+   function; rows 3 and 8 again for the LM's causal call, launches
+   from lm_train; last the EMA kernel, which replaces no
+   ``pallas_call``),
    the card's name and power limit, and the closing ``{"ok": true, ...}``
    line.
 
@@ -595,32 +630,45 @@ FLASH_REL_TOL = {torch.bfloat16: (1e-2, 2e-2), torch.float16: (5e-3, 5e-3)}
 SDPA_BACKEND = "EFFICIENT_ATTENTION"
 
 
-def flash_bounds(npad, itemsize, shape, with_bias):
+def flash_bounds(npad, itemsize, shape, with_bias, causal=False):
     """{kernel: (bound_ms, bound_by, flops)}: each kernel's operations on
     the keys this run's data leaves unpadded (a padded key adds exactly
-    nothing to any output) over the tensor-core rate of its operand type,
-    against the bytes of its inputs read once and outputs written once.
-    dbias counts once, as one fp32 [H, T, T]: the bf16 dq kernel's
-    per-group partials are its design, not the function's output.
-    ``backward`` is the whole backward as one function: 10 units of
-    flops per unpadded pair and D, q/k/v/dO read once."""
+    nothing to any output; under ``causal`` only keys at or below the
+    query count, about half) over the tensor-core rate of its operand type,
+    against the bytes the function needs read once and written once: q,
+    dO, lse and delta of every query, k and v of the unpadded keys only,
+    the [H, T, T] bias only where some row of the batch admits the pair
+    (under ``causal`` the lower triangle, cut at the row with the most
+    unpadded keys), and every output whole.  dbias counts once, as one
+    fp32 [H, T, T]: the bf16 dq kernel's per-group partials are its
+    design, not the function's output.  ``backward`` is the whole
+    backward as one function: 10 units of flops per unpadded pair and D,
+    q/k/v/dO read once."""
     B, H, T, D = shape
-    pairs = H * T * int((T - npad).sum())       # unpadded (q, k) pairs
+    live = (T - npad).astype(np.int64)          # unpadded keys of each row
+    most = int(live.max())                      # the bias serves every row
+    pairs = H * T * int(live.sum())             # unpadded (q, k) pairs
+    bias_pairs = T * most                       # bias elements read
+    if causal:  # query q admits keys 0..min(q, live - 1)
+        pairs = H * int((live * (live + 1) // 2 + (T - live) * live).sum())
+        bias_pairs = most * (most + 1) // 2 + (T - most) * most
     rate = BF16_FLOP_PER_S if itemsize == 2 else FP32_FLOP_PER_S
-    act = B * T * H * D * itemsize              # one of q, k, v, dO, out
+    act = B * T * H * D * itemsize              # one of q, dO, out, dq, dk, dv
+    kv = int(live.sum()) * H * D * itemsize     # k or v of the unpadded keys
     rows = B * H * T * 4                        # one of lse, delta
-    bias = H * T * T * itemsize if with_bias else 0
+    bias = H * bias_pairs * itemsize if with_bias else 0
     small = B * T * 4 + B * 4                   # pad, seeds
     dbias = H * T * T * 4 if with_bias else 0   # one fp32 [H, T, T]
+    fixed = 2 * kv + bias + small               # every kernel reads these
     work = {  # kernel: (flops per unpadded pair / D, bytes)
-        "flash_fwd": (4, 4 * act + bias + small + rows),
-        "flash_fwd_bf16": (4, 4 * act + bias + small + rows),
-        "flash_dkdv": (8, 6 * act + bias + small + 2 * rows),
-        "flash_dq": (6, 5 * act + bias + small + 2 * rows),
-        "flash_dbias": (4, 4 * act + bias + small + 2 * rows + dbias),
-        "flash_bwd_dkdv": (8, 6 * act + bias + small + 2 * rows),
-        "flash_bwd_dq": (6, 5 * act + bias + small + 2 * rows + dbias),
-        "backward": (10, 7 * act + bias + small + 2 * rows + dbias),
+        "flash_fwd": (4, 2 * act + fixed + rows),
+        "flash_fwd_bf16": (4, 2 * act + fixed + rows),
+        "flash_dkdv": (8, 4 * act + fixed + 2 * rows),
+        "flash_dq": (6, 3 * act + fixed + 2 * rows),
+        "flash_dbias": (4, 2 * act + fixed + 2 * rows + dbias),
+        "flash_bwd_dkdv": (8, 4 * act + fixed + 2 * rows),
+        "flash_bwd_dq": (6, 3 * act + fixed + 2 * rows + dbias),
+        "backward": (10, 5 * act + fixed + 2 * rows + dbias),
     }
     for name in TRAIN_FLASH:  # the fp16 kernels do the bf16 ones' work
         work[name.replace("_bf16", "") + "_fp16"] = work[name]
@@ -695,7 +743,7 @@ def sdpa_yardsticks(sdpa, sdpa_fwd_bwd, operands, flush, iters):
     return out
 
 
-def flash_case(flush, dtype, shape, with_bias, rng, iters):
+def flash_case(flush, dtype, shape, with_bias, rng, iters, causal=False):
     """The flash kernels of one call vs their plain versions on the same
     tensors — in bf16 and fp16 the plain versions round p, p_drop and dS
     as the kernels do: the forward (out within 1e-4 in fp32, and within
@@ -706,7 +754,10 @@ def flash_case(flush, dtype, shape, with_bias, rng, iters):
     times (``torch.profiler``) beside their bounds, the plain versions'
     and SDPA's (same bias + pad mask and dropout rate, its
     memory-efficient backend; a yardstick the port never calls).
-    ``iters``: kernel, plain and SDPA timing iterations."""
+    ``iters``: kernel, plain and SDPA timing iterations.  ``causal``: the
+    LM's call, the causal mask folded into SDPA's too, and with a bias
+    the kernels' dbias exactly 0 above the diagonal (the dq kernel's
+    partials of the key tiles it skips are written 0)."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -717,7 +768,7 @@ def flash_case(flush, dtype, shape, with_bias, rng, iters):
                                                           with_bias)
     geom = fa.geometry(T, T, bias)
     scale = D ** -0.5
-    args = (pad, FLASH_P, seed, False, scale, geom)
+    args = (pad, FLASH_P, seed, causal, scale, geom)
 
     def kernel_fwd():
         return fa.flash_fwd_cuda(q, k, v, bias, *args)
@@ -749,6 +800,12 @@ def flash_case(flush, dtype, shape, with_bias, rng, iters):
         if a is not None and not torch.equal(a, b):
             raise AssertionError(f"{dtype} {shape}: two backward calls "
                                  f"differ in {what}")
+    if causal and with_bias:  # the dq kernel writes skipped tiles' 0s
+        above = torch.ones(T, T, dtype=torch.bool, device="cuda").triu(1)
+        nonzero = int((got[3][:, above] != 0).sum())
+        if nonzero:
+            raise AssertionError(f"{dtype} {shape}: {nonzero} dbias "
+                                 "elements above the diagonal are not 0")
     fp32 = dtype == torch.float32
     errs = {}
     for what, g, w in zip(("out", "lse", "dq", "dk", "dv", "dbias"),
@@ -782,6 +839,9 @@ def flash_case(flush, dtype, shape, with_bias, rng, iters):
     mask = torch.where(pad[:, None, None, :] > 0, -1e30, 0.0).to(dtype)
     if with_bias:
         mask = bias + mask
+    if causal:
+        mask = mask + torch.full((T, T), -1e30, device=mask.device).triu(
+            1).to(dtype)
 
     def sdpa():
         return F.scaled_dot_product_attention(
@@ -791,7 +851,7 @@ def flash_case(flush, dtype, shape, with_bias, rng, iters):
         torch.autograd.grad(sdpa(), (qh, kh, vh), dout.transpose(1, 2))
 
     groups = None if fp32 else fa.pick_groups(B, T, H, D, with_bias)
-    bounds = flash_bounds(npad, q.element_size(), shape, with_bias)
+    bounds = flash_bounds(npad, q.element_size(), shape, with_bias, causal)
     with sdpa_kernel(getattr(SDPBackend, SDPA_BACKEND)):
         sdpa_ms = {"sdpa_fwd_ms": time_ms(sdpa, flush, iters=sdpa_iters),
                    "sdpa_fwd_bwd_ms": time_ms(sdpa_fwd_bwd, flush,
@@ -801,6 +861,7 @@ def flash_case(flush, dtype, shape, with_bias, rng, iters):
     report = {
         "dtype": str(dtype).replace("torch.", ""),
         "shape": {"B": B, "H": H, "T": T, "D": D, "bias": with_bias},
+        "causal": causal,
         "reference_blocks": list(geom), "dq_groups": groups,
         "max_abs_err": errs, "fwd_bit_identical": True,
         "bwd_bit_identical": True,
@@ -822,6 +883,8 @@ def flash_case(flush, dtype, shape, with_bias, rng, iters):
         "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
         "padded_keys": int(npad.sum()),
     }
+    if causal and with_bias:
+        report["dbias_above_diagonal_nonzero"] = 0
     del q, k, v, bias, dout, out_p, lse_p, got, again, want, mask
     torch.cuda.empty_cache()
     return report
@@ -937,6 +1000,94 @@ def flash_multiblock_phase(flush):
                                                  iters=5)
             emit("flash_multiblock", case=name + suffix, **report)
             reports[name + suffix] = report
+    return reports
+
+
+# (name, operand type, with the [1, H, T, T] rel-pos bias, timing iters):
+# the LM's causal call at transformer_lm_base's shape — bf16 with the
+# rel-pos bias and without one (rotary), fp16 and fp32 once each
+CAUSAL_CASES = (("bf16_bias", torch.bfloat16, True, (10, 5, 10)),
+                ("bf16_nobias", torch.bfloat16, False, (10, 5, 10)),
+                ("fp16_bias", torch.float16, True, (5, 3, 5)),
+                ("fp32_bias", torch.float32, True, (5, 3, 5)))
+KEEP_PER_DIM = 4  # keys whose keep bits one output element carries
+
+
+def causal_keep_bits(dtype, shape, with_bias, seed_rng):
+    """The forward kernel's keep bits read back exactly, under causal
+    and the case's tail padding and per-row seeds: with q = k = 0 (and a
+    zero bias of the case's type) every admitted key scores 0, so p = 1
+    there and the output is the kept keys' v summed, scaled by the
+    rounded 1 / keep_prob and divided by the admitted count.  v holds
+    2^j for key 4 d + j of a window of 4 D keys in dim d, so each output
+    element is an integer 0-15 that spells four keys' bits; T / (4 D)
+    windows cover every key.  Returns the count of admitted (query, key)
+    pairs read and of those whose bit differs from the plain version's
+    mask (the reference's draw); a key the causal or padding mask
+    excludes must read 0."""
+    from unicore_tpu_torch.ops import flash_attention as fa
+
+    B, H, T, D = shape
+    _, _, _, bias, pad, seed, _, npad = flash_operands(
+        np.random.default_rng(seed_rng), dtype, shape, with_bias)
+    zero = torch.zeros((B, T, H, D), dtype=dtype, device="cuda")
+    bias0 = None if bias is None else torch.zeros_like(bias)
+    geom = fa.geometry(T, T, bias0)
+    keep_prob = 1.0 - FLASH_P
+    inv = torch.tensor(1.0 / keep_prob, dtype=torch.float32)
+    rate = float(inv if dtype == torch.float32 else inv.to(dtype))
+    live = torch.from_numpy(T - npad).cuda()
+    rows = torch.arange(T, device="cuda")
+    admitted_n = torch.minimum(rows[None, :] + 1, live[:, None])  # [B, T]
+    width = KEEP_PER_DIM * D
+    bits = torch.zeros((B, H, T, T), dtype=torch.bool, device="cuda")
+    worst = 0.0
+    for w in range(T // width):
+        keys = torch.arange(width, device="cuda")
+        v = torch.zeros((B, T, H, D), dtype=torch.float32, device="cuda")
+        v[:, w * width + keys, :, keys // KEEP_PER_DIM] = (
+            2.0 ** (keys % KEEP_PER_DIM)).float()[:, None, None]
+        out, _ = fa.flash_fwd_cuda(zero, zero, v.to(dtype), bias0, pad,
+                                   FLASH_P, seed, True, D ** -0.5, geom)
+        counts = out.float() * admitted_n[:, :, None, None] / rate
+        near = counts.round()
+        worst = max(worst, float((counts - near).abs().max()))
+        near = near.to(torch.int64).permute(0, 2, 1, 3)      # [B, H, T, D]
+        for j in range(KEEP_PER_DIM):
+            bits[..., w * width + j:(w + 1) * width:KEEP_PER_DIM] = (
+                (near >> j) & 1).bool()
+    if worst > 0.25:
+        raise AssertionError(f"{dtype}: keep-bit read-back off an integer "
+                             f"by {worst}")
+    cols = torch.arange(T, device="cuda")
+    admitted = ((cols[None, None, :] <= rows[None, :, None])
+                & (cols[None, None, :] < live[:, None, None]))[:, None]
+    want = fa.keep_mask(seed, H, T, T, geom, keep_prob) & admitted
+    return {"pairs_read": int(admitted.sum()) * H,
+            "bits_differ": int((bits != want).sum()),
+            "excluded_read_nonzero": int((bits & ~admitted).sum())}
+
+
+def flash_causal_phase(flush):
+    """Rows 3 and 8's kernels on the LM's causal call at
+    transformer_lm_base's shape (B 16, H 12, T 512, D 64, 0-200 padded
+    keys a row, dropout 0.1): each case held against the plain version
+    as ``flash_case`` holds it, its forward's keep bits read back exactly
+    (``causal_keep_bits``), the dbias above the diagonal exactly 0 (the
+    dq kernel's partials of the key tiles it skips are written 0), times
+    beside the causal bound and SDPA with the same mask folded in;
+    returns {case: report}."""
+    shape = (FLASH_B, FLASH_H, FLASH_T, FLASH_D)
+    reports = {}
+    for name, dtype, with_bias, iters in CAUSAL_CASES:
+        report = flash_case(flush, dtype, shape, with_bias,
+                            np.random.default_rng(4096), iters, causal=True)
+        keep = causal_keep_bits(dtype, shape, with_bias, 4096)
+        if keep["bits_differ"] or keep["excluded_read_nonzero"]:
+            raise AssertionError(f"{name}: keep bits {keep}")
+        report["keep_bits"] = keep
+        emit("flash_causal", case=name, card=card(), **report)
+        reports[name] = report
     return reports
 
 
@@ -1448,26 +1599,14 @@ def head_phase(flush):
     return report
 
 
-def write_corpus(path, rng):
+def write_corpus(path):
     """dict.txt whose dictionary, with the task's five specials, has
     30,522 entries, and 2,048 train records of 128-510 tokens drawn from
-    a Zipf(1.1) law over the words (plus 64 valid records)."""
-    from unicore_tpu_torch.data import IndexedRecordWriter
+    a Zipf(1.1) law over the words (plus 64 valid records): the LM's
+    ``make_data`` at seed 2048."""
+    from unicore_tpu_torch.examples.lm import make_data
 
-    n_words = 30522 - 5
-    words = [f"w{i}" for i in range(n_words)]
-    with open(os.path.join(path, "dict.txt"), "w") as f:
-        f.writelines(f"{w} {n_words - i}\n" for i, w in enumerate(words))
-    p = np.arange(1, n_words + 1, dtype=np.float64) ** -1.1
-    p /= p.sum()
-    for split, n in (("train", 2048), ("valid", 64)):
-        lengths = rng.integers(128, 511, size=n)
-        ids = rng.choice(n_words, size=int(lengths.sum()), p=p)
-        with IndexedRecordWriter(os.path.join(path, f"{split}.rec")) as w:
-            start = 0
-            for n_tok in lengths:
-                w.write([words[i] for i in ids[start:start + n_tok]])
-                start += n_tok
+    make_data.write_corpus(path, words=30522 - 5, seed=2048)
 
 
 def bert_args(corpus, logdir, updates, precision=("--bf16",)):
@@ -1544,7 +1683,7 @@ def train_phase():
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        write_corpus(tmp, np.random.default_rng(2048))
+        write_corpus(tmp)
         corpus_s = time.perf_counter() - t0
         logdir = os.path.join(tmp, "log")
         step_s = []
@@ -1665,7 +1804,7 @@ def checkpoint_phase():
         write_s.append(time.perf_counter() - t0)
 
     with tempfile.TemporaryDirectory() as tmp:
-        write_corpus(tmp, np.random.default_rng(2048))
+        write_corpus(tmp)
         a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
         restore = os.path.join(a, f"checkpoint_1_{CKPT_EVERY}.pt")
         Trainer.train_step, Trainer.load_checkpoint = step, load
@@ -1827,7 +1966,7 @@ def train_fp16_phase(bf16):
         return out
 
     with tempfile.TemporaryDirectory() as tmp:
-        write_corpus(tmp, np.random.default_rng(2048))
+        write_corpus(tmp)
         save = os.path.join(tmp, "a")
         logdir = os.path.join(tmp, "log_a")
         Trainer.train_step, Trainer.load_checkpoint = step, load
@@ -1929,6 +2068,296 @@ def train_fp16_phase(bf16):
     emit("train_fp16_profile", window="3 updates, batch 16 x 512, fp16",
          **prof, bf16={k: bf16[k] for k in keys[5:]})
     return launches
+
+
+LM_UPDATES, LM_SAVE_AT, LM_SERVE_UPDATES = 20, 10, 10
+LM_RECORDS = 512  # 20 updates of 16 take 320: one epoch, no wrap
+
+
+def lm_args(corpus, logdir, updates, *extra):
+    """The command line of the lm_train and lm_serve_checkpoint phases:
+    full-width transformer_lm_base under --bf16 (Adam, clip 1.0, lr 5e-4
+    on ``fixed``, dropout 0.1, batch 16 x 512) on the corpus
+    ``make_data`` wrote."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return [
+        corpus, "--user-dir",
+        os.path.join(here, "unicore_tpu_torch", "examples", "lm"),
+        "--task", "lm", "--loss", "lm_cross_entropy", "--arch",
+        "transformer_lm_base", "--optimizer", "adam", "--adam-betas",
+        "(0.9, 0.98)", "--adam-eps", "1e-6", "--clip-norm", "1.0",
+        "--lr-scheduler", "fixed", "--lr", "5e-4", "--dropout", "0.1",
+        "--batch-size", str(TRAIN_BATCH), "--update-freq", "1", "--seed",
+        "1", "--bf16", "--max-update", str(updates), "--log-interval", "1",
+        "--log-format", "none", "--tensorboard-logdir", logdir,
+        "--disable-validation", "--num-workers", "0", *extra]
+
+
+def lm_corpus(path):
+    """The BERT phase's synthetic Zipf(1.1) corpus law (128-510 tokens a
+    record, 30,518 words: vocabulary 30,522 with the four specials),
+    written by the LM's ``make_data``; returns its seconds."""
+    from unicore_tpu_torch.examples.lm import make_data
+
+    t0 = time.perf_counter()
+    make_data.write_corpus(path, train=LM_RECORDS, valid=8, seed=2048)
+    return time.perf_counter() - t0
+
+
+def lm_train_phase():
+    """The port's CLI trains full-width transformer_lm_base (rel-pos
+    bias and learned positions, the reference's defaults) under --bf16:
+    run A takes 20 updates saving at 10; run B, a fresh trainer, restores
+    the update-10 file and runs to 20.  Raises unless the first loss lies
+    in 9-11.5 nats and the last 5 average below it, every update of both
+    runs launches the three bf16 flash kernels once a layer each (36) and
+    no other flash kernel, and B's losses and final params equal A's bit
+    for bit.  Reports the step median, tokens/s, peak memory and a
+    profiled window of 3 more updates; returns the launch counts of run
+    A and its report.  tokens/s counts the unpadded target tokens (the
+    loss's sample_size) of the warm steps over their summed time."""
+    from unicore_tpu_torch import trainer as trainer_mod
+    from unicore_tpu_torch.cli.train import cli_main
+    from unicore_tpu_torch.ops import flash_attention as fa
+    from unicore_tpu_torch.ops import softmax_dropout as sd
+
+    Trainer = trainer_mod.Trainer
+    train_step = Trainer.train_step
+    runs = []
+
+    def step(self, samples):
+        before = dict(fa.launches)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = train_step(self, samples)
+        torch.cuda.synchronize()
+        runs[-1].append({
+            "s": time.perf_counter() - t,
+            "nats": float(out[0]["loss"]) / float(out[0]["sample_size"]),
+            # the unpadded target tokens of the update
+            "tokens": float(out[0]["sample_size"]),
+            "launches": {k: fa.launches[k] - before[k] for k in before}})
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus_s = lm_corpus(tmp)
+        a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        restore = os.path.join(a, f"checkpoint_1_{LM_SAVE_AT}.pt")
+        for counts in (fa.launches, sd.plain_route):
+            for name in counts:
+                counts[name] = 0
+        Trainer.train_step = step
+        start_gb = reset_peak_memory()
+        try:
+            runs.append([])
+            t0 = time.perf_counter()
+            run_a = cli_main(lm_args(
+                tmp, os.path.join(tmp, "log_a"), LM_UPDATES,
+                "--save-interval-updates", str(LM_SAVE_AT), "--save-dir", a,
+                "--tmp-save-dir", a, "--no-last-checkpoints"))
+            run_s = time.perf_counter() - t0
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            launches = dict(fa.launches)
+            runs.append([])
+            run_b = cli_main(lm_args(
+                tmp, os.path.join(tmp, "log_b"), LM_UPDATES,
+                "--restore-file", restore, "--save-dir", b, "--no-save"))
+        finally:
+            Trainer.train_step = train_step
+        if any(sd.plain_route.values()):
+            raise AssertionError(f"softmax_dropout took the plain route: "
+                                 f"{sd.plain_route}")
+        model = run_a.trainer.model
+        layers = model.decoder_layers
+        if model.decoder.relative_attention_bias is None \
+                or model.embed_positions is None:
+            raise AssertionError("transformer_lm_base without --rotary "
+                                 "lacks rel-pos or learned positions")
+        per_update = {n: layers if n in TRAIN_FLASH else 0
+                      for n in fa.launches}
+        for run in runs:
+            for u, r in enumerate(run):
+                if r["launches"] != per_update:
+                    raise AssertionError(
+                        f"update {u + 1}: flash launches {r['launches']}, "
+                        f"want {per_update}")
+        nats = [r["nats"] for r in runs[0]]
+        resumed = [r["nats"] for r in runs[1]]
+        if len(nats) != LM_UPDATES or not np.isfinite(nats).all():
+            raise AssertionError(f"losses {nats}")
+        if not 9.0 <= nats[0] <= 11.5:
+            raise AssertionError(f"first loss {nats[0]} nats not in 9-11.5")
+        if not np.mean(nats[-5:]) < nats[0]:
+            raise AssertionError(f"loss did not fall: {nats}")
+        if resumed != nats[LM_SAVE_AT:]:
+            raise AssertionError(f"resumed losses {resumed} differ from "
+                                 f"run A's {nats[LM_SAVE_AT:]}")
+        with torch.no_grad():
+            params_equal = all(torch.equal(p, q) for p, q in zip(
+                run_a.trainer.model.parameters(),
+                run_b.trainer.model.parameters()))
+        if not params_equal:
+            raise AssertionError("run B's params at update 20 differ from "
+                                 "run A's")
+        warm = np.array([r["s"] for r in runs[0][2:]])
+        med_s = float(np.median(warm))
+        tokens = sum(r["tokens"] for r in runs[0][2:])
+        report = {"step_ms_median": med_s * 1e3,
+                  "samples_per_s": TRAIN_BATCH / med_s,
+                  # unpadded target tokens over the same steps' time
+                  "tokens_per_s": tokens / float(warm.sum()),
+                  "tokens_per_update": tokens / len(warm),
+                  # every slot of the 16 x 512 batch, padding included
+                  "padded_slots_per_s": TRAIN_BATCH * FLASH_T / med_s,
+                  "peak_mem_gb": peak_gb, "mem_at_start_gb": start_gb}
+        emit("lm_train", model="transformer_lm_base", dtype="bf16",
+             batch=TRAIN_BATCH, seq_len=FLASH_T, updates=LM_UPDATES,
+             corpus_records=LM_RECORDS, corpus_s=corpus_s, run_s=run_s,
+             losses_nats=nats, resumed_from=LM_SAVE_AT,
+             resumed_losses_bit_equal=True, params_bit_equal=params_equal,
+             flash_launches_per_update=per_update, launches=launches,
+             step_ms_all=[r["s"] * 1e3 for r in runs[0]], card=card(),
+             **report)
+        prof = profile_updates(run_a.trainer, named=TRAIN_FLASH)
+        emit("lm_train_profile", window="3 updates, batch 16 x 512, bf16",
+             **prof)
+    return {"launches": launches, **report,
+            **{k: v for k, v in prof.items() if k != "top_kernels"}}
+
+
+def lm_serve_checkpoint_phase():
+    """10 ``--rotary True`` updates of the lm_train phase's model and
+    flags, saved without the optimizer state; ``python -m
+    unicore_tpu_torch.serve --checkpoint`` on that file serves 8 prompts
+    of 16-200 corpus tokens greedily (16 new tokens each), in process on
+    the card, and each stream equals ``solo_greedy`` of the loaded model
+    (a divergence passes only at a top-2 logit gap below 1e-4, an fp32
+    tie, and is reported).  Then the update-10 file of a rel-pos run
+    (2 updates) is refused with the JAX decoder's message."""
+    from unicore_tpu_torch.cli.train import cli_main
+    from unicore_tpu_torch.deploy import load_serve_model
+    from unicore_tpu_torch.examples.lm.model import solo_greedy
+    from unicore_tpu_torch.modules.transformer_decoder import (
+        DECODE_REL_POS_REFUSAL)
+    from unicore_tpu_torch.ops import flash_attention as fa
+    from unicore_tpu_torch.ops import paged_attention as pa
+    from unicore_tpu_torch.serve.cli import main as serve_main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        lm_corpus(tmp)
+        save, relpos = os.path.join(tmp, "rotary"), os.path.join(tmp, "rp")
+        for name in fa.launches:
+            fa.launches[name] = 0
+        t0 = time.perf_counter()
+        run = cli_main(lm_args(
+            tmp, os.path.join(tmp, "log"), LM_SERVE_UPDATES, "--rotary",
+            "True", "--save-dir", save, "--tmp-save-dir", save,
+            "--no-save-optimizer-state"))
+        train_s = time.perf_counter() - t0
+        train_launches = dict(fa.launches)
+        layers = run.trainer.model.decoder_layers
+        want = {n: layers * LM_SERVE_UPDATES if n in TRAIN_FLASH else 0
+                for n in train_launches}
+        if train_launches != want:
+            raise AssertionError(f"rotary run flash launches "
+                                 f"{train_launches}, want {want}")
+        if run.trainer.model.embed_positions is not None or \
+                run.trainer.model.decoder.relative_attention_bias is not None:
+            raise AssertionError("--rotary True kept another position "
+                                 "scheme")
+        path = os.path.join(save, "checkpoint_last.pt")
+        dict_path = os.path.join(tmp, "dict.txt")
+        rng = np.random.default_rng(515)
+        prompts = [rng.integers(4, 30522, size=int(n)).tolist()
+                   for n in rng.integers(16, 201, size=8)]
+        prompt_file = os.path.join(tmp, "prompts.txt")
+        with open(prompt_file, "w") as f:
+            f.writelines(" ".join(map(str, p)) + "\n" for p in prompts)
+        out = os.path.join(tmp, "serve.json")
+        pa.ragged_paged_attention.launches = 0
+        t0 = time.perf_counter()
+        serve_main(["--checkpoint", path, "--dict", dict_path, "--prompts",
+                    prompt_file, "--max-new-tokens", "16", "--num-pages",
+                    str(NUM_PAGES), "--page-size", str(PAGE_SIZE),
+                    "--max-batch", "8", "--device", "cuda", "--json", out])
+        serve_s = time.perf_counter() - t0
+        with open(out) as f:
+            served = json.load(f)
+        if not served["pool_clean"] or \
+                not served["device"].startswith("cuda"):
+            raise AssertionError(f"serve report {served['device']}, pool "
+                                 f"clean {served['pool_clean']}")
+        model = load_serve_model(path, dict_path).cuda()
+        checks = []
+        for res, prompt in zip(served["results"], prompts):
+            if res["prompt"] != prompt:
+                raise AssertionError(f"{res['request_id']}: prompt differs")
+            solo, margins = solo_greedy(model, prompt, 16)
+            got = res["tokens"]
+            diverge = next((i for i, (x, y) in enumerate(zip(solo, got))
+                            if x != y), None)
+            if diverge is None and len(solo) != len(got):
+                raise AssertionError(f"{res['request_id']}: lengths differ")
+            if diverge is not None and margins[diverge] >= 1e-4:
+                raise AssertionError(
+                    f"{res['request_id']}: served and solo decode diverge "
+                    f"at step {diverge} (margin {margins[diverge]})")
+            checks.append({"prompt_len": len(prompt), "tokens": len(got),
+                           "equal": diverge is None, "tie_at": diverge,
+                           "min_margin": float(min(margins))})
+        # the oracle runs the port's kernels; hold it once to the plain
+        # versions: the shortest prompt and its served stream in one
+        # forward on the CPU, where every wrapper runs its plain version
+        short = min(range(len(prompts)), key=lambda i: len(prompts[i]))
+        stream = served["results"][short]["tokens"]
+        toks = torch.tensor([prompts[short] + stream])
+        with torch.no_grad():
+            card_logits = model(toks.cuda())[0].float().cpu()
+            plain_logits = load_serve_model(path, dict_path)(toks)[0].float()
+        picked = plain_logits[len(prompts[short]) - 1:-1]
+        oracle_err = float((card_logits - plain_logits).abs().max())
+        oracle_tol = 1e-3 * float(plain_logits.abs().max())
+        top2 = torch.topk(picked, 2).values
+        gaps = (top2[:, 0] - top2[:, 1]).tolist()
+        # a token may differ only where the plain top-2 gap lies within
+        # twice the card's distance from plain
+        greedy = picked.argmax(-1).tolist()
+        differ = [i for i, (x, y) in enumerate(zip(greedy, stream))
+                  if x != y and gaps[i] >= 2 * oracle_err]
+        if oracle_err > oracle_tol or differ:
+            raise AssertionError(
+                f"card forward vs plain: logits {oracle_err} (tol "
+                f"{oracle_tol}), served tokens off plain's greedy at "
+                f"{differ}")
+        oracle = {"prompt_len": len(prompts[short]), "tokens": len(stream),
+                  "logits_max_abs_err": oracle_err, "tol": oracle_tol,
+                  "min_gap": float(min(gaps))}
+        del model
+        # a rel-pos file: the reference's defaults, 2 updates
+        cli_main(lm_args(tmp, os.path.join(tmp, "log_rp"), 2, "--save-dir",
+                         relpos, "--tmp-save-dir", relpos,
+                         "--no-save-optimizer-state"))
+        try:  # the refusal is the expected outcome, raised as SystemExit
+            serve_main(["--checkpoint",
+                        os.path.join(relpos, "checkpoint_last.pt"),
+                        "--dict", dict_path, "--prompts", prompt_file,
+                        "--device", "cuda", "--json", out])
+        except SystemExit as e:
+            refusal = str(e)
+        else:
+            raise AssertionError("a rel-pos checkpoint was served")
+        if refusal != DECODE_REL_POS_REFUSAL:
+            raise AssertionError(f"rel-pos refusal {refusal!r}")
+        file_bytes = os.path.getsize(path)
+        del run
+    return {"model": "transformer_lm_base", "rotary": True,
+            "updates": LM_SERVE_UPDATES, "train_s": train_s,
+            "flash_launches": train_launches, "card": card(),
+            "file_bytes": file_bytes, "requests": len(served["results"]),
+            "serve_s": serve_s, "paged_launches":
+                pa.ragged_paged_attention.launches,
+            "stats": served["stats"], "solo_checks": checks,
+            "oracle_vs_plain": oracle, "relpos_refusal": refusal}
 
 
 EVO_UPDATES, EVO_S, EVO_R = 10, 128, 256
@@ -2591,7 +3020,8 @@ def flash_row(row, name, replaces, case, launches):
 
 def kernels_line(cases, serve_launches, flash, multiblock, train_launches,
                  sd, sr, evo_launches, fp16_launches, mol_launches,
-                 unifold_launches, ema_report):
+                 unifold_launches, ema_report, causal, lm_launches,
+                 rotary_launches):
     """One row per TPU kernel of the table in PERF.md (rows 1-11); a row
     realized by two CUDA kernels (4, 8) has one entry for each, and the
     flash rows (2-8) and the softmax_dropout rows (9-10) one for each of
@@ -2601,7 +3031,10 @@ def kernels_line(cases, serve_launches, flash, multiblock, train_launches,
     Evoformer's bf16 path or Uni-Mol's fp16 one.  Rows 9-11 in bf16 also
     give their launches on Uni-Fold's recipe (evoformer_unifold).  Last,
     the EMA kernel, which no ``pallas_call`` stands behind (row null): the
-    JAX trainer's EMA is XLA code in its jitted step."""
+    JAX trainer's EMA is XLA code in its jitted step.  Rows 3 and 8 have
+    a second bf16 entry each for the LM's causal call (flash_causal's
+    bf16 case with the rel-pos bias; its launches from lm_train, the
+    rotary run's beside them, and every causal case's times)."""
     decode = cases["decode"]
     rows = [{
         "row": 1, "name": "ragged_paged_attention", "route": "cuda",
@@ -2641,6 +3074,29 @@ def kernels_line(cases, serve_launches, flash, multiblock, train_launches,
                                  "bound_ms": fp32[n]["bound_ms"]}
                              for n in keep}
         rows.append(entry)
+    # the LM's causal call: causal at :142 (forward) and :199 (backward)
+    lead = causal["bf16_bias"]
+    for row, name, replaces in (
+            (3, "flash_fwd_bf16", "flash_attention.py:142"),
+            (8, "flash_bwd_dkdv", "flash_attention.py:199"),
+            (8, "flash_bwd_dq", "flash_attention.py:199")):
+        entry = flash_row(row, name, replaces, lead, lm_launches[name])
+        entry["causal"] = True
+        entry["launches_by_phase"] = {
+            "lm_train": lm_launches[name],
+            "lm_serve_checkpoint (rotary)": rotary_launches[name]}
+        rows.append(entry)
+    # every causal case's kernels, once, on the forward's row
+    rows[-3]["causal_cases"] = {
+        case: {"dtype": r["dtype"], "bias": r["shape"]["bias"],
+               "kernels": r["kernels"], "plain_fwd_ms": r["plain_fwd_ms"],
+               "plain_bwd_ms": r["plain_bwd_ms"],
+               "bwd_kernels_ms": r["bwd_kernels_ms"],
+               "bwd_bound_ms": r["bwd_bound_ms"],
+               "sdpa_fwd_ms": r["sdpa_fwd_ms"],
+               "sdpa_fwd_bwd_ms": r["sdpa_fwd_bwd_ms"],
+               "max_abs_err": r["max_abs_err"]}
+        for case, r in causal.items()}
     # the fp16 kernels at the same shapes, on the --fp16 path
     fp16 = {id(hb): flash["float16"],
             id(joint): multiblock["t1024_nobias_fp16"],
@@ -2743,6 +3199,7 @@ def main():
     del model
     torch.cuda.empty_cache()
     flash = flash_phase(flush)
+    causal = flash_causal_phase(flush)
     multiblock = flash_multiblock_phase(flush)
     emit("head", **head_phase(flush))
     sd = softmax_dropout_phase(flush)
@@ -2763,10 +3220,16 @@ def main():
     unifold_launches = evoformer_unifold_phase()
     torch.cuda.empty_cache()
     mol_launches = mol_train_fp16_phase()
+    torch.cuda.empty_cache()
+    lm = lm_train_phase()
+    torch.cuda.empty_cache()
+    lm_serve = lm_serve_checkpoint_phase()
+    emit("lm_serve_checkpoint", **lm_serve)
     rows = kernels_line(cases, launches, flash, multiblock,
                         train["launches"], sd, sr, evo_launches,
                         fp16_launches, mol_launches, unifold_launches,
-                        ema_report)
+                        ema_report, causal, lm["launches"],
+                        lm_serve["flash_launches"])
     print(json.dumps({"kernels": rows}), flush=True)
     print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -137,6 +137,10 @@ CASES = {
     "bias_row_drop": (4, 16, "row", None, False, 0.1),
     "causal_drop": (2, 32, None, None, True, 0.1),
     "causal_bias_pad": (2, 16, "full", "tail", True, 0.0),
+    # the LM's training call: causal, a [1, H, T, T] rel-pos bias, tail
+    # padding and dropout; and a bias shared by the heads
+    "causal_bias_pad_drop": (2, 32, "full", "tail", True, 0.1),
+    "causal_bias_heads1": (3, 16, "heads1", "tail", True, 0.1),
 }
 
 
@@ -187,6 +191,29 @@ def test_plain_matches_jax_flash_causal_padded_rows(pad_kind):
                                    err_msg=gname)
 
 
+@pytest.mark.parametrize("T,bias_itemsize", [(128, 4), (512, 2)])
+def test_causal_keep_bits_equal_jax(T, bias_itemsize):
+    """The keep mask of the LM's causal call (one reference block at
+    T = 128 and at the LM's T = 512 with a bf16 bias) equals the JAX
+    package's counter-hash mask bit for bit: block (b, h) draws under
+    seed[b] + h, causal or not."""
+    import jax.numpy as jnp
+
+    from unicore_tpu.ops.pallas import prng as jprng
+
+    heads = 3
+    seed = torch.tensor([7, -1640531527, 2 ** 31 - 1], dtype=torch.int32)
+    geom = fa.pick_blocks(T, T, bias_itemsize)
+    assert geom == (T, T)
+    mask = fa.keep_mask(seed, heads, T, T, geom, 0.9)
+    for b in range(3):
+        for h in range(heads):
+            # the kernels add in uint32, wrapping
+            block_seed = jnp.uint32((int(seed[b]) + h) % 2 ** 32)
+            want = np.asarray(jprng.keep_mask(block_seed, (T, T), 0.9))
+            np.testing.assert_array_equal(mask[b, h].numpy(), want)
+
+
 def test_multiblock_mask_geometry_matches_jax(monkeypatch):
     """T = 256 with both packages' block pick pinned to (128, 128): the
     dropout seeds run over a 2 x 2 block grid, (h·n_i + i)·n_j + j, and the
@@ -227,7 +254,7 @@ def _rounding_case(name, monkeypatch):
 
 @pytest.mark.parametrize("name,dtype", _by_dtype(
     ["bias_full_pad_drop", "bias_heads1_pad_drop", "causal_drop",
-     "multiblock"], ("bfloat16", "float16")))
+     "causal_bias_pad_drop", "multiblock"], ("bfloat16", "float16")))
 def test_plain_bf16_rounds_where_the_reference_rounds(name, dtype,
                                                       monkeypatch):
     """bf16 and fp16 operands: the plain backward rounds p_drop and dS to
@@ -498,6 +525,10 @@ CARD_CASES = {
                             True),
     "causal_head_pad": (3, 256, 2, 32, "full", "head", True, 0.0, True),
     "row_bias_packed": (5, 256, 2, 64, "row", "tail", False, 0.1, True),
+    "causal_bias_pad_drop": (3, 256, 2, 32, "full", "tail", True, 0.1,
+                             True),
+    "causal_bias_heads1": (3, 256, 3, 16, "heads1", "tail", True, 0.1,
+                           False),
 }
 
 
@@ -595,6 +626,39 @@ def test_bf16_forward_is_bit_identical_on_card(cuda, name, dtype):
                                 None if pad is None else pad.cpu(), p,
                                 seed.cpu(), causal, D ** -0.5, geom)
     torch.testing.assert_close(first[1].cpu(), lse, rtol=0, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_causal_dbias_is_zero_above_the_diagonal_on_card(cuda, dtype,
+                                                         packed,
+                                                         monkeypatch):
+    """Causal with a bias and tail padding: the backward's dbias is
+    exactly 0 above the diagonal, where the reference's is, in the key
+    tiles the dq kernel skips too: each group's partial of a skipped tile
+    is written as 0, not left unwritten."""
+    if packed:
+        monkeypatch.setattr(fa, "SMS", 1)
+    B, T, H, D = 5, 256, 2, 32
+    q, k, v, w, bias, pad, seed = make_case(np.random.RandomState(17), B, T,
+                                            H, D, "full", "tail")
+    dt = getattr(torch, dtype)
+    dev = lambda x: torch.from_numpy(x).to(cuda)  # noqa: E731
+    q, k, v, w, bias = (dev(x).to(dt) for x in (q, k, v, w, bias))
+    pad, seed = dev(pad), dev(seed)
+    geom = fa.geometry(T, T, bias)
+    args = (pad, 0.1, seed, True, D ** -0.5, geom)
+    out, lse = fa.flash_fwd_cuda(q, k, v, bias, *args)
+    delta = (w.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    for _ in range(2):  # the second call reuses the first's freed blocks
+        dbias = fa.flash_bwd_cuda(q, k, v, bias, *args, lse, delta, w,
+                                  True)[3]
+    torch.cuda.synchronize()
+    above = torch.ones(T, T, dtype=torch.bool, device=cuda).triu(1)
+    assert torch.isfinite(dbias).all()
+    assert int((dbias[:, above] != 0).sum()) == 0
+    assert float(dbias[:, ~above].abs().max()) > 0
 
 
 @pytest.mark.gpu

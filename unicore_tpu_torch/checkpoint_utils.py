@@ -48,6 +48,11 @@ class CheckpointIntegrityError(RuntimeError):
     the previous intact checkpoint."""
 
 
+class ShardedCheckpointError(NotImplementedError):
+    """A sharded JAX checkpoint (its leaves in ``.shard<p>`` files): the
+    port restores none (ROADMAP.md A8/A13)."""
+
+
 class CheckpointFormatError(ValueError):
     """An intact file this package cannot read: torch's zip format, or a
     pickle that refers to the JAX package's own classes."""
@@ -229,7 +234,7 @@ class _Unpickler(pickle.Unpickler):
     def find_class(self, module, name):
         if _JAX_PACKAGE.fullmatch(module):
             if name == "ShardedLeaf":
-                raise NotImplementedError(
+                raise ShardedCheckpointError(
                     "sharded checkpoint (its leaves live in .shard<p> "
                     "files): sharded restore is not ported to the PyTorch "
                     "trainer yet (ROADMAP.md A8/A13)")

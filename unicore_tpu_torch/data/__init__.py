@@ -1,5 +1,5 @@
 """Data pipeline of the port (numpy only): the part of
-``unicore_tpu/data`` the BERT task reaches, copied with its imports
+``unicore_tpu/data`` the tasks reach, copied with its imports
 rewritten.  The record store's file format is the JAX package's, so the
 two packages read each other's corpora.
 """
@@ -16,6 +16,7 @@ from .indexed_dataset import (  # noqa
     best_record_dataset,
 )
 from .mask_tokens_dataset import MaskTokensDataset  # noqa
+from .misc_datasets import LRUCacheDataset, NumelDataset, NumSamplesDataset  # noqa
 from .nested_dictionary_dataset import NestedDictionaryDataset  # noqa
 from .pad_dataset import (  # noqa
     LeftPadDataset,

@@ -5,7 +5,10 @@
 a ``TransformerLMModel`` flax param tree (nested dict of arrays) into the
 port's ``state_dict`` under the reference torch names, so the same weights
 run in both packages.  :func:`flax_from_state_dict` goes the other way,
-to exactly the tree, paths and shapes ``arch_flax_params`` gives.
+to exactly the tree, paths and shapes ``arch_flax_params`` gives.  Every
+position scheme and layout maps: learned positions (``embed_positions``),
+the decoder's relative-position table, and post-LN (no decoder
+``final_layer_norm``).
 
 The two rule engines every plugin's converter shares live here:
 :func:`apply_rules` (flax -> port) and :func:`apply_inverse_rules`
@@ -52,8 +55,11 @@ def linear_kernel(weight, heads):
 _RULES = [
     # (flax path regex, torch name template, transform)
     (r"embed_tokens/embedding", "embed_tokens.weight", None),
+    (r"embed_positions", "embed_positions.weight", None),
     (r"decoder/(emb_layer_norm|final_layer_norm)/(weight|bias)",
      "decoder.{0}.{1}", None),
+    (r"decoder/relative_attention_bias/weight",
+     "decoder.relative_attention_bias.weight", None),
     (r"decoder/layers_(\d+)/self_attn/in_proj/kernel",
      "decoder.layers.{0}.self_attn.in_proj.weight", _qkv_weight),
     (r"decoder/layers_(\d+)/self_attn/in_proj/bias",
@@ -73,8 +79,11 @@ _L = r"decoder\.layers\.(\d+)"
 _INVERSE_RULES = [
     # (port name regex, flax path template, transform(value, heads))
     (r"embed_tokens\.weight", "embed_tokens/embedding", None),
+    (r"embed_positions\.weight", "embed_positions", None),
     (r"decoder\.(emb_layer_norm|final_layer_norm)\.(weight|bias)",
      "decoder/{0}/{1}", None),
+    (r"decoder\.relative_attention_bias\.weight",
+     "decoder/relative_attention_bias/weight", None),
     (_L + r"\.self_attn\.in_proj\.weight",
      "decoder/layers_{0}/self_attn/in_proj/kernel", qkv_kernel),
     (_L + r"\.self_attn\.in_proj\.bias",

@@ -11,4 +11,4 @@ def build_loss(args, task):
     return build_loss_(args, task)
 
 
-from . import masked_lm  # noqa: E402,F401  (registers "masked_lm")
+from . import cross_entropy, masked_lm  # noqa: E402,F401  (registers them)

@@ -1,20 +1,20 @@
 """Self multi-head attention (counterpart of ``SelfMultiheadAttention``
 in ``unicore_tpu/modules/multihead_attention.py``).
 
-Three paths:
+Two paths:
 
-- the training path (``causal=False``): key padding mask and additive
+- the full forward (no ``paged``): key padding mask, additive
   ``attn_bias`` (batch-broadcast ``[1, H|1, T|1, T]``, or the reference's
-  ``[B*H, T, T]``), attention dropout drawn from ``generator``.  Shapes
-  that :func:`~unicore_tpu_torch.ops.flash_attention.eligible` admits
-  take flash (the CUDA kernels on the card, their plain version on the
+  ``[B*H, T, T]``), ``causal`` masking, attention dropout drawn from
+  ``generator``.  Shapes that :func:`~unicore_tpu_torch.ops.
+  flash_attention.eligible` admits take flash, causal as a flag to the
+  kernels (the CUDA kernels on the card, their plain version on the
   CPU); others take the materialized path as the JAX package does: the
-  key padding added to the scores, then
-  :func:`~unicore_tpu_torch.ops.softmax_dropout.softmax_dropout` with the
-  bias (its kernel on the card, its plain version on the CPU);
-- the plain causal full forward (``causal=True``, no ``paged``): einsum
-  + fp32 softmax over the whole sequence — the decoder's oracle, which
-  the serve engine is held against;
+  key padding added to the scores, the causal iota mask folded into the
+  bias, then :func:`~unicore_tpu_torch.ops.softmax_dropout.
+  softmax_dropout` with that bias (its kernel on the card, its plain
+  version on the CPU).  The decoder's causal full forward is also the
+  serve engine's oracle;
 - the paged decode path (``paged`` given): this step's k/v are written
   into the layer's pool pages at ``paged.slot_mapping`` (in place), then
   each row attends the pages its table names through
@@ -58,8 +58,10 @@ def _padding_bias(key_padding_mask):
 
 
 def _attend(q, k, v, scaling, dropout, key_padding_mask, bias, training,
-            generator):
-    """Core non-causal attention, q/k/v [B, T, H, D] -> [B, T, H, D]."""
+            generator, causal=False):
+    """Core attention, q/k/v [B, T, H, D] -> [B, T, H, D]: the JAX
+    ``_attend``'s dispatch without its sequence-parallel and segment
+    paths."""
     bias4 = bias
     if bias4 is not None and bias4.dim() < 4:
         bias4 = bias4.reshape((1,) * (4 - bias4.dim()) + tuple(bias4.shape))
@@ -68,13 +70,18 @@ def _attend(q, k, v, scaling, dropout, key_padding_mask, bias, training,
     if eligible(qs, ks, None if bias4 is None else tuple(bias4.shape)):
         return flash_attention(
             q, k, v, bias=bias4, key_padding_mask=key_padding_mask,
-            dropout_prob=dropout, generator=generator, is_training=training,
-            scale=scaling)
+            causal=causal, dropout_prob=dropout, generator=generator,
+            is_training=training, scale=scaling)
     # jax rounds the Python scalar to q's dtype before the product
     s = torch.einsum("bqhd,bkhd->bhqk",
                      q * rounded_constant(scaling, q.dtype), k)
     if key_padding_mask is not None:
         s = s + _padding_bias(key_padding_mask).to(q.dtype)
+    if causal:
+        # fp32 -1e30 fill, as the reference's _causal_bias: a bias of x's
+        # type promotes to fp32 with it
+        cb = causal_iota_mask(q.shape[1], k.shape[1], device=q.device)
+        bias = cb[None, None] if bias is None else bias + cb
     probs = softmax_dropout(s, dropout, is_training=training, bias=bias,
                             generator=generator)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
@@ -121,24 +128,12 @@ class SelfMultiheadAttention(nn.Module):
                     "positions of the current tokens) and kv= (this "
                     "layer's pools)")
             o = self._paged_attend(q, k, v, paged, positions, kv)
-        elif causal:
-            o = self._causal_attend(q, k, v, key_padding_mask)
         else:
             o = _attend(q, k, v, self.scaling, self.dropout,
                         key_padding_mask,
                         _canon_bias(attn_bias, bsz, self.num_heads),
-                        self.training, generator)
+                        self.training, generator, causal=causal)
         return self.out_proj(o.reshape(bsz, tgt_len, self.embed_dim))
-
-    def _causal_attend(self, q, k, v, key_padding_mask):
-        s = torch.einsum("bqhd,bkhd->bhqk",
-                         q * rounded_constant(self.scaling, q.dtype), k)
-        if key_padding_mask is not None:
-            s = s.masked_fill(key_padding_mask.bool()[:, None, None, :],
-                              float("-inf"))
-        s = s + causal_iota_mask(q.shape[1], k.shape[1], device=q.device)
-        p = torch.softmax(s.float(), dim=-1).to(q.dtype)
-        return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
     def _paged_attend(self, q, k, v, paged, positions, kv):
         k_pages, v_pages = kv

@@ -1,6 +1,6 @@
 """Command-line options of the port's trainer (the subset of
-``unicore_tpu/options.py`` the BERT and Evoformer paths read, with the
-same names and defaults, plus ``--device``).
+``unicore_tpu/options.py`` the BERT, LM, Evoformer and Uni-Mol paths
+read, with the same names and defaults, plus ``--device``).
 
 Flags of the JAX trainer that this slice does not port still parse, so
 that a reference command line reaches :func:`~unicore_tpu_torch.trainer.
@@ -12,7 +12,7 @@ import argparse
 import ast
 
 from .registry import REGISTRIES, set_defaults
-from .utils import import_user_module
+from .utils import arg_bool, import_user_module
 
 
 def _str_list(x, cast):
@@ -131,7 +131,9 @@ def get_training_parser(input_args=None):
                    choices=["sr", "nearest"],
                    help="rounding of the bf16 moment store: stochastic "
                         "(unbiased, the default) or round-to-nearest")
-    g.add_argument("--checkpoint-activations", action="store_true")
+    # the LM's form (bare flag or explicit True/False); refused when on
+    g.add_argument("--checkpoint-activations", type=arg_bool, nargs="?",
+                   const=True, default=False)
 
     add_checkpoint_args(p)
     return p

@@ -2,11 +2,20 @@
 the port's continuous-batching engine (counterpart of the solo path of
 ``unicore_tpu/serve/cli.py``).
 
-``--demo`` serves a tiny model with seeded random weights on random
-prompts of mixed lengths — the zero-setup smoke path.  ``--checkpoint``
-and ``--fleet`` are not ported yet and exit saying so.  ``--device``
-picks the device (default ``cuda``; without a card the run fails rather
-than falling back to the CPU).
+Two sources of model + prompts:
+
+- ``--checkpoint ckpt.pt --dict dict.txt --prompts FILE`` serves a
+  trained ``transformer_lm`` checkpoint of either package (the model
+  rebuilt from the file's ``args``, its fp32 master params:
+  :func:`~unicore_tpu_torch.deploy.load_serve_model`); one request per
+  line of ``FILE``, whitespace-separated token ids;
+- ``--demo`` serves a tiny model with seeded random weights on random
+  prompts of mixed lengths — the zero-setup smoke path.
+
+Decoding is greedy: ``--temperature > 0`` (ROADMAP.md A9), ``--fleet``
+and ``--step-timeout`` (A12) are not ported and exit saying so.
+``--device`` picks the device (default ``cuda``; without a card the run
+fails rather than falling back to the CPU).
 
 Output: one JSON object (``--json FILE`` or stdout) with per-request
 generated ids, finish reasons, TTFT, and the engine's aggregate stats.
@@ -27,6 +36,8 @@ from .scheduler import DEFAULT_REQUEST_RETRIES, Request
 logger = logging.getLogger("unicore_tpu_torch.serve.cli")
 
 NOT_PORTED = "is not ported to unicore_tpu_torch yet"
+# flag -> the ROADMAP.md item that ports it
+ITEMS = {"--fleet": "A12", "--step-timeout": "A12", "--temperature": "A9"}
 
 
 def make_parser():
@@ -36,7 +47,9 @@ def make_parser():
                     "continuous-batching engine (PyTorch/CUDA port)",
     )
     src = p.add_argument_group("model source")
-    src.add_argument("--checkpoint", help=f"framework checkpoint ({NOT_PORTED})")
+    src.add_argument("--checkpoint", help="framework checkpoint (.pt)")
+    src.add_argument("--dict", dest="dict_path",
+                     help="dict.txt the model was trained with")
     src.add_argument("--demo", action="store_true",
                      help="tiny random model + random prompts (smoke)")
     src.add_argument("--device", default="cuda",
@@ -95,6 +108,17 @@ def _demo_model(seed, device):
     )
 
 
+def _checkpoint_model(path, dict_path):
+    """The checkpoint's model (CPU, fp32; the engine moves it to its
+    device); a file serving cannot use exits with the reason."""
+    from ..deploy import DeployError, load_serve_model
+
+    try:
+        return load_serve_model(path, dict_path)
+    except (DeployError, NotImplementedError) as e:
+        raise SystemExit(str(e)) from e
+
+
 def _demo_requests(args, vocab, rng):
     lo, hi = (int(x) for x in args.prompt_len_range.split(","))
     reqs = []
@@ -133,25 +157,34 @@ def main(argv=None):
         level="INFO", stream=sys.stderr,
     )
     args = make_parser().parse_args(argv)
-    for flag, used in (("--checkpoint", args.checkpoint),
-                       ("--fleet", args.fleet),
+    for flag, used in (("--fleet", args.fleet),
                        ("--step-timeout", args.step_timeout > 0),
                        ("--temperature", args.temperature > 0)):
         if used:
-            raise SystemExit(f"{flag} {NOT_PORTED}")
-    if not args.demo:
-        raise SystemExit("need --demo (--checkpoint " + NOT_PORTED + ")")
+            raise SystemExit(f"{flag} {NOT_PORTED} (ROADMAP.md "
+                             f"{ITEMS[flag]})")
+    if not args.demo and not args.checkpoint:
+        raise SystemExit("need --checkpoint (with --dict) or --demo")
 
-    model = _demo_model(args.seed, args.device)
-    rng = np.random.default_rng(args.seed)
-    requests = (_file_requests(args, args.prompts) if args.prompts
-                else _demo_requests(args, model.vocab_size, rng))
+    if args.demo:
+        model = _demo_model(args.seed, args.device)
+        rng = np.random.default_rng(args.seed)
+        requests = (_file_requests(args, args.prompts) if args.prompts
+                    else _demo_requests(args, model.vocab_size, rng))
+    else:
+        if not args.dict_path:
+            raise SystemExit("--checkpoint needs --dict")
+        if not args.prompts:
+            raise SystemExit("--checkpoint needs --prompts")
+        model = _checkpoint_model(args.checkpoint, args.dict_path)
+        requests = _file_requests(args, args.prompts)
     for req in requests:
         bad = [t for t in req.prompt if not 0 <= t < model.vocab_size]
         if bad:
             raise SystemExit(
                 f"{req.request_id}: prompt ids {bad[:5]} outside the "
-                f"model's vocab [0, {model.vocab_size})"
+                f"model's vocab [0, {model.vocab_size}) — wrong "
+                "dictionary for this checkpoint?"
             )
 
     # SIGTERM/SIGINT -> graceful drain: admission closes at the next

@@ -110,6 +110,21 @@ def causal_iota_mask(tq, tk, neg=-1e30, device=None):
         cols > rows + (tk - tq), neg)
 
 
+def arg_bool(x):
+    """Strict boolean argparse type (the JAX package's ``arg_bool``):
+    unknown text raises instead of falling back."""
+    import argparse
+
+    if isinstance(x, bool):
+        return x
+    s = str(x).strip().lower()
+    if s in ("true", "t", "yes", "y", "1"):
+        return True
+    if s in ("false", "f", "no", "n", "0"):
+        return False
+    raise argparse.ArgumentTypeError(f"expected a boolean, got {x!r}")
+
+
 def eval_bool(x, default=False):
     """Parse a boolean-ish CLI value by text matching (never ``eval``):
     ``"false"``/``"False"``/``"0"`` all mean False; unknown text falls
