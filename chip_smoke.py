@@ -204,6 +204,24 @@ code is non-zero:
    max, plain's greedy tokens the served ones but at a top-2 gap within
    twice that distance); a 2-update rel-pos file refused with the JAX
    decoder's message.
+   lm_optim_fp16 — the same model under ``--fp16`` (initial loss scale
+   128), 10 updates a run, saving at 5, once per optimizer and
+   schedule: (a) Adam on ``fixed``, (b) SGD, momentum 0.9, weight decay
+   0.01, on ``cosine`` with warmup, (c) Adagrad on ``inverse_sqrt`` with
+   warmup, (d) Adadelta on ``tri_stage --phase-ratio "(0.2, 0.3,
+   0.5)"``, (e) SGD on ``triangular``; a fresh trainer resumes (a)-(d)
+   from update 5.  Then ``reduce_lr_on_plateau`` at 2 layers over 5
+   epochs of 32 records with validation (``--lr-threshold 0.5``).  Every
+   loss finite, run a's first in 9-11.5 nats and the last 5 below it,
+   every applied update moving the params (leaves moved reported), every
+   dispatch 12 + 12 + 12 fp16 flash launches (2 a kernel at 2 layers)
+   and no other flash kernel, softmax_dropout's plain route never, the
+   lr of each update and the lr logged after it the port's scheduler on
+   the host for that update count (replayed through the epoch ends for
+   reduce_lr_on_plateau, whose lr shrinks), each resumed run's losses
+   and final params bit-equal.  Per run: losses, loss_scale sequence,
+   step median, tokens/s, peak memory, and one optimizer step's launches
+   and device time.
 16. the ``kernels`` line (rows 1-11 of the TPU kernel table, rows 2-10
    once for the bf16 kernels and once for the fp16 ones, the flash rows'
    launches from the train and train_fp16 phases, the softmax_dropout
@@ -211,7 +229,8 @@ code is non-zero:
    9-11 with evoformer_unifold's beside them; the backward rows carry
    the row's whole backward time beside the bound of the backward as one
    function; rows 3 and 8 again for the LM's causal call, launches
-   from lm_train; last the EMA kernel, which replaces no
+   from lm_train, and the fp16 rows 3 and 8 with lm_optim_fp16's causal
+   launches beside train_fp16's; last the EMA kernel, which replaces no
    ``pallas_call``),
    the card's name and power limit, and the closing ``{"ok": true, ...}``
    line.
@@ -2074,23 +2093,30 @@ LM_UPDATES, LM_SAVE_AT, LM_SERVE_UPDATES = 20, 10, 10
 LM_RECORDS = 512  # 20 updates of 16 take 320: one epoch, no wrap
 
 
-def lm_args(corpus, logdir, updates, *extra):
-    """The command line of the lm_train and lm_serve_checkpoint phases:
-    full-width transformer_lm_base under --bf16 (Adam, clip 1.0, lr 5e-4
-    on ``fixed``, dropout 0.1, batch 16 x 512) on the corpus
+# the optimizer and schedule of the lm_train phase
+LM_ADAM = ("--optimizer", "adam", "--adam-betas", "(0.9, 0.98)",
+           "--adam-eps", "1e-6", "--lr-scheduler", "fixed", "--lr", "5e-4")
+
+
+def lm_args(corpus, logdir, updates, *extra, precision="--bf16",
+            optim=LM_ADAM, validate=False):
+    """The command line of the LM phases: full-width transformer_lm_base
+    under ``precision`` (clip 1.0, dropout 0.1, batch 16 x 512; Adam with
+    lr 5e-4 on ``fixed`` unless ``optim`` names another optimizer and
+    schedule), validation off unless ``validate``, on the corpus
     ``make_data`` wrote."""
     here = os.path.dirname(os.path.abspath(__file__))
     return [
         corpus, "--user-dir",
         os.path.join(here, "unicore_tpu_torch", "examples", "lm"),
         "--task", "lm", "--loss", "lm_cross_entropy", "--arch",
-        "transformer_lm_base", "--optimizer", "adam", "--adam-betas",
-        "(0.9, 0.98)", "--adam-eps", "1e-6", "--clip-norm", "1.0",
-        "--lr-scheduler", "fixed", "--lr", "5e-4", "--dropout", "0.1",
-        "--batch-size", str(TRAIN_BATCH), "--update-freq", "1", "--seed",
-        "1", "--bf16", "--max-update", str(updates), "--log-interval", "1",
-        "--log-format", "none", "--tensorboard-logdir", logdir,
-        "--disable-validation", "--num-workers", "0", *extra]
+        "transformer_lm_base", *optim, "--clip-norm", "1.0", "--dropout",
+        "0.1", "--batch-size", str(TRAIN_BATCH), "--update-freq", "1",
+        "--seed", "1", precision, "--max-update", str(updates),
+        "--log-interval", "1", "--log-format", "none",
+        "--tensorboard-logdir", logdir,
+        *(() if validate else ("--disable-validation",)),
+        "--num-workers", "0", *extra]
 
 
 def lm_corpus(path):
@@ -2361,6 +2387,345 @@ def lm_serve_checkpoint_phase():
 
 
 EVO_UPDATES, EVO_S, EVO_R = 10, 128, 256
+
+
+LM_OPTIM_UPDATES, LM_OPTIM_SAVE_AT = 10, 5
+# run: (optimizer and schedule flags, whether a fresh trainer resumes its
+# midpoint file); every optimizer of the port and five schedules
+LM_OPTIM_RUNS = {
+    "a_adam_fixed": (LM_ADAM, True),
+    "b_sgd_cosine": (("--optimizer", "sgd", "--momentum", "0.9",
+                      "--weight-decay", "0.01", "--lr-scheduler", "cosine",
+                      "--lr", "0.05", "--warmup-updates", "3",
+                      "--warmup-init-lr", "0.005"), True),
+    "c_adagrad_inverse_sqrt": (("--optimizer", "adagrad", "--lr-scheduler",
+                                "inverse_sqrt", "--lr", "3e-3",
+                                "--warmup-updates", "3", "--warmup-init-lr",
+                                "3e-4"), True),
+    "d_adadelta_tri_stage": (("--optimizer", "adadelta", "--lr-scheduler",
+                              "tri_stage", "--lr", "1.0", "--phase-ratio",
+                              "(0.2, 0.3, 0.5)"), True),
+    "e_sgd_triangular": (("--optimizer", "sgd", "--lr-scheduler",
+                          "triangular", "--lr", "0.01", "--max-lr", "0.05",
+                          "--lr-period-updates", "6"), False),
+}
+# reduce_lr_on_plateau needs valid losses: 2 layers, 32 train records (2
+# updates an epoch) and 16 valid ones, 5 epochs; a valid loss counts as
+# better only 50% below the best, so the lr shrinks at every later epoch
+# end
+LM_PLATEAU_LR = 0.05
+LM_PLATEAU = ("--optimizer", "sgd", "--momentum", "0.9", "--lr-scheduler",
+              "reduce_lr_on_plateau", "--lr", str(LM_PLATEAU_LR),
+              "--warmup-updates", "1", "--warmup-init-lr", "0.01",
+              "--lr-threshold", "0.5", "--lr-patience", "0")
+LM_PLATEAU_EPOCHS, LM_PLATEAU_LAYERS = 5, 2
+
+
+def host_scheduler(argv):
+    """The port's scheduler, built on the host from a run's command line
+    over a stand-in optimizer: the schedule the logged lr must equal."""
+    from unicore_tpu_torch import options
+    from unicore_tpu_torch.optim.lr_scheduler import build_lr_scheduler
+
+    class Opt:
+        lr = None
+
+        def set_lr(self, lr):
+            self.lr = lr
+
+        def get_lr(self):
+            return self.lr
+
+    args = options.parse_args_and_arch(options.get_training_parser(argv),
+                                       argv)
+    return build_lr_scheduler(args, Opt(), args.max_update or None)
+
+
+OPT_PROFILE_SPINS = 32
+
+
+def optimizer_step_profile(trainer):
+    """Kernel launches and device ms of one ``optimizer.step()`` on the
+    trainer's current gradients (``torch.profiler``); it moves the
+    params."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # in a process that profiled before, the first kernels of a window
+        # can go unrecorded (15 of them in one full smoke run): spin kernels
+        # open the window, and only the step's kernels are counted
+        for _ in range(OPT_PROFILE_SPINS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        trainer.optimizer.step()
+        torch.cuda.synchronize()
+    cuda = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in cuda if "spin_kernel" not in e.key]
+    return {"launches": sum(e.count for e in kernels),
+            "device_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+            "spins_recorded": sum(e.count for e in cuda) - sum(
+                e.count for e in kernels),
+            "optimizer": type(trainer.optimizer).__name__,
+            "leaves": len(trainer.optimizer.params)}
+
+
+def lm_optim_fp16_phase():
+    """The port's CLI trains full-width transformer_lm_base under --fp16
+    (initial loss scale 128, clip 1.0, dropout 0.1, batch 16 x 512) once
+    per optimizer and schedule of ``LM_OPTIM_RUNS``, 10 updates each,
+    saving at update 5; a fresh trainer resumes each optimizer's update-5
+    file to update 10.  Then ``reduce_lr_on_plateau`` at 2 layers over 5
+    epochs of a 32-record corpus with validation.  Raises unless every
+    loss is finite; run a's first loss lies in 9-11.5 nats and its last 5
+    average below it; every applied update moves the params and a
+    skipped one leaves them; every dispatch launches the three fp16 flash
+    kernels once a layer each and no other flash kernel; softmax_dropout
+    never takes its plain route; the lr each update used and the lr
+    logged after it equal the port's scheduler evaluated on the host for
+    that update count (replayed through the epoch ends and valid losses
+    for reduce_lr_on_plateau, whose lr must shrink); each resumed run's
+    losses and final params equal its first run's bit for bit.  Reports
+    per run the losses, loss_scale sequence, step median, tokens/s, peak
+    memory and one optimizer step's launches and device time; returns run
+    a's flash launch counts."""
+    from unicore_tpu_torch import trainer as trainer_mod
+    from unicore_tpu_torch.cli.train import cli_main
+    from unicore_tpu_torch.examples.lm import make_data
+    from unicore_tpu_torch.ops import flash_attention as fa
+    from unicore_tpu_torch.ops import softmax_dropout as sd
+
+    Trainer = trainer_mod.Trainer
+    real = {"step": Trainer.train_step, "lr_step": Trainer.lr_step}
+    events = []  # the current run's updates and epoch ends, in order
+
+    def fingerprint(params):
+        """Per leaf, the sum of its fp32 bit patterns: any change to a
+        leaf moves it."""
+        return torch.stack([p.detach().view(torch.int32).sum(
+            dtype=torch.int64) for p in params]).cpu()
+
+    def step(self, samples):
+        params = self._master_params()
+        before = fingerprint(params)
+        counts = dict(fa.launches)
+        n = self.get_num_updates()
+        # the update's own lr: train_step asks the scheduler the same
+        lr_used = self.lr_scheduler.step_update(n)
+        scale = float(self.scaler["scale"])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real["step"](self, samples)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        applied = self.get_num_updates() == n + 1
+        moved = fingerprint(params) != before
+        graded = torch.stack([
+            p.grad.ne(0).any() if p.grad is not None
+            else torch.zeros((), dtype=torch.bool, device=p.device)
+            for p in params]).cpu()
+        events.append({
+            "kind": "update", "s": dt, "updates_before": n,
+            "applied": applied, "lr_used": lr_used, "scale": scale,
+            "nats": float(out[0]["loss"]) / float(out[0]["sample_size"]),
+            "tokens": float(out[0]["sample_size"]),
+            # an applied update moves the params (a leaf whose every
+            # change is below half an ulp may stay), a skipped one none
+            "moved_ok": bool(moved.any()) == applied,
+            "leaves_moved": int(moved.sum()),
+            "leaves_with_grad": int(graded.sum()),
+            "launches": {k: fa.launches[k] - counts[k] for k in counts}})
+        return out
+
+    def lr_step(self, epoch, val_loss=None):
+        events.append({"kind": "epoch_end", "epoch": epoch,
+                       "val_loss": val_loss,
+                       "updates": self.get_num_updates()})
+        return real["lr_step"](self, epoch, val_loss)
+
+    def logged(logdir):
+        with open(os.path.join(logdir, "train_inner.jsonl")) as f:
+            return [json.loads(line) for line in f]
+
+    def check_run(name, trainer, run, records, sched):
+        """The per-update checks of one run against the host scheduler
+        ``sched`` (already at the run's first update count)."""
+        layers = trainer.model.decoder_layers
+        per_update = {n: layers if n in TRAIN_FLASH_FP16 else 0
+                      for n in fa.launches}
+        host = {}
+        for ev in run:
+            if ev["kind"] == "epoch_end":  # the next update's lr is held
+                sched.step(ev["epoch"], ev["val_loss"])
+                sched.step_update(ev["updates"])
+                continue
+            n = ev["updates_before"]
+            want = sched.step_update(n)
+            if ev["lr_used"] != want:
+                raise AssertionError(f"{name}: update {n + 1} ran at lr "
+                                     f"{ev['lr_used']}, the host's {want}")
+            if ev["applied"]:
+                host[n + 1] = sched.step_update(n + 1)
+            if ev["launches"] != per_update:
+                raise AssertionError(f"{name}: update {n + 1} flash launches "
+                                     f"{ev['launches']}, want {per_update}")
+            if not ev["moved_ok"]:
+                raise AssertionError(f"{name}: update {n + 1} (applied "
+                                     f"{ev['applied']}) moved "
+                                     f"{ev['leaves_moved']} leaves wrongly")
+            if not np.isfinite(ev["nats"]):
+                raise AssertionError(f"{name}: loss {ev['nats']}")
+        lrs = [(r["step"], r["lr"]) for r in records
+               if r.get("lr") is not None]
+        for n, lr in lrs:
+            if n in host and lr != host[n]:
+                raise AssertionError(f"{name}: logged lr {lr} at update "
+                                     f"{n}, the host's {host[n]}")
+        if not lrs or any(n not in host for n, _ in lrs):
+            raise AssertionError(f"{name}: logged lr steps {lrs}, host "
+                                 f"{sorted(host)}")
+        return lrs
+
+    def summary(run, records, peak_gb):
+        ups = [e for e in run if e["kind"] == "update"]
+        warm = [e for e in ups[2:] if e["applied"]]
+        med_s = float(np.median([e["s"] for e in warm]))
+        return {
+            "losses_nats": [e["nats"] for e in ups],
+            "leaves_moved": [e["leaves_moved"] for e in ups],
+            "leaves_with_grad": [e["leaves_with_grad"] for e in ups],
+            "skipped": [i + 1 for i, e in enumerate(ups) if not e["applied"]],
+            "loss_scale_per_step": [r.get("loss_scale") for r in records],
+            "lr_per_update": [e["lr_used"] for e in ups],
+            "step_ms_median": med_s * 1e3,
+            "step_ms_all": [e["s"] * 1e3 for e in ups],
+            "tokens_per_s": (sum(e["tokens"] for e in warm)
+                             / sum(e["s"] for e in warm)),
+            "samples_per_s": TRAIN_BATCH / med_s, "peak_mem_gb": peak_gb}
+
+    argv_of = {}
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        lm_corpus(tmp)
+        for counts in (fa.launches, sd.plain_route):
+            for k in counts:
+                counts[k] = 0
+        Trainer.train_step, Trainer.lr_step = step, lr_step
+        try:
+            for name, (optim, resumed) in LM_OPTIM_RUNS.items():
+                a = os.path.join(tmp, name, "a")
+                argv_of[name] = lm_args(
+                    tmp, os.path.join(tmp, name, "log_a"), LM_OPTIM_UPDATES,
+                    "--save-interval-updates", str(LM_OPTIM_SAVE_AT),
+                    "--save-dir", a, "--tmp-save-dir", a,
+                    "--no-last-checkpoints", precision="--fp16", optim=optim)
+                events.clear()
+                reset_peak_memory()
+                run_a = cli_main(argv_of[name])
+                peak_gb = torch.cuda.max_memory_allocated() / 1e9
+                if name == "a_adam_fixed":
+                    launches = dict(fa.launches)
+                first = list(events)
+                records = logged(os.path.join(tmp, name, "log_a"))
+                sched = host_scheduler(argv_of[name])
+                lrs = check_run(name, run_a.trainer, first, records, sched)
+                out = summary(first, records, peak_gb)
+                out["logged_lr"] = lrs
+                if resumed:
+                    events.clear()
+                    restore = os.path.join(
+                        a, f"checkpoint_1_{LM_OPTIM_SAVE_AT}.pt")
+                    argv_b = lm_args(
+                        tmp, os.path.join(tmp, name, "log_b"),
+                        LM_OPTIM_UPDATES, "--restore-file", restore,
+                        "--save-dir", os.path.join(tmp, name, "b"),
+                        "--no-save", precision="--fp16", optim=optim)
+                    run_b = cli_main(argv_b)
+                    second = list(events)
+                    sched = host_scheduler(argv_b)
+                    sched.step_update(LM_OPTIM_SAVE_AT)
+                    check_run(name + " resumed", run_b.trainer, second,
+                              logged(os.path.join(tmp, name, "log_b")),
+                              sched)
+                    # a dispatch skipped at update 5 saves the file again
+                    # (the update count still hits the interval), so B
+                    # starts after A's last dispatch at update 5
+                    want = [e["nats"] for e in first
+                            if e["kind"] == "update"
+                            and e["updates_before"] >= LM_OPTIM_SAVE_AT]
+                    got = [e["nats"] for e in second
+                           if e["kind"] == "update"]
+                    if (len(got) < LM_OPTIM_UPDATES - LM_OPTIM_SAVE_AT
+                            or got != want[len(want) - len(got):]):
+                        raise AssertionError(f"{name}: resumed losses {got} "
+                                             f"differ from run A's {want}")
+                    with torch.no_grad():
+                        same = all(torch.equal(p, q) for p, q in zip(
+                            run_a.trainer.model.parameters(),
+                            run_b.trainer.model.parameters()))
+                    if not same:
+                        raise AssertionError(f"{name}: resumed params at "
+                                             "update 10 differ")
+                    out["resumed_bit_equal"] = True
+                    del run_b
+                out["optimizer_step"] = optimizer_step_profile(run_a.trainer)
+                report[name] = out
+                emit("lm_optim_fp16", run=name, model="transformer_lm_base",
+                     dtype="fp16", batch=TRAIN_BATCH, seq_len=FLASH_T,
+                     updates=LM_OPTIM_UPDATES, argv=argv_of[name][5:],
+                     card=card(), **out)
+                del run_a
+                gc.collect()
+                torch.cuda.empty_cache()
+            nats = report["a_adam_fixed"]["losses_nats"]
+            if not 9.0 <= nats[0] <= 11.5:
+                raise AssertionError(f"run a's first loss {nats[0]} nats "
+                                     "not in 9-11.5")
+            if not np.mean(nats[-5:]) < nats[0]:
+                raise AssertionError(f"run a's loss did not fall: {nats}")
+            # reduce_lr_on_plateau: a short corpus, validation, 4 epochs
+            plateau = os.path.join(tmp, "plateau")
+            make_data.write_corpus(plateau, train=32, valid=16, seed=2049)
+            argv = lm_args(
+                plateau, os.path.join(plateau, "log"), 0, "--max-epoch",
+                str(LM_PLATEAU_EPOCHS), "--decoder-layers",
+                str(LM_PLATEAU_LAYERS), "--save-dir", plateau, "--no-save",
+                precision="--fp16", optim=LM_PLATEAU, validate=True)
+            events.clear()
+            reset_peak_memory()
+            run_p = cli_main(argv)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            run = list(events)
+        finally:
+            Trainer.train_step, Trainer.lr_step = real["step"], \
+                real["lr_step"]
+        records = logged(os.path.join(plateau, "log"))
+        lrs = check_run("plateau", run_p.trainer, run, records,
+                        host_scheduler(argv))
+        ends = [e for e in run if e["kind"] == "epoch_end"]
+        after = [lr for n, lr in lrs if n > ends[0]["updates"]]
+        if not after or min(after) >= LM_PLATEAU_LR:
+            raise AssertionError(f"reduce_lr_on_plateau never shrank the "
+                                 f"lr: {lrs}")
+        out = summary(run, records, peak_gb)
+        out.update(logged_lr=lrs, epoch_ends=ends,
+                   layers=LM_PLATEAU_LAYERS, epochs=LM_PLATEAU_EPOCHS,
+                   shrunk_to=min(after))
+        report["plateau"] = out
+        emit("lm_optim_fp16_plateau", model="transformer_lm_base",
+             dtype="fp16", argv=argv[5:], card=card(), **out)
+    if any(sd.plain_route.values()):
+        raise AssertionError(f"softmax_dropout took the plain route: "
+                             f"{sd.plain_route}")
+    emit("lm_optim_fp16_summary", card=card(), runs={
+        name: {k: r[k] for k in ("step_ms_median", "tokens_per_s",
+                                 "peak_mem_gb", "loss_scale_per_step")}
+        | ({"optimizer_step": r["optimizer_step"]}
+           if "optimizer_step" in r else {})
+        for name, r in report.items()})
+    return launches
 
 
 def evoformer_train_phase():
@@ -3021,7 +3386,7 @@ def flash_row(row, name, replaces, case, launches):
 def kernels_line(cases, serve_launches, flash, multiblock, train_launches,
                  sd, sr, evo_launches, fp16_launches, mol_launches,
                  unifold_launches, ema_report, causal, lm_launches,
-                 rotary_launches):
+                 rotary_launches, lm_fp16_launches):
     """One row per TPU kernel of the table in PERF.md (rows 1-11); a row
     realized by two CUDA kernels (4, 8) has one entry for each, and the
     flash rows (2-8) and the softmax_dropout rows (9-10) one for each of
@@ -3034,7 +3399,9 @@ def kernels_line(cases, serve_launches, flash, multiblock, train_launches,
     JAX trainer's EMA is XLA code in its jitted step.  Rows 3 and 8 have
     a second bf16 entry each for the LM's causal call (flash_causal's
     bf16 case with the rel-pos bias; its launches from lm_train, the
-    rotary run's beside them, and every causal case's times)."""
+    rotary run's beside them, and every causal case's times).  The fp16
+    rows 3 and 8 also give their causal launches inside the LM's --fp16
+    step (lm_optim_fp16, run a)."""
     decode = cases["decode"]
     rows = [{
         "row": 1, "name": "ragged_paged_attention", "route": "cuda",
@@ -3103,8 +3470,13 @@ def kernels_line(cases, serve_launches, flash, multiblock, train_launches,
             id(two_pass): multiblock["t2048_bias_fp16"]}
     for row, name, replaces, case in table:
         name16 = name.replace("_bf16", "") + "_fp16"
-        rows.append(flash_row(row, name16, replaces, fp16[id(case)],
-                              fp16_launches[name16]))
+        entry = flash_row(row, name16, replaces, fp16[id(case)],
+                          fp16_launches[name16])
+        if case is hb:  # the LM's causal call runs them in its fp16 step
+            entry["launches_by_phase"] = {
+                "train_fp16": fp16_launches[name16],
+                "lm_optim_fp16 (run a, causal)": lm_fp16_launches[name16]}
+        rows.append(entry)
     # softmax_dropout: bf16 on the Evoformer's path, led by its triangle
     # attention (the largest); fp16 on Uni-Mol's, at its scores' shape
     by_type = {dt: r for dt, r in sd.items() if dt != "turns"}
@@ -3225,11 +3597,13 @@ def main():
     torch.cuda.empty_cache()
     lm_serve = lm_serve_checkpoint_phase()
     emit("lm_serve_checkpoint", **lm_serve)
+    torch.cuda.empty_cache()
+    lm_fp16_launches = lm_optim_fp16_phase()
     rows = kernels_line(cases, launches, flash, multiblock,
                         train["launches"], sd, sr, evo_launches,
                         fp16_launches, mol_launches, unifold_launches,
                         ema_report, causal, lm["launches"],
-                        lm_serve["flash_launches"])
+                        lm_serve["flash_launches"], lm_fp16_launches)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -237,7 +237,11 @@ def test_flax_tree_is_the_reference_tree(arch):
 
 # ------------------------------------------------------------ schedules --
 
-SCHEDULERS = ["exponential_decay", "fixed", "polynomial_decay"]
+# every scheduler of the registry but pass_through, which no optimizer
+# can drive (test_torch_optim.py holds its refusal)
+SCHEDULERS = ["cosine", "exponential_decay", "fixed", "inverse_sqrt",
+              "polynomial_decay", "reduce_lr_on_plateau", "tri_stage",
+              "triangular"]
 
 
 @pytest.mark.parametrize("name", SCHEDULERS)
@@ -247,10 +251,16 @@ def test_lr_scheduler_state_round_trips(name):
     from unicore_tpu_torch.optim import lr_scheduler
     from unicore_tpu_torch.optim.unicore_optimizer import UnicoreOptimizer
 
-    assert sorted(lr_scheduler.LR_SCHEDULER_REGISTRY) == SCHEDULERS
+    assert sorted(lr_scheduler.LR_SCHEDULER_REGISTRY) == sorted(
+        SCHEDULERS + ["pass_through"])
     args = make_args(lr_scheduler=name, warmup_updates=4, lr=[1e-3],
                      lr_shrink=0.1, decay_ratio=0.95, decay_steps=3,
-                     stair_decay=False)
+                     stair_decay=False, warmup_init_lr=-1, min_lr=0.0,
+                     max_lr=3e-3, t_mult=2.0, lr_period_updates=6,
+                     shrink_min=False, warmup_steps=2, hold_steps=2,
+                     phase_ratio=None, init_lr_scale=0.01,
+                     final_lr_scale=0.01, lr_threshold=1e-4, lr_patience=0,
+                     maximize_best_checkpoint_metric=False)
 
     def build():
         opt = UnicoreOptimizer(args, [])

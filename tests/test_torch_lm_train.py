@@ -15,6 +15,7 @@ F = 64, L = 2); every input comes from a seeded numpy RNG or the port's
 ``make_data`` and goes to both packages."""
 
 import json
+import logging
 import os
 from argparse import Namespace
 
@@ -23,6 +24,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_mol import _poison
+from test_torch_mol import _step as scaled_step
 
 from unicore_tpu_torch import trainer as port_trainer
 from unicore_tpu_torch.examples.lm import make_data
@@ -408,6 +411,136 @@ def test_port_trainer_resumes_a_jax_checkpoint(corpus, tmp_path):
     np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
+LM_UPDATES = 8
+
+
+def lm_trajectories(corpus, **over):
+    """8 updates of one batch of 4 in both trainers from the JAX trainer's
+    initial weights, dropout 0; under ``--fp16`` one more update with the
+    token embedding poisoned to inf and one after it is restored.
+    Returns each package's steps (``scaled_step``), update count and
+    final params (flax trees)."""
+    args = trainer_args(corpus, **over)
+    jtask, task = both_tasks(args)
+    jtask.load_dataset("train")
+    batches = _batches(jtask, "train", 1, 4, LM_UPDATES + 2)
+    jtrainer = _jax_trainer(args, jtask, batches[0])
+    trainer = _port_trainer(args, task)
+    trainer.model.load_flax_params(jax.device_get(jtrainer.state["params"]))
+    runs = {}
+    for name, tr in (("jax", jtrainer), ("port", trainer)):
+        steps = [scaled_step(tr, batches[u:u + 1])
+                 for u in range(LM_UPDATES)]
+        if over.get("fp16"):
+            _poison(tr, np.inf)
+            steps.append(scaled_step(tr, batches[LM_UPDATES:][:1]))
+            _poison(tr, None)
+            steps.append(scaled_step(tr, batches[LM_UPDATES + 1:][:1]))
+        params = (tr._flax(tr._master_params()) if tr is trainer
+                  else jax.device_get(tr.state["params"]))
+        runs[name] = {"steps": steps, "updates": tr.get_num_updates(),
+                      "params": params}
+    return runs
+
+
+def _params_off(got, want):
+    """The largest difference of a leaf, over that leaf's max."""
+    return max(np.abs(np.asarray(a) - np.asarray(b)).max()
+               / max(np.abs(np.asarray(b)).max(), 1e-12)
+               for a, b in zip(jax.tree_util.tree_leaves(got),
+                               jax.tree_util.tree_leaves(want)))
+
+
+# (max relative loss difference, max param difference over its leaf's
+# max) over LM_UPDATES updates, measured on this config: the matmuls of
+# the two packages sum in other orders, and a rounding flips in the
+# compute type downstream
+LM_HELD = {"fp16": (6.2e-6, 1.2e-3), "bf16": (3.7e-5, 1.4e-2)}
+
+
+def test_fp16_trajectory_matches_jax_trainer(corpus):
+    """``--fp16 --fp16-init-scale 4 --fp16-scale-window 2``: the 8 clean
+    updates and the one after the skip within ``LM_HELD["fp16"]`` of the
+    JAX trainer's losses and params; both log the scales 4, 4, 8, 8, 16,
+    16, 32, 32, skip the poisoned step at 64 and halve to 32."""
+    runs = lm_trajectories(corpus, fp16=True, fp16_scale_window=2)
+    got, want = runs["port"]["steps"], runs["jax"]["steps"]
+    assert [s[1:] for s in got] == [s[1:] for s in want]
+    assert [s[1] for s in got] == [4.0, 4.0, 8.0, 8.0, 16.0, 16.0, 32.0,
+                                   32.0, 64.0, 32.0]
+    assert [s[2] for s in got] == [False] * LM_UPDATES + [True, False]
+    clean = [i for i in range(LM_UPDATES + 2) if i != LM_UPDATES]
+    loss_tol, params_tol = LM_HELD["fp16"]
+    np.testing.assert_allclose([got[i][0] for i in clean],
+                               [want[i][0] for i in clean], rtol=loss_tol)
+    assert _params_off(runs["port"]["params"],
+                       runs["jax"]["params"]) <= params_tol
+    assert runs["port"]["updates"] == runs["jax"]["updates"] == LM_UPDATES + 1
+
+
+def test_bf16_trajectory_matches_jax_trainer(corpus):
+    """``--bf16``: 8 updates within ``LM_HELD["bf16"]`` of the JAX
+    trainer's losses and params."""
+    runs = lm_trajectories(corpus, bf16=True)
+    loss_tol, params_tol = LM_HELD["bf16"]
+    np.testing.assert_allclose([s[0] for s in runs["port"]["steps"]],
+                               [s[0] for s in runs["jax"]["steps"]],
+                               rtol=loss_tol)
+    assert _params_off(runs["port"]["params"],
+                       runs["jax"]["params"]) <= params_tol
+    assert runs["port"]["updates"] == runs["jax"]["updates"] == LM_UPDATES
+
+
+@pytest.mark.parametrize("direction", ["port_to_jax", "jax_to_port"])
+def test_sgd_momentum_checkpoint_crosses_packages(corpus, tmp_path, caplog,
+                                                  direction):
+    """``--optimizer sgd --momentum 0.9``: one package's trainer takes 2
+    updates and saves; the other's loads the file with no leaf missing,
+    its momentum buffer bit for bit the file's, and both take the same 2
+    updates within 1e-5 relative."""
+    from examples.lm.loss import LMCrossEntropyLoss as FlaxLoss
+    from examples.lm.model import TransformerLMModel as FlaxLM
+    from unicore_tpu import metrics as jmetrics
+    from unicore_tpu.trainer import Trainer as FlaxTrainer
+    from unicore_tpu_torch.checkpoint_utils import load_checkpoint_to_cpu
+    from unicore_tpu_torch.logging import metrics
+
+    args = trainer_args(corpus, optimizer="sgd", momentum=0.9, lr=[0.3])
+    jtask, task = both_tasks(args)
+    jtask.load_dataset("train")
+    batches = _batches(jtask, "train", 1, 4, 4)
+    if direction == "port_to_jax":
+        first = _port_trainer(args, task)
+        second = FlaxTrainer(args, jtask, FlaxLM(**model_kw(jtask)),
+                             FlaxLoss(jtask))
+    else:
+        first = _jax_trainer(args, jtask, batches[0])
+        second = _port_trainer(args, task)
+    with jmetrics.aggregate("train"), metrics.aggregate("train"):
+        for u in range(2):
+            _step(first, batches[u:u + 1])
+        path = str(tmp_path / "checkpoint_last.pt")
+        first.save_checkpoint(path, {})
+        want = [_step(first, batches[2 + u:3 + u]) for u in range(2)]
+        with caplog.at_level(logging.WARNING):
+            second.load_checkpoint(path)
+            if direction == "port_to_jax":
+                second.init_state(batches[0])
+        assert "missing" not in caplog.text
+        assert "dropping" not in caplog.text
+        saved = load_checkpoint_to_cpu(path)["model"]["opt_state"]
+        loaded = (jax.device_get(second.state["opt_state"])
+                  if direction == "port_to_jax"
+                  else second._flax_opt_state())
+        assert sorted(loaded) == ["momentum_buffer", "step"]
+        for a, b in zip(jax.tree_util.tree_leaves(loaded),
+                        jax.tree_util.tree_leaves(saved)):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        assert second.get_num_updates() == 2
+        got = [_step(second, batches[2 + u:3 + u]) for u in range(2)]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
 # ----------------------------------------------------------------- CLI --
 
 def cli_argv(corpus, logdir, save, *extra):
@@ -453,6 +586,25 @@ def trained(corpus, tmp_path_factory):
     out["relpos_file"] = str(root / "whole" / "checkpoint_last.pt")
     out["rotary_file"] = str(root / "rotary" / "checkpoint_last.pt")
     return out
+
+
+def test_cli_logs_skipped_fp16_steps(corpus, tmp_path):
+    """``--fp16`` from a loss scale of 2**30: the first dispatches
+    overflow and are skipped while the scale halves, and the CLI logs
+    them without a loss or ``ppl`` (the JAX package's ``ppl`` lambda
+    raises a TypeError on such an aggregate) and goes on to its
+    updates."""
+    from unicore_tpu_torch.cli.train import cli_main
+
+    logdir = tmp_path / "log"
+    cli_main(cli_argv(corpus, logdir, tmp_path / "save", "--fp16",
+                      "--fp16-init-scale", str(2 ** 30), "--max-update", "2",
+                      "--no-save", "--disable-validation"))
+    records = _losses(logdir)
+    skipped = [r for r in records if r.get("n_skipped")]
+    assert skipped and all(r.get("ppl") is None for r in skipped)
+    assert [r["step"] for r in records if not r.get("n_skipped")] == [1, 2]
+    assert records[-1]["ppl"] > 1.0
 
 
 def test_cli_trains_and_resumes_bit_for_bit(trained):

@@ -645,15 +645,10 @@ def test_fp16_trajectory_matches_jax_trainer(corpus):
 
 # ---------------------------------------------------- CLI, checkpoints --
 
-def test_cli_trains_tiny_unimol_on_cpu(tmp_path, corpus):
-    """``python -m unicore_tpu_torch.cli.train`` in process, ``--task mol
-    --loss unimol --arch unimol`` at the tiny config under ``--fp16``
-    with dropout 0.1: 12 updates of finite, falling losses, the four stat
-    keys logged, and a checkpoint saved that a second run resumes."""
-    from unicore_tpu_torch.cli.train import cli_main
-
-    logdir, save = tmp_path / "log", tmp_path / "save"
-    argv = [
+def mol_cli_argv(corpus, logdir, save):
+    """The tiny Uni-Mol CLI run of these tests, under ``--fp16`` (initial
+    scale 4) with dropout 0.1; the caller adds ``--max-update``."""
+    return [
         corpus, "--user-dir",
         os.path.join(REPO, "unicore_tpu_torch", "examples", "mol"),
         "--task", "mol", "--loss", "unimol", "--arch", "unimol",
@@ -671,6 +666,17 @@ def test_cli_trains_tiny_unimol_on_cpu(tmp_path, corpus):
         "--required-batch-size-multiple", "1", "--device", "cpu",
         "--save-dir", str(save), "--tmp-save-dir", str(save),
         "--save-interval-updates", "12", "--num-workers", "0"]
+
+
+def test_cli_trains_tiny_unimol_on_cpu(tmp_path, corpus):
+    """``python -m unicore_tpu_torch.cli.train`` in process, ``--task mol
+    --loss unimol --arch unimol`` at the tiny config under ``--fp16``
+    with dropout 0.1: 12 updates of finite, falling losses, the four stat
+    keys logged, and a checkpoint saved that a second run resumes."""
+    from unicore_tpu_torch.cli.train import cli_main
+
+    logdir, save = tmp_path / "log", tmp_path / "save"
+    argv = mol_cli_argv(corpus, logdir, save)
     cli_main(argv + ["--max-update", "12"])
     with open(logdir / "train_inner.jsonl") as f:
         records = [json.loads(line) for line in f]
@@ -685,6 +691,24 @@ def test_cli_trains_tiny_unimol_on_cpu(tmp_path, corpus):
     with open(logdir / "train_inner.jsonl") as f:
         steps = [json.loads(line)["step"] for line in f]
     assert steps[-1] == 13 and len(steps) == 13
+
+
+def test_cli_logs_skipped_fp16_steps(tmp_path, corpus):
+    """From a loss scale of 2**30 the first dispatches overflow and are
+    skipped; the CLI logs them without a loss or ``coord_rmsd`` (the JAX
+    package's ``coord_rmsd`` lambda raises a TypeError on such an
+    aggregate) and goes on to its updates."""
+    from unicore_tpu_torch.cli.train import cli_main
+
+    logdir = tmp_path / "log"
+    cli_main(mol_cli_argv(corpus, logdir, tmp_path / "save") + [
+        "--fp16-init-scale", str(2 ** 30), "--max-update", "2", "--no-save"])
+    with open(logdir / "train_inner.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    skipped = [r for r in records if r.get("n_skipped")]
+    assert skipped and all(r.get("coord_rmsd") is None for r in skipped)
+    assert [r["step"] for r in records if not r.get("n_skipped")] == [1, 2]
+    assert records[-1]["coord_rmsd"] >= 0.0
 
 
 @pytest.mark.parametrize("direction", ["port_to_jax", "jax_to_port"])

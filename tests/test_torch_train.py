@@ -12,7 +12,6 @@ import os
 from argparse import Namespace
 from types import SimpleNamespace
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -59,6 +58,7 @@ def model_kwargs():
 
 
 def test_trainer_matches_jax_trainer():
+    import jax
     from examples.bert.model import BertModel as FlaxBert
     from unicore_tpu import metrics as jmetrics
     from unicore_tpu.losses.masked_lm import MaskedLMLoss as FlaxLoss
@@ -200,3 +200,56 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_trainer.Trainer(make_args(), UnicoreTask(make_args()),
                              torch.nn.Linear(2, 2), None)
+
+
+class _DotLoss:
+    """loss = <w, c> over one sample: the gradient is ``c`` itself."""
+
+    def __init__(self, c):
+        self.c = torch.from_numpy(c)
+
+    def __call__(self, model, sample, generator=None):
+        return (model.weight * self.c).sum(), torch.ones(()), {}
+
+    @staticmethod
+    def reduce_metrics(logging_outputs, split="train"):
+        pass
+
+
+def test_clip_coefficient_divides_once():
+    """``--clip-norm 5.0`` on 16 gradients of norm 6-60: the clipped
+    gradient the optimizer gets is ``g * min(1, 5 / (n + 1e-6))`` with the
+    coefficient ``jax.jit`` computes from the same norm n, bit for bit.
+    At this threshold a Python number over a tensor (``Tensor.__rdiv__``,
+    a reciprocal times 5) rounds the coefficient differently for some of
+    these norms (asserted), so the test holds the single division."""
+    import jax
+    import jax.numpy as jnp
+
+    from unicore_tpu_torch.logging import metrics
+    from unicore_tpu_torch.tasks import UnicoreTask
+
+    coef = jax.jit(lambda n: jnp.minimum(1.0, 5.0 / (n + 1e-6)))
+    rng = np.random.default_rng(0)
+    args = make_args(clip_norm=5.0, update_freq=[1])
+    twice = 0
+    for _ in range(16):
+        c = (rng.standard_normal(64) * rng.uniform(1.0, 7.5)).astype(
+            np.float32)
+        model = torch.nn.Linear(64, 1, bias=False)
+        trainer = port_trainer.Trainer(args, UnicoreTask(args), model,
+                                       _DotLoss(c), device="cpu")
+        seen = []
+        step = trainer.optimizer.step
+        trainer.optimizer.step = lambda: (
+            seen.append(model.weight.grad.clone()), step())
+        metrics.reset()
+        trainer.train_step([{}])
+        n = np.float32(metrics.get_meter("train", "gnorm").val)
+        want = np.float32(coef(n))
+        assert want < 1.0
+        assert torch.equal(seen[0].view(-1),
+                           torch.from_numpy(c) * torch.tensor(want))
+        rdiv = (torch.tensor(n) + 1e-6).reciprocal() * 5.0
+        twice += float(rdiv) != float(want)
+    assert twice > 0

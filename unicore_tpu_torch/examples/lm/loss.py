@@ -19,6 +19,14 @@ from ...losses.unicore_loss import fused_head_request
 from ...ops.fused_cross_entropy import fused_head_nll
 
 
+def _perplexity(meters):
+    """2 ** the loss in bits (capped at 2 ** 30); None for an aggregate
+    with no loss, as after an update skipped under ``--fp16`` (the JAX
+    package's lambda raises a TypeError there)."""
+    bits = meters["loss"].avg
+    return None if bits is None else float(2 ** min(bits, 30))
+
+
 @register_loss("lm_cross_entropy")
 class LMCrossEntropyLoss(UnicoreLoss):
     def __init__(self, task):
@@ -54,9 +62,7 @@ class LMCrossEntropyLoss(UnicoreLoss):
         loss_sum = sum(float(log.get("loss", 0)) for log in logging_outputs)
         n = sum(float(log.get("sample_size", 0)) for log in logging_outputs)
         metrics.log_scalar("loss", loss_sum / n / math.log(2), n, round=3)
-        metrics.log_derived(
-            "ppl", lambda m: float(2 ** min(m["loss"].avg, 30)),
-            priority=200)
+        metrics.log_derived("ppl", _perplexity, priority=200)
 
     @staticmethod
     def logging_outputs_can_be_summed(is_train):

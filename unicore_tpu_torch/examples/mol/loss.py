@@ -16,6 +16,14 @@ from ...logging import metrics
 from ...losses import UnicoreLoss, register_loss
 
 
+def _rmsd(meters):
+    """The coordinate loss's root; None for an aggregate with no loss, as
+    after an update skipped under ``--fp16`` (the JAX package's lambda
+    raises a TypeError there)."""
+    mse = meters["coord_loss"].avg
+    return None if mse is None else math.sqrt(max(mse, 0.0))
+
+
 @register_loss("unimol")
 class UniMolLoss(UnicoreLoss):
     @staticmethod
@@ -79,8 +87,7 @@ class UniMolLoss(UnicoreLoss):
         for key in ("loss", "token_loss", "coord_loss", "dist_loss"):
             total = sum(float(log.get(key, 0)) for log in logging_outputs)
             metrics.log_scalar(key, total / n, n, round=4)
-        metrics.log_derived(
-            "coord_rmsd", lambda m: math.sqrt(max(m["coord_loss"].avg, 0.0)))
+        metrics.log_derived("coord_rmsd", _rmsd)
 
     @staticmethod
     def logging_outputs_can_be_summed(is_train):

@@ -12,8 +12,8 @@ removed when the run ends, also when it raises.
 
 :func:`find_nonfinite_leaves` lists the non-finite leaves of a nested
 dict of arrays or tensors (the trainer passes the flax trees of its
-params and Adam moments) by the same ``/``-joined paths, in the JAX
-tree's order (keys sorted at every level).
+params and its optimizer's state) by the same ``/``-joined paths, in the
+JAX tree's order (keys sorted at every level).
 """
 
 import logging
@@ -107,8 +107,8 @@ def find_nonfinite_leaves(tree):
     and lists of numpy arrays or tensors) that holds non-finite values.
 
     The state's counterpart of :func:`find_nonfinite_modules`: a poisoned
-    Adam moment under finite params is a failure a forward re-run cannot
-    see."""
+    leaf of the optimizer's state (a moment, a momentum buffer) under
+    finite params is a failure a forward re-run cannot see."""
     bad = []
     for path, leaf in _flatten(tree):
         if torch.is_tensor(leaf):

@@ -11,5 +11,6 @@ def build_optimizer(args, params):
     return build_optimizer_(args, params)
 
 
-from . import adam  # noqa: E402,F401  (registers "adam")
+# each module registers its optimizer under the JAX package's name
+from . import adadelta, adagrad, adam, sgd  # noqa: E402,F401
 from . import lr_scheduler  # noqa: E402,F401

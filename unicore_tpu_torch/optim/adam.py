@@ -15,14 +15,14 @@ one multi-tensor rounding call
 (:func:`~unicore_tpu_torch.ops.rounding.fp32_to_bf16_sr_multi`).
 ``--optim-bf16-moments-rounding nearest`` rounds to nearest instead
 (:func:`~unicore_tpu_torch.optim.fp16_optimizer.cast_moments`).
-:meth:`UnicoreAdam.state_dict` gives the JAX package's ``opt_state``
-shape, so the checkpoints of both packages carry the same moments.
+Its state is the JAX package's ``opt_state``, ``{"step", "exp_avg",
+"exp_avg_sq"}`` (:meth:`UnicoreOptimizer.state_dict`), so the
+checkpoints of both packages carry the same moments.
 """
 
 import ast
 import math
 
-import numpy as np
 import torch
 
 from ..ops.prng import draw_seeds
@@ -34,6 +34,8 @@ from .unicore_optimizer import UnicoreOptimizer
 
 @register_optimizer("adam")
 class UnicoreAdam(UnicoreOptimizer):
+    state_keys = ("exp_avg", "exp_avg_sq")
+
     def __init__(self, args, params):
         super().__init__(args, params)
         betas = getattr(args, "adam_betas", "(0.9, 0.999)")
@@ -47,11 +49,8 @@ class UnicoreAdam(UnicoreOptimizer):
                               else torch.float32)
         self.moments_rounding = str(
             getattr(args, "optim_bf16_moments_rounding", None) or "sr")
-        self.step_count = 0
-        self.exp_avg = [torch.zeros_like(p, dtype=self.moments_dtype)
-                        for p in self.params]
-        self.exp_avg_sq = [torch.zeros_like(p, dtype=self.moments_dtype)
-                           for p in self.params]
+        self.exp_avg = self._zeros(self.moments_dtype)
+        self.exp_avg_sq = self._zeros(self.moments_dtype)
 
     @classmethod
     def add_args(cls, parser):
@@ -90,37 +89,6 @@ class UnicoreAdam(UnicoreOptimizer):
                                 value=-lr * math.sqrt(bc2) / bc1)
         if store:
             self._store_moments(m, v, generator)
-
-    def state_dict(self):
-        """The JAX package's ``opt_state`` shape, ``{"step", "exp_avg",
-        "exp_avg_sq"}``: the step count as an int32 scalar and each moment
-        as a list of the live tensors, one per parameter in order (the
-        trainer maps the lists onto the params' tree and copies them to
-        the host; bf16 stores widen to fp32 there, exactly)."""
-        return {"step": np.asarray(self.step_count, np.int32),
-                "exp_avg": list(self.exp_avg),
-                "exp_avg_sq": list(self.exp_avg_sq)}
-
-    @torch.no_grad()
-    def load_state_dict(self, state_dict):
-        """Load :meth:`state_dict`'s shape (moments as lists of arrays or
-        tensors in parameter order).  Each moment casts to its store
-        dtype: exact for values a bf16 store wrote, whatever their
-        saved dtype."""
-        for key in ("exp_avg", "exp_avg_sq"):
-            stores, saved = getattr(self, key), state_dict[key]
-            if len(saved) != len(stores):
-                raise ValueError(f"{key}: {len(saved)} saved leaves for "
-                                 f"{len(stores)} parameters")
-            for i, (dst, src) in enumerate(zip(stores, saved)):
-                if not torch.is_tensor(src):
-                    src = torch.from_numpy(np.asarray(src, np.float32))
-                if tuple(src.shape) != tuple(dst.shape):
-                    raise ValueError(f"{key}[{i}] has shape "
-                                     f"{tuple(src.shape)}, the parameter "
-                                     f"{tuple(dst.shape)}")
-                dst.copy_(src)
-        self.step_count = int(state_dict["step"])
 
     def _store_moments(self, m, v, generator):
         """Round the fp32 moments ``m``, ``v`` into the bf16 stores: under

@@ -12,5 +12,8 @@ def build_lr_scheduler(args, optimizer, total_train_steps):
     return build_lr_scheduler_(args, optimizer, total_train_steps)
 
 
-from . import (exponential_decay_schedule, fixed_schedule,  # noqa: E402,F401
-               polynomial_decay_schedule)
+# each module registers its scheduler under the JAX package's name
+from . import (  # noqa: E402,F401
+    cosine_lr_scheduler, exponential_decay_schedule, fixed_schedule,
+    inverse_square_root_schedule, pass_through, polynomial_decay_schedule,
+    reduce_lr_on_plateau, tri_stage_lr_scheduler, triangular_lr_scheduler)

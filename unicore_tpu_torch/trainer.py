@@ -7,7 +7,8 @@ fp32, then the gradients are divided by the summed sample size (times the
 loss scale, under ``--fp16``), their global norm is taken, they are
 clipped to ``--clip-norm``, and the optimizer steps — unless a gradient
 or the norm is not finite (an overflow), in which case the update is
-skipped: params and moments untouched, the update count unchanged.
+skipped: params and optimizer state untouched, the update count
+unchanged.
 Without a loss scaler the step then raises ``FloatingPointError``, as the
 reference does.
 
@@ -18,7 +19,8 @@ round-to-nearest gives the same copy each time); the copy's gradients
 fold into the fp32 master gradients.  ``--bf16-sr`` refreshes the copy
 by stochastic rounding before every micro-batch instead, with fresh
 seeds, as the reference's step does; ``--optim-bf16-moments`` stores
-Adam's moments in bf16, re-quantized by stochastic rounding.
+Adam's moments in bf16, re-quantized by stochastic rounding (every
+other optimizer refuses it, as in the JAX trainer).
 
 ``--fp16`` (which takes precedence over ``--bf16``, as in the reference)
 runs the compute copy in fp16 and scales each micro-batch's fp32 loss by
@@ -47,13 +49,17 @@ it; the master weights are untouched.
 A non-finite step without a loss scaler runs the NaN detector
 (``nan_detector.py``) on the clean state before it raises: the modules
 whose outputs are non-finite on the step's first micro-batch, then the
-non-finite leaves of the params and Adam moments, by their flax paths.
+non-finite leaves of the params and the optimizer's state, by their
+flax paths.
 
 Checkpoints (:meth:`Trainer.state_dict`, :meth:`Trainer.load_checkpoint`)
 hold the JAX trainer's tree: ``"model"`` is ``{"step", "params",
 "opt_state", "guard"}`` of numpy arrays in the flax layout (the model's
 ``flax_tree``), with ``"ema"`` beside them under ``--ema-decay``, so
-either package resumes the other's file.  The port's
+either package resumes the other's file.  ``opt_state`` is the
+optimizer's state in the JAX shape, each per-parameter entry a flax
+tree; a file of another optimizer loads as the JAX trainer merges it
+(``_load_opt_state``).  The port's
 dropout generator is state the JAX trainer does not have; its bytes ride
 ``optimizer_history`` under ``"torch_generator_state"``, which the JAX
 trainer ignores.  Under ``--fp16`` the tree has the JAX trainer's
@@ -264,9 +270,11 @@ class Trainer:
         grad_norm = torch.linalg.vector_norm(
             torch.stack(torch._foreach_norm(grads)))
         if self.clip_norm > 0:
+            # a tensor over a tensor: ``number / tensor`` multiplies by a
+            # reciprocal, rounding twice where the reference divides once
+            clip = grad_norm.new_full((), self.clip_norm)
             torch._foreach_mul_(
-                grads, torch.clamp(self.clip_norm / (grad_norm + 1e-6),
-                                   max=1.0))
+                grads, torch.clamp(clip / (grad_norm + 1e-6), max=1.0))
         overflow = ~(grads_finite(grads) & torch.isfinite(grad_norm))
         stats = [grad_norm.float(), overflow.float()]
         if self.use_scaler:
@@ -366,8 +374,7 @@ class Trainer:
             torch.stack(torch._foreach_norm(live)))
         if scale is not None:
             norm = norm / scale
-        # a tensor divided by a tensor: ``number / tensor`` would multiply
-        # by a reciprocal, rounding twice
+        # a tensor over a tensor, as the global clip in ``train_step``
         clip = norm.new_full((), self.per_sample_clip_norm)
         torch._foreach_mul_(live, torch.clamp(clip / (norm + 1e-6), max=1.0))
         if clipped is None:
@@ -382,7 +389,7 @@ class Trainer:
     def _detect_nonfinite(self, sample):
         """The NaN detector on the clean state (the failing update was
         not applied): the modules with non-finite outputs on ``sample``,
-        then the non-finite leaves of params and Adam moments.  A failure
+        then the non-finite leaves of params and optimizer state.  A failure
         of the detector is logged and never masks the step's error."""
         try:
             log_nonfinite_modules(self.model, _to_device(sample, self.device))
@@ -518,10 +525,31 @@ class Trainer:
         return [named[n] for n in self._param_names()]
 
     def _flax_opt_state(self):
-        """Adam's state as the JAX trainer's ``opt_state`` tree."""
-        opt = self.optimizer.state_dict()
-        return {"step": opt["step"], "exp_avg": self._flax(opt["exp_avg"]),
-                "exp_avg_sq": self._flax(opt["exp_avg_sq"])}
+        """The optimizer's state as the JAX trainer's ``opt_state`` tree:
+        ``"step"`` as it is, and every per-parameter entry (Adam's
+        moments, SGD's momentum buffer, Adagrad's sum, ...) mapped onto
+        the params' flax tree, whatever its key."""
+        return {key: value if key == "step" else self._flax(value)
+                for key, value in self.optimizer.state_dict().items()}
+
+    def _load_opt_state(self, saved):
+        """The file's ``opt_state`` into the optimizer, as the JAX
+        trainer's merge takes it into its fresh state: an entry both have
+        is restored, an entry only the optimizer has keeps its fresh
+        value, an entry only the file has is dropped, each logged; a
+        leaf of another shape raises."""
+        fresh = self.optimizer.state_dict()
+        for key in saved:
+            if key not in fresh:
+                logger.warning("checkpoint: dropping /opt_state/%s (not in "
+                               "model)", key)
+        for key in fresh:
+            if key not in saved:
+                logger.warning("checkpoint: /opt_state/%s missing; keeping "
+                               "fresh init", key)
+        self.optimizer.load_state_dict({
+            key: value if key == "step" else self._leaves(value)
+            for key, value in saved.items() if key in fresh})
 
     def state_dict(self):
         """The checkpoint: numpy arrays and plain values only, so the JAX
@@ -614,14 +642,10 @@ class Trainer:
             if reset_optimizer:
                 logger.info("--reset-optimizer: restoring params only")
             elif "opt_state" in model_state:
-                opt = model_state["opt_state"]
-                self.optimizer.load_state_dict({
-                    "step": opt["step"],
-                    "exp_avg": self._leaves(opt["exp_avg"]),
-                    "exp_avg_sq": self._leaves(opt["exp_avg_sq"])})
+                self._load_opt_state(model_state["opt_state"])
             else:
                 logger.warning("checkpoint: %s holds no optimizer state; "
-                               "keeping fresh moments", filename)
+                               "keeping fresh init", filename)
             self._load_scaler(model_state.get("scaler"), reset_optimizer,
                               filename)
         if not reset_lr_scheduler:
