@@ -222,6 +222,24 @@ code is non-zero:
    and final params bit-equal.  Per run: losses, loss_scale sequence,
    step median, tokens/s, peak memory, and one optimizer step's launches
    and device time.
+   lm_run_control — the lm_train model and flags with validation on
+   (24 valid records), ``--validate-interval-updates 4
+   --batch-size-valid 8 --max-valid-steps 1 --curriculum 1 --log-memory
+   2 --save-interval-updates 4``, to update 12: run a gets SIGTERM from
+   a hook after update 6 and returns with the handlers restored, having
+   saved at 4 and 6 and validated at 4 only; resumed from its save dir
+   at update 6, it reaches 12 with losses, valid losses and params
+   bit-equal to the uninterrupted run b; validation and saves at 4, 8,
+   12; every validation pass 2 batches of 8 and 24 bf16 flash forward
+   launches (row 3c at batch 8), every update 36 bf16 flash launches;
+   b's mem_gb records at dispatches 2-12 within its peak.  Run c
+   (``--stop-time-hours`` at b's training time after update 6) stops
+   before 12 and saves there; run d (``--stop-min-lr 1e-6``, lr 5e-4
+   shrunk 10x an epoch, 3 batches an epoch) stops after the epoch and at
+   the lr the port's scheduler on the host predicts; run e
+   (``--profile``, 3 updates) writes a Chrome trace holding flash kernel
+   events.  Reports the validation passes' ms, mem_gb beside the peak,
+   the update c stopped at and the trace's size and events.
 16. the ``kernels`` line (rows 1-11 of the TPU kernel table, rows 2-10
    once for the bf16 kernels and once for the fp16 ones, the flash rows'
    launches from the train and train_fp16 phases, the softmax_dropout
@@ -229,7 +247,8 @@ code is non-zero:
    9-11 with evoformer_unifold's beside them; the backward rows carry
    the row's whole backward time beside the bound of the backward as one
    function; rows 3 and 8 again for the LM's causal call, launches
-   from lm_train, and the fp16 rows 3 and 8 with lm_optim_fp16's causal
+   from lm_train, lm_run_control's beside them (its validation passes'
+   apart), and the fp16 rows 3 and 8 with lm_optim_fp16's causal
    launches beside train_fp16's; last the EMA kernel, which replaces no
    ``pallas_call``),
    the card's name and power limit, and the closing ``{"ok": true, ...}``
@@ -3348,6 +3367,333 @@ def mol_train_fp16_phase():
     return launches
 
 
+# lm_run_control: run a and b's flags (validation every 4 updates at
+# batch 8, at most 2 batches; epoch 1 unshuffled; mem_gb every 2
+# dispatches; a checkpoint every 4 updates)
+RC_FLAGS = ("--validate-interval-updates", "4", "--batch-size-valid", "8",
+            "--max-valid-steps", "1", "--curriculum", "1", "--log-memory",
+            "2", "--save-interval-updates", "4")
+RC_UPDATES, RC_SIGTERM_AT, RC_VALID_RECORDS = 12, 6, 24
+RC_STOP_AFTER = 6  # run c's --stop-time-hours: run b's time at update 6
+RC_VALID_BATCHES = 2  # --max-valid-steps 1: batch indices 0 and 1
+# run d: lr 5e-4 shrunk 10x an epoch from epoch 1, on 3 batches an epoch
+RC_MIN_LR = 1e-6
+RC_ANNEAL = ("--optimizer", "adam", "--adam-betas", "(0.9, 0.98)",
+             "--adam-eps", "1e-6", "--lr-scheduler", "fixed", "--lr", "5e-4",
+             "--force-anneal", "1", "--lr-shrink", "0.1")
+RC_ANNEAL_RECORDS = 3 * TRAIN_BATCH
+RC_PROFILE_UPDATES = 3
+
+
+def observe_cli(argv, sigterm_at=None):
+    """Run the port's CLI on ``argv`` in this process and record what it
+    did: each update's loss (nats), flash launches and training time
+    (``cumulative_training_time``) after it, the updates it
+    validated and saved at, each validation pass's summed loss and
+    sample size, flash launches and ms, the epochs it trained and the
+    update count it started from.  ``sigterm_at``: the process sends
+    itself SIGTERM once that update has run.  Returns (loop, record)."""
+    import signal
+
+    from unicore_tpu_torch import checkpoint_utils
+    from unicore_tpu_torch import trainer as trainer_mod
+    from unicore_tpu_torch.cli import train as cli
+    from unicore_tpu_torch.ops import flash_attention as fa
+
+    Trainer, Loop = trainer_mod.Trainer, cli.TrainLoop
+    Manager = checkpoint_utils.CheckpointManager
+    real = {"train_step": Trainer.train_step,
+            "valid_step": Trainer.valid_step, "run": Loop.run,
+            "train_epoch": Loop.train_epoch, "validate": Loop.validate,
+            "save": Manager.save}
+    rec = {"nats": [], "update_launches": [], "train_s": [], "validated": [],
+           "saved": [], "valid": [], "epochs": []}
+
+    def train_step(self, samples):
+        before = dict(fa.launches)
+        out = real["train_step"](self, samples)
+        rec["nats"].append(float(out[0]["loss"])
+                           / float(out[0]["sample_size"]))
+        rec["update_launches"].append(
+            {k: fa.launches[k] - before[k] for k in before})
+        rec["train_s"].append(self.cumulative_training_time())
+        if self.get_num_updates() == sigterm_at:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return out
+
+    def valid_step(self, sample):
+        out = real["valid_step"](self, sample)
+        rec["valid"][-1]["loss"] += float(out[0]["loss"])
+        rec["valid"][-1]["sample_size"] += float(out[0]["sample_size"])
+        rec["valid"][-1]["batches"] += 1
+        return out
+
+    def run(loop, epoch_itr):
+        rec["start_update"] = loop.trainer.get_num_updates()
+        return real["run"](loop, epoch_itr)
+
+    def train_epoch(loop, epoch_itr):
+        out = real["train_epoch"](loop, epoch_itr)
+        rec["epochs"].append(epoch_itr.epoch)
+        return out
+
+    def validate(loop, epoch_itr):
+        rec["validated"].append(loop.trainer.get_num_updates())
+        rec["valid"].append({"loss": 0.0, "sample_size": 0.0, "batches": 0})
+        before = dict(fa.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real["validate"](loop, epoch_itr)
+        torch.cuda.synchronize()
+        rec["valid"][-1]["ms"] = (time.perf_counter() - t0) * 1e3
+        rec["valid"][-1]["launches"] = {
+            k: fa.launches[k] - before[k] for k in before
+            if fa.launches[k] != before[k]}
+        return out
+
+    def save(manager, trainer, epoch_itr, val_loss, do_save=True):
+        if do_save and not manager.args.no_save:
+            rec["saved"].append(trainer.get_num_updates())
+        return real["save"](manager, trainer, epoch_itr, val_loss,
+                            do_save=do_save)
+
+    Trainer.train_step, Trainer.valid_step = train_step, valid_step
+    Loop.run, Loop.train_epoch, Loop.validate = run, train_epoch, validate
+    Manager.save = save
+    try:
+        loop = cli.cli_main(argv)
+    finally:
+        Trainer.train_step = real["train_step"]
+        Trainer.valid_step = real["valid_step"]
+        Loop.run, Loop.train_epoch = real["run"], real["train_epoch"]
+        Loop.validate, Manager.save = real["validate"], real["save"]
+    return loop, rec
+
+
+def replay_stop_min_lr(argv, updates_per_epoch, stop_min_lr):
+    """The epochs a run of ``argv`` trains before ``--stop-min-lr`` stops
+    it, and the lr it stops at, from the port's scheduler on the host
+    driven through the trainer's calls (construction, each epoch's begin,
+    each update, each epoch's end)."""
+    sched = host_scheduler(argv)
+    lr, n, epoch = sched.step_update(0), 0, 0
+    while lr > stop_min_lr:
+        epoch += 1
+        sched.step_begin_epoch(epoch)
+        sched.step_update(n)
+        for _ in range(updates_per_epoch):
+            n += 1
+            sched.step_update(n)
+        sched.step(epoch, None)
+        lr = sched.step_update(n)
+    return epoch, lr
+
+
+def lm_run_control_phase():
+    """The port's CLI runs full-width transformer_lm_base (--bf16, the
+    lm_train phase's flags) under the run-control flags of ``RC_FLAGS``
+    with validation on, on the LM corpus with 24 valid records:
+
+    - run a to --max-update 12 gets SIGTERM after update 6: it returns
+      (exit 0) with the handlers restored, having validated at 4 and
+      saved at 4 and at 6 (no validation at the signal); a second run on
+      its save dir resumes at update 6 and reaches 12;
+    - run b, uninterrupted, the same flags: the resumed run's losses,
+      valid losses and final params bit-equal to b's, validation and
+      saves at 4, 8 and 12; each validation pass 2 batches of 8 and 12
+      bf16 flash forward launches a batch (row 3c at batch 8), each
+      update 12 + 12 + 12 bf16 flash launches, no other flash kernel;
+      the mem_gb records (every 2 dispatches) at most the run's peak
+      (the resumed run's params moved off the card before run b);
+    - run c, run b's flags and --stop-time-hours at run b's training
+      time after update 6: stops before update 12 and saves there;
+    - run d, --stop-min-lr 1e-6 under fixed with --force-anneal 1
+      --lr-shrink 0.1 on 3 batches an epoch: stops after the epoch and
+      at the lr that the port's scheduler on the host predicts;
+    - run e, --profile for 3 updates: a Chrome trace under
+      <save-dir>/torch_trace/ holding flash kernel events.
+
+    Reports the updates each run validated and saved at, the validation
+    passes' launches and ms, mem_gb against the peak, the update run c
+    stopped at, run d's epochs and lr, and the trace's size and flash
+    kernel events; returns the flash launch counts of runs a, a resumed
+    and b, and of their validation passes."""
+    import signal
+
+    from unicore_tpu_torch.examples.lm import make_data
+    from unicore_tpu_torch.ops import flash_attention as fa
+    from unicore_tpu_torch.ops import softmax_dropout as sd
+
+    def argv(tmp, name, updates, *extra, validate=True, **kw):
+        save = os.path.join(tmp, name)
+        return lm_args(tmp, os.path.join(tmp, "log_" + name), updates,
+                       "--save-dir", save, "--tmp-save-dir", save, *extra,
+                       validate=validate, **kw)
+
+    handlers = signal.getsignal(signal.SIGTERM), signal.getsignal(
+        signal.SIGINT)
+    with tempfile.TemporaryDirectory() as tmp:
+        make_data.write_corpus(tmp, train=LM_RECORDS,
+                               valid=RC_VALID_RECORDS, seed=2048)
+        for counts in (fa.launches, sd.plain_route):
+            for name in counts:
+                counts[name] = 0
+        start_gb = reset_peak_memory()
+        t0 = time.perf_counter()
+        run_a, a = observe_cli(argv(tmp, "a", RC_UPDATES, *RC_FLAGS),
+                               sigterm_at=RC_SIGTERM_AT)
+        a_s = time.perf_counter() - t0
+        if (signal.getsignal(signal.SIGTERM), signal.getsignal(
+                signal.SIGINT)) != handlers:
+            raise AssertionError("the CLI left its signal handlers behind")
+        del run_a
+        resumed_loop, resumed = observe_cli(
+            argv(tmp, "a", RC_UPDATES, *RC_FLAGS))
+        # the resumed run's params leave the card, so run b's mem_gb and
+        # peak are its own
+        resumed_params = [p.detach().cpu()
+                          for p in resumed_loop.trainer.model.parameters()]
+        del resumed_loop
+        b_start_gb = reset_peak_memory()
+        run_b, b = observe_cli(argv(tmp, "b", RC_UPDATES, *RC_FLAGS))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches = dict(fa.launches)
+        with open(os.path.join(tmp, "log_b", "train_inner.jsonl")) as f:
+            # the meter reads None at the dispatches that log no mem_gb
+            mem = [(r["step"], r["mem_gb"]) for r in map(json.loads, f)
+                   if r.get("mem_gb") is not None]
+
+        layers = run_b.trainer.model.decoder_layers
+        per_update = {n: layers if n in TRAIN_FLASH else 0
+                      for n in fa.launches}
+        per_pass = {"flash_fwd_bf16": layers * RC_VALID_BATCHES}
+        for name, r in (("a", a), ("a resumed", resumed), ("b", b)):
+            for u, got in enumerate(r["update_launches"]):
+                if got != per_update:
+                    raise AssertionError(f"run {name} update {u + 1}: flash "
+                                         f"launches {got}, want {per_update}")
+            for v in r["valid"]:
+                if (v["launches"] != per_pass
+                        or v["batches"] != RC_VALID_BATCHES):
+                    raise AssertionError(f"run {name}: a validation pass "
+                                         f"{v}, want {per_pass}")
+        if any(sd.plain_route.values()):
+            raise AssertionError(f"softmax_dropout took the plain route: "
+                                 f"{sd.plain_route}")
+        if (len(a["nats"]) != RC_SIGTERM_AT or a["validated"] != [4]
+                or a["saved"] != [4, RC_SIGTERM_AT]):
+            raise AssertionError(
+                f"run a: {len(a['nats'])} updates, validated at "
+                f"{a['validated']}, saved at {a['saved']}; want "
+                f"{RC_SIGTERM_AT}, [4], [4, {RC_SIGTERM_AT}]")
+        if (resumed["start_update"] != RC_SIGTERM_AT
+                or resumed["validated"] != [8, 12]
+                or resumed["saved"] != [8, 12]):
+            raise AssertionError(
+                f"run a resumed from update {resumed['start_update']}, "
+                f"validated at {resumed['validated']}, saved at "
+                f"{resumed['saved']}")
+        if b["validated"] != [4, 8, 12] or b["saved"] != [4, 8, 12]:
+            raise AssertionError(f"run b validated at {b['validated']}, "
+                                 f"saved at {b['saved']}")
+        if a["nats"] + resumed["nats"] != b["nats"]:
+            raise AssertionError(f"run a then resumed {a['nats']} + "
+                                 f"{resumed['nats']} != run b {b['nats']}")
+        nll = [v["loss"] / v["sample_size"] for v in a["valid"]
+               + resumed["valid"]]
+        want_nll = [v["loss"] / v["sample_size"] for v in b["valid"]]
+        if nll != want_nll:
+            raise AssertionError(f"valid losses {nll} != run b's "
+                                 f"{want_nll}")
+        params_equal = all(torch.equal(p, q.detach().cpu()) for p, q in zip(
+            resumed_params, run_b.trainer.model.parameters()))
+        if not params_equal:
+            raise AssertionError("resumed params at update 12 differ from "
+                                 "run b's")
+        if (not mem or [s for s, _ in mem] != list(range(2, RC_UPDATES + 1,
+                                                         2))
+                or not all(0 < g <= peak_gb + 0.005 for _, g in mem)):
+            raise AssertionError(f"mem_gb records {mem}, peak {peak_gb}")
+        nats = b["nats"]
+        if not 9.0 <= nats[0] <= 11.5 or not np.isfinite(nats).all():
+            raise AssertionError(f"run b's losses {nats}")
+        del resumed_params, run_b
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # below the time of 12 updates: run b's training time at update 6
+        stop_hours = b["train_s"][RC_STOP_AFTER - 1] / 3600.0
+        _, c = observe_cli(argv(tmp, "c", RC_UPDATES, *RC_FLAGS,
+                                "--stop-time-hours", repr(stop_hours)))
+        stopped = len(c["nats"])
+        if not 0 < stopped < RC_UPDATES or c["saved"][-1:] != [stopped]:
+            raise AssertionError(f"run c stopped after {stopped} updates, "
+                                 f"saved at {c['saved']}")
+
+        anneal = os.path.join(tmp, "anneal")
+        make_data.write_corpus(anneal, train=RC_ANNEAL_RECORDS, valid=8,
+                               seed=2050)
+        argv_d = lm_args(anneal, os.path.join(anneal, "log"), 100,
+                         "--stop-min-lr", repr(RC_MIN_LR), "--save-dir",
+                         anneal, "--no-save", optim=RC_ANNEAL)
+        run_d, d = observe_cli(argv_d)
+        want_epochs, want_lr = replay_stop_min_lr(
+            argv_d, RC_ANNEAL_RECORDS // TRAIN_BATCH, RC_MIN_LR)
+        lr_d = run_d.trainer.get_lr()
+        if d["epochs"] != list(range(1, want_epochs + 1)) or lr_d != want_lr:
+            raise AssertionError(f"run d trained epochs {d['epochs']} and "
+                                 f"stopped at lr {lr_d}; the host schedule "
+                                 f"says {want_epochs} epochs, lr {want_lr}")
+        del run_d
+
+        _, e = observe_cli(argv(tmp, "e", RC_PROFILE_UPDATES, "--profile",
+                                "--no-save", validate=False))
+        trace = os.path.join(tmp, "e", "torch_trace", "trace.json")
+        trace_bytes = os.path.getsize(trace)
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        flash_events = sum(1 for ev in events if ev.get("cat") == "kernel"
+                           and "flash_" in ev.get("name", ""))
+        if len(e["nats"]) != RC_PROFILE_UPDATES or not flash_events:
+            raise AssertionError(f"run e: {len(e['nats'])} updates, "
+                                 f"{flash_events} flash kernel events")
+        del events
+    valid_launches = {k: sum(v["launches"].get(k, 0)
+                             for r in (a, resumed, b) for v in r["valid"])
+                      for k in fa.launches}
+    emit("lm_run_control", model="transformer_lm_base", dtype="bf16",
+         batch=TRAIN_BATCH, batch_valid=8, seq_len=FLASH_T, flags=RC_FLAGS,
+         card=card(),
+         runs={"a": {k: a[k] for k in ("validated", "saved")},
+               "a_resumed": {"from": resumed["start_update"],
+                             "validated": resumed["validated"],
+                             "saved": resumed["saved"]},
+               "b": {k: b[k] for k in ("validated", "saved")}},
+         sigterm_after=RC_SIGTERM_AT, run_a_s=a_s,
+         resumed_bit_equal={"losses": True, "valid_losses": True,
+                            "params": params_equal},
+         losses_nats=nats, valid_nll=want_nll,
+         flash_launches_per_update=per_update,
+         flash_launches_per_valid_pass=per_pass,
+         valid_pass_ms=[v["ms"] for r in (a, resumed, b)
+                        for v in r["valid"]],
+         valid_launches=valid_launches, mem_gb=mem, peak_mem_gb=peak_gb,
+         mem_at_start_gb=start_gb, run_b_mem_at_start_gb=b_start_gb,
+         stop_time={"stop_time_hours": stop_hours,
+                    "run_b_training_s": b["train_s"],
+                    "stopped_at": stopped,
+                    "validated": c["validated"], "saved": c["saved"],
+                    "training_s": c["train_s"]},
+         stop_min_lr={"stop_min_lr": RC_MIN_LR, "epochs": d["epochs"],
+                      "updates": len(d["nats"]), "lr": lr_d,
+                      "host_epochs": want_epochs, "host_lr": want_lr},
+         profile={"updates": RC_PROFILE_UPDATES, "trace_bytes": trace_bytes,
+                  "flash_kernel_events": flash_events,
+                  "want_flash_kernel_events":
+                      RC_PROFILE_UPDATES * 3 * layers})
+    return {"launches": launches, "valid_launches": valid_launches}
+
+
 PALLAS = "unicore_tpu/ops/pallas/"
 
 
@@ -3386,7 +3732,7 @@ def flash_row(row, name, replaces, case, launches):
 def kernels_line(cases, serve_launches, flash, multiblock, train_launches,
                  sd, sr, evo_launches, fp16_launches, mol_launches,
                  unifold_launches, ema_report, causal, lm_launches,
-                 rotary_launches, lm_fp16_launches):
+                 rotary_launches, lm_fp16_launches, rc_launches):
     """One row per TPU kernel of the table in PERF.md (rows 1-11); a row
     realized by two CUDA kernels (4, 8) has one entry for each, and the
     flash rows (2-8) and the softmax_dropout rows (9-10) one for each of
@@ -3401,7 +3747,9 @@ def kernels_line(cases, serve_launches, flash, multiblock, train_launches,
     bf16 case with the rel-pos bias; its launches from lm_train, the
     rotary run's beside them, and every causal case's times).  The fp16
     rows 3 and 8 also give their causal launches inside the LM's --fp16
-    step (lm_optim_fp16, run a)."""
+    step (lm_optim_fp16, run a).  The LM's causal rows also give
+    lm_run_control's launches, its validation passes' apart (row 3's
+    forward at the validation batch)."""
     decode = cases["decode"]
     rows = [{
         "row": 1, "name": "ragged_paged_attention", "route": "cuda",
@@ -3451,7 +3799,10 @@ def kernels_line(cases, serve_launches, flash, multiblock, train_launches,
         entry["causal"] = True
         entry["launches_by_phase"] = {
             "lm_train": lm_launches[name],
-            "lm_serve_checkpoint (rotary)": rotary_launches[name]}
+            "lm_serve_checkpoint (rotary)": rotary_launches[name],
+            "lm_run_control": rc_launches["launches"][name],
+            "lm_run_control (validation passes)":
+                rc_launches["valid_launches"][name]}
         rows.append(entry)
     # every causal case's kernels, once, on the forward's row
     rows[-3]["causal_cases"] = {
@@ -3599,11 +3950,14 @@ def main():
     emit("lm_serve_checkpoint", **lm_serve)
     torch.cuda.empty_cache()
     lm_fp16_launches = lm_optim_fp16_phase()
+    torch.cuda.empty_cache()
+    rc_launches = lm_run_control_phase()
     rows = kernels_line(cases, launches, flash, multiblock,
                         train["launches"], sd, sr, evo_launches,
                         fp16_launches, mol_launches, unifold_launches,
                         ema_report, causal, lm["launches"],
-                        lm_serve["flash_launches"], lm_fp16_launches)
+                        lm_serve["flash_launches"], lm_fp16_launches,
+                        rc_launches)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {

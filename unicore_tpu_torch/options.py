@@ -1,11 +1,13 @@
-"""Command-line options of the port's trainer (the subset of
-``unicore_tpu/options.py`` the BERT, LM, Evoformer and Uni-Mol paths
-read, with the same names and defaults, plus ``--device``).
+"""Command-line options of the port's trainer (``unicore_tpu/options.py``'s
+flags, with the same names, defaults and choices, plus ``--device``).
 
-Flags of the JAX trainer that this slice does not port still parse, so
-that a reference command line reaches :func:`~unicore_tpu_torch.trainer.
-refuse_unported`, which names the ``ROADMAP.md`` item instead of
-ignoring them.
+Some flags of the JAX trainer whose feature the port lacks still parse,
+so that a reference command line reaches :func:`~unicore_tpu_torch.
+trainer.refuse_unported`, which names the ``ROADMAP.md`` item instead of
+ignoring them.  The rest are listed in :data:`NOT_PARSED`, each with its
+item; a command line that passes one stops with that item named.  Flags
+that the JAX package parses and never reads parse here and change
+nothing either; their help says "compat".
 """
 
 import argparse
@@ -30,6 +32,51 @@ def eval_str_list_int(x):
     return _str_list(x, int)
 
 
+# The JAX training parser's option strings that the port does not parse,
+# each with the ROADMAP.md item that ports it (or why none will).
+NOT_PARSED = {
+    **dict.fromkeys(("--worker-impl", "--data-buffer-size"), "ROADMAP.md A4"),
+    **dict.fromkeys(("--stats-lag", "--pipeline-depth"), "ROADMAP.md A6(a)"),
+    **dict.fromkeys((
+        "--distributed-world-size", "--distributed-rank",
+        "--distributed-backend", "--distributed-init-method",
+        "--distributed-port", "--device-id", "--local_rank",
+        "--distributed-no-spawn", "--ddp-backend", "--bucket-cap-mb",
+        "--fix-batches-to-gpus", "--find-unused-parameters",
+        "--fast-stat-sync", "--broadcast-buffers", "--nprocs-per-node",
+        "--data-parallel-size", "--coordinator-address", "--num-processes",
+        "--process-id", "--comms-bucket-mb", "--all-gather-list-size",
+        "--allreduce-fp32-grad"), "ROADMAP.md A8"),
+    **dict.fromkeys((
+        "--anomaly-guard", "--anomaly-backoff-after",
+        "--anomaly-rewind-after", "--anomaly-abort-after",
+        "--loss-spike-factor", "--loss-spike-margin", "--loss-spike-window",
+        "--loss-spike-warmup", "--snapshot-interval-updates",
+        "--snapshot-ring-size", "--trajectory-file", "--data-guard",
+        "--data-retries", "--data-retry-backoff", "--data-corrupt-budget",
+        "--data-resample-attempts", "--pack-max-segments"), "ROADMAP.md A11"),
+    "--step-timeout": "ROADMAP.md A12",
+    **dict.fromkeys((
+        "--pipeline-parallel-size", "--expert-parallel-size",
+        "--seq-parallel-impl", "--seq-parallel-skip-attention-dropout"),
+        "ROADMAP.md A13"),
+    "--kernel-autotune": "ROADMAP.md A14",
+    "--rng-impl": "no item: it picks the JAX PRNG implementation, which "
+                  "has no counterpart in torch",
+}
+
+
+def refuse_not_parsed(unknown_args):
+    """Raise ``NotImplementedError`` for the first argument the parser
+    did not take that is in :data:`NOT_PARSED`, with its reason."""
+    for arg in unknown_args:
+        flag = arg.split("=", 1)[0]
+        if flag in NOT_PARSED:
+            raise NotImplementedError(
+                f"{flag} is not ported to the PyTorch trainer "
+                f"({NOT_PARSED[flag]})")
+
+
 def _preload_user_module(input_args):
     peek = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
     peek.add_argument("--user-dir", default=None)
@@ -49,13 +96,39 @@ def get_training_parser(input_args=None):
                    help="plugin directory with tasks/models/losses")
     g.add_argument("--device", default="cuda",
                    help="torch device to train on (default: the card)")
+    g.add_argument("--cpu", action="store_true",
+                   help="run on the CPU (the same as --device cpu)")
     g.add_argument("--seed", default=1, type=int)
+    g.add_argument("--no-progress-bar", action="store_true",
+                   help="disable the progress bar (the simple log lines "
+                        "become the default format)")
     g.add_argument("--log-interval", type=int, default=100)
-    g.add_argument("--log-format", default="simple",
-                   choices=["simple", "json", "none"])
+    g.add_argument("--log-memory", type=int, default=0, metavar="N",
+                   help="log the card's allocated bytes (mem_gb) every N "
+                        "dispatches (0 = off); the memory stats are also "
+                        "logged when a step fails")
+    g.add_argument("--log-format", default=None,
+                   choices=["json", "none", "simple", "tqdm"],
+                   help="log format (default: tqdm on a terminal, simple "
+                        "elsewhere)")
     g.add_argument("--tensorboard-logdir", default="",
                    help="directory for the log records, one JSON line per "
                         "logged step (no TensorBoard event files)")
+    g.add_argument("--wandb-project", metavar="WANDB", default="",
+                   help="(compat; parsed and ignored, as in the JAX "
+                        "package)")
+    g.add_argument("--profile", action="store_true",
+                   help="run under torch.profiler and write a Chrome trace "
+                        "to <save-dir>/torch_trace/")
+    g.add_argument("--empty-cache-freq", default=0, type=int,
+                   help="(compat; parsed and ignored, as in the JAX "
+                        "package)")
+    g.add_argument("--suppress-crashes", action="store_true",
+                   help="(compat; parsed and ignored, as in the JAX "
+                        "package)")
+    g.add_argument("--fp16-no-flatten-grads", action="store_true",
+                   help="(compat; parsed and ignored, as in the JAX "
+                        "package)")
     g.add_argument("--bf16", action="store_true",
                    help="bf16 forward/backward over fp32 master params")
     g.add_argument("--fp16", action="store_true",
@@ -99,12 +172,38 @@ def get_training_parser(input_args=None):
 
     g = p.add_argument_group("dataset")
     g.add_argument("--num-workers", default=0, type=int)
+    g.add_argument("--skip-invalid-size-inputs-valid-test",
+                   action="store_true",
+                   help="(compat; parsed and ignored, as in the JAX "
+                        "package)")
     g.add_argument("--batch-size", "--max-sentences", type=int)
+    g.add_argument("--batch-size-per-device", type=int, metavar="N",
+                   help="sets --batch-size to N times the visible card "
+                        "count (1 on the CPU)")
     g.add_argument("--required-batch-size-multiple", default=8, type=int)
     g.add_argument("--train-subset", default="train")
     g.add_argument("--valid-subset", default="valid")
+    g.add_argument("--validate-interval", type=int, default=1, metavar="N",
+                   help="run validation once per N epochs")
     g.add_argument("--validate-interval-updates", type=int, default=0)
+    g.add_argument("--validate-after-updates", type=int, default=0,
+                   metavar="N",
+                   help="no interval checkpoint (and its validation) "
+                        "before this many updates")
+    g.add_argument("--fixed-validation-seed", default=None, type=int,
+                   metavar="N",
+                   help="(compat; parsed and ignored, as in the JAX "
+                        "package: validation draws no random numbers)")
     g.add_argument("--disable-validation", action="store_true")
+    g.add_argument("--batch-size-valid", type=int, metavar="N",
+                   help="validation batch size (falls back to "
+                        "--batch-size)")
+    g.add_argument("--max-valid-steps", type=int, metavar="N",
+                   help="stop each validation run after batch index N "
+                        "(N+1 batches)")
+    g.add_argument("--curriculum", default=0, type=int, metavar="N",
+                   help="keep the batch order unshuffled for the first N "
+                        "epochs")
     g.add_argument("--pack-sequences", action="store_true")
 
     g = p.add_argument_group("distributed")
@@ -116,12 +215,23 @@ def get_training_parser(input_args=None):
     g.add_argument("--comms-overlap", action="store_true")
 
     g = p.add_argument_group("optimization")
-    g.add_argument("--max-epoch", default=0, type=int)
-    g.add_argument("--max-update", default=0, type=int)
+    g.add_argument("--max-epoch", "--me", default=0, type=int)
+    g.add_argument("--max-update", "--mu", default=0, type=int)
+    g.add_argument("--stop-time-hours", default=0, type=float, metavar="N",
+                   help="stop once the training time, that of the runs "
+                        "this one resumes included, exceeds N hours")
     g.add_argument("--clip-norm", default=0.0, type=float)
     g.add_argument("--per-sample-clip-norm", default=0.0, type=float)
     g.add_argument("--update-freq", default="1", type=eval_str_list_int)
-    g.add_argument("--lr", default="0.25", type=eval_str_list_float)
+    g.add_argument("--lr", "--learning-rate", default="0.25",
+                   type=eval_str_list_float)
+    g.add_argument("--stop-min-lr", default=-1, type=float, metavar="LR",
+                   help="stop before an epoch whose lr is at or below LR "
+                        "(-1 = never)")
+    g.add_argument("--grad-accum-dtype", default="fp32",
+                   choices=["fp32", "bf16"],
+                   help="(compat; parsed and ignored, as in the JAX "
+                        "package: gradients accumulate in fp32)")
     g.add_argument("--fused-lm-head", default="on", choices=["on", "off"])
     g.add_argument("--fused-ce-chunk", default=0, type=int)
     g.add_argument("--optim-bf16-moments", action="store_true",
@@ -136,6 +246,10 @@ def get_training_parser(input_args=None):
                    const=True, default=False)
 
     add_checkpoint_args(p)
+    g = p.add_argument_group("Fault tolerance")
+    g.add_argument("--no-graceful-shutdown", action="store_true",
+                   help="do NOT install the SIGTERM/SIGINT handlers that "
+                        "checkpoint and exit at the next step boundary")
     return p
 
 
@@ -239,7 +353,12 @@ def parse_args_and_arch(parser, input_args=None):
         if choice is not None:
             info["registry"][choice].add_args(parser)
     TASK_REGISTRY[args.task].add_args(parser)
-    args = parser.parse_args(input_args)
+    args, extra = parser.parse_known_args(input_args)
+    refuse_not_parsed(extra)
+    if extra:
+        parser.error("unrecognized arguments: " + " ".join(extra))
+    if args.batch_size_valid is None:
+        args.batch_size_valid = args.batch_size
     ARCH_CONFIG_REGISTRY[args.arch](args)
     for name, info in REGISTRIES.items():
         choice = getattr(args, name, None)

@@ -52,6 +52,12 @@ whose outputs are non-finite on the step's first micro-batch, then the
 non-finite leaves of the params and the optimizer's state, by their
 flax paths.
 
+``--log-memory N`` logs ``mem_gb``, the caching allocator's bytes in use
+on the card, every N dispatches (nothing on the CPU, where the JAX
+trainer's backend has no memory stats either); a step whose forward or
+backward raises logs the allocator's stats at ERROR before the exception
+goes on.  Validation batches hold ``--batch-size-valid`` examples.
+
 Checkpoints (:meth:`Trainer.state_dict`, :meth:`Trainer.load_checkpoint`)
 hold the JAX trainer's tree: ``"model"`` is ``{"step", "params",
 "opt_state", "guard"}`` of numpy arrays in the flax layout (the model's
@@ -216,6 +222,7 @@ class Trainer:
         self._dispatch_count = 0
         self._start_time = time.time()
         self._previous_training_time = 0.0
+        metrics.log_start_time("wall", priority=790, round=0)
 
     # -- one update --------------------------------------------------------
 
@@ -259,7 +266,12 @@ class Trainer:
         scale = self.scaler["scale"] if self.use_scaler else None
         if not self.bf16_sr:
             self._sync_compute_params()
-        sample_size, logs = self._accumulate_grads(samples, scale)
+        try:
+            sample_size, logs = self._accumulate_grads(samples, scale)
+        except Exception:
+            # the JAX trainer logs the device's memory when a step fails
+            self.log_memory_stats(level=logging.ERROR)
+            raise
         grads = [p.grad for p in self.model.parameters()
                  if p.grad is not None]
         # unscale and normalize in one divide, as the reference
@@ -285,6 +297,7 @@ class Trainer:
         # the step's one host sync
         grad_norm, overflow, *used = torch.stack(stats).tolist()
         scale = used[0] if used else None
+        self._log_memory_gauge()
         logging_outputs = [logs]
         if overflow:
             metrics.log_scalar("n_skipped", 1, priority=600, round=0)
@@ -384,6 +397,35 @@ class Trainer:
         if both:
             torch._foreach_add_([a for a, _ in both], [g for _, g in both])
         return [g if a is None else a for a, g in zip(clipped, grads)]
+
+    def _device_memory_stats(self):
+        """The caching allocator's stats of the card; None on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        return torch.cuda.memory_stats(self.device)
+
+    def _log_memory_gauge(self):
+        """``mem_gb``, the allocator's bytes in use, every ``--log-memory``
+        dispatches (on the card only, as the JAX trainer logs it only
+        where its backend has memory stats)."""
+        every = int(getattr(self.args, "log_memory", 0) or 0)
+        if every > 0 and self._dispatch_count % every == 0:
+            ms = self._device_memory_stats()
+            if ms is not None:
+                metrics.log_scalar(
+                    "mem_gb", ms.get("allocated_bytes.all.current", 0) / 1e9,
+                    priority=710, round=2, weight=0)
+
+    def log_memory_stats(self, level=logging.INFO):
+        """Log the card's allocator stats (the bytes in GB), or that there
+        are none on this device."""
+        ms = self._device_memory_stats()
+        if not ms:
+            logger.log(level, "device memory stats unavailable")
+            return
+        logger.log(level, "device memory: %s", ", ".join(
+            f"{k}={v / 1e9:.2f}GB" if "bytes" in k else f"{k}={v}"
+            for k, v in sorted(ms.items()) if ".all." in k or "." not in k))
 
     @torch.no_grad()
     def _detect_nonfinite(self, sample):
@@ -504,7 +546,8 @@ class Trainer:
     def get_valid_iterator(self, subset):
         return self.task.get_batch_iterator(
             self.task.dataset(subset),
-            batch_size=self.args.batch_size,
+            batch_size=getattr(self.args, "batch_size_valid", None)
+            or self.args.batch_size,
             required_batch_size_multiple=self.args.required_batch_size_multiple,
             seed=self.seed)
 
