@@ -35,6 +35,14 @@ code is non-zero:
 5. profile — device busy and idle time of a decode-heavy window, the
    paged-attention kernels' time in it, and the kernels that take the
    most time (``torch.profiler``).
+   serve_sampling — the serve phase's engine configuration and requests
+   sampled (temperature 0.8, top-k 40 on every other request, seeds
+   1106 + i): fresh engines in turns greedy, sampled, sampled, greedy
+   (decode-step medians), then sampled under seeded chaos preemption;
+   the sampled runs token-identical, paged attention once per layer per
+   dispatch; threefry's bits and gumbels of the requests' step keys and
+   ``sample_tokens``/``sample_token`` tokens on fixed fp32 logits equal
+   to the CPU's; the launches and device ms of each pick mode.
 6. flash — the flash-attention kernels vs their plain versions at the
    BERT shapes (B=16, H=12, T=512, D=64, bias [1, 12, 512, 512], 0-200
    padded keys per row, dropout 0.1, q/k/v read from one fused
@@ -204,6 +212,15 @@ code is non-zero:
    max, plain's greedy tokens the served ones but at a top-2 gap within
    twice that distance); a 2-update rel-pos file refused with the JAX
    decoder's message.
+   lm_generate — inside lm_serve_checkpoint, on the same loaded model:
+   ``examples/lm/generate.py`` ``generate()`` (the dense KV-cache decode,
+   fp32) on those 8 prompts right-padded (the ragged prefill) and on an
+   unpadded 8 x 64 batch, 32 greedy tokens at capacity 512: every row
+   equal to ``solo_greedy`` and to the engine's greedy stream (ties as
+   above), no flash or paged kernel inside ``generate()``; a sampled
+   call (temperature 0.8, top-k 40, ``PRNGKey(18)``) twice the same.
+   Prefill ms, decode-step median, tokens/s, one decode step's and one
+   sampled pick's launches, the cache's bytes, peak memory.
    lm_optim_fp16 — the same model under ``--fp16`` (initial loss scale
    128), 10 updates a run, saving at 5, once per optimizer and
    schedule: (a) Adam on ``fixed``, (b) SGD, momentum 0.9, weight decay
@@ -240,7 +257,8 @@ code is non-zero:
    (``--profile``, 3 updates) writes a Chrome trace holding flash kernel
    events.  Reports the validation passes' ms, mem_gb beside the peak,
    the update c stopped at and the trace's size and events.
-16. the ``kernels`` line (rows 1-11 of the TPU kernel table, rows 2-10
+16. the ``kernels`` line (rows 1-11 of the TPU kernel table, row 1's
+   launches from serve and serve_sampling, rows 2-10
    once for the bf16 kernels and once for the fp16 ones, the flash rows'
    launches from the train and train_fp16 phases, the softmax_dropout
    rows' from evoformer_train (bf16) and mol_train_fp16 (fp16), rows
@@ -291,8 +309,15 @@ def card():
     return smi.stdout.strip().splitlines()[0]
 
 
+STARTED = time.perf_counter()
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """Print one phase line, with the seconds since the script started
+    (``elapsed_s``: the time budget of each phase is the difference)."""
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.perf_counter() - STARTED}),
+          flush=True)
 
 
 def time_ms(fn, flush, iters=30):
@@ -551,6 +576,21 @@ def serve_phase(pa):
     return model, first, second, results, launches
 
 
+def held_to_solo(label, got, solo, margins):
+    """``got`` equals the solo decode ``solo`` (with its per-step top-2
+    margins), or first differs at a step whose top-2 logit gap is below
+    1e-4 — a tie under fp32 summation order — and is reported."""
+    diverge = next((i for i, (x, y) in enumerate(zip(solo, got)) if x != y),
+                   None)
+    if diverge is None and len(solo) != len(got):
+        raise AssertionError(f"{label}: lengths differ")
+    if diverge is not None and margins[diverge] >= 1e-4:
+        raise AssertionError(f"{label}: diverges from the solo decode at "
+                             f"step {diverge} (margin {margins[diverge]})")
+    return {"equal": diverge is None, "tie_at": diverge,
+            "min_margin": float(min(margins))}
+
+
 def solo_phase(model, first, second, results):
     """The port's full-forward greedy decode equals the engine's tokens,
     for the shortest and the longest prompt of the first call and the
@@ -569,19 +609,9 @@ def solo_phase(model, first, second, results):
         solo, margins = solo_greedy(model, req.prompt, req.max_new_tokens,
                                     eos_id=req.eos_id)
         got = by_id[req.request_id].tokens
-        diverge = next((i for i, (a, b) in enumerate(zip(solo, got))
-                        if a != b), None)
-        if diverge is None and len(solo) != len(got):
-            raise AssertionError(f"{req.request_id}: lengths differ")
-        if diverge is not None and margins[diverge] >= 1e-4:
-            raise AssertionError(
-                f"{req.request_id}: engine and solo decode diverge at step "
-                f"{diverge} (margin {margins[diverge]})")
         report.append({"request": req.request_id,
-                       "prompt_len": len(req.prompt),
-                       "tokens": len(got), "equal": diverge is None,
-                       "tie_at": diverge,
-                       "min_margin": float(min(margins))})
+                       "prompt_len": len(req.prompt), "tokens": len(got),
+                       **held_to_solo(req.request_id, got, solo, margins)})
     emit("solo", checks=report)
 
 
@@ -624,6 +654,163 @@ def profile_phase(model):
          paged_attention_launches=sum(e.count for e in paged),
          top_kernels=[{"name": e.key[:80], "count": e.count,
                        "ms": e.self_device_time_total / 1e3} for e in top])
+
+
+def device_launches(fn):
+    """Kernel launches and device ms of one call of ``fn`` (after a warm
+    call), under ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    return {"launches": sum(e.count for e in kernels),
+            "device_ms": sum(e.self_device_time_total
+                             for e in kernels) / 1e3}
+
+
+SAMPLE_TEMP, SAMPLE_TOP_K, SAMPLE_SEED = 0.8, 40, 1106
+
+
+def serve_sampling_phase(model, pa, first, second, greedy_results):
+    """The serve phase's engine configuration and requests, sampled:
+    temperature 0.8 on all, top-k 40 on every other one, seeds 1106 + i.
+    Fresh engines in turns greedy, sampled, sampled, greedy (each its
+    decode-step median), then a sampled run under seeded chaos
+    preemption: the three sampled runs token-identical, paged attention
+    once per layer per dispatch.  Then the card against the CPU:
+    threefry's bits and gumbels of the requests' first step keys bit for
+    bit, and ``sample_tokens``/``sample_token`` tokens on fixed fp32
+    logits; and the launches and device ms that each pick mode adds to a
+    step."""
+    import dataclasses
+    import random
+
+    from unicore_tpu_torch.serve import threefry
+    from unicore_tpu_torch.serve.engine import ServeEngine
+    from unicore_tpu_torch.serve.sampling import (sample_token,
+                                                  sample_tokens, step_keys)
+    from unicore_tpu_torch.serve.scheduler import Request
+
+    layers, vocab = model.decoder_layers, model.vocab_size
+    reqs = first + second
+    sampled = [dataclasses.replace(
+        r, temperature=SAMPLE_TEMP, top_k=SAMPLE_TOP_K if i % 2 else 0,
+        seed=SAMPLE_SEED + i) for i, r in enumerate(reqs)]
+
+    def run(batch, chaos=False):
+        engine = ServeEngine(
+            model, device="cuda", num_pages=NUM_PAGES, page_size=PAGE_SIZE,
+            max_batch=BATCH, chaos_rate=0.25 if chaos else 0.0,
+            chaos_rng=random.Random(18) if chaos else None)
+        engine.generate([Request(prompt=[5] * 20, max_new_tokens=2)])
+        d0 = len(engine.decode_ms)
+        dispatches0 = engine.stats["ragged_dispatches"]
+        evictions0 = engine.scheduler.num_evictions
+        pa.ragged_paged_attention.launches = 0
+        results = (engine.generate(batch[:len(first)])
+                   + engine.generate(batch[len(first):]))
+        launches = pa.ragged_paged_attention.launches
+        if not engine.pool.is_idle():
+            raise AssertionError("pool not idle after a sampled run")
+        return {"tokens": [r.tokens for r in results],
+                "reasons": sorted({r.finish_reason for r in results}),
+                "step_ms": float(np.median(list(engine.decode_ms)[d0:])),
+                "dispatches": (engine.stats["ragged_dispatches"]
+                               - dispatches0), "launches": launches,
+                "evictions": engine.scheduler.num_evictions - evictions0}
+
+    turns = []
+    greedy_a = run(reqs)
+    turns.append(("greedy", greedy_a["step_ms"]))
+    sampled_a = run(sampled)
+    turns.append(("sampled", sampled_a["step_ms"]))
+    sampled_b = run(sampled)
+    turns.append(("sampled", sampled_b["step_ms"]))
+    launches = sampled_a["launches"] + sampled_b["launches"]
+    greedy_b = run(reqs)
+    turns.append(("greedy", greedy_b["step_ms"]))
+    chaos = run(sampled, chaos=True)
+    dispatches = sampled_a["dispatches"] + sampled_b["dispatches"]
+    if launches != layers * dispatches or dispatches == 0:
+        raise AssertionError(f"{launches} paged-attention launches for "
+                             f"{dispatches} sampled dispatches of {layers} "
+                             "layers")
+    for name, r in (("sampled run b", sampled_b), ("chaos run", chaos)):
+        if r["tokens"] != sampled_a["tokens"]:
+            raise AssertionError(f"{name}: tokens differ from run a")
+    if chaos["evictions"] < 1:
+        raise AssertionError("the chaos run evicted nothing")
+    if sampled_a["tokens"] == greedy_a["tokens"]:
+        raise AssertionError("sampling changed no token")
+    for r in (greedy_a, greedy_b, sampled_a, chaos):
+        if not set(r["reasons"]) <= {"eos", "length", "capacity"}:
+            raise AssertionError(f"unexpected finish reasons {r['reasons']}")
+    # the card against the CPU on the requests' first 8 step keys
+    seeds = torch.arange(len(sampled)).repeat_interleave(8) + SAMPLE_SEED
+    steps = torch.arange(8).repeat(len(sampled))
+    keys = step_keys(seeds, steps)
+    keys_card = step_keys(seeds.cuda(), steps.cuda())
+    bits_equal = torch.equal(keys_card.cpu(), keys) and torch.equal(
+        threefry.random_bits(keys_card, (vocab,)).cpu(),
+        threefry.random_bits(keys, (vocab,)))
+    gumbel_equal = torch.equal(
+        threefry.gumbel(keys_card, (vocab,)).cpu().view(torch.int32),
+        threefry.gumbel(keys, (vocab,)).view(torch.int32))
+    x = torch.randn(BATCH, vocab,
+                    generator=torch.Generator().manual_seed(18)) * 4
+    temps = torch.tensor([0.0, SAMPLE_TEMP, 1.3, SAMPLE_TEMP] * (BATCH // 4))
+    top_k = torch.tensor([0, SAMPLE_TOP_K, 1, vocab] * (BATCH // 4))
+    pick_keys = keys[:BATCH]
+    tokens_equal = {}
+    for use_top_k in (True, False):
+        tokens_equal[f"sample_tokens(use_top_k={use_top_k})"] = torch.equal(
+            sample_tokens(x.cuda(), pick_keys.cuda(), temps.cuda(),
+                          top_k.cuda(), use_top_k=use_top_k).cpu(),
+            sample_tokens(x, pick_keys, temps, top_k, use_top_k=use_top_k))
+    for temp in (SAMPLE_TEMP, 1.3):
+        for k in (0, SAMPLE_TOP_K):
+            key = threefry.PRNGKey(18)
+            tokens_equal[f"sample_token(t={temp}, k={k})"] = torch.equal(
+                sample_token(x.cuda(), key=key.cuda(), temperature=temp,
+                             top_k=k).cpu(),
+                sample_token(x, key=key, temperature=temp, top_k=k))
+    if not (bits_equal and gumbel_equal and all(tokens_equal.values())):
+        raise AssertionError(f"card vs CPU: bits {bits_equal}, gumbels "
+                             f"{gumbel_equal}, tokens {tokens_equal}")
+    # what each pick mode costs a step, on [16, V] logits
+    xc, tc, kc = x.cuda(), temps.cuda(), top_k.cuda()
+    sc, stc = seeds[:BATCH].cuda(), steps[:BATCH].cuda()
+    picks = {mode: device_launches(
+        lambda mode=mode: ServeEngine._pick_tokens(xc, sc, stc, tc, kc,
+                                                   mode))
+        for mode in ("greedy", "temp", "topk")}
+    return {
+        "model": "transformer_lm_base", "card": card(),
+        "requests": len(sampled), "temperature": SAMPLE_TEMP,
+        "top_k_on_every_other": SAMPLE_TOP_K,
+        "decode_step_ms_turns": turns,
+        "sampled_dispatches": dispatches, "paged_launches": launches,
+        "chaos_evictions": chaos["evictions"],
+        "reproducible": True, "chaos_identical": True,
+        "greedy_equal_serve_phase": greedy_a["tokens"] == [
+            r.tokens for r in greedy_results],
+        "tokens_differing_from_greedy": sum(
+            a != b for s, g in zip(sampled_a["tokens"], greedy_a["tokens"])
+            for a, b in zip(s, g)),
+        "card_vs_cpu": {"bits_equal": bits_equal,
+                        "gumbel_equal": gumbel_equal,
+                        "keys": int(keys.shape[0]), "columns": vocab,
+                        "tokens_equal": tokens_equal},
+        "pick_per_step": picks,
+        "sampling_adds_launches": picks["topk"]["launches"]
+                                  - picks["greedy"]["launches"]}
 
 
 def flash_operands(rng, dtype, shape=(FLASH_B, FLASH_H, FLASH_T, FLASH_D),
@@ -2326,12 +2513,17 @@ def lm_serve_checkpoint_phase():
                     str(NUM_PAGES), "--page-size", str(PAGE_SIZE),
                     "--max-batch", "8", "--device", "cuda", "--json", out])
         serve_s = time.perf_counter() - t0
+        paged_launches = pa.ragged_paged_attention.launches
         with open(out) as f:
             served = json.load(f)
         if not served["pool_clean"] or \
                 not served["device"].startswith("cuda"):
             raise AssertionError(f"serve report {served['device']}, pool "
                                  f"clean {served['pool_clean']}")
+        want_paged = layers * served["stats"]["ragged_dispatches"]
+        if paged_launches != want_paged:
+            raise AssertionError(f"served run paged launches "
+                                 f"{paged_launches}, want {want_paged}")
         model = load_serve_model(path, dict_path).cuda()
         checks = []
         for res, prompt in zip(served["results"], prompts):
@@ -2339,17 +2531,9 @@ def lm_serve_checkpoint_phase():
                 raise AssertionError(f"{res['request_id']}: prompt differs")
             solo, margins = solo_greedy(model, prompt, 16)
             got = res["tokens"]
-            diverge = next((i for i, (x, y) in enumerate(zip(solo, got))
-                            if x != y), None)
-            if diverge is None and len(solo) != len(got):
-                raise AssertionError(f"{res['request_id']}: lengths differ")
-            if diverge is not None and margins[diverge] >= 1e-4:
-                raise AssertionError(
-                    f"{res['request_id']}: served and solo decode diverge "
-                    f"at step {diverge} (margin {margins[diverge]})")
             checks.append({"prompt_len": len(prompt), "tokens": len(got),
-                           "equal": diverge is None, "tie_at": diverge,
-                           "min_margin": float(min(margins))})
+                           **held_to_solo(res["request_id"], got, solo,
+                                          margins)})
         # the oracle runs the port's kernels; hold it once to the plain
         # versions: the shortest prompt and its served stream in one
         # forward on the CPU, where every wrapper runs its plain version
@@ -2377,6 +2561,8 @@ def lm_serve_checkpoint_phase():
         oracle = {"prompt_len": len(prompts[short]), "tokens": len(stream),
                   "logits_max_abs_err": oracle_err, "tol": oracle_tol,
                   "min_gap": float(min(gaps))}
+        # lm_generate: the same model and prompts through generate()
+        emit("lm_generate", **lm_generate_case(model, prompts))
         del model
         # a rel-pos file: the reference's defaults, 2 updates
         cli_main(lm_args(tmp, os.path.join(tmp, "log_rp"), 2, "--save-dir",
@@ -2399,10 +2585,142 @@ def lm_serve_checkpoint_phase():
             "updates": LM_SERVE_UPDATES, "train_s": train_s,
             "flash_launches": train_launches, "card": card(),
             "file_bytes": file_bytes, "requests": len(served["results"]),
-            "serve_s": serve_s, "paged_launches":
-                pa.ragged_paged_attention.launches,
+            "serve_s": serve_s, "paged_launches": paged_launches,
             "stats": served["stats"], "solo_checks": checks,
             "oracle_vs_plain": oracle, "relpos_refusal": refusal}
+
+
+GEN_NEW, GEN_CAP, GEN_BATCH = 32, 512, 8
+
+
+def lm_generate_case(model, prompts):
+    """``generate()`` (the dense-cache decode) on the served checkpoint's
+    fp32 model: the 8 right-padded prompts of 16-200 tokens (the ragged
+    prefill) and an unpadded 8 x 64 batch (``_prefill``), 32 greedy
+    tokens each at capacity 512.  Every row equals ``solo_greedy`` of its
+    prompt and the engine's greedy stream (a divergence passes only at a
+    top-2 gap below 1e-4); no flash or paged kernel runs inside
+    ``generate()``; a sampled call (temperature 0.8, top-k 40,
+    ``PRNGKey(18)``) twice gives the same tokens.  Reports the prefill
+    ms, the decode-step median (each model call synchronized), decode
+    tokens/s, the launches of one decode step and of one sampled pick,
+    the cache's bytes and the peak memory."""
+    from unicore_tpu_torch.examples.lm import generate as gen
+    from unicore_tpu_torch.examples.lm.model import solo_greedy
+    from unicore_tpu_torch.ops import flash_attention as fa
+    from unicore_tpu_torch.ops import paged_attention as pa
+    from unicore_tpu_torch.serve import threefry
+    from unicore_tpu_torch.serve.engine import ServeEngine
+    from unicore_tpu_torch.serve.sampling import sample_token
+    from unicore_tpu_torch.serve.scheduler import Request
+
+    rng = np.random.default_rng(1807)
+    padded = np.full((GEN_BATCH, max(map(len, prompts))), model.padding_idx,
+                     np.int64)
+    for i, p in enumerate(prompts):
+        padded[i, :len(p)] = p
+    unpadded = rng.integers(4, model.vocab_size, size=(GEN_BATCH, 64))
+    batches = {"padded": (padded, list(prompts)),
+               "unpadded": (unpadded, unpadded.tolist())}
+    # every model call of generate(), synchronized and timed
+    calls = {n: getattr(gen, n) for n in ("_prefill", "_prefill_ragged",
+                                         "_step", "_step_ragged")}
+    times = []
+
+    def timed(name, fn):
+        def call(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            times.append((name, (time.perf_counter() - t0) * 1e3))
+            return out
+        return call
+
+    report, outs = {}, {}
+    gen.generate(model, unpadded[:, :8], 2, max_len=GEN_CAP)  # warm-up
+    for name, fn in calls.items():
+        setattr(gen, name, timed(name, fn))
+    try:
+        for label, (batch, _) in batches.items():
+            times.clear()
+            pa.ragged_paged_attention.launches = 0
+            for name in fa.launches:
+                fa.launches[name] = 0
+            base_gb = reset_peak_memory()
+            t0 = time.perf_counter()
+            outs[label] = gen.generate(model, batch, GEN_NEW,
+                                       max_len=GEN_CAP).cpu()
+            wall_s = time.perf_counter() - t0
+            kernels = pa.ragged_paged_attention.launches + sum(
+                fa.launches.values())
+            if kernels:
+                raise AssertionError(f"generate() launched {kernels} flash "
+                                     "or paged-attention kernels")
+            steps = [ms for n, ms in times if n.startswith("_step")]
+            prefill = [ms for n, ms in times if n.startswith("_prefill")]
+            if len(prefill) != 1 or len(steps) != GEN_NEW - 1:
+                raise AssertionError(f"{label}: calls {times}")
+            report[label] = {
+                "path": "_prefill_ragged" if label == "padded"
+                        else "_prefill",
+                "wall_s": wall_s, "prefill_ms": prefill[0],
+                "decode_step_median_ms": float(np.median(steps)),
+                "decode_tokens_per_s": GEN_BATCH * len(steps)
+                                       / (sum(steps) / 1e3),
+                "tokens_per_s_end_to_end": GEN_BATCH * GEN_NEW / wall_s,
+                "allocated_before_gb": base_gb,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        sampled = [gen.generate(model, padded, GEN_NEW,
+                                temperature=SAMPLE_TEMP, top_k=SAMPLE_TOP_K,
+                                rng=threefry.PRNGKey(18),
+                                max_len=GEN_CAP).cpu() for _ in range(2)]
+    finally:
+        for name, fn in calls.items():
+            setattr(gen, name, fn)
+    if not torch.equal(sampled[0], sampled[1]):
+        raise AssertionError("two sampled generate() calls differ")
+    # each row against solo_greedy and the engine's greedy stream
+    engine = ServeEngine(model, device="cuda", num_pages=NUM_PAGES,
+                         page_size=PAGE_SIZE, max_batch=GEN_BATCH)
+    checks = []
+    for label, (_, rows) in batches.items():
+        streams = engine.generate([
+            Request(prompt=p, max_new_tokens=GEN_NEW,
+                    request_id=f"{label}{i}") for i, p in enumerate(rows)])
+        for i, (p, res) in enumerate(zip(rows, streams)):
+            got = outs[label][i, len(p):len(p) + GEN_NEW].tolist()
+            solo, margins = solo_greedy(model, p, GEN_NEW)
+            checks.append({
+                "batch": label, "prompt_len": len(p),
+                "generate": held_to_solo(f"generate {label}{i}", got,
+                                         solo, margins),
+                "engine": held_to_solo(f"engine {label}{i}", res.tokens,
+                                       solo, margins),
+                "generate_equals_engine": got == res.tokens})
+    # one decode step and one sampled pick, profiled
+    lengths = torch.tensor([len(p) for p in prompts], device="cuda")
+    cache = gen.init_cache(model, GEN_BATCH, GEN_CAP)
+    with torch.no_grad():
+        logit, cache = gen._prefill_ragged(
+            model, cache, torch.from_numpy(padded).cuda(), lengths)
+        tok = logit.argmax(-1)
+        step = device_launches(
+            lambda: gen._step_ragged(model, cache, tok, lengths))
+    key = threefry.PRNGKey(18, device="cuda")
+    pick = device_launches(lambda: sample_token(
+        logit, key=key, temperature=SAMPLE_TEMP, top_k=SAMPLE_TOP_K))
+    return {"model": "transformer_lm_base", "dtype": "float32",
+            "card": card(), "batch": GEN_BATCH, "new_tokens": GEN_NEW,
+            "capacity": GEN_CAP, "calls": report, "checks": checks,
+            "all_equal": all(c["generate"]["equal"]
+                             and c["generate_equals_engine"]
+                             for c in checks),
+            "sampled_reproducible": True,
+            "sampled_tokens_off_greedy": int(
+                (sampled[0] != outs["padded"]).sum()),
+            "decode_step": step, "sampled_pick": pick,
+            "cache_bytes": sum(b.nbytes for kv in cache.kv for b in kv)}
 
 
 EVO_UPDATES, EVO_S, EVO_R = 10, 128, 256
@@ -3732,7 +4050,8 @@ def flash_row(row, name, replaces, case, launches):
 def kernels_line(cases, serve_launches, flash, multiblock, train_launches,
                  sd, sr, evo_launches, fp16_launches, mol_launches,
                  unifold_launches, ema_report, causal, lm_launches,
-                 rotary_launches, lm_fp16_launches, rc_launches):
+                 rotary_launches, lm_fp16_launches, rc_launches,
+                 sampling_launches):
     """One row per TPU kernel of the table in PERF.md (rows 1-11); a row
     realized by two CUDA kernels (4, 8) has one entry for each, and the
     flash rows (2-8) and the softmax_dropout rows (9-10) one for each of
@@ -3756,6 +4075,8 @@ def kernels_line(cases, serve_launches, flash, multiblock, train_launches,
         "source": "unicore_tpu_torch/csrc/paged_attention.cu",
         "replaces": PALLAS + "paged_attention.py:65",
         "launches": serve_launches,
+        "launches_by_phase": {"serve": serve_launches,
+                              "serve_sampling": sampling_launches},
         "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
         "ms": decode["ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
@@ -3919,6 +4240,8 @@ def main():
     model, first, second, results, launches = serve_phase(pa)
     solo_phase(model, first, second, results)
     profile_phase(model)
+    sampling = serve_sampling_phase(model, pa, first, second, results)
+    emit("serve_sampling", **sampling)
     del model
     torch.cuda.empty_cache()
     flash = flash_phase(flush)
@@ -3957,7 +4280,7 @@ def main():
                         fp16_launches, mol_launches, unifold_launches,
                         ema_report, causal, lm["launches"],
                         lm_serve["flash_launches"], lm_fp16_launches,
-                        rc_launches)
+                        rc_launches, sampling["paged_launches"])
     print(json.dumps({"kernels": rows}), flush=True)
     print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {

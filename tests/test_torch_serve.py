@@ -236,15 +236,17 @@ def test_engine_prefix_hits_and_quarantine_keep_tokens(pair):
 
 
 def test_engine_drain_sheds_and_refuses_sampling(pair):
+    """A drained engine sheds what is submitted, a sampled request too:
+    sampling is served since it was ported (tests/test_torch_sampling.py
+    holds its tokens), so the drain, not validation, turns it away."""
     _, _, model = pair
     engine = port_engine(model)
-    with pytest.raises(NotImplementedError, match="temperature"):
-        engine.generate([Request(prompt=[1, 2], max_new_tokens=2,
-                                 temperature=0.7)])
     engine.request_drain()
-    results = engine.generate(requests()[:3])
-    assert [r.finish_reason for r in results] == ["shed"] * 3
-    assert engine.drain_report["shed"] == 3
+    sampled = Request(prompt=[1, 2], max_new_tokens=2, temperature=0.7,
+                      top_k=5, request_id="s")
+    results = engine.generate(requests()[:3] + [sampled])
+    assert [r.finish_reason for r in results] == ["shed"] * 4
+    assert engine.drain_report["shed"] == 4
     assert engine.drain_report["pool_idle"]
 
 

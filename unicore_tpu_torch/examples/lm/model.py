@@ -162,10 +162,14 @@ class TransformerLMModel(BaseUnicoreModel):
         self.out_bias.zero_()
 
     def features(self, src_tokens, positions=None, paged=None,
-                 generator=None):
+                 generator=None, cache=None):
         """Decoder output before the head, [B, T, D].  Without ``paged``
-        this is the causal full forward over ``src_tokens``; with it, one
-        ragged serve step (``positions`` [B, T], -1 = padded column)."""
+        or ``cache`` this is the causal full forward over ``src_tokens``;
+        with ``paged``, one ragged serve step (``positions`` [B, T], -1 =
+        padded column); with ``cache`` (a :class:`~unicore_tpu_torch.
+        modules.multihead_attention.DecodeCache`), one dense-cache decode
+        step (``positions`` [T], or [B, T] with -1 = inactive), the cache
+        advanced in place."""
         padding_mask = src_tokens == self.padding_idx
         x = self.embed_tokens(src_tokens)
         if self.embed_positions is not None:
@@ -176,7 +180,7 @@ class TransformerLMModel(BaseUnicoreModel):
                 # -1 marks an inactive column: gather row 0 for it
                 x = x + pos[positions.long().clamp(min=0)].to(x.dtype)
         return self.decoder(x, padding_mask=padding_mask, generator=generator,
-                            positions=positions, paged=paged)
+                            positions=positions, paged=paged, cache=cache)
 
     def head_features(self, x):
         """The head's features before the tied projection."""
@@ -190,8 +194,12 @@ class TransformerLMModel(BaseUnicoreModel):
             + self.out_bias
 
     def forward(self, src_tokens, positions=None, paged=None, generator=None,
-                fused_head=False):
-        x = self.features(src_tokens, positions, paged, generator)
+                fused_head=False, cache=None):
+        """Logits [B, T, V]; with ``cache``, ``(logits, cache)`` as the
+        JAX model's ``apply(..., mutable=["cache"])`` returns them."""
+        x = self.features(src_tokens, positions, paged, generator, cache)
+        if cache is not None:
+            return self.head(x), cache
         if fused_head:
             return {"features": self.head_features(x),
                     "kernel": self.embed_tokens.weight,

@@ -18,16 +18,25 @@ Two paths:
 - the paged decode path (``paged`` given): this step's k/v are written
   into the layer's pool pages at ``paged.slot_mapping`` (in place), then
   each row attends the pages its table names through
-  :func:`unicore_tpu_torch.ops.paged_attention.ragged_paged_attention`.
+  :func:`unicore_tpu_torch.ops.paged_attention.ragged_paged_attention`;
+- the dense-cache decode path (``cache`` given, the JAX
+  ``_decode_attend``): this step's k/v are written into the layer's
+  :class:`DecodeCache` buffers (in place) and the queries attend the
+  whole cache with ``einsum`` and an fp32 softmax, as the JAX package
+  does it outside any kernel.
 
 Parameter names follow the reference torch model (``in_proj``,
 ``out_proj``; both :class:`~.dense.FlaxDense`, the bias added after the
 product rounds, as flax's): ``in_proj`` is ``Linear(D, 3D)`` whose
 output features are laid out q-block, k-block, v-block, each
 ``[H, Dh]`` — the JAX package's ``DenseGeneral`` kernel
-``[D, 3, H, Dh]`` is ``in_proj.weight.T`` reshaped.  The cross-attention module, ``return_attn``, packed
-``segment_ids`` and the dense ``_decode_attend`` cache are not ported yet.
+``[D, 3, H, Dh]`` is ``in_proj.weight.T`` reshaped.  The cross-attention
+module, ``return_attn`` and packed ``segment_ids`` are not ported yet
+(ROADMAP.md A3, A11); with a decode cache they meet the JAX refusals.
 """
+
+import dataclasses
+from typing import List
 
 import torch
 from torch import nn
@@ -87,6 +96,66 @@ def _attend(q, k, v, scaling, dropout, key_padding_mask, bias, training,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+# the JAX package's refusals on its decode paths (dense cache or paged)
+DECODE_BIAS_REFUSAL = (
+    "decode=True does not support attn_bias/key_padding_mask (decoding "
+    "assumes unpadded prompts; generate() enforces this)")
+DECODE_RETURN_ATTN_REFUSAL = "decode=True with return_attn"
+DECODE_SEGMENT_REFUSAL = (
+    "decode=True with segment_ids (sequence packing is a training-path "
+    "feature; decode rows are one sequence each by construction)")
+DECODE_ROTARY_REFUSAL = (
+    "decode=True with rotary requires positions= (the global positions "
+    "of the current tokens) — without them every step would rotate at "
+    "position 0")
+
+
+@dataclasses.dataclass
+class DecodeCache:
+    """The dense decode cache of a decoder (flax's ``"cache"``
+    collection): per layer ``[cached_key, cached_value]``, each
+    ``[B, capacity + 1, H, Dh]``, and the ``cache_index`` every layer
+    shares (an int32 0-dim tensor on the cache's device).  The slot past
+    the capacity is the trash slot: inactive rows of a ragged step
+    (position -1) write their k/v there, and no mask ever admits it.  A
+    step writes the buffers and advances the index in place."""
+
+    kv: List[List[torch.Tensor]]
+    index: torch.Tensor
+
+    @classmethod
+    def allocate(cls, layers, batch, capacity, heads, head_dim, dtype,
+                 device):
+        shape = (batch, capacity + 1, heads, head_dim)
+        kv = [[torch.zeros(shape, dtype=dtype, device=device)
+               for _ in range(2)] for _ in range(layers)]
+        return cls(kv, torch.zeros((), dtype=torch.int32, device=device))
+
+    def layer(self, i):
+        """Layer ``i``'s ``(cached_key, cached_value, cache_index)``."""
+        return self.kv[i][0], self.kv[i][1], self.index
+
+    def advance(self, positions, tgt_len):
+        """Move the index past a step of ``tgt_len`` tokens: by
+        ``tgt_len`` on the contiguous path, to ``max(index,
+        max(positions) + 1)`` on the ragged one (2-D ``positions``)."""
+        if positions is not None and positions.dim() == 2:
+            self.index = torch.maximum(
+                self.index, positions.max().to(torch.int32) + 1)
+        else:
+            self.index = self.index + tgt_len
+
+
+def _decode_mask(idx, tgt_len, cache_len):
+    """Additive fp32 [tgt_len, cache_len] mask for incremental decoding:
+    query row r (global position idx + r) sees keys <= idx + r;
+    unwritten cache slots (>= idx + tgt_len) are masked by the same
+    comparison.  ``idx`` is a 0-dim tensor on the mask's device."""
+    rows = torch.arange(tgt_len, dtype=torch.int32, device=idx.device)
+    cols = torch.arange(cache_len, dtype=torch.int32, device=idx.device)
+    return torch.where(cols[None, :] > rows[:, None] + idx, -1e30, 0.0)
+
+
 class SelfMultiheadAttention(nn.Module):
     def __init__(self, embed_dim, num_heads, dropout=0.0, bias=True,
                  scaling_factor=1.0, rotary=False, rotary_base=10000.0):
@@ -106,14 +175,31 @@ class SelfMultiheadAttention(nn.Module):
 
     def forward(self, query, key_padding_mask=None, attn_bias=None,
                 causal=False, generator=None, positions=None, paged=None,
-                kv=None):
+                kv=None, cache=None, return_attn=False, segment_ids=None):
         """``query`` [B, T, D].  ``key_padding_mask`` [B, T] (True/1 =
-        pad) applies to the full forwards only; the paged path drops it,
-        as the JAX decoder does.  Dropout is on in training mode and
-        draws from ``generator`` (on ``query``'s device).  ``positions``
-        [B, T] global positions (-1 = padded column) are required with
-        ``paged``, together with this layer's ``kv = (k_pages,
-        v_pages)`` pools."""
+        pad) applies to the full forwards only; the decoder drops it on
+        the decode paths, as the JAX decoder does.  Dropout is on in
+        training mode and draws from ``generator`` (on ``query``'s
+        device).  ``positions`` [B, T] global positions (-1 = padded
+        column) are required with ``paged``, together with this layer's
+        ``kv = (k_pages, v_pages)`` pools.  ``cache`` is this layer's
+        :meth:`DecodeCache.layer`; ``positions`` then are [T] (the
+        contiguous path, writing at the cache index) or [B, T] (ragged:
+        each row at its own positions, -1 = inactive)."""
+        if paged is not None or cache is not None:
+            if attn_bias is not None or key_padding_mask is not None:
+                raise NotImplementedError(DECODE_BIAS_REFUSAL)
+            if return_attn:
+                raise NotImplementedError(DECODE_RETURN_ATTN_REFUSAL)
+            if segment_ids is not None:
+                raise NotImplementedError(DECODE_SEGMENT_REFUSAL)
+            if positions is None and self.rotary:
+                raise ValueError(DECODE_ROTARY_REFUSAL)
+        elif return_attn or segment_ids is not None:
+            raise NotImplementedError(
+                f"{'return_attn' if return_attn else 'segment_ids'} is not "
+                "ported to unicore_tpu_torch yet (ROADMAP.md "
+                f"{'A3' if return_attn else 'A11'})")
         bsz, tgt_len, _ = query.shape
         qkv = self.in_proj(query).view(bsz, tgt_len, 3, self.num_heads,
                                        self.head_dim)
@@ -128,6 +214,8 @@ class SelfMultiheadAttention(nn.Module):
                     "positions of the current tokens) and kv= (this "
                     "layer's pools)")
             o = self._paged_attend(q, k, v, paged, positions, kv)
+        elif cache is not None:
+            o = self._decode_attend(q, k, v, positions, cache)
         else:
             o = _attend(q, k, v, self.scaling, self.dropout,
                         key_padding_mask,
@@ -148,3 +236,43 @@ class SelfMultiheadAttention(nn.Module):
             paged.lengths, page_size=paged.page_size, scale=self.scaling,
         )
 
+    def _decode_attend(self, q, k, v, positions, cache):
+        """Dense KV-cache attention (the JAX ``_decode_attend``): write
+        this step's k/v into the cache in place, then attend the queries
+        over the whole cache, the masked scores filled with -1e30 and the
+        softmax in fp32."""
+        cached_key, cached_value, idx = cache
+        cache_len = cached_key.shape[1]
+        if positions is not None and positions.dim() == 2:
+            # ragged: row r of sequence b writes at its OWN position
+            # (slot == position), inactive rows (-1) at the trash slot;
+            # each row attends keys <= its position
+            bsz = positions.shape[0]
+            trash = cache_len - 1
+            slots = torch.where(positions >= 0, positions,
+                                torch.full_like(positions, trash)).long()
+            rows = torch.arange(bsz, device=q.device)[:, None] * cache_len
+            flat = (rows + slots).reshape(-1)
+            for buf, new in ((cached_key, k), (cached_value, v)):
+                buf.view(-1, *buf.shape[2:]).index_copy_(
+                    0, flat, new.reshape(-1, *new.shape[2:]).to(buf.dtype))
+            cols = torch.arange(cache_len, device=q.device)
+            mask = torch.where(
+                cols[None, None, None, :] > positions[:, None, :, None],
+                -1e30, 0.0)
+        else:
+            # contiguous: at the cache index, the start clamped so the
+            # block fits (jax.lax.dynamic_update_slice)
+            tgt_len = q.shape[1]
+            start = idx.clamp(max=cache_len - tgt_len)
+            cols = start + torch.arange(tgt_len, device=q.device)
+            for buf, new in ((cached_key, k), (cached_value, v)):
+                buf.index_copy_(1, cols, new.to(buf.dtype))
+            mask = _decode_mask(idx, tgt_len, cache_len)[None, None]
+        s = torch.einsum("bqhd,bkhd->bhqk",
+                         q * rounded_constant(self.scaling, q.dtype),
+                         cached_key)
+        # the weakly typed fp32 mask meets the scores in their dtype
+        s = s + mask.to(s.dtype)
+        p = torch.softmax(s.float(), dim=-1).to(q.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", p, cached_value)

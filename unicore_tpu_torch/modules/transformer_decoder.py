@@ -13,9 +13,13 @@ flax's ``nn.Dense``.  Causal masking goes to the attention as a flag, so
 flash masks in its kernels and the materialized path folds an iota mask
 into its bias.
 
-The decoder refuses what the JAX one refuses: decoding (``paged``) with
-the relative-position bias, and packed ``segment_ids`` with it; packing
-itself is not ported (ROADMAP.md A11).  Cross-attention is not ported.
+Two decode paths, each dropping the key padding mask from the attention
+as the JAX decoder does: ``paged`` (the serve engine's pool) and
+``cache`` (a :class:`~.multihead_attention.DecodeCache`, ``generate()``'s
+dense cache, advanced in place).  The decoder refuses what the JAX one
+refuses: decoding with the relative-position bias, and packed
+``segment_ids`` with it; packing itself is not ported (ROADMAP.md A11).
+Cross-attention is not ported (A3).
 """
 
 from torch import nn
@@ -57,14 +61,15 @@ class TransformerDecoderLayer(nn.Module):
         return ops_dropout(x, rate, generator)
 
     def forward(self, x, attn_bias=None, padding_mask=None, generator=None,
-                positions=None, paged=None, kv=None):
+                positions=None, paged=None, kv=None, cache=None):
+        decode = paged is not None or cache is not None
         residual = x
         if not self.post_ln:
             x = self.self_attn_layer_norm(x)
         x = self.self_attn(
-            x, key_padding_mask=None if paged is not None else padding_mask,
+            x, key_padding_mask=None if decode else padding_mask,
             attn_bias=attn_bias, causal=True, generator=generator,
-            positions=positions, paged=paged, kv=kv,
+            positions=positions, paged=paged, kv=kv, cache=cache,
         )
         x = residual + self._drop(x, self.dropout, generator)
         if self.post_ln:
@@ -103,9 +108,11 @@ class TransformerDecoder(nn.Module):
         self.final_layer_norm = None if post_ln else LayerNorm(embed_dim)
 
     def forward(self, emb, padding_mask=None, generator=None, positions=None,
-                paged=None, segment_ids=None):
+                paged=None, segment_ids=None, cache=None):
         """``paged`` (a :class:`~unicore_tpu_torch.serve.attention.
-        PagedMeta`) carries one ``(k_pages, v_pages)`` pair per layer."""
+        PagedMeta`) carries one ``(k_pages, v_pages)`` pair per layer;
+        ``cache`` (a :class:`~.multihead_attention.DecodeCache`) one
+        dense ``[cached_key, cached_value]`` pair per layer."""
         rel_pos = self.relative_attention_bias is not None
         if segment_ids is not None:
             if rel_pos:
@@ -117,7 +124,7 @@ class TransformerDecoder(nn.Module):
             raise NotImplementedError(
                 "sequence packing (segment_ids) is not ported to "
                 "unicore_tpu_torch yet (ROADMAP.md A11)")
-        if paged is not None and rel_pos:
+        if (paged is not None or cache is not None) and rel_pos:
             raise NotImplementedError(DECODE_REL_POS_REFUSAL)
         seq_len = emb.shape[1]
         x = self.emb_layer_norm(emb)
@@ -132,7 +139,10 @@ class TransformerDecoder(nn.Module):
         for i, layer in enumerate(self.layers):
             kv = None if paged is None else paged.kv_pages[i]
             x = layer(x, attn_bias, padding_mask, generator, positions,
-                      paged=paged, kv=kv)
+                      paged=paged, kv=kv,
+                      cache=None if cache is None else cache.layer(i))
+        if cache is not None:
+            cache.advance(positions, seq_len)
         if self.final_layer_norm is not None:
             x = self.final_layer_norm(x)
         return x

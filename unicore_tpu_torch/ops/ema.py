@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from . import build
+from ..utils import fma_fp32
 
 # launches of the kernel, counted where the wrapper launches it
 launches = {"ema_update": 0}
@@ -43,25 +44,6 @@ def decay_terms(decay):
     """``(d, 1 - d)`` as the JAX trainer forms them: both fp32."""
     d = np.float32(decay)
     return d, np.float32(1.0) - d
-
-
-def fma_fp32(x, y, z):
-    """``x * y + z`` of fp32 tensors (``y`` may be an fp32 scalar) with
-    one rounding, as an fp32 fused multiply-add gives it: the product is
-    exact in float64, the sum rounds once there, and a result that lands
-    on a tie between two fp32 values goes to the side of the sum's
-    rounding error instead of to the even one."""
-    a = x.double() * (float(y) if not torch.is_tensor(y) else y.double())
-    b = z.double()
-    s = a + b
-    bb = s - a
-    err = (a - (s - bb)) + (b - bb)  # exact: s + err == a + b
-    r = s.float()
-    diff = s - r.double()
-    toward = torch.full_like(r, float("inf")).copysign(diff.float())
-    r2 = torch.nextafter(r, toward)  # the fp32 neighbour on s's side
-    tie = (diff != 0) & (diff * 2 == r2.double() - r.double())
-    return torch.where(tie & (err * diff > 0), r2, r)
 
 
 @torch.no_grad()

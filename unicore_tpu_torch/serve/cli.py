@@ -12,8 +12,10 @@ Two sources of model + prompts:
 - ``--demo`` serves a tiny model with seeded random weights on random
   prompts of mixed lengths — the zero-setup smoke path.
 
-Decoding is greedy: ``--temperature > 0`` (ROADMAP.md A9), ``--fleet``
-and ``--step-timeout`` (A12) are not ported and exit saying so.
+Decoding is greedy unless ``--temperature > 0``: then seeded sampling
+(``--top-k`` to filter), request ``i`` keyed by seed ``--seed + i``, the
+JAX CLI's tokens for the same flags.  ``--fleet`` and ``--step-timeout``
+(ROADMAP.md A12) are not ported and exit saying so.
 ``--device`` picks the device (default ``cuda``; without a card the run
 fails rather than falling back to the CPU).
 
@@ -37,7 +39,7 @@ logger = logging.getLogger("unicore_tpu_torch.serve.cli")
 
 NOT_PORTED = "is not ported to unicore_tpu_torch yet"
 # flag -> the ROADMAP.md item that ports it
-ITEMS = {"--fleet": "A12", "--step-timeout": "A12", "--temperature": "A9"}
+ITEMS = {"--fleet": "A12", "--step-timeout": "A12"}
 
 
 def make_parser():
@@ -63,9 +65,11 @@ def make_parser():
                      help="demo mode: 'lo,hi' prompt lengths")
     req.add_argument("--max-new-tokens", type=int, default=16)
     req.add_argument("--temperature", type=float, default=0.0,
-                     help=f"> 0 {NOT_PORTED}: greedy only")
-    req.add_argument("--top-k", type=int, default=0)
-    req.add_argument("--seed", type=int, default=1)
+                     help="0 = greedy; > 0 samples, seeded per request")
+    req.add_argument("--top-k", type=int, default=0,
+                     help="sample among the k largest logits (0 = all)")
+    req.add_argument("--seed", type=int, default=1,
+                     help="request i samples with seed --seed + i")
     eng = p.add_argument_group("engine")
     eng.add_argument("--page-size", type=int, default=16)
     eng.add_argument("--num-pages", type=int, default=64)
@@ -158,8 +162,7 @@ def main(argv=None):
     )
     args = make_parser().parse_args(argv)
     for flag, used in (("--fleet", args.fleet),
-                       ("--step-timeout", args.step_timeout > 0),
-                       ("--temperature", args.temperature > 0)):
+                       ("--step-timeout", args.step_timeout > 0)):
         if used:
             raise SystemExit(f"{flag} {NOT_PORTED} (ROADMAP.md "
                              f"{ITEMS[flag]})")

@@ -24,10 +24,16 @@ the pool finishes ``"capacity"``.  A kernel that fails to build or launch
 (:class:`~unicore_tpu_torch.ops.build.KernelError`) or a CUDA error is
 not a per-request fault and propagates.
 
-Not ported yet: temperature/top-k sampling (a request with
-``temperature > 0`` is refused), the step watchdog, the autotuner's
-prefill-chunk lookup, live weight swaps, the fleet hooks and the static
-and determinism audit surfaces.
+Sampling, as in the JAX engine: each step picks ``"greedy"``,
+``"temp"`` or ``"topk"`` from its live rows (:meth:`_sampling_mode`); a
+sampled row draws with ``fold_in(PRNGKey(req.seed), len(generated))``,
+derived on the device from the rows' seeds and steps, so a preempted and
+re-prefilled request resumes at the same fold index and its tokens are
+the JAX engine's for the same seed.
+
+Not ported yet: the step watchdog, the autotuner's prefill-chunk
+lookup, live weight swaps, the fleet hooks and the static and
+determinism audit surfaces.
 """
 
 import dataclasses
@@ -43,7 +49,7 @@ from ..device import resolve_device
 from ..ops.build import KernelError
 from .attention import PagedMeta
 from .kv_pool import PagedKVPool, PoolExhausted
-from .sampling import finite_rows, greedy_tokens
+from .sampling import finite_rows, greedy_tokens, sample_tokens, step_keys
 from .scheduler import DEFAULT_REQUEST_RETRIES, Scheduler
 
 logger = logging.getLogger(__name__)
@@ -154,12 +160,35 @@ class ServeEngine:
 
     # -- the one ragged step -------------------------------------------
 
+    @staticmethod
+    def _pick_tokens(logits, seeds, steps, temperature, top_k, sampling):
+        """``sampling`` is the step's mode: ``"greedy"`` skips the whole
+        sampling composition, ``"temp"`` skips the full-vocab top-k sort,
+        ``"topk"`` runs everything (a row samples identically under any
+        mode that covers it)."""
+        if sampling == "greedy":
+            return greedy_tokens(logits)
+        return sample_tokens(logits, step_keys(seeds, steps), temperature,
+                             top_k, use_top_k=sampling == "topk")
+
+    @staticmethod
+    def _sampling_mode(seqs):
+        if any(s.req.top_k > 0 and s.req.temperature > 0 for s in seqs):
+            return "topk"
+        if any(s.req.temperature > 0 for s in seqs):
+            return "temp"
+        return "greedy"
+
     @torch.no_grad()
     def _step(self, tokens, positions, tables, slot_mapping, lengths,
-              last_col, poison):
+              last_col, poison, sampling="greedy", seeds=None, steps=None,
+              temperature=None, top_k=None):
         """Run the model over one ragged batch (numpy host arrays) and
-        pick each row's next token from its LAST real column's logits.
-        Returns host arrays ``(tokens [B], finite [B])``."""
+        pick each row's next token from its LAST real column's logits,
+        by :meth:`_pick_tokens` (the per-row ``seeds``, ``steps``,
+        ``temperature`` and ``top_k`` go to the device only when
+        ``sampling`` is not greedy).  Returns host arrays
+        ``(tokens [B], finite [B])``."""
         dev = self.device
         meta = PagedMeta(
             page_table=torch.from_numpy(tables).to(dev),
@@ -178,7 +207,13 @@ class ServeEngine:
             logits = torch.where(torch.from_numpy(poison).to(dev)[:, None],
                                  torch.full_like(logits, float("nan")),
                                  logits)
-        out = torch.stack([greedy_tokens(logits),
+        if sampling != "greedy":
+            seeds, steps, temperature, top_k = (
+                torch.from_numpy(a).to(dev)
+                for a in (seeds, steps, temperature, top_k))
+        picked = self._pick_tokens(logits, seeds, steps, temperature,
+                                   top_k, sampling)
+        out = torch.stack([picked.long(),
                            finite_rows(logits).long()]).cpu().numpy()
         return out[0], out[1].astype(bool)
 
@@ -254,6 +289,10 @@ class ServeEngine:
         slot_mapping = np.zeros((B * w,), np.int64)  # 0 = trash slot
         lengths = np.zeros((B,), np.int32)
         last_col = np.zeros((B,), np.int64)
+        temperature = np.zeros((B,), np.float32)
+        top_k = np.zeros((B,), np.int64)
+        seeds = np.zeros((B,), np.int64)
+        steps = np.zeros((B,), np.int64)
         packed = []
         for seq, start, m, emit, dec in rows:
             if seq.done:
@@ -279,6 +318,10 @@ class ServeEngine:
                 )
                 lengths[b] = start + m
                 last_col[b] = m - 1
+                temperature[b] = seq.req.temperature
+                top_k[b] = seq.req.top_k
+                seeds[b] = seq.req.seed
+                steps[b] = len(seq.generated)
             except Exception as exc:  # noqa: BLE001 - per-row isolation
                 # scrub the half-written row back to trash-slot defaults
                 tokens[b] = 0
@@ -298,9 +341,11 @@ class ServeEngine:
             for b, (seq, *_rest) in enumerate(rows):
                 poison[b] = seq.req.request_id in self._poison_ids
         any_decode = any(r[4] for r in rows)
+        sampling = self._sampling_mode([r[0] for r in rows])
         t0 = time.perf_counter()
         toks, ok = self._step(tokens, positions, tables, slot_mapping,
-                              lengths, last_col, poison)
+                              lengths, last_col, poison, sampling, seeds,
+                              steps, temperature, top_k)
         dt = time.perf_counter() - t0
         self.stats["ragged_dispatches"] += 1
         self.stats["prefills"] += sum(1 for r in rows if not r[4])
@@ -364,13 +409,6 @@ class ServeEngine:
         # validate EVERYTHING before enqueuing anything: a mid-list
         # reject must not leave earlier requests queued as ghost work
         for req in requests:
-            if req.temperature > 0:
-                raise NotImplementedError(
-                    f"request {req.request_id!r}: temperature/top-k "
-                    "sampling is not ported yet (it needs a counter-"
-                    "based per-(seed, step) generator); only greedy "
-                    "requests (temperature 0) are served"
-                )
             if len(req.prompt) > self.max_context:
                 raise ValueError(
                     f"prompt of {len(req.prompt)} tokens exceeds the "
