@@ -73,6 +73,15 @@ code is non-zero:
    the diagonal (the dq kernel writes its skipped tiles' partials as
    0); times beside the causal ops bound and the bytes bound, the plain
    versions and SDPA with the causal mask folded into its additive mask.
+   flash_cross — the same checks at cross-attention's Tq != Tk (B 8, H
+   12, D 64, a [1, 12, Tq, Tk] bias, up to 40% of each row's keys
+   padded, dropout 0.1): Tq/Tk 256/512, 128/1024 and 512/128 (one block
+   in the reference's geometry, rows 3 and 8) in bf16, fp16 and fp32,
+   1024/128 (its joint backward, row 4) and 256/4096 (two key blocks:
+   its two-pass dq and dk/dv and the dbias pass, rows 5-7) in bf16 and
+   fp16; the forward's keep bits read back exactly at the reference's
+   geometry for (Tq, Tk); SDPA's default backend and cuDNN timed at
+   256/512.
 7. train — the port's CLI, in process, trains a seeded random
    ``bert_base`` (12 layers, width 768, T=512, vocab 30522) under
    ``--bf16`` for 20 updates of batch 16 on a synthetic corpus (2,048
@@ -257,6 +266,28 @@ code is non-zero:
    (``--profile``, 3 updates) writes a Chrome trace holding flash kernel
    events.  Reports the validation passes' ms, mem_gb beside the peak,
    the update c stopped at and the trace's size and events.
+   cross_decoder — a 12-layer decoder at transformer_lm_base's widths
+   built with cross-attention over the output of a 12-layer encoder at
+   bert_base's (post-LN, rel-pos): batch 8, encoder T 512 and decoder T
+   256 with padded tails, bf16, dropout 0.1, 4 forward and backward
+   passes of a seeded loss: each pass 12 bf16 flash forwards and
+   backwards at (512, 512), at (256, 256) causal and at (256, 512), and
+   no other flash call; pass ms, device time, launches, peak memory;
+   then batch 2, dropout 0, fp32 on the card and on the CPU (plain
+   versions): the output and every gradient within 1e-3 of the CPU
+   tensor's largest magnitude.
+   return_attn — a bert_base encoder layer with ``return_attn=True`` in
+   bf16 (batch 8 x 512): one softmax_dropout forward and backward launch
+   and no flash; the probabilities equal the plain version's under the
+   same seed (keep pattern exact, values within 2e-2 of the largest).
+   lm_checkpoint_activations — lm_train's model and flags, 8 updates a
+   run, without ``--checkpoint-activations``, with, with, without:
+   losses and final params bit-equal, flash forwards per update 24 with
+   the flag (the recompute) and 12 without, 12 + 12 backward either way;
+   peak memory, step median and device time per update of each run.
+   bert_checkpoint_activations — the train phase's bert_base, 4 updates
+   without and with the flag: losses and params bit-equal, the forward
+   launches doubled.
 16. the ``kernels`` line (rows 1-11 of the TPU kernel table, row 1's
    launches from serve and serve_sampling, rows 2-10
    once for the bf16 kernels and once for the fp16 ones, the flash rows'
@@ -267,7 +298,11 @@ code is non-zero:
    function; rows 3 and 8 again for the LM's causal call, launches
    from lm_train, lm_run_control's beside them (its validation passes'
    apart), and the fp16 rows 3 and 8 with lm_optim_fp16's causal
-   launches beside train_fp16's; last the EMA kernel, which replaces no
+   launches beside train_fp16's; rows 3 and 8 once more for
+   cross-attention's call at Tq 256, Tk 512, launches from
+   cross_decoder, with every flash_cross case beside them; the
+   checkpoint-activation runs' and return_attn's launches beside the
+   rows they ran; last the EMA kernel, which replaces no
    ``pallas_call``),
    the card's name and power limit, and the closing ``{"ok": true, ...}``
    line.
@@ -283,6 +318,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -814,23 +850,34 @@ def serve_sampling_phase(model, pa, first, second, greedy_results):
 
 
 def flash_operands(rng, dtype, shape=(FLASH_B, FLASH_H, FLASH_T, FLASH_D),
-                   with_bias=True):
+                   with_bias=True, tk=None):
     """Operands of one attention layer of the BERT training path: q/k/v
     as the fused projection's strided views, the batch-broadcast rel-pos
-    bias, 0-200 padded keys per row, per-row dropout seeds, and dO."""
+    bias, 0-200 padded keys per row, per-row dropout seeds, and dO.
+    With ``tk`` (cross-attention, Tq = shape[2] queries over tk keys): q
+    from the query side's projection and k/v from the encoder side's,
+    each a contiguous [B, T, H, D], a [1, H, Tq, Tk] bias, and up to 40%
+    of each row's keys padded."""
     B, H, T, D = shape
 
     def dev(a):
         return torch.from_numpy(a).cuda().to(dtype)
 
-    qkv = dev(rng.standard_normal((B, T, 3, H, D), dtype=np.float32))
-    q, k, v = qkv.unbind(2)
-    bias = (dev(rng.standard_normal((1, H, T, T), dtype=np.float32))
+    if tk is None:
+        tk = T
+        qkv = dev(rng.standard_normal((B, T, 3, H, D), dtype=np.float32))
+        q, k, v = qkv.unbind(2)
+        most = 200
+    else:
+        q, k, v = (dev(rng.standard_normal((B, t, H, D), dtype=np.float32))
+                   for t in (T, tk, tk))
+        most = 2 * tk // 5
+    bias = (dev(rng.standard_normal((1, H, T, tk), dtype=np.float32))
             if with_bias else None)
-    npad = rng.integers(0, 201, size=B)
-    pad = np.zeros((B, T), np.int32)
+    npad = rng.integers(0, most + 1, size=B)
+    pad = np.zeros((B, tk), np.int32)
     for b in range(B):
-        pad[b, T - npad[b]:] = 1
+        pad[b, tk - npad[b]:] = 1
     seed = rng.integers(-2 ** 31, 2 ** 31 - 1, size=B).astype(np.int32)
     dout = dev(rng.standard_normal((B, T, H, D), dtype=np.float32))
     return (q, k, v, bias, torch.from_numpy(pad).cuda(),
@@ -855,22 +902,24 @@ FLASH_REL_TOL = {torch.bfloat16: (1e-2, 2e-2), torch.float16: (5e-3, 5e-3)}
 SDPA_BACKEND = "EFFICIENT_ATTENTION"
 
 
-def flash_bounds(npad, itemsize, shape, with_bias, causal=False):
+def flash_bounds(npad, itemsize, shape, with_bias, causal=False, tk=None):
     """{kernel: (bound_ms, bound_by, flops)}: each kernel's operations on
     the keys this run's data leaves unpadded (a padded key adds exactly
     nothing to any output; under ``causal`` only keys at or below the
     query count, about half) over the tensor-core rate of its operand type,
     against the bytes the function needs read once and written once: q,
     dO, lse and delta of every query, k and v of the unpadded keys only,
-    the [H, T, T] bias only where some row of the batch admits the pair
+    the [H, Tq, Tk] bias only where some row of the batch admits the pair
     (under ``causal`` the lower triangle, cut at the row with the most
-    unpadded keys), and every output whole.  dbias counts once, as one
-    fp32 [H, T, T]: the bf16 dq kernel's per-group partials are its
-    design, not the function's output.  ``backward`` is the whole
-    backward as one function: 10 units of flops per unpadded pair and D,
-    q/k/v/dO read once."""
+    unpadded keys), and every output whole (out and dq of the Tq
+    queries, dk and dv of the Tk keys).  dbias counts once, as one fp32
+    [H, Tq, Tk]: the bf16 dq kernel's per-group partials are its design,
+    not the function's output.  ``backward`` is the whole backward as one
+    function: 10 units of flops per unpadded pair and D, q/k/v/dO read
+    once.  ``tk``: the key count where it is not shape[2]."""
     B, H, T, D = shape
-    live = (T - npad).astype(np.int64)          # unpadded keys of each row
+    tk = T if tk is None else tk
+    live = (tk - npad).astype(np.int64)         # unpadded keys of each row
     most = int(live.max())                      # the bias serves every row
     pairs = H * T * int(live.sum())             # unpadded (q, k) pairs
     bias_pairs = T * most                       # bias elements read
@@ -878,22 +927,23 @@ def flash_bounds(npad, itemsize, shape, with_bias, causal=False):
         pairs = H * int((live * (live + 1) // 2 + (T - live) * live).sum())
         bias_pairs = most * (most + 1) // 2 + (T - most) * most
     rate = BF16_FLOP_PER_S if itemsize == 2 else FP32_FLOP_PER_S
-    act = B * T * H * D * itemsize              # one of q, dO, out, dq, dk, dv
+    act = B * T * H * D * itemsize              # one of q, dO, out, dq
+    act_k = B * tk * H * D * itemsize           # one of dk, dv
     kv = int(live.sum()) * H * D * itemsize     # k or v of the unpadded keys
     rows = B * H * T * 4                        # one of lse, delta
     bias = H * bias_pairs * itemsize if with_bias else 0
-    small = B * T * 4 + B * 4                   # pad, seeds
-    dbias = H * T * T * 4 if with_bias else 0   # one fp32 [H, T, T]
+    small = B * tk * 4 + B * 4                  # pad, seeds
+    dbias = H * T * tk * 4 if with_bias else 0  # one fp32 [H, Tq, Tk]
     fixed = 2 * kv + bias + small               # every kernel reads these
     work = {  # kernel: (flops per unpadded pair / D, bytes)
         "flash_fwd": (4, 2 * act + fixed + rows),
         "flash_fwd_bf16": (4, 2 * act + fixed + rows),
-        "flash_dkdv": (8, 4 * act + fixed + 2 * rows),
+        "flash_dkdv": (8, 2 * act + 2 * act_k + fixed + 2 * rows),
         "flash_dq": (6, 3 * act + fixed + 2 * rows),
         "flash_dbias": (4, 2 * act + fixed + 2 * rows + dbias),
-        "flash_bwd_dkdv": (8, 4 * act + fixed + 2 * rows),
+        "flash_bwd_dkdv": (8, 2 * act + 2 * act_k + fixed + 2 * rows),
         "flash_bwd_dq": (6, 3 * act + fixed + 2 * rows + dbias),
-        "backward": (10, 5 * act + fixed + 2 * rows + dbias),
+        "backward": (10, 3 * act + 2 * act_k + fixed + 2 * rows + dbias),
     }
     for name in TRAIN_FLASH:  # the fp16 kernels do the bf16 ones' work
         work[name.replace("_bf16", "") + "_fp16"] = work[name]
@@ -968,7 +1018,8 @@ def sdpa_yardsticks(sdpa, sdpa_fwd_bwd, operands, flush, iters):
     return out
 
 
-def flash_case(flush, dtype, shape, with_bias, rng, iters, causal=False):
+def flash_case(flush, dtype, shape, with_bias, rng, iters, causal=False,
+               tk=None, yardsticks=True):
     """The flash kernels of one call vs their plain versions on the same
     tensors — in bf16 and fp16 the plain versions round p, p_drop and dS
     as the kernels do: the forward (out within 1e-4 in fp32, and within
@@ -982,7 +1033,10 @@ def flash_case(flush, dtype, shape, with_bias, rng, iters, causal=False):
     ``iters``: kernel, plain and SDPA timing iterations.  ``causal``: the
     LM's call, the causal mask folded into SDPA's too, and with a bias
     the kernels' dbias exactly 0 above the diagonal (the dq kernel's
-    partials of the key tiles it skips are written 0)."""
+    partials of the key tiles it skips are written 0).  ``tk``:
+    cross-attention's key count, Tq = shape[2] (see ``flash_operands``).
+    ``yardsticks`` False: SDPA with its default backend and cuDNN's are
+    not timed (the pinned backend is)."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -990,8 +1044,10 @@ def flash_case(flush, dtype, shape, with_bias, rng, iters, causal=False):
 
     B, H, T, D = shape
     q, k, v, bias, pad, seed, dout, npad = flash_operands(rng, dtype, shape,
-                                                          with_bias)
-    geom = fa.geometry(T, T, bias)
+                                                          with_bias, tk)
+    tk = T if tk is None else tk
+    label = f"{dtype} {shape}" + ("" if tk == T else f" Tk={tk}")
+    geom = fa.geometry(T, tk, bias)
     scale = D ** -0.5
     args = (pad, FLASH_P, seed, causal, scale, geom)
 
@@ -1006,7 +1062,7 @@ def flash_case(flush, dtype, shape, with_bias, rng, iters, causal=False):
     torch.cuda.synchronize()
     for what, a, b in zip(("out", "lse"), (out_k, lse_k), again):
         if not torch.equal(a, b):
-            raise AssertionError(f"{dtype} {shape}: two forward calls "
+            raise AssertionError(f"{label}: two forward calls "
                                  f"differ in {what}")
     delta = (dout.float() * out_p.float()).sum(dim=-1).transpose(
         1, 2).contiguous()
@@ -1023,13 +1079,13 @@ def flash_case(flush, dtype, shape, with_bias, rng, iters, causal=False):
     torch.cuda.synchronize()
     for what, a, b in zip(("dq", "dk", "dv", "dbias"), got, again):
         if a is not None and not torch.equal(a, b):
-            raise AssertionError(f"{dtype} {shape}: two backward calls "
+            raise AssertionError(f"{label}: two backward calls "
                                  f"differ in {what}")
     if causal and with_bias:  # the dq kernel writes skipped tiles' 0s
         above = torch.ones(T, T, dtype=torch.bool, device="cuda").triu(1)
         nonzero = int((got[3][:, above] != 0).sum())
         if nonzero:
-            raise AssertionError(f"{dtype} {shape}: {nonzero} dbias "
+            raise AssertionError(f"{label}: {nonzero} dbias "
                                  "elements above the diagonal are not 0")
     fp32 = dtype == torch.float32
     errs = {}
@@ -1039,7 +1095,7 @@ def flash_case(flush, dtype, shape, with_bias, rng, iters, causal=False):
             continue
         g, w = g.float(), w.float()
         if not (torch.isfinite(g).all() and torch.isfinite(w).all()):
-            raise AssertionError(f"{dtype} {shape} {what}: non-finite values")
+            raise AssertionError(f"{label} {what}: non-finite values")
         err = float((g - w).abs().max())
         scale_w = float(w.abs().max())
         rel_out, rel_grad = FLASH_REL_TOL.get(dtype, (None, 1e-3))
@@ -1050,7 +1106,7 @@ def flash_case(flush, dtype, shape, with_bias, rng, iters, causal=False):
         else:
             tol = rel_grad * scale_w
         if err > tol:
-            raise AssertionError(f"{dtype} {shape} {what}: max |kernel - "
+            raise AssertionError(f"{label} {what}: max |kernel - "
                                  f"plain| {err} > {tol}")
         errs[what] = err
     fwd = FWD_KERNEL[dtype]
@@ -1076,16 +1132,21 @@ def flash_case(flush, dtype, shape, with_bias, rng, iters, causal=False):
         torch.autograd.grad(sdpa(), (qh, kh, vh), dout.transpose(1, 2))
 
     groups = None if fp32 else fa.pick_groups(B, T, H, D, with_bias)
-    bounds = flash_bounds(npad, q.element_size(), shape, with_bias, causal)
+    bounds = flash_bounds(npad, q.element_size(), shape, with_bias, causal,
+                          tk)
     with sdpa_kernel(getattr(SDPBackend, SDPA_BACKEND)):
         sdpa_ms = {"sdpa_fwd_ms": time_ms(sdpa, flush, iters=sdpa_iters),
                    "sdpa_fwd_bwd_ms": time_ms(sdpa_fwd_bwd, flush,
                                               iters=sdpa_iters)}
-    sdpa_ms["sdpa_other"] = sdpa_yardsticks(
+    sdpa_ms["sdpa_other"] = (sdpa_yardsticks(
         sdpa, sdpa_fwd_bwd, (qh, kh, vh, mask, scale), flush, sdpa_iters)
+        if yardsticks else None)
+    shape_report = {"B": B, "H": H, "T": T, "D": D, "bias": with_bias}
+    if tk != T:
+        shape_report.update(Tq=T, Tk=tk)
     report = {
         "dtype": str(dtype).replace("torch.", ""),
-        "shape": {"B": B, "H": H, "T": T, "D": D, "bias": with_bias},
+        "shape": shape_report,
         "causal": causal,
         "reference_blocks": list(geom), "dq_groups": groups,
         "max_abs_err": errs, "fwd_bit_identical": True,
@@ -1238,56 +1299,64 @@ CAUSAL_CASES = (("bf16_bias", torch.bfloat16, True, (10, 5, 10)),
 KEEP_PER_DIM = 4  # keys whose keep bits one output element carries
 
 
-def causal_keep_bits(dtype, shape, with_bias, seed_rng):
-    """The forward kernel's keep bits read back exactly, under causal
-    and the case's tail padding and per-row seeds: with q = k = 0 (and a
-    zero bias of the case's type) every admitted key scores 0, so p = 1
-    there and the output is the kept keys' v summed, scaled by the
-    rounded 1 / keep_prob and divided by the admitted count.  v holds
-    2^j for key 4 d + j of a window of 4 D keys in dim d, so each output
-    element is an integer 0-15 that spells four keys' bits; T / (4 D)
-    windows cover every key.  Returns the count of admitted (query, key)
-    pairs read and of those whose bit differs from the plain version's
-    mask (the reference's draw); a key the causal or padding mask
-    excludes must read 0."""
+def keep_bits(dtype, shape, with_bias, seed_rng, causal=True, tk=None):
+    """The forward kernel's keep bits read back exactly, under the
+    case's tail padding and per-row seeds (and causal, or at
+    cross-attention's ``tk`` keys): with q = k = 0 (and a zero bias of
+    the case's type) every admitted key scores 0, so p = 1 there and the
+    output is the kept keys' v summed, scaled by the rounded 1 /
+    keep_prob and divided by the admitted count.  v holds 2^j for key
+    4 d + j of a window of 4 D keys (all the keys where there are fewer)
+    in dim d, so each output element is an integer 0-15 that spells four
+    keys' bits; the windows cover every key.  Returns the count of
+    admitted (query, key) pairs read and of those whose bit differs from
+    the plain version's mask (the reference's draw); a key the causal or
+    padding mask excludes must read 0."""
     from unicore_tpu_torch.ops import flash_attention as fa
 
     B, H, T, D = shape
+    tk = T if tk is None else tk
     _, _, _, bias, pad, seed, _, npad = flash_operands(
-        np.random.default_rng(seed_rng), dtype, shape, with_bias)
-    zero = torch.zeros((B, T, H, D), dtype=dtype, device="cuda")
+        np.random.default_rng(seed_rng), dtype, shape, with_bias,
+        None if tk == T else tk)
+    zero_q = torch.zeros((B, T, H, D), dtype=dtype, device="cuda")
+    zero_k = torch.zeros((B, tk, H, D), dtype=dtype, device="cuda")
     bias0 = None if bias is None else torch.zeros_like(bias)
-    geom = fa.geometry(T, T, bias0)
+    geom = fa.geometry(T, tk, bias0)
     keep_prob = 1.0 - FLASH_P
     inv = torch.tensor(1.0 / keep_prob, dtype=torch.float32)
     rate = float(inv if dtype == torch.float32 else inv.to(dtype))
-    live = torch.from_numpy(T - npad).cuda()
+    live = torch.from_numpy(tk - npad).cuda()
     rows = torch.arange(T, device="cuda")
-    admitted_n = torch.minimum(rows[None, :] + 1, live[:, None])  # [B, T]
-    width = KEEP_PER_DIM * D
-    bits = torch.zeros((B, H, T, T), dtype=torch.bool, device="cuda")
+    admitted_n = (torch.minimum(rows[None, :] + 1, live[:, None]) if causal
+                  else live[:, None].expand(B, T))              # [B, T]
+    width = min(KEEP_PER_DIM * D, tk)
+    bits = torch.zeros((B, H, T, tk), dtype=torch.bool, device="cuda")
     worst = 0.0
-    for w in range(T // width):
+    for w in range(tk // width):
         keys = torch.arange(width, device="cuda")
-        v = torch.zeros((B, T, H, D), dtype=torch.float32, device="cuda")
+        v = torch.zeros((B, tk, H, D), dtype=torch.float32, device="cuda")
         v[:, w * width + keys, :, keys // KEEP_PER_DIM] = (
             2.0 ** (keys % KEEP_PER_DIM)).float()[:, None, None]
-        out, _ = fa.flash_fwd_cuda(zero, zero, v.to(dtype), bias0, pad,
-                                   FLASH_P, seed, True, D ** -0.5, geom)
+        out, _ = fa.flash_fwd_cuda(zero_q, zero_k, v.to(dtype), bias0, pad,
+                                   FLASH_P, seed, causal, D ** -0.5, geom)
         counts = out.float() * admitted_n[:, :, None, None] / rate
         near = counts.round()
         worst = max(worst, float((counts - near).abs().max()))
         near = near.to(torch.int64).permute(0, 2, 1, 3)      # [B, H, T, D]
+        near = near[..., :width // KEEP_PER_DIM]
         for j in range(KEEP_PER_DIM):
             bits[..., w * width + j:(w + 1) * width:KEEP_PER_DIM] = (
                 (near >> j) & 1).bool()
     if worst > 0.25:
         raise AssertionError(f"{dtype}: keep-bit read-back off an integer "
                              f"by {worst}")
-    cols = torch.arange(T, device="cuda")
-    admitted = ((cols[None, None, :] <= rows[None, :, None])
-                & (cols[None, None, :] < live[:, None, None]))[:, None]
-    want = fa.keep_mask(seed, H, T, T, geom, keep_prob) & admitted
+    cols = torch.arange(tk, device="cuda")
+    admitted = (cols[None, None, :] < live[:, None, None]).expand(B, T, tk)
+    if causal:
+        admitted = admitted & (cols[None, None, :] <= rows[None, :, None])
+    admitted = admitted[:, None]
+    want = fa.keep_mask(seed, H, T, tk, geom, keep_prob) & admitted
     return {"pairs_read": int(admitted.sum()) * H,
             "bits_differ": int((bits != want).sum()),
             "excluded_read_nonzero": int((bits & ~admitted).sum())}
@@ -1298,7 +1367,7 @@ def flash_causal_phase(flush):
     transformer_lm_base's shape (B 16, H 12, T 512, D 64, 0-200 padded
     keys a row, dropout 0.1): each case held against the plain version
     as ``flash_case`` holds it, its forward's keep bits read back exactly
-    (``causal_keep_bits``), the dbias above the diagonal exactly 0 (the
+    (``keep_bits``), the dbias above the diagonal exactly 0 (the
     dq kernel's partials of the key tiles it skips are written 0), times
     beside the causal bound and SDPA with the same mask folded in;
     returns {case: report}."""
@@ -1307,12 +1376,65 @@ def flash_causal_phase(flush):
     for name, dtype, with_bias, iters in CAUSAL_CASES:
         report = flash_case(flush, dtype, shape, with_bias,
                             np.random.default_rng(4096), iters, causal=True)
-        keep = causal_keep_bits(dtype, shape, with_bias, 4096)
+        keep = keep_bits(dtype, shape, with_bias, 4096)
         if keep["bits_differ"] or keep["excluded_read_nonzero"]:
             raise AssertionError(f"{name}: keep bits {keep}")
         report["keep_bits"] = keep
         emit("flash_causal", case=name, card=card(), **report)
         reports[name] = report
+    return reports
+
+
+# cross-attention's call: Tq decoder queries over Tk encoder keys, B 8,
+# H 12, D 64, a [1, H, Tq, Tk] bias, up to 40% of each row's keys padded,
+# dropout 0.1: (name, Tq, Tk, operand types, the reference's (query,
+# key) block counts at that bias, timing iters).  256/512, 128/1024 and
+# 512/128 take one reference block (rows 3 and 8); 1024/128 two query
+# blocks over one key block (its joint backward, row 4; forward row 2);
+# 256/4096 two key blocks of 2,048 (its two-pass dq and dk/dv and the
+# dbias pass, rows 5-7; forward row 2).  SDPA's default backend and
+# cuDNN are timed at 256/512.
+CROSS_B = 8
+CROSS_TYPES = (torch.bfloat16, torch.float16, torch.float32)
+CROSS_CASES = (("q256_k512", 256, 512, CROSS_TYPES, (1, 1), (10, 3, 10)),
+               ("q128_k1024", 128, 1024, CROSS_TYPES, (1, 1), (10, 3, 5)),
+               ("q512_k128", 512, 128, CROSS_TYPES, (1, 1), (10, 3, 5)),
+               ("q1024_k128", 1024, 128, CROSS_TYPES[:2], (2, 1),
+                (5, 2, 3)),
+               ("q256_k4096", 256, 4096, CROSS_TYPES[:2], (1, 2),
+                (5, 2, 3)))
+
+
+def flash_cross_phase(flush):
+    """The flash kernels at cross-attention's Tq != Tk (CROSS_CASES), each
+    case in its types held against the plain version as ``flash_case``
+    holds it (forward; dk/dv over key tiles; dq with the dbias partials
+    over query tiles), its forward's keep bits read back exactly at the
+    reference's geometry for (Tq, Tk) (``keep_bits``), times beside the
+    bytes and operations bounds, the plain versions and SDPA with the
+    same mask; returns {case: {dtype: report}}."""
+    from unicore_tpu_torch.ops import flash_attention as fa
+
+    reports = {}
+    for name, tq, tk, dtypes, blocks, iters in CROSS_CASES:
+        shape = (CROSS_B, FLASH_H, tq, FLASH_D)
+        reports[name] = {}
+        for dtype in dtypes:
+            itemsize = torch.tensor([], dtype=dtype).element_size()
+            bq, bk = fa.pick_blocks(tq, tk, itemsize)
+            if (tq // bq, tk // bk) != blocks:
+                raise AssertionError(f"{name}: reference blocks {(bq, bk)} "
+                                     f"are not the {blocks} meant")
+            report = flash_case(flush, dtype, shape, True,
+                                np.random.default_rng(tq + tk), iters,
+                                tk=tk, yardsticks=name == "q256_k512")
+            keep = keep_bits(dtype, shape, True, tq + tk, causal=False,
+                             tk=tk)
+            if keep["bits_differ"] or keep["excluded_read_nonzero"]:
+                raise AssertionError(f"{name} {dtype}: keep bits {keep}")
+            report["keep_bits"] = keep
+            emit("flash_cross", case=name, card=card(), **report)
+            reports[name][report["dtype"]] = report
     return reports
 
 
@@ -1358,12 +1480,13 @@ def sd_operands(name, shape, with_bias, dtype):
     return x, g, mask, bias
 
 
-def fp16_ulp_distance(a, b):
-    """max |a - b| over the elements in fp16 ulps at b's magnitude (2^-24
-    below fp16's least normal)."""
+def ulp_distance(a, b, dtype=torch.float16):
+    """max |a - b| over the elements in ``dtype``'s ulps at b's magnitude
+    (its subnormal spacing below its least normal: fp16's 2^-24)."""
+    fi = torch.finfo(dtype)
     mag = b.float().abs()
-    ulp = torch.where(mag < 2.0 ** -14, torch.full_like(mag, 2.0 ** -24),
-                      torch.exp2(torch.floor(torch.log2(mag)) - 10))
+    ulp = torch.where(mag < fi.tiny, torch.full_like(mag, fi.tiny * fi.eps),
+                      torch.exp2(torch.floor(torch.log2(mag))) * fi.eps)
     return float(((a.float() - b.float()).abs() / ulp).max())
 
 
@@ -1431,7 +1554,7 @@ def softmax_dropout_phase(flush):
                 err = float((a - b).abs().max())
                 scale = float(b.abs().max())
                 if dtype == torch.float16 and what != "dx":
-                    ulps[what] = fp16_ulp_distance(a, b)
+                    ulps[what] = ulp_distance(a, b)
                     ok = ulps[what] <= 1.0
                     limit = "one fp16 ulp"
                 else:
@@ -3705,8 +3828,10 @@ RC_PROFILE_UPDATES = 3
 
 def observe_cli(argv, sigterm_at=None):
     """Run the port's CLI on ``argv`` in this process and record what it
-    did: each update's loss (nats), flash launches and training time
-    (``cumulative_training_time``) after it, the updates it
+    did: each update's loss (nats), flash launches, seconds (the card
+    synchronized before and after) and training time
+    (``cumulative_training_time``) after it, the card's memory at the
+    start and its peak over the run (GB), the updates it
     validated and saved at, each validation pass's summed loss and
     sample size, flash launches and ms, the epochs it trained and the
     update count it started from.  ``sigterm_at``: the process sends
@@ -3724,12 +3849,16 @@ def observe_cli(argv, sigterm_at=None):
             "valid_step": Trainer.valid_step, "run": Loop.run,
             "train_epoch": Loop.train_epoch, "validate": Loop.validate,
             "save": Manager.save}
-    rec = {"nats": [], "update_launches": [], "train_s": [], "validated": [],
-           "saved": [], "valid": [], "epochs": []}
+    rec = {"nats": [], "update_launches": [], "step_s": [], "train_s": [],
+           "validated": [], "saved": [], "valid": [], "epochs": []}
 
     def train_step(self, samples):
         before = dict(fa.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         out = real["train_step"](self, samples)
+        torch.cuda.synchronize()
+        rec["step_s"].append(time.perf_counter() - t0)
         rec["nats"].append(float(out[0]["loss"])
                            / float(out[0]["sample_size"]))
         rec["update_launches"].append(
@@ -3778,8 +3907,10 @@ def observe_cli(argv, sigterm_at=None):
     Trainer.train_step, Trainer.valid_step = train_step, valid_step
     Loop.run, Loop.train_epoch, Loop.validate = run, train_epoch, validate
     Manager.save = save
+    rec["start_gb"] = reset_peak_memory()
     try:
         loop = cli.cli_main(argv)
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     finally:
         Trainer.train_step = real["train_step"]
         Trainer.valid_step = real["valid_step"]
@@ -3856,7 +3987,6 @@ def lm_run_control_phase():
         for counts in (fa.launches, sd.plain_route):
             for name in counts:
                 counts[name] = 0
-        start_gb = reset_peak_memory()
         t0 = time.perf_counter()
         run_a, a = observe_cli(argv(tmp, "a", RC_UPDATES, *RC_FLAGS),
                                sigterm_at=RC_SIGTERM_AT)
@@ -3872,9 +4002,8 @@ def lm_run_control_phase():
         resumed_params = [p.detach().cpu()
                           for p in resumed_loop.trainer.model.parameters()]
         del resumed_loop
-        b_start_gb = reset_peak_memory()
         run_b, b = observe_cli(argv(tmp, "b", RC_UPDATES, *RC_FLAGS))
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        peak_gb = b["peak_gb"]
         launches = dict(fa.launches)
         with open(os.path.join(tmp, "log_b", "train_inner.jsonl")) as f:
             # the meter reads None at the dispatches that log no mem_gb
@@ -3996,7 +4125,8 @@ def lm_run_control_phase():
          valid_pass_ms=[v["ms"] for r in (a, resumed, b)
                         for v in r["valid"]],
          valid_launches=valid_launches, mem_gb=mem, peak_mem_gb=peak_gb,
-         mem_at_start_gb=start_gb, run_b_mem_at_start_gb=b_start_gb,
+         mem_at_start_gb=a["start_gb"],
+         run_b_mem_at_start_gb=b["start_gb"],
          stop_time={"stop_time_hours": stop_hours,
                     "run_b_training_s": b["train_s"],
                     "stopped_at": stopped,
@@ -4010,6 +4140,390 @@ def lm_run_control_phase():
                   "want_flash_kernel_events":
                       RC_PROFILE_UPDATES * 3 * layers})
     return {"launches": launches, "valid_launches": valid_launches}
+
+
+CROSS_ENC_T, CROSS_DEC_T, CROSS_PASSES = 512, 256, 4
+CROSS_LAYERS = 12
+# max |card - CPU| of the decoder's output and of each gradient, as a
+# share of the CPU tensor's largest magnitude (fp32, TF32 off, rel-pos
+# tables at normal(1)): what this comparison allows, beside the error it
+# measures (PERF.md gives both readings)
+CROSS_CPU_REL = 1e-4
+
+
+def cross_stacks(seed, dtype, device, dropout, table_std=0.02):
+    """A ``bert_base``-width encoder (12 layers, 768, FFN 3072, 12
+    heads, post-LN, rel-pos, context 512) and a ``transformer_lm_base``-
+    width decoder (the same widths, pre-LN, rel-pos, causal) built with
+    cross-attention, their weights drawn on the CPU from ``seed`` as the
+    JAX package initializes (normal(0.02) weights, zero biases, unit
+    LayerNorm scales; the rel-pos tables at normal(``table_std``)), then
+    moved to ``device`` in ``dtype``, in training mode."""
+    from torch import nn
+
+    from unicore_tpu_torch.modules import (LayerNorm, TransformerDecoder,
+                                           TransformerEncoder)
+
+    gen = torch.Generator().manual_seed(seed)
+    kw = dict(embed_dim=768, ffn_embed_dim=3072, attention_heads=12,
+              emb_dropout=dropout, dropout=dropout,
+              attention_dropout=dropout)
+    enc = TransformerEncoder(encoder_layers=CROSS_LAYERS,
+                             max_seq_len=CROSS_ENC_T, post_ln=True, **kw)
+    dec = TransformerDecoder(decoder_layers=CROSS_LAYERS,
+                             max_seq_len=CROSS_DEC_T,
+                             encoder_attn=True, **kw)
+    with torch.no_grad():
+        for mod in (enc, dec):
+            for m in mod.modules():
+                if isinstance(m, nn.Linear):
+                    m.weight.normal_(0.0, 0.02, generator=gen)
+                    m.bias.zero_()
+                elif isinstance(m, LayerNorm):
+                    m.weight.fill_(1.0)
+                    m.bias.zero_()
+            mod.relative_attention_bias.weight.normal_(0.0, table_std,
+                                                       generator=gen)
+    return enc.to(device, dtype).train(), dec.to(device, dtype).train()
+
+
+def cross_inputs(bsz, seed, dtype, device):
+    """Embeddings of both sides (normal), the encoder's padding (a tail of
+    0-200 keys a row), the decoder's (a tail of 0-64 a row) and the
+    loss's weights, drawn on the CPU from ``seed``."""
+    rng = np.random.default_rng(seed)
+    enc_x = rng.standard_normal((bsz, CROSS_ENC_T, 768), dtype=np.float32)
+    dec_x = rng.standard_normal((bsz, CROSS_DEC_T, 768), dtype=np.float32)
+    w = rng.standard_normal((bsz, CROSS_DEC_T, 768), dtype=np.float32)
+    enc_pad = np.zeros((bsz, CROSS_ENC_T), np.int32)
+    dec_pad = np.zeros((bsz, CROSS_DEC_T), np.int32)
+    for b in range(bsz):
+        enc_pad[b, CROSS_ENC_T - rng.integers(0, 201):] = 1
+        dec_pad[b, CROSS_DEC_T - rng.integers(0, 65):] = 1
+
+    def t(a, cast=True):
+        a = torch.from_numpy(a).to(device)
+        return a.to(dtype) if cast else a
+
+    return t(enc_x), t(dec_x), t(w, False), t(enc_pad, False), t(dec_pad,
+                                                                 False)
+
+
+def cross_pass(enc, dec, inputs, generator):
+    """One forward and backward of the seeded loss ``sum(out * w)``
+    through both stacks; returns the loss, the decoder's output and the
+    flash launches of each stage (the encoder's forward, the decoder's,
+    the backward)."""
+    from unicore_tpu_torch.ops import flash_attention as fa
+
+    enc_x, dec_x, w, enc_pad, dec_pad = inputs
+    marks = [dict(fa.launches)]
+    memory = enc(enc_x, padding_mask=enc_pad, generator=generator)
+    marks.append(dict(fa.launches))
+    out = dec(dec_x, padding_mask=dec_pad, generator=generator,
+              encoder_out=memory, encoder_padding_mask=enc_pad)
+    marks.append(dict(fa.launches))
+    loss = (out.float() * w).sum()
+    loss.backward()
+    marks.append(dict(fa.launches))
+    stages = {name: {k: after[k] - before[k] for k in before
+                     if after[k] != before[k]}
+              for name, before, after in zip(
+                  ("encoder", "decoder", "backward"), marks, marks[1:])}
+    return loss.detach(), out.detach(), stages
+
+
+def cross_decoder_phase():
+    """Full-width cross-attention on the card: the ``cross_stacks``
+    encoder over 512 tokens with a padded tail feeding the decoder's 256
+    through every layer's cross-attention, batch 8, bf16, dropout 0.1,
+    ``CROSS_PASSES`` forward and backward passes of a seeded loss.  Every
+    pass launches the bf16 flash forward 12 times in the encoder (one a
+    layer, at (512, 512)) and 24 in the decoder (its causal
+    self-attention at (256, 256) and its cross-attention at (256, 512),
+    one each a layer), and the two backward kernels 36 times each, one
+    pair for each forward call, and nothing else of flash; the
+    cross-attention's share is 12 of each.  Reports the pass's ms, device
+    time and launches (``torch.profiler``, one pass) and peak memory.
+    Then batch 2, dropout 0, fp32 (TF32 off), rel-pos tables at
+    normal(1), on the card and on the CPU (every wrapper there runs its
+    plain version): the decoder's output and every gradient within
+    CROSS_CPU_REL of the CPU tensor's largest magnitude; returns the
+    cross-attention calls' launches and all of the phase's."""
+    from unicore_tpu_torch.ops import flash_attention as fa
+
+    start_gb = reset_peak_memory()
+    enc, dec = cross_stacks(19, torch.bfloat16, "cuda", 0.1)
+    inputs = cross_inputs(8, 19, torch.bfloat16, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    pass_ms, losses = [], []
+    want_stages = {"encoder": {"flash_fwd_bf16": CROSS_LAYERS},
+                   "decoder": {"flash_fwd_bf16": 2 * CROSS_LAYERS},
+                   "backward": {"flash_bwd_dkdv": 3 * CROSS_LAYERS,
+                                "flash_bwd_dq": 3 * CROSS_LAYERS}}
+    for name in fa.launches:
+        fa.launches[name] = 0
+    for i in range(CROSS_PASSES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _, stages = cross_pass(enc, dec, inputs, gen)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        pass_ms.append((time.perf_counter() - t0) * 1e3)
+        if stages != want_stages:
+            raise AssertionError(f"pass {i + 1}: flash launches {stages}, "
+                                 f"want {want_stages}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"losses {losses}")
+    launches = {k: v for k, v in fa.launches.items() if v}
+    cross = {n: CROSS_PASSES * CROSS_LAYERS for n in TRAIN_FLASH}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = device_launches(lambda: cross_pass(enc, dec, inputs, gen))
+    del enc, dec, inputs
+    torch.cuda.empty_cache()
+
+    # batch 2, dropout 0, fp32: the card against the CPU's plain versions
+    outs, grads = {}, {}
+    for device in ("cuda", "cpu"):
+        enc, dec = cross_stacks(19, torch.float32, device, 0.0,
+                                table_std=1.0)
+        inputs = cross_inputs(2, 20, torch.float32, device)
+        _, outs[device], _ = cross_pass(enc, dec, inputs, None)
+        grads[device] = {f"{side}.{n}": p.grad
+                         for side, mod in (("enc", enc), ("dec", dec))
+                         for n, p in mod.named_parameters()}
+    errs = {}
+    for name, got, want in [("out", outs["cuda"], outs["cpu"])] + [
+            (n, grads["cuda"][n], g) for n, g in grads["cpu"].items()]:
+        err = float((got.cpu() - want).abs().max())
+        # a k_proj bias adds q.b to a whole row of scores, which the
+        # softmax cancels: its gradient is rounding noise, held on the
+        # scale of its kernel's gradient
+        ref = (grads["cpu"][name[:-len("bias")] + "weight"]
+               if name.endswith("k_proj.bias") else want)
+        scale = float(ref.abs().max())
+        errs[name] = err / scale if scale else err
+        if not (torch.isfinite(got).all() and err <= CROSS_CPU_REL * scale):
+            raise AssertionError(f"{name}: max |card - CPU| {err} > "
+                                 f"{CROSS_CPU_REL} x {scale}")
+    worst = max(errs, key=errs.get)
+    emit("cross_decoder", card=card(), batch=8, dtype="bf16",
+         encoder={"layers": CROSS_LAYERS, "width": 768, "T": CROSS_ENC_T},
+         decoder={"layers": CROSS_LAYERS, "width": 768, "T": CROSS_DEC_T},
+         dropout=0.1, losses=losses, pass_ms=pass_ms,
+         pass_ms_median=float(np.median(pass_ms[1:])),
+         flash_launches_per_pass=want_stages, launches=launches,
+         cross_attention_launches=cross,
+         pass_device_ms=prof["device_ms"], pass_launches=prof["launches"],
+         peak_mem_gb=peak_gb, mem_at_start_gb=start_gb,
+         cpu_check={"batch": 2, "dtype": "fp32", "dropout": 0.0,
+                    "table_std": 1.0, "bound_rel": CROSS_CPU_REL,
+                    "out_rel_err": errs["out"], "worst": worst,
+                    "worst_rel_err": errs[worst], "tensors": len(errs)})
+    del enc, dec, inputs, grads, outs
+    torch.cuda.empty_cache()
+    return {"cross_attention": cross, "all": launches}
+
+
+def return_attn_phase():
+    """A ``bert_base`` encoder layer (768, FFN 3072, 12 heads, post-LN,
+    dropout 0.1) with ``return_attn=True`` on the card in bf16: batch 8 x
+    512, a tail of 0-200 padded keys a row, a [1, 12, 512, 512] bias.
+    One forward and backward launches the softmax_dropout forward and
+    backward kernels once each, at [8, 12, 512, 512] with no mask and no
+    bias, and no flash kernel.  Both are held on the path's own tensors
+    under the same seed: the returned scores through the forward kernel
+    again give ``probs`` bit for bit and, against the plain forward, the
+    same keep pattern and out and softmax within one bf16 ulp at every
+    element; the gradient the path's backward kernel returned (hooked on
+    the scores) equals the kernel's again on the gradient it was given
+    (hooked on ``probs``) and the kernel's own softmax, and is held
+    against the plain backward by ``check_backward``.  Reports the
+    errors and the call's ms."""
+    from unicore_tpu_torch.modules import TransformerEncoderLayer
+    from unicore_tpu_torch.ops import flash_attention as fa
+    from unicore_tpu_torch.ops import prng
+    from unicore_tpu_torch.ops import softmax_dropout as sd
+
+    torch.manual_seed(7)
+    layer = TransformerEncoderLayer(768, 3072, 12, post_ln=True).to(
+        "cuda", torch.bfloat16).train()
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal(
+        (8, 512, 768), dtype=np.float32)).cuda().to(torch.bfloat16)
+    x.requires_grad_()
+    bias = torch.from_numpy(rng.standard_normal(
+        (1, 12, 512, 512), dtype=np.float32)).cuda().to(torch.bfloat16)
+    pad = np.zeros((8, 512), np.int32)
+    for b in range(8):
+        pad[b, 512 - rng.integers(0, 201):] = 1
+    pad = torch.from_numpy(pad).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    state = gen.get_state()
+    seen = {}
+
+    def call(hook=False):
+        out, weights, probs = layer(x, bias, pad, gen, return_attn=True)
+        if hook:  # dx into the scores, g into the probabilities
+            weights.register_hook(lambda d: seen.__setitem__("dx", d))
+            probs.register_hook(lambda g: seen.__setitem__("g", g))
+        (out.float().sum() + probs.float().sum()).backward()
+        return weights.detach(), probs.detach()
+
+    for counts in (sd.launches, fa.launches, sd.plain_route):
+        for name in counts:
+            counts[name] = 0
+    weights, probs = call(hook=True)
+    torch.cuda.synchronize()
+    used = {k: v for k, v in {**sd.launches, **fa.launches}.items() if v}
+    want = {"softmax_dropout_fwd": 1, "softmax_dropout_bwd": 1}
+    if used != want:
+        raise AssertionError(f"launches {used}, want {want}")
+    if any(sd.plain_route.values()):
+        raise AssertionError(f"plain route taken: {sd.plain_route}")
+    # the same seed: the layer's first draw is the softmax's
+    replay = torch.Generator(device="cuda")
+    replay.set_state(state)
+    seed = prng.draw_seeds(replay, (1,))
+    q_blk = sd.pick_q_blk_for(weights, None, None)
+    out_k, sm_k = sd.softmax_dropout_fwd_cuda(weights, None, None, 0.1, seed,
+                                              q_blk, True)
+    out_p, sm_p = sd.softmax_dropout_fwd_plain(weights, None, None, 0.1,
+                                               seed, q_blk, True)
+    dx, g = seen["dx"], seen["g"]
+    dx_k = sd.softmax_dropout_bwd_cuda(g, sm_k, 0.1, seed, q_blk)
+    torch.cuda.synchronize()
+    if not (torch.equal(out_k, probs) and torch.equal(dx_k, dx)):
+        raise AssertionError("the kernels on the path's own inputs do not "
+                             "give the path's probs and dx again")
+    same_keep = bool(torch.equal(probs == 0, out_p == 0))
+    ulps = {"out": ulp_distance(probs, out_p, torch.bfloat16),
+            "softmax": ulp_distance(sm_k, sm_p, torch.bfloat16)}
+    if not same_keep or max(ulps.values()) > 1.0:
+        raise AssertionError(f"forward vs plain: keep pattern equal "
+                             f"{same_keep}, bf16 ulps {ulps} (bound 1)")
+    errs = sd.check_backward(dx, g, sm_k, 0.1, seed, q_blk)
+    errs["out"] = float((probs.float() - out_p.float()).abs().max())
+    errs["softmax"] = float((sm_k.float() - sm_p.float()).abs().max())
+    if not all(torch.isfinite(t).all() for t in (probs, sm_k, dx)):
+        raise AssertionError("non-finite probs, softmax or dx")
+    ms = time_ms(call, torch.empty(0, device="cuda"), iters=10)
+    emit("return_attn", card=card(), layer="bert_base", batch=8, T=512,
+         dtype="bf16", kernel_shape=list(weights.shape), q_blk=q_blk,
+         launches=want, keep_pattern_equal=True, max_bf16_ulps=ulps,
+         ulp_bound=1.0, max_abs_err=errs, fwd_bwd_ms=ms, l2_flushed=False)
+    del layer, x, bias, weights, probs, out_k, sm_k, out_p, sm_p, dx, g
+    del dx_k, seen
+    torch.cuda.empty_cache()
+    return want
+
+
+CA_UPDATES, CA_BERT_UPDATES = 8, 4
+
+
+def lm_checkpoint_activations_phase():
+    """``--checkpoint-activations`` in full-width training: the lm_train
+    phase's transformer_lm_base (--bf16, batch 16 x 512, dropout 0.1),
+    8 updates a run in turns without the flag, with it, with it, without
+    it; then bert_base (the train phase's flags) 4 updates without and
+    with it.  Losses and final params bit-equal across the flag; per
+    update the flash forward runs twice a layer with the flag (the
+    recompute) and the two backward kernels once.  Reports each run's
+    peak memory, step median and device time per update (a profiled
+    window of 2 more updates); returns the launch counts of the first
+    run with the flag on, LM and BERT."""
+    flag = ("--checkpoint-activations",)
+
+    def recorded(argv):
+        """``observe_cli`` on ``argv``; also each update's flash launches
+        without the kernels it did not launch, and their sum."""
+        loop, rec = observe_cli(argv)
+        rec["launches"] = [{k: v for k, v in u.items() if v}
+                           for u in rec["update_launches"]]
+        rec["launches_total"] = dict(sum(map(Counter, rec["launches"]),
+                                         Counter()))
+        return loop, rec
+
+    out = {"lm": [], "bert": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        lm_corpus(tmp)
+        params = {}
+        for i, on in enumerate((False, True, True, False)):
+            loop, rec = recorded(lm_args(
+                tmp, os.path.join(tmp, f"log_lm{i}"), CA_UPDATES, "--no-save",
+                *(flag if on else ())))
+            layers = loop.trainer.model.decoder_layers
+            want = {"flash_fwd_bf16": layers * (2 if on else 1),
+                    "flash_bwd_dkdv": layers, "flash_bwd_dq": layers}
+            if any(r != want for r in rec["launches"]):
+                raise AssertionError(f"LM run {i} (flag {on}): launches "
+                                     f"{rec['launches']}, want {want}")
+            if loop.trainer.model.decoder.checkpoint_activations is not on:
+                raise AssertionError("the flag did not reach the decoder")
+            prof = profile_updates(loop.trainer, n=2, named=TRAIN_FLASH)
+            params[i] = [p.detach().cpu()
+                         for p in loop.trainer.model.parameters()]
+            out["lm"].append({
+                "flag": on, "losses_nats": rec["nats"],
+                "step_ms_median": float(np.median(rec["step_s"][2:])) * 1e3,
+                "step_ms_all": [x * 1e3 for x in rec["step_s"]],
+                "peak_mem_gb": rec["peak_gb"], "mem_at_start_gb":
+                rec["start_gb"],
+                "peak_rise_gb": rec["peak_gb"] - rec["start_gb"],
+                "launches_per_update": want,
+                "launches": rec["launches_total"],
+                "device_ms_per_update": prof["device_busy_ms"] / 2,
+                "profile_launches_per_update": prof["kernel_launches"] / 2,
+                "flash_ms_per_update": {k: v / 2 for k, v in
+                                        prof["named_ms"].items()}})
+            del loop
+            torch.cuda.empty_cache()
+        for i in (1, 2, 3):
+            if out["lm"][i]["losses_nats"] != out["lm"][0]["losses_nats"]:
+                raise AssertionError(f"LM run {i} losses differ from run 0")
+            if not all(torch.equal(a, b)
+                       for a, b in zip(params[i], params[0])):
+                raise AssertionError(f"LM run {i} params differ from run 0")
+        del params
+        emit("lm_checkpoint_activations", card=card(),
+             model="transformer_lm_base", dtype="bf16", batch=TRAIN_BATCH,
+             seq_len=FLASH_T, updates=CA_UPDATES, runs=out["lm"],
+             losses_and_params_bit_equal=True)
+        bert = os.path.join(tmp, "bert")
+        os.makedirs(bert)
+        write_corpus(bert)
+        params = {}
+        for on in (False, True):
+            loop, rec = recorded(bert_args(
+                bert, os.path.join(tmp, f"log_bert{on}"), CA_BERT_UPDATES)
+                + ["--no-save", *(flag if on else ())])
+            layers = loop.trainer.model.encoder_layers
+            want = {"flash_fwd_bf16": layers * (2 if on else 1),
+                    "flash_bwd_dkdv": layers, "flash_bwd_dq": layers}
+            if any(r != want for r in rec["launches"]):
+                raise AssertionError(f"BERT (flag {on}): launches "
+                                     f"{rec['launches']}, want {want}")
+            params[on] = [p.detach().cpu()
+                          for p in loop.trainer.model.parameters()]
+            out["bert"].append({
+                "flag": on, "losses_nats": rec["nats"],
+                "step_ms_median": float(np.median(rec["step_s"][1:])) * 1e3,
+                "peak_mem_gb": rec["peak_gb"],
+                "peak_rise_gb": rec["peak_gb"] - rec["start_gb"],
+                "launches_per_update": want,
+                "launches": rec["launches_total"]})
+            del loop
+            torch.cuda.empty_cache()
+        if out["bert"][0]["losses_nats"] != out["bert"][1]["losses_nats"] \
+                or not all(torch.equal(a, b)
+                           for a, b in zip(params[False], params[True])):
+            raise AssertionError("BERT losses or params differ across the "
+                                 "flag")
+        emit("bert_checkpoint_activations", card=card(), model="bert_base",
+             dtype="bf16", batch=TRAIN_BATCH, updates=CA_BERT_UPDATES,
+             runs=out["bert"], losses_and_params_bit_equal=True)
+    return {"lm": out["lm"][1]["launches"],
+            "bert": out["bert"][1]["launches"]}
 
 
 PALLAS = "unicore_tpu/ops/pallas/"
@@ -4047,12 +4561,9 @@ def flash_row(row, name, replaces, case, launches):
     return entry
 
 
-def kernels_line(cases, serve_launches, flash, multiblock, train_launches,
-                 sd, sr, evo_launches, fp16_launches, mol_launches,
-                 unifold_launches, ema_report, causal, lm_launches,
-                 rotary_launches, lm_fp16_launches, rc_launches,
-                 sampling_launches):
-    """One row per TPU kernel of the table in PERF.md (rows 1-11); a row
+def kernels_line(res):
+    """One row per TPU kernel of the table in PERF.md (rows 1-11), from
+    ``res``, the phases' results by name (see ``main``); a row
     realized by two CUDA kernels (4, 8) has one entry for each, and the
     flash rows (2-8) and the softmax_dropout rows (9-10) one for each of
     the bf16 and the fp16 instantiations.  A flash row's launches count
@@ -4068,16 +4579,23 @@ def kernels_line(cases, serve_launches, flash, multiblock, train_launches,
     rows 3 and 8 also give their causal launches inside the LM's --fp16
     step (lm_optim_fp16, run a).  The LM's causal rows also give
     lm_run_control's launches, its validation passes' apart (row 3's
-    forward at the validation batch)."""
-    decode = cases["decode"]
+    forward at the validation batch), and lm_checkpoint_activations'
+    first run with the flag on; BERT's rows 3 and 8 the
+    bert_checkpoint_activations run's with it.  Rows 3 and 8 have a third
+    bf16 entry each for cross-attention's call at Tq != Tk (flash_cross at
+    Tq 256, Tk 512; its launches from cross_decoder's cross-attention),
+    the forward's entry carrying every flash_cross case and type (rows
+    2 and 4-7 at Tq != Tk among them).  Rows 9 and 10 in bf16 give
+    return_attn's launches beside the Evoformer's."""
+    decode = res["cases"]["decode"]
     rows = [{
         "row": 1, "name": "ragged_paged_attention", "route": "cuda",
         "source": "unicore_tpu_torch/csrc/paged_attention.cu",
         "replaces": PALLAS + "paged_attention.py:65",
-        "launches": serve_launches,
-        "launches_by_phase": {"serve": serve_launches,
-                              "serve_sampling": sampling_launches},
-        "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+        "launches": res["serve_launches"],
+        "launches_by_phase": {"serve": res["serve_launches"],
+                              "serve_sampling": res["sampling_launches"]},
+        "max_abs_err": max(c["max_abs_err"] for c in res["cases"].values()),
         "ms": decode["ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
         "library_ms": decode["library_ms"],
@@ -4085,10 +4603,12 @@ def kernels_line(cases, serve_launches, flash, multiblock, train_launches,
         "cases": {kind: {key: c[key] for key in (
             "ms", "bound_ms", "plain_ms", "library_ms", "max_abs_err",
             "share_of_bound", "splits", "split_cols")}
-            for kind, c in cases.items()},
+            for kind, c in res["cases"].items()},
     }]
     # the training path runs bf16: its numbers lead, fp32 rides along
-    hb, joint, two_pass = (flash["bfloat16"], multiblock["t1024_nobias"],
+    multiblock = res["multiblock"]
+    hb, joint, two_pass = (res["flash"]["bfloat16"],
+                           multiblock["t1024_nobias"],
                            multiblock["t2048_bias"])
     table = (  # row, kernel, replaces (file:line of the body), case
         (2, "flash_fwd_bf16", "flash_attention.py:241", two_pass),
@@ -4101,29 +4621,36 @@ def kernels_line(cases, serve_launches, flash, multiblock, train_launches,
         (8, "flash_bwd_dkdv", "flash_attention.py:164", hb),
         (8, "flash_bwd_dq", "flash_attention.py:164", hb))
     for row, name, replaces, case in table:
-        entry = flash_row(row, name, replaces, case, train_launches[name])
+        entry = flash_row(row, name, replaces, case,
+                          res["train_launches"][name])
         if case is hb:  # the fp32 kernels at the same shape
-            fp32 = flash["float32"]["kernels"]
+            fp32 = res["flash"]["float32"]["kernels"]
             keep = (("flash_fwd",) if name == "flash_fwd_bf16"
                     else BWD_KERNELS[torch.float32])
             entry["fp32"] = {n: {"ms": fp32[n]["ms"],
                                  "bound_ms": fp32[n]["bound_ms"]}
                              for n in keep}
+            entry["launches_by_phase"] = {
+                "train": res["train_launches"][name],
+                "bert_checkpoint_activations (flag on, 4 updates)":
+                    res["ca_launches"]["bert"][name]}
         rows.append(entry)
     # the LM's causal call: causal at :142 (forward) and :199 (backward)
-    lead = causal["bf16_bias"]
+    lead = res["causal"]["bf16_bias"]
     for row, name, replaces in (
             (3, "flash_fwd_bf16", "flash_attention.py:142"),
             (8, "flash_bwd_dkdv", "flash_attention.py:199"),
             (8, "flash_bwd_dq", "flash_attention.py:199")):
-        entry = flash_row(row, name, replaces, lead, lm_launches[name])
+        entry = flash_row(row, name, replaces, lead, res["lm_launches"][name])
         entry["causal"] = True
         entry["launches_by_phase"] = {
-            "lm_train": lm_launches[name],
-            "lm_serve_checkpoint (rotary)": rotary_launches[name],
-            "lm_run_control": rc_launches["launches"][name],
+            "lm_train": res["lm_launches"][name],
+            "lm_serve_checkpoint (rotary)": res["rotary_launches"][name],
+            "lm_run_control": res["rc_launches"]["launches"][name],
             "lm_run_control (validation passes)":
-                rc_launches["valid_launches"][name]}
+                res["rc_launches"]["valid_launches"][name],
+            "lm_checkpoint_activations (flag on, 8 updates)":
+                res["ca_launches"]["lm"][name]}
         rows.append(entry)
     # every causal case's kernels, once, on the forward's row
     rows[-3]["causal_cases"] = {
@@ -4135,33 +4662,65 @@ def kernels_line(cases, serve_launches, flash, multiblock, train_launches,
                "sdpa_fwd_ms": r["sdpa_fwd_ms"],
                "sdpa_fwd_bwd_ms": r["sdpa_fwd_bwd_ms"],
                "max_abs_err": r["max_abs_err"]}
-        for case, r in causal.items()}
+        for case, r in res["causal"].items()}
+    # cross-attention's call at Tq != Tk: Tq 256 over Tk 512 keys (rows 3
+    # and 8), launched by cross_decoder's cross-attention
+    lead = res["cross"]["q256_k512"]["bfloat16"]
+    for row, name, replaces in (
+            (3, "flash_fwd_bf16", "flash_attention.py:121"),
+            (8, "flash_bwd_dkdv", "flash_attention.py:164"),
+            (8, "flash_bwd_dq", "flash_attention.py:164")):
+        entry = flash_row(row, name, replaces, lead,
+                          res["cross_launches"]["cross_attention"][name])
+        entry["cross"] = True
+        entry["launches_by_phase"] = {
+            "cross_decoder (cross-attention)":
+                res["cross_launches"]["cross_attention"][name],
+            "cross_decoder (encoder, self and cross)":
+                res["cross_launches"]["all"][name]}
+        rows.append(entry)
+    # every flash_cross case and type, once, on the forward's row
+    rows[-3]["cross_cases"] = {
+        f"{case}/{dt}": {
+            "shape": r["shape"], "reference_blocks": r["reference_blocks"],
+            "kernels": r["kernels"], "plain_fwd_ms": r["plain_fwd_ms"],
+            "plain_bwd_ms": r["plain_bwd_ms"],
+            "bwd_kernels_ms": r["bwd_kernels_ms"],
+            "bwd_bound_ms": r["bwd_bound_ms"],
+            "sdpa_fwd_ms": r["sdpa_fwd_ms"],
+            "sdpa_fwd_bwd_ms": r["sdpa_fwd_bwd_ms"],
+            "sdpa_other": r["sdpa_other"], "max_abs_err": r["max_abs_err"],
+            "keep_bits": r["keep_bits"]}
+        for case, by_type in res["cross"].items() for dt, r in by_type.items()}
     # the fp16 kernels at the same shapes, on the --fp16 path
-    fp16 = {id(hb): flash["float16"],
+    fp16 = {id(hb): res["flash"]["float16"],
             id(joint): multiblock["t1024_nobias_fp16"],
             id(two_pass): multiblock["t2048_bias_fp16"]}
     for row, name, replaces, case in table:
         name16 = name.replace("_bf16", "") + "_fp16"
         entry = flash_row(row, name16, replaces, fp16[id(case)],
-                          fp16_launches[name16])
+                          res["fp16_launches"][name16])
         if case is hb:  # the LM's causal call runs them in its fp16 step
             entry["launches_by_phase"] = {
-                "train_fp16": fp16_launches[name16],
-                "lm_optim_fp16 (run a, causal)": lm_fp16_launches[name16]}
+                "train_fp16": res["fp16_launches"][name16],
+                "lm_optim_fp16 (run a, causal)":
+                    res["lm_fp16_launches"][name16]}
         rows.append(entry)
     # softmax_dropout: bf16 on the Evoformer's path, led by its triangle
     # attention (the largest); fp16 on Uni-Mol's, at its scores' shape
-    by_type = {dt: r for dt, r in sd.items() if dt != "turns"}
-    for dt, lead, path_launches in (("bfloat16", "triangle", evo_launches),
-                                    ("float16", "unimol", mol_launches)):
+    by_type = {dt: r for dt, r in res["sd"].items() if dt != "turns"}
+    for dt, lead, path_launches in (
+            ("bfloat16", "triangle", res["evo_launches"]),
+            ("float16", "unimol", res["mol_launches"])):
         main = by_type[dt][lead]
         for row, kind, body, errs in ((9, "fwd", ":64", ("out", "softmax")),
                                       (10, "bwd", ":87", ("dx", "dbias"))):
             name = f"softmax_dropout_{kind}"
-            callers = ({"evoformer_train": evo_launches[name],
-                        "evoformer_unifold": unifold_launches[name]}
+            callers = ({"evoformer_train": res["evo_launches"][name],
+                        "evoformer_unifold": res["unifold_launches"][name],
+                        "return_attn": res["ra_launches"][name]}
                        if dt == "bfloat16"
-                       else {"mol_train_fp16": mol_launches[name]})
+                       else {"mol_train_fp16": res["mol_launches"][name]})
             rows.append({"launches_by_phase": callers,
                 "row": row, "name": name, "dtype": dt, "route": "cuda",
                 "source": "unicore_tpu_torch/csrc/softmax_dropout.cu",
@@ -4177,7 +4736,7 @@ def kernels_line(cases, serve_launches, flash, multiblock, train_launches,
                 "library_ms": main[f"library_{kind}_ms"],
                 "shape": main["shape"],
                 "turns_ms": [[t["dtype"], t[name]]
-                             for t in sd["turns"][lead]],
+                             for t in res["sd"]["turns"][lead]],
                 "cases": {f"{t}/{case}": {
                     "ms": r[f"{kind}_ms"], "bound_ms": r[f"bound_{kind}_ms"],
                     "plain_ms": r[f"plain_{kind}_ms"],
@@ -4186,34 +4745,36 @@ def kernels_line(cases, serve_launches, flash, multiblock, train_launches,
                     for case, r in by_case.items()},
             })
     # the SR sync of every evoformer_base leaf in one table launch
-    table = sr["table"]
+    table = res["sr"]["table"]
     rows.append({
         "row": 11, "name": "fp32_to_bf16_sr", "route": "cuda",
         "source": "unicore_tpu_torch/csrc/rounding.cu",
         "replaces": PALLAS + "rounding.py:34",
-        "launches": evo_launches["fp32_to_bf16_sr"],
+        "launches": res["evo_launches"]["fp32_to_bf16_sr"],
         "max_abs_err": 0.0,  # bit for bit (the phase raises otherwise)
         "ms": table["ms"], "plain_ms": table["plain_ms"],
         "bound_ms": table["bound_ms"], "bound_by": "bytes",
         "library_ms": None,
         "launches_by_phase": {
-            "evoformer_train": evo_launches["fp32_to_bf16_sr"],
-            "evoformer_unifold": unifold_launches["fp32_to_bf16_sr"]},
-        "per_leaf_launches_ms": table["per_leaf_launches_ms"], "cases": sr,
+            "evoformer_train": res["evo_launches"]["fp32_to_bf16_sr"],
+            "evoformer_unifold": res["unifold_launches"]["fp32_to_bf16_sr"]},
+        "per_leaf_launches_ms": table["per_leaf_launches_ms"],
+        "cases": res["sr"],
     })
+    ema = res["ema_report"]
     rows.append({
         "row": None, "name": "ema_update", "dtype": "float32",
         "route": "cuda", "source": "unicore_tpu_torch/csrc/ema.cu",
         # no pallas_call: the EMA update of the JAX trainer's jitted step
         "replaces": "unicore_tpu/trainer.py:1136",
-        "launches": unifold_launches["ema_update"],
+        "launches": res["unifold_launches"]["ema_update"],
         "launches_by_phase": {
-            "evoformer_unifold": unifold_launches["ema_update"]},
+            "evoformer_unifold": res["unifold_launches"]["ema_update"]},
         "max_abs_err": 0.0,  # bit for bit (the phase raises otherwise)
-        "ms": ema_report["ms"], "plain_ms": ema_report["plain_ms"],
-        "bound_ms": ema_report["bound_ms"], "bound_by": "bytes",
+        "ms": ema["ms"], "plain_ms": ema["plain_ms"],
+        "bound_ms": ema["bound_ms"], "bound_by": "bytes",
         # torch._foreach_lerp_: the same EMA in one call, rounded otherwise
-        "library_ms": ema_report["library_ms"], "case": ema_report,
+        "library_ms": ema["library_ms"], "case": ema,
     })
     return rows
 
@@ -4235,53 +4796,56 @@ def main():
                "ptxas": [ln.strip() for ln in r["log"].splitlines()
                          if "registers" in ln or "smem" in ln]}
         for name, r in report.items()})
+    res = {}  # the phases' results that the kernels line reads
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    cases = kernel_phase(pa, flush)
-    model, first, second, results, launches = serve_phase(pa)
+    res["cases"] = kernel_phase(pa, flush)
+    model, first, second, results, res["serve_launches"] = serve_phase(pa)
     solo_phase(model, first, second, results)
     profile_phase(model)
     sampling = serve_sampling_phase(model, pa, first, second, results)
     emit("serve_sampling", **sampling)
+    res["sampling_launches"] = sampling["paged_launches"]
     del model
     torch.cuda.empty_cache()
-    flash = flash_phase(flush)
-    causal = flash_causal_phase(flush)
-    multiblock = flash_multiblock_phase(flush)
+    res["flash"] = flash_phase(flush)
+    res["causal"] = flash_causal_phase(flush)
+    res["cross"] = flash_cross_phase(flush)
+    res["multiblock"] = flash_multiblock_phase(flush)
     emit("head", **head_phase(flush))
-    sd = softmax_dropout_phase(flush)
+    res["sd"] = softmax_dropout_phase(flush)
     emit("softmax_dropout_route", **softmax_dropout_route_case(flush))
-    sr = rounding_phase(flush)
-    ema_report = ema_case(flush)
-    emit("ema", card=card(), **ema_report)
+    res["sr"] = rounding_phase(flush)
+    res["ema_report"] = ema_case(flush)
+    emit("ema", card=card(), **res["ema_report"])
     del flush
     torch.cuda.empty_cache()
     train = train_phase()
+    res["train_launches"] = train["launches"]
     torch.cuda.empty_cache()
-    fp16_launches = train_fp16_phase(train)
+    res["fp16_launches"] = train_fp16_phase(train)
     torch.cuda.empty_cache()
     emit("checkpoint", **checkpoint_phase())
     torch.cuda.empty_cache()
-    evo_launches = evoformer_train_phase()
+    res["evo_launches"] = evoformer_train_phase()
     torch.cuda.empty_cache()
-    unifold_launches = evoformer_unifold_phase()
+    res["unifold_launches"] = evoformer_unifold_phase()
     torch.cuda.empty_cache()
-    mol_launches = mol_train_fp16_phase()
+    res["mol_launches"] = mol_train_fp16_phase()
     torch.cuda.empty_cache()
-    lm = lm_train_phase()
+    res["lm_launches"] = lm_train_phase()["launches"]
     torch.cuda.empty_cache()
     lm_serve = lm_serve_checkpoint_phase()
     emit("lm_serve_checkpoint", **lm_serve)
+    res["rotary_launches"] = lm_serve["flash_launches"]
     torch.cuda.empty_cache()
-    lm_fp16_launches = lm_optim_fp16_phase()
+    res["lm_fp16_launches"] = lm_optim_fp16_phase()
     torch.cuda.empty_cache()
-    rc_launches = lm_run_control_phase()
-    rows = kernels_line(cases, launches, flash, multiblock,
-                        train["launches"], sd, sr, evo_launches,
-                        fp16_launches, mol_launches, unifold_launches,
-                        ema_report, causal, lm["launches"],
-                        lm_serve["flash_launches"], lm_fp16_launches,
-                        rc_launches, sampling["paged_launches"])
-    print(json.dumps({"kernels": rows}), flush=True)
+    res["rc_launches"] = lm_run_control_phase()
+    torch.cuda.empty_cache()
+    res["cross_launches"] = cross_decoder_phase()
+    res["ra_launches"] = return_attn_phase()
+    res["ca_launches"] = lm_checkpoint_activations_phase()
+    print(json.dumps({"kernels": kernels_line(res)}), flush=True)
     print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

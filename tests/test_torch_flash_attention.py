@@ -58,19 +58,23 @@ def test_row_seeds_wrap_as_int32():
 
 
 def make_case(rng, B, T, H, D, bias_kind, pad_kind):
-    q, k, v, w = (rng.randn(B, T, H, D).astype(np.float32) for _ in range(4))
+    """``T``: the length of queries and keys, or ``(Tq, Tk)``."""
+    Tq, Tk = (T, T) if isinstance(T, int) else T
+    q, k, v, w = (rng.randn(B, t, H, D).astype(np.float32)
+                  for t in (Tq, Tk, Tk, Tq))
     bias = None
     if bias_kind is not None:
-        bias = rng.randn(*{"full": (1, H, T, T), "heads1": (1, 1, T, T),
-                           "row": (1, H, 1, T)}[bias_kind]).astype(np.float32)
+        bias = rng.randn(*{"full": (1, H, Tq, Tk), "heads1": (1, 1, Tq, Tk),
+                           "row": (1, H, 1, Tk)}[bias_kind]).astype(
+            np.float32)
     pad = None
     if pad_kind is not None:
-        pad = np.zeros((B, T), np.int32)
-        pad[0, -T // 4:] = 1
+        pad = np.zeros((B, Tk), np.int32)
+        pad[0, -Tk // 4:] = 1
         if pad_kind == "all_row":
             pad[1, :] = 1  # every key of row 1 padded: uniform average
         elif pad_kind == "head":
-            pad[1, :T // 4] = 1  # under causal, row 1's first queries
+            pad[1, :Tk // 4] = 1  # under causal, row 1's first queries
             # admit only padded keys
     seed = np.array([rng.randint(-2 ** 31, 2 ** 31 - 1) for _ in range(B)],
                     dtype=np.int32)
@@ -507,8 +511,8 @@ def cuda():
     return torch.device("cuda")
 
 
-# name: (B, T, H, D, bias kind, pad kind, causal, dropout, packed): the
-# card cases of the kernels; ``packed`` lets the bf16 dq kernel put
+# name: (B, T or (Tq, Tk), H, D, bias kind, pad kind, causal, dropout,
+# packed): the card cases of the kernels; ``packed`` lets the bf16 dq kernel put
 # several batch rows in a group (the grid-fill rule of pick_groups off), as
 # it does at BERT's shape, where small shapes would get one row a group
 CARD_CASES = {
@@ -529,6 +533,12 @@ CARD_CASES = {
                              True),
     "causal_bias_heads1": (3, 256, 3, 16, "heads1", "tail", True, 0.1,
                            False),
+    # cross-attention's Tq != Tk: more keys than queries, the key side
+    # padded; fewer, one row's keys all padded and a row bias
+    "cross_q128_k512": (3, (128, 512), 2, 64, "full", "tail", False, 0.1,
+                        True),
+    "cross_q256_k128": (3, (256, 128), 2, 32, "row", "all_row", False, 0.1,
+                        False),
 }
 
 

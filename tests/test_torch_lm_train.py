@@ -688,20 +688,26 @@ def test_serve_refuses_what_jax_refuses(trained, corpus, tmp_path):
         assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("value,refused", [(None, True), ("True", True),
-                                           ("False", False)])
+@pytest.mark.parametrize("value,on", [(None, True), ("True", True),
+                                      ("False", False)])
 def test_cli_checkpoint_activations_as_the_lm_parses_it(corpus, tmp_path,
-                                                        value, refused):
+                                                        value, on):
     """``--checkpoint-activations`` parses as the JAX LM's flag (bare or
-    True/False); on, it is refused naming ROADMAP.md A3."""
+    True/False) and reaches the decoder; an update with it (dropout 0.1)
+    logs the loss and norm of the same update without it and ends on the
+    same params."""
     from unicore_tpu_torch.cli.train import cli_main
 
     flag = ["--checkpoint-activations"] + ([] if value is None else [value])
-    argv = cli_argv(corpus, tmp_path / "log", tmp_path / "s", "--max-update",
-                    "1", "--no-save", "--disable-validation", *flag)
-    if refused:
-        with pytest.raises(NotImplementedError, match="A3"):
-            cli_main(argv)
-    else:
-        cli_main(argv)
-        assert len(_losses(tmp_path / "log")) == 1
+    logs, params = [], []
+    for name, extra in (("plain", []), ("flag", flag)):
+        argv = cli_argv(corpus, tmp_path / f"log_{name}", tmp_path / "s",
+                        "--max-update", "1", "--no-save",
+                        "--disable-validation", *extra)
+        loop = cli_main(argv)
+        logs.append([{k: r[k] for k in ("loss", "gnorm", "sample_size")}
+                     for r in _losses(tmp_path / f"log_{name}")])
+        params.append(list(loop.trainer.model.parameters()))
+    assert loop.trainer.model.decoder.checkpoint_activations is on
+    assert len(logs[1]) == 1 and logs[1] == logs[0]
+    assert all(torch.equal(a, b) for a, b in zip(*params))

@@ -19,7 +19,7 @@ from torch import nn
 from ...models import (BaseUnicoreModel, register_model,
                        register_model_architecture)
 from ...modules import FlaxDense, LayerNorm, TransformerEncoder
-from ...utils import eval_bool, get_activation_fn
+from ...utils import arg_bool, eval_bool, get_activation_fn
 from . import convert
 
 
@@ -51,7 +51,7 @@ class BertModel(BaseUnicoreModel):
                  encoder_attention_heads=12, emb_dropout=0.1, dropout=0.1,
                  attention_dropout=0.1, activation_dropout=0.0,
                  max_seq_len=512, activation_fn="gelu", post_ln=True,
-                 masked_loss_capacity=0.25):
+                 masked_loss_capacity=0.25, checkpoint_activations=False):
         super().__init__()
         self.vocab_size = vocab_size
         self.padding_idx = padding_idx
@@ -68,7 +68,8 @@ class BertModel(BaseUnicoreModel):
             dropout=dropout, attention_dropout=attention_dropout,
             activation_dropout=activation_dropout, max_seq_len=max_seq_len,
             activation_fn=activation_fn, rel_pos=True, rel_pos_bins=32,
-            max_rel_pos=128, post_ln=post_ln)
+            max_rel_pos=128, post_ln=post_ln,
+            checkpoint_activations=checkpoint_activations)
         self.lm_head = BertLMHead(encoder_embed_dim, vocab_size,
                                   activation_fn)
 
@@ -97,6 +98,11 @@ class BertModel(BaseUnicoreModel):
                             help="number of positional embeddings to learn")
         parser.add_argument("--post-ln", type=eval_bool,
                             help="use post layernorm or pre layernorm")
+        parser.add_argument("--checkpoint-activations", type=arg_bool,
+                            nargs="?", const=True, default=False,
+                            help="recompute encoder-layer activations in "
+                                 "backward; bare flag or explicit "
+                                 "True/False")
         parser.add_argument("--masked-loss-capacity", type=float, metavar="F",
                             help="fraction of tokens given LM-head slots "
                                  "(0 = project every position)")
@@ -124,7 +130,9 @@ class BertModel(BaseUnicoreModel):
             activation_dropout=args.activation_dropout,
             max_seq_len=args.max_seq_len, activation_fn=args.activation_fn,
             post_ln=args.post_ln,
-            masked_loss_capacity=0.25 if capacity is None else capacity)
+            masked_loss_capacity=0.25 if capacity is None else capacity,
+            checkpoint_activations=bool(
+                getattr(args, "checkpoint_activations", False)))
         model.reset_parameters(
             torch.Generator().manual_seed(int(getattr(args, "seed", 1))))
         return model

@@ -7,8 +7,10 @@ port's ``state_dict`` under the reference torch names, so the same weights
 run in both packages.  :func:`flax_from_state_dict` goes the other way,
 to exactly the tree, paths and shapes ``arch_flax_params`` gives.  Every
 position scheme and layout maps: learned positions (``embed_positions``),
-the decoder's relative-position table, and post-LN (no decoder
-``final_layer_norm``).
+the decoder's relative-position table, post-LN (no decoder
+``final_layer_norm``), and a decoder built with cross-attention
+(``encoder_attn.{q,k,v,out}_proj`` and ``encoder_attn_layer_norm``, the
+names of ``LM_RULES``).
 
 The two rule engines every plugin's converter shares live here:
 :func:`apply_rules` (flax -> port) and :func:`apply_inverse_rules`
@@ -64,12 +66,15 @@ _RULES = [
      "decoder.layers.{0}.self_attn.in_proj.weight", _qkv_weight),
     (r"decoder/layers_(\d+)/self_attn/in_proj/bias",
      "decoder.layers.{0}.self_attn.in_proj.bias", lambda b: b.reshape(-1)),
-    (r"decoder/layers_(\d+)/(self_attn/out_proj|fc1|fc2)/kernel",
+    (r"decoder/layers_(\d+)/(self_attn/out_proj|fc1|fc2|"
+     r"encoder_attn/(?:q|k|v|out)_proj)/kernel",
      "decoder.layers.{0}.{1}.weight", lambda k: k.T),
-    (r"decoder/layers_(\d+)/(self_attn/out_proj|fc1|fc2)/bias",
+    (r"decoder/layers_(\d+)/(self_attn/out_proj|fc1|fc2|"
+     r"encoder_attn/(?:q|k|v|out)_proj)/bias",
      "decoder.layers.{0}.{1}.bias", None),
-    (r"decoder/layers_(\d+)/(self_attn_layer_norm|final_layer_norm)/"
-     r"(weight|bias)", "decoder.layers.{0}.{1}.{2}", None),
+    (r"decoder/layers_(\d+)/(self_attn_layer_norm|final_layer_norm|"
+     r"encoder_attn_layer_norm)/(weight|bias)",
+     "decoder.layers.{0}.{1}.{2}", None),
     (r"out_layer_norm/(weight|bias)", "out_layer_norm.{0}", None),
     (r"out_bias", "out_bias", None),
 ]
@@ -88,11 +93,14 @@ _INVERSE_RULES = [
      "decoder/layers_{0}/self_attn/in_proj/kernel", qkv_kernel),
     (_L + r"\.self_attn\.in_proj\.bias",
      "decoder/layers_{0}/self_attn/in_proj/bias", qkv_bias),
-    (_L + r"\.(self_attn\.out_proj|fc1|fc2)\.weight",
+    (_L + r"\.(self_attn\.out_proj|fc1|fc2|"
+     r"encoder_attn\.(?:q|k|v|out)_proj)\.weight",
      "decoder/layers_{0}/{1}/kernel", linear_kernel),
-    (_L + r"\.(self_attn\.out_proj|fc1|fc2)\.bias",
+    (_L + r"\.(self_attn\.out_proj|fc1|fc2|"
+     r"encoder_attn\.(?:q|k|v|out)_proj)\.bias",
      "decoder/layers_{0}/{1}/bias", None),
-    (_L + r"\.(self_attn_layer_norm|final_layer_norm)\.(weight|bias)",
+    (_L + r"\.(self_attn_layer_norm|final_layer_norm|"
+     r"encoder_attn_layer_norm)\.(weight|bias)",
      "decoder/layers_{0}/{1}/{2}", None),
     (r"out_layer_norm\.(weight|bias)", "out_layer_norm/{0}", None),
     (r"out_bias", "out_bias", None),

@@ -3,6 +3,9 @@
 (``abs_pos``), the causal decoder with the bucketed relative-position
 bias (``rel_pos``) or rotary embeddings (``rotary``), pre-LN or post-LN,
 and the tied output head ``gelu(LN(x)) @ E.T + out_bias``.
+``--checkpoint-activations`` recomputes each decoder layer's activations
+in backward; the parameters, and so the checkpoint files, are the same
+with and without it.
 
 ``unicore-train --task lm --arch transformer_lm[_base]`` builds it from
 the command line with the reference's defaults: rel-pos and learned
@@ -27,7 +30,7 @@ from ...device import resolve_device
 from ...models import (ARCH_CONFIG_REGISTRY, BaseUnicoreModel,
                        register_model, register_model_architecture)
 from ...modules import LayerNorm, TransformerDecoder
-from ...utils import eval_bool, get_activation_fn
+from ...utils import arg_bool, eval_bool, get_activation_fn
 from . import convert
 
 logger = logging.getLogger(__name__)
@@ -47,7 +50,8 @@ class TransformerLMModel(BaseUnicoreModel):
                  decoder_attention_heads=8, emb_dropout=0.1, dropout=0.1,
                  attention_dropout=0.1, activation_dropout=0.0,
                  max_seq_len=512, activation_fn="gelu", post_ln=False,
-                 rel_pos=False, rotary=True, abs_pos=False):
+                 rel_pos=False, rotary=True, abs_pos=False,
+                 checkpoint_activations=False):
         super().__init__()
         self.vocab_size = vocab_size
         self.padding_idx = padding_idx
@@ -68,7 +72,7 @@ class TransformerLMModel(BaseUnicoreModel):
             dropout=dropout, attention_dropout=attention_dropout,
             activation_dropout=activation_dropout, max_seq_len=max_seq_len,
             activation_fn=activation_fn, rel_pos=rel_pos, post_ln=post_ln,
-            rotary=rotary,
+            rotary=rotary, checkpoint_activations=checkpoint_activations,
         )
         self.out_layer_norm = LayerNorm(decoder_embed_dim)
         self.out_bias = nn.Parameter(torch.zeros(vocab_size))
@@ -97,6 +101,11 @@ class TransformerLMModel(BaseUnicoreModel):
         parser.add_argument("--abs-pos", type=eval_bool,
                             help="learned absolute position embeddings; "
                                  "off by default under --rotary")
+        parser.add_argument("--checkpoint-activations", type=arg_bool,
+                            nargs="?", const=True, default=False,
+                            help="recompute decoder-layer activations in "
+                                 "backward (memory for time); bare flag "
+                                 "or explicit True/False")
 
     @classmethod
     def build_model(cls, args, task):
@@ -115,6 +124,8 @@ class TransformerLMModel(BaseUnicoreModel):
             rel_pos=cls._off_when_rotary(args, "rel-pos"),
             rotary=bool(getattr(args, "rotary", None)),
             abs_pos=cls._off_when_rotary(args, "abs-pos"),
+            checkpoint_activations=bool(
+                getattr(args, "checkpoint_activations", False)),
         )
         model.reset_parameters(
             torch.Generator().manual_seed(int(getattr(args, "seed", 1))))

@@ -5,7 +5,8 @@ from .layer_norm import LayerNorm
 from .msa_attention import (EvoformerBlock, MSAColumnAttention,
                             MSARowAttentionWithPairBias, MSATransition,
                             OuterProductMean)
-from .multihead_attention import SelfMultiheadAttention
+from .multihead_attention import (CrossMultiheadAttention,
+                                  SelfMultiheadAttention)
 from .rotary import apply_rotary, apply_rotary_qk, rotary_cos_sin
 from .transformer_decoder import TransformerDecoder, TransformerDecoderLayer
 from .triangle_attention import (EvoformerPairBlock, PairTransition,
@@ -16,7 +17,8 @@ from .transformer_encoder import (RelativePositionBias, TransformerEncoder,
                                   relative_position_bucket)
 
 __all__ = [
-    "EvoformerBlock", "EvoformerPairBlock", "FlaxDense", "LayerNorm", "MSAColumnAttention",
+    "CrossMultiheadAttention", "EvoformerBlock", "EvoformerPairBlock",
+    "FlaxDense", "LayerNorm", "MSAColumnAttention",
     "MSARowAttentionWithPairBias", "MSATransition", "OuterProductMean",
     "PairTransition", "RelativePositionBias", "SelfMultiheadAttention",
     "TransformerDecoder", "TransformerDecoderLayer", "TransformerEncoder",

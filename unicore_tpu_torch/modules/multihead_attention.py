@@ -1,7 +1,8 @@
-"""Self multi-head attention (counterpart of ``SelfMultiheadAttention``
-in ``unicore_tpu/modules/multihead_attention.py``).
+"""Self and cross multi-head attention (counterparts of
+``SelfMultiheadAttention`` and ``CrossMultiheadAttention`` in
+``unicore_tpu/modules/multihead_attention.py``).
 
-Two paths:
+Three paths of the self-attention:
 
 - the full forward (no ``paged``): key padding mask, additive
   ``attn_bias`` (batch-broadcast ``[1, H|1, T|1, T]``, or the reference's
@@ -13,8 +14,9 @@ Two paths:
   key padding added to the scores, the causal iota mask folded into the
   bias, then :func:`~unicore_tpu_torch.ops.softmax_dropout.
   softmax_dropout` with that bias (its kernel on the card, its plain
-  version on the CPU).  The decoder's causal full forward is also the
-  serve engine's oracle;
+  version on the CPU).  ``return_attn`` always takes the materialized
+  path and returns the scores and probabilities beside the output.  The
+  decoder's causal full forward is also the serve engine's oracle;
 - the paged decode path (``paged`` given): this step's k/v are written
   into the layer's pool pages at ``paged.slot_mapping`` (in place), then
   each row attends the pages its table names through
@@ -31,8 +33,11 @@ product rounds, as flax's): ``in_proj`` is ``Linear(D, 3D)`` whose
 output features are laid out q-block, k-block, v-block, each
 ``[H, Dh]`` — the JAX package's ``DenseGeneral`` kernel
 ``[D, 3, H, Dh]`` is ``in_proj.weight.T`` reshaped.  The cross-attention
-module, ``return_attn`` and packed ``segment_ids`` are not ported yet
-(ROADMAP.md A3, A11); with a decode cache they meet the JAX refusals.
+has separate ``q_proj``, ``k_proj``, ``v_proj`` and ``out_proj`` and the
+same dispatch as the full forward, Tq and Tk apart.  Packed
+``segment_ids`` are not ported yet (ROADMAP.md A11); with a decode cache
+they, ``return_attn``, a bias and a key padding mask meet the JAX
+refusals.
 """
 
 import dataclasses
@@ -67,16 +72,20 @@ def _padding_bias(key_padding_mask):
 
 
 def _attend(q, k, v, scaling, dropout, key_padding_mask, bias, training,
-            generator, causal=False):
-    """Core attention, q/k/v [B, T, H, D] -> [B, T, H, D]: the JAX
-    ``_attend``'s dispatch without its sequence-parallel and segment
-    paths."""
+            generator, causal=False, return_attn=False):
+    """Core attention, q [B, Tq, H, D] and k/v [B, Tk, H, D] -> [B, Tq, H,
+    D]: the JAX ``_attend``'s dispatch without its sequence-parallel and
+    segment paths.  With ``return_attn``, ``(o, attn_weights, probs)``:
+    the scores with the padding and the bias (the causal mask folded in)
+    added in their own type, and softmax_dropout's output, called with no
+    bias; this never takes flash."""
     bias4 = bias
     if bias4 is not None and bias4.dim() < 4:
         bias4 = bias4.reshape((1,) * (4 - bias4.dim()) + tuple(bias4.shape))
     qs = (q.shape[0], q.shape[2], q.shape[1], q.shape[3])
     ks = (k.shape[0], k.shape[2], k.shape[1], k.shape[3])
-    if eligible(qs, ks, None if bias4 is None else tuple(bias4.shape)):
+    if not return_attn and eligible(
+            qs, ks, None if bias4 is None else tuple(bias4.shape)):
         return flash_attention(
             q, k, v, bias=bias4, key_padding_mask=key_padding_mask,
             causal=causal, dropout_prob=dropout, generator=generator,
@@ -91,6 +100,14 @@ def _attend(q, k, v, scaling, dropout, key_padding_mask, bias, training,
         # type promotes to fp32 with it
         cb = causal_iota_mask(q.shape[1], k.shape[1], device=q.device)
         bias = cb[None, None] if bias is None else bias + cb
+    if return_attn:
+        # the bias meets the scores in their type (under fp16 the causal
+        # fill becomes -inf), then the softmax runs without one
+        if bias is not None:
+            s = s + bias.to(s.dtype)
+        probs = softmax_dropout(s, dropout, is_training=training,
+                                generator=generator)
+        return torch.einsum("bhqk,bkhd->bqhd", probs, v), s, probs
     probs = softmax_dropout(s, dropout, is_training=training, bias=bias,
                             generator=generator)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
@@ -178,7 +195,9 @@ class SelfMultiheadAttention(nn.Module):
                 kv=None, cache=None, return_attn=False, segment_ids=None):
         """``query`` [B, T, D].  ``key_padding_mask`` [B, T] (True/1 =
         pad) applies to the full forwards only; the decoder drops it on
-        the decode paths, as the JAX decoder does.  Dropout is on in
+        the decode paths, as the JAX decoder does.  ``return_attn``
+        (full forward only) returns ``(out, attn_weights, probs)``, the
+        [B, H, T, T] scores and probabilities.  Dropout is on in
         training mode and draws from ``generator`` (on ``query``'s
         device).  ``positions`` [B, T] global positions (-1 = padded
         column) are required with ``paged``, together with this layer's
@@ -195,11 +214,10 @@ class SelfMultiheadAttention(nn.Module):
                 raise NotImplementedError(DECODE_SEGMENT_REFUSAL)
             if positions is None and self.rotary:
                 raise ValueError(DECODE_ROTARY_REFUSAL)
-        elif return_attn or segment_ids is not None:
+        elif segment_ids is not None:
             raise NotImplementedError(
-                f"{'return_attn' if return_attn else 'segment_ids'} is not "
-                "ported to unicore_tpu_torch yet (ROADMAP.md "
-                f"{'A3' if return_attn else 'A11'})")
+                "segment_ids is not ported to unicore_tpu_torch yet "
+                "(ROADMAP.md A11)")
         bsz, tgt_len, _ = query.shape
         qkv = self.in_proj(query).view(bsz, tgt_len, 3, self.num_heads,
                                        self.head_dim)
@@ -220,8 +238,12 @@ class SelfMultiheadAttention(nn.Module):
             o = _attend(q, k, v, self.scaling, self.dropout,
                         key_padding_mask,
                         _canon_bias(attn_bias, bsz, self.num_heads),
-                        self.training, generator, causal=causal)
-        return self.out_proj(o.reshape(bsz, tgt_len, self.embed_dim))
+                        self.training, generator, causal=causal,
+                        return_attn=return_attn)
+            if return_attn:
+                o, attn_weights, probs = o
+        out = self.out_proj(o.reshape(bsz, tgt_len, self.embed_dim))
+        return (out, attn_weights, probs) if return_attn else out
 
     def _paged_attend(self, q, k, v, paged, positions, kv):
         k_pages, v_pages = kv
@@ -276,3 +298,44 @@ class SelfMultiheadAttention(nn.Module):
         s = s + mask.to(s.dtype)
         p = torch.softmax(s.float(), dim=-1).to(q.dtype)
         return torch.einsum("bhqk,bkhd->bqhd", p, cached_value)
+
+
+class CrossMultiheadAttention(nn.Module):
+    """Attention of ``query`` [B, Tq, D] over ``key``/``value`` [B, Tk,
+    D] (the decoder's ``encoder_attn``).  ``key_padding_mask`` [B, Tk]
+    (True/1 = pad); ``attn_bias`` broadcastable to [B, H, Tq, Tk] or the
+    reference's [B*H, Tq, Tk].  Flash where the shapes are eligible (Tq
+    and Tk multiples of 128, a batch-broadcast bias), else the
+    materialized softmax_dropout path; dropout draws from ``generator``
+    in training mode."""
+
+    def __init__(self, embed_dim, num_heads, dropout=0.1, bias=True,
+                 scaling_factor=1.0):
+        super().__init__()
+        if embed_dim % num_heads:
+            raise ValueError(f"embed_dim {embed_dim} is not divisible by "
+                             f"num_heads {num_heads}")
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.head_dim = embed_dim // num_heads
+        self.dropout = dropout
+        self.scaling = (self.head_dim * scaling_factor) ** -0.5
+        self.q_proj = FlaxDense(embed_dim, embed_dim, bias=bias)
+        self.k_proj = FlaxDense(embed_dim, embed_dim, bias=bias)
+        self.v_proj = FlaxDense(embed_dim, embed_dim, bias=bias)
+        self.out_proj = FlaxDense(embed_dim, embed_dim, bias=bias)
+
+    def forward(self, query, key, value, key_padding_mask=None,
+                attn_bias=None, generator=None):
+        bsz, tgt_len, _ = query.shape
+
+        def heads(x):
+            return x.view(x.shape[0], x.shape[1], self.num_heads,
+                          self.head_dim)
+
+        o = _attend(heads(self.q_proj(query)), heads(self.k_proj(key)),
+                    heads(self.v_proj(value)), self.scaling, self.dropout,
+                    key_padding_mask,
+                    _canon_bias(attn_bias, bsz, self.num_heads),
+                    self.training, generator)
+        return self.out_proj(o.reshape(bsz, tgt_len, self.embed_dim))

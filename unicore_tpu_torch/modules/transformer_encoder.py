@@ -6,6 +6,8 @@ The bucket table is a static numpy computation; the bias stays
 it as one batch-broadcast operand and never build ``[B, H, T, T]``.  The
 key padding mask rides beside it, not merged into it.  Parameter names
 are the reference torch model's (``layers.N.self_attn.in_proj`` ...).
+``checkpoint_activations`` recomputes each layer's activations in
+backward (:func:`~.remat.remat`) when training with gradients on.
 """
 
 import numpy as np
@@ -18,6 +20,7 @@ from ..utils import get_activation_fn
 from .dense import FlaxDense
 from .layer_norm import LayerNorm
 from .multihead_attention import SelfMultiheadAttention
+from .remat import remat
 
 
 def relative_position_bucket(relative_position, num_buckets=32,
@@ -91,12 +94,19 @@ class TransformerEncoderLayer(nn.Module):
             return x
         return ops_dropout(x, rate, generator)
 
-    def forward(self, x, attn_bias=None, padding_mask=None, generator=None):
+    def forward(self, x, attn_bias=None, padding_mask=None, generator=None,
+                return_attn=False):
+        """With ``return_attn``, ``(x, attn_weights, attn_probs)``: the
+        self-attention's [B, H, T, T] scores and probabilities beside the
+        output."""
         residual = x
         if not self.post_ln:
             x = self.self_attn_layer_norm(x)
         x = self.self_attn(x, key_padding_mask=padding_mask,
-                           attn_bias=attn_bias, generator=generator)
+                           attn_bias=attn_bias, generator=generator,
+                           return_attn=return_attn)
+        if return_attn:
+            x, attn_weights, attn_probs = x
         x = residual + self._drop(x, self.dropout, generator)
         if self.post_ln:
             x = self.self_attn_layer_norm(x)
@@ -108,6 +118,8 @@ class TransformerEncoderLayer(nn.Module):
         x = residual + self._drop(self.fc2(x), self.dropout, generator)
         if self.post_ln:
             x = self.final_layer_norm(x)
+        if return_attn:
+            return x, attn_weights, attn_probs
         return x
 
 
@@ -116,10 +128,12 @@ class TransformerEncoder(nn.Module):
                  attention_heads=8, emb_dropout=0.1, dropout=0.1,
                  attention_dropout=0.1, activation_dropout=0.0,
                  max_seq_len=256, activation_fn="gelu", rel_pos=True,
-                 rel_pos_bins=32, max_rel_pos=128, post_ln=False):
+                 rel_pos_bins=32, max_rel_pos=128, post_ln=False,
+                 checkpoint_activations=False):
         super().__init__()
         self.emb_dropout = emb_dropout
         self.post_ln = post_ln
+        self.checkpoint_activations = checkpoint_activations
         self.emb_layer_norm = LayerNorm(embed_dim)
         self.relative_attention_bias = (
             RelativePositionBias(rel_pos_bins, attention_heads, max_seq_len,
@@ -147,8 +161,14 @@ class TransformerEncoder(nn.Module):
         if attn_mask is not None:
             # compute-dtype bias, as the reference: every layer re-reads it
             attn_mask = attn_mask.to(x.dtype)
+        recompute = (self.checkpoint_activations and self.training
+                     and torch.is_grad_enabled())
         for layer in self.layers:
-            x = layer(x, attn_mask, padding_mask, generator)
+            if recompute:
+                x = remat(layer, generator, x, attn_mask, padding_mask,
+                          generator)
+            else:
+                x = layer(x, attn_mask, padding_mask, generator)
         if self.final_layer_norm is not None:
             x = self.final_layer_norm(x)
         return x

@@ -14,7 +14,7 @@ import argparse
 import ast
 
 from .registry import REGISTRIES, set_defaults
-from .utils import arg_bool, import_user_module
+from .utils import import_user_module
 
 
 def _str_list(x, cast):
@@ -241,9 +241,6 @@ def get_training_parser(input_args=None):
                    choices=["sr", "nearest"],
                    help="rounding of the bf16 moment store: stochastic "
                         "(unbiased, the default) or round-to-nearest")
-    # the LM's form (bare flag or explicit True/False); refused when on
-    g.add_argument("--checkpoint-activations", type=arg_bool, nargs="?",
-                   const=True, default=False)
 
     add_checkpoint_args(p)
     g = p.add_argument_group("Fault tolerance")

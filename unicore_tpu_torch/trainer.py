@@ -108,7 +108,6 @@ UNPORTED = (
     ("tensor_parallel_size", 1, "--tensor-parallel-size", "A13"),
     ("seq_parallel_size", 1, "--seq-parallel-size", "A13"),
     ("pack_sequences", False, "--pack-sequences", "A11"),
-    ("checkpoint_activations", False, "--checkpoint-activations", "A3"),
 )
 
 
