@@ -10,7 +10,9 @@ code is non-zero:
    ``unicore_tpu_torch/csrc/`` with ``nvcc`` for sm_90a (one process per
    source — paged attention, the fp32 flash kernels, the bf16 and fp16
    flash forward, the bf16 and fp16 flash backward, softmax_dropout,
-   rounding, ema — started together).
+   rounding, ema — started together), and beside them the data tier's
+   record reader (``record_reader.c``, no kernel) with the host C
+   compiler.
 2. kernel — the paged-attention kernel vs its plain PyTorch version at
    the serve path's shapes (B=16, H=12, D=64, page size 16, fp32): pure
    decode (T=1), full prefill chunks (T=32) and a mixed batch with -1
@@ -198,6 +200,26 @@ code is non-zero:
    the loss-scale sequence, the real-atom share of the padded rows, then
    the idle share, the softmax_dropout kernels' time and the top kernels
    of a ``torch.profiler`` window of 3 more updates.
+   data_workers — the data pipeline's modes on both models at full
+   width, in turns: the train phase's bert_base (--bf16, batch 16 x
+   512) for 8 updates under (a) ``--num-workers 0`` (the prefetch pump
+   still on, buffer 10), (e) ``--num-workers 0 --data-buffer-size 0``
+   (no pump: the inline loading every other training phase uses), (b)
+   no data flag (the reference's defaults: 1 thread worker, a buffer of
+   10), (c) 4 thread workers, (d) 4 forked worker processes; (d) again
+   with a pool worker SIGKILLed after update 1 and SIGTERM after update
+   4; then mol_train_fp16's unimol_base for 8 updates under (a), (e),
+   (c) and (d).
+   Every mode's losses and sample sizes bit-equal to (a)'s, each batch's
+   sha256 equal, the iterator state after update 8 equal; flash 12 + 12
+   + 12 (BERT) and softmax_dropout 15 + 15 (Uni-Mol) launches an update;
+   the killed worker's pool respawned once (``status()``: respawns=1),
+   the batches still (a)'s; the SIGTERM'd run returns normally (the
+   CLI's exit 0) with checkpoint_last.pt's iterator position (a)'s at
+   update 4 and no worker alive or listed as a child within 5 s.  Per
+   mode: step median and spread, the host ms the loop waited for each
+   batch, the pool's fork seconds, and a profiled window of 3 updates
+   pulled through the mode's pipeline.
 15. lm_train — the port's CLI, in process, trains a seeded
    random ``transformer_lm_base`` (12 layers, width 768, FFN 3072, 12
    heads of 64, T=512, vocab 30522, the reference's rel-pos bias and
@@ -302,7 +324,8 @@ code is non-zero:
    cross-attention's call at Tq 256, Tk 512, launches from
    cross_decoder, with every flash_cross case beside them; the
    checkpoint-activation runs' and return_attn's launches beside the
-   rows they ran; last the EMA kernel, which replaces no
+   rows they ran, and data_workers' beside BERT's rows 3 and 8 and the
+   fp16 rows 9 and 10; last the EMA kernel, which replaces no
    ``pallas_call``),
    the card's name and power limit, and the closing ``{"ok": true, ...}``
    line.
@@ -331,6 +354,9 @@ BF16_FLOP_PER_S = 989e12    # H100 SXM bf16 (and fp16) tensor cores, dense
 TOL = 1e-4                  # fp32, summation order differs
 FLASH_B, FLASH_H, FLASH_T, FLASH_D, FLASH_P = 16, 12, 512, 64, 0.1
 TRAIN_UPDATES, TRAIN_BATCH = 20, 16
+# the training phases load their batches inline on the loop's thread, no
+# workers and no prefetch pump (the data modes are data_workers')
+INLINE_DATA = ("--num-workers", "0", "--data-buffer-size", "0")
 TRAIN_FLASH = ("flash_fwd_bf16", "flash_bwd_dkdv", "flash_bwd_dq")
 TRAIN_FLASH_FP16 = ("flash_fwd_fp16", "flash_bwd_dkdv_fp16",
                     "flash_bwd_dq_fp16")
@@ -1975,7 +2001,7 @@ def bert_args(corpus, logdir, updates, precision=("--bf16",)):
         "--seed", "1", *precision, "--max-update", str(updates),
         "--log-interval", "1", "--log-format", "none",
         "--tensorboard-logdir", logdir, "--disable-validation",
-        "--num-workers", "0",
+        *INLINE_DATA,
     ]
 
 
@@ -2445,7 +2471,7 @@ def lm_args(corpus, logdir, updates, *extra, precision="--bf16",
         "--log-interval", "1", "--log-format", "none",
         "--tensorboard-logdir", logdir,
         *(() if validate else ("--disable-validation",)),
-        "--num-workers", "0", *extra]
+        *INLINE_DATA, *extra]
 
 
 def lm_corpus(path):
@@ -3241,7 +3267,7 @@ def evoformer_train_phase():
                 "--seed", "1", "--max-update", str(EVO_UPDATES),
                 "--log-interval", "1", "--log-format", "none",
                 "--tensorboard-logdir", logdir, "--disable-validation",
-                "--required-batch-size-multiple", "1", "--num-workers", "0",
+                "--required-batch-size-multiple", "1", *INLINE_DATA,
                 "--no-save",
             ])
         finally:
@@ -3340,7 +3366,7 @@ def unifold_args(corpus, logdir, *extra):
         "evoformer_base", *UNIFOLD_FLAGS, "--seed", "1",
         "--log-interval", "1", "--log-format", "none",
         "--tensorboard-logdir", logdir, "--disable-validation",
-        "--required-batch-size-multiple", "1", "--num-workers", "0", *extra]
+        "--required-batch-size-multiple", "1", *INLINE_DATA, *extra]
 
 
 def unifold_detector(trainer):
@@ -3685,7 +3711,7 @@ def mol_args(corpus, logdir):
         "--update-freq", "1", "--seed", "1", "--max-update", str(MOL_UPDATES),
         "--log-interval", "1", "--log-format", "none",
         "--tensorboard-logdir", logdir, "--disable-validation",
-        "--required-batch-size-multiple", "1", "--num-workers", "0",
+        "--required-batch-size-multiple", "1", *INLINE_DATA,
         "--no-save"]
 
 
@@ -3808,6 +3834,276 @@ def mol_train_fp16_phase():
     return launches
 
 
+# data_workers: each mode's data flags, run in turns on one corpus
+DW_UPDATES = 8
+DW_MODES = {"a": ("--num-workers", "0"),
+            "e": INLINE_DATA,  # no pump either: the port before A4
+            "b": (),  # the reference's defaults: 1 thread worker, buffer 10
+            "c": ("--num-workers", "4", "--worker-impl", "thread"),
+            "d": ("--num-workers", "4", "--worker-impl", "process")}
+DW_KILL_AT, DW_SIGTERM_AT = 1, 4  # run d_sigterm's updates
+# launches an update: a flash forward and backward a layer (12 layers);
+# a softmax_dropout forward and backward a layer (15 layers)
+DW_LAUNCHES = {"bert": {n: 12 for n in TRAIN_FLASH},
+               "mol": {"softmax_dropout_fwd": 15, "softmax_dropout_bwd": 15}}
+DW_REAP_S = 5.0
+
+
+def with_data_mode(argv, mode):
+    """``argv`` with its data flags replaced by mode ``mode``'s."""
+    out, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+        elif a in ("--num-workers", "--worker-impl", "--data-buffer-size"):
+            skip = True
+        else:
+            out.append(a)
+    return out + list(DW_MODES[mode])
+
+
+def batch_digest(sample):
+    """sha256 over a collated batch's arrays, leaf by leaf in key order
+    (names, dtypes, shapes and bytes)."""
+    import hashlib
+
+    h = hashlib.sha256()
+
+    def walk(d, prefix=""):
+        for k in sorted(d):
+            v = d[k]
+            if isinstance(v, dict):
+                walk(v, prefix + k + "/")
+            else:
+                a = np.ascontiguousarray(v)
+                h.update(f"{prefix}{k}:{a.dtype}:{a.shape}".encode())
+                h.update(a.tobytes())
+
+    walk(sample)
+    return h.hexdigest()
+
+
+def live_children(pids):
+    """Those of ``pids`` still alive (a zombie counts as gone), read from
+    ``/proc/<pid>/stat``, and those still listed as this process's
+    children in ``/proc/self/task/*/children``."""
+    import glob
+
+    alive = []
+    for pid in pids:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                if f.read().rsplit(")", 1)[1].split()[0] != "Z":
+                    alive.append(pid)
+        except FileNotFoundError:
+            pass
+    listed = set()
+    for path in glob.glob(f"/proc/{os.getpid()}/task/*/children"):
+        with open(path) as f:
+            listed.update(int(p) for p in f.read().split())
+    return alive, sorted(listed & set(pids))
+
+
+def pipeline_profile(trainer, n=3):
+    """``n`` updates of epoch 2 pulled through the run's own data
+    pipeline (its workers, impl and buffer) under ``torch.profiler``,
+    after one warm update: device busy and idle share, launches, and the
+    host seconds each ``next`` waited for its batch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    epoch_itr = trainer.get_train_iterator(epoch=2)
+    try:
+        stream = epoch_itr.next_epoch_itr()
+        trainer.train_step([next(stream)])
+        torch.cuda.synchronize()
+        waits = []
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                t = time.perf_counter()
+                batch = next(stream)
+                waits.append(time.perf_counter() - t)
+                trainer.train_step([batch])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        epoch_itr.close()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
+            "kernel_launches": sum(e.count for e in kernels),
+            "batch_wait_ms": [w * 1e3 for w in waits]}
+
+
+def mode_report(rec, prof):
+    """A mode's step and batch-wait figures (updates 3 on: the first two
+    warm the card) and its profiled window."""
+    warm = np.array(rec["step_s"][2:]) * 1e3
+    waits = np.array(rec["wait_s"][2:len(rec["step_s"])]) * 1e3
+    out = {"step_ms_median": float(np.median(warm)),
+           "step_ms_spread": [float(warm.min()), float(warm.max())],
+           "batch_wait_ms_median": float(np.median(waits)),
+           "batch_wait_ms_max": float(waits.max()),
+           "batch_wait_ms_first": rec["wait_s"][0] * 1e3,
+           "profile": prof}
+    if rec["pools"]:
+        out["pool_fork_s"] = [p["fork_s"] for p in rec["pools"]]
+    return out
+
+
+def held_equal(label, rec, ref, n):
+    """Run ``rec``'s first ``n`` updates hold ``ref``'s: batch digests
+    equal, then losses and sample sizes bit-equal, then launches per
+    update equal; a failure names the first update that differs."""
+    for key in ("digest", "loss", "launches"):
+        got, want = rec[key][:n], ref[key][:n]
+        if got != want:
+            i = next(i for i, (g, w) in enumerate(zip(got + [None] * n,
+                                                      want)) if g != w)
+            raise AssertionError(f"{label}: {key} of update {i + 1}: "
+                                 f"{got[i:i + 1]} != {want[i]}")
+
+
+def data_workers_phase():
+    """The port's data workers on the card's training paths, at full
+    width: full-width bert_base (--bf16, batch 16 x 512) for 8 updates
+    under (a) --num-workers 0 (buffer 10: the pump still runs), (e)
+    --num-workers 0 --data-buffer-size 0 (no pump), (b) no data flag
+    (the reference's defaults: 1 thread worker, a buffer of 10), (c) 4
+    thread workers and (d) 4 worker processes, run in turns; then (d)
+    again with one pool worker SIGKILLed after update 1 and SIGTERM
+    after update 4; then unimol_base (--fp16, --max-atoms 256, batch 16)
+    for 8 updates under (a), (e), (c) and (d).  Checks: every mode's per-update losses and sample
+    sizes bit-equal to (a)'s, each batch's sha256 equal, the iterator
+    state after update 8 equal, flash 12 + 12 + 12 (BERT) and
+    softmax_dropout 15 + 15 (Uni-Mol) launches an update; the killed
+    worker's pool respawned once (``status()`` says respawns=1) with
+    batches still (a)'s; the SIGTERM'd run returns (the CLI's exit 0)
+    with checkpoint_last.pt's iterator position (a)'s at update 4, and
+    no worker process alive or listed as a child within 5 s.  Reports
+    per mode the step median and spread, the host ms the loop waited
+    for each batch, the pool's fork seconds, and a profiled window of 3
+    updates pulled through the mode's pipeline (busy, idle share,
+    launches, batch waits).  Returns the launches of all runs by
+    kernel."""
+    from unicore_tpu_torch.checkpoint_utils import load_checkpoint_to_cpu
+    from unicore_tpu_torch.examples.mol.make_data import write_corpus as \
+        write_mol_corpus
+
+    launches = {"bert": Counter(), "mol": Counter()}
+    report = {"bert": {}, "mol": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        bert_dir, mol_dir = os.path.join(tmp, "bert"), os.path.join(tmp,
+                                                                     "mol")
+        write_corpus(bert_dir)
+        write_mol_corpus(mol_dir, train=MOL_MOLECULES, valid=8,
+                         min_atoms=16, max_atoms=MOL_ATOMS, atom_types=8,
+                         seed=7)
+        runs = {}
+        for model, modes in (("bert", "aebcd"), ("mol", "aecd")):
+            for mode in modes:
+                logdir = os.path.join(tmp, f"log_{model}_{mode}")
+                argv = (bert_args(bert_dir, logdir, DW_UPDATES)
+                        + ["--no-save"] if model == "bert"
+                        else mol_args(mol_dir, logdir)
+                        + ["--max-update", str(DW_UPDATES)])
+                loop, rec = observe_cli(with_data_mode(argv, mode))
+                prof = pipeline_profile(loop.trainer)
+                del loop
+                reset_peak_memory()
+                runs[model, mode] = rec
+                for step in rec["launches"]:
+                    launches[model].update(step)
+                report[model][mode] = mode_report(rec, prof)
+        for model, modes in (("bert", "aebcd"), ("mol", "aecd")):
+            ref = runs[model, "a"]
+            n = len(ref["loss"])  # dispatches: an fp16 skip adds one
+            if max(ref["state"]) != DW_UPDATES or (
+                    model == "bert" and n != DW_UPDATES):
+                raise AssertionError(f"{model} (a): {n} dispatches, "
+                                     f"{max(ref['state'])} updates")
+            per_update = DW_LAUNCHES[model]
+            if any(step != per_update for step in ref["launches"]):
+                raise AssertionError(f"{model} (a) launches "
+                                     f"{ref['launches']}, want {per_update}"
+                                     " an update")
+            for mode in modes[1:]:
+                rec = runs[model, mode]
+                held_equal(f"{model} ({mode})", rec, ref, n)
+                if len(rec["loss"]) != n:
+                    raise AssertionError(f"{model} ({mode}): "
+                                         f"{len(rec['loss'])} dispatches, "
+                                         f"want {n}")
+                if rec["state"][DW_UPDATES] != ref["state"][DW_UPDATES]:
+                    raise AssertionError(
+                        f"{model} ({mode}) iterator state "
+                        f"{rec['state'][DW_UPDATES]}, want "
+                        f"{ref['state'][DW_UPDATES]}")
+            pids = [p for m in modes for pool in runs[model, m]["pools"]
+                    for p in pool["pids"]]
+            alive, listed = live_children(pids)
+            if alive or listed:
+                raise AssertionError(f"{model}: workers left {alive} "
+                                     f"{listed}")
+
+        # (d) once more: a worker killed mid-epoch, then SIGTERM
+        save = os.path.join(tmp, "save_d")
+        argv = with_data_mode(bert_args(bert_dir, os.path.join(
+            tmp, "log_bert_d_sigterm"), DW_UPDATES), "d") + [
+            "--save-dir", save, "--tmp-save-dir", save]
+        t0 = time.perf_counter()
+        loop, rec = observe_cli(argv, kill_at=DW_KILL_AT,
+                                     sigterm_at=DW_SIGTERM_AT)
+        run_s = time.perf_counter() - t0
+        del loop
+        reset_peak_memory()
+        for step in rec["launches"]:
+            launches["bert"].update(step)
+        pids = [p for pool in rec["pools"] for p in pool["pids"]]
+        deadline = time.monotonic() + DW_REAP_S
+        while True:
+            alive, listed = live_children(pids)
+            if not (alive or listed) or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+        ref = runs["bert", "a"]
+        held_equal("bert (d, killed + SIGTERM)", rec, ref, DW_SIGTERM_AT)
+        if len(rec["loss"]) != DW_SIGTERM_AT:
+            raise AssertionError(f"SIGTERM after update {DW_SIGTERM_AT}: "
+                                 f"{len(rec['loss'])} updates ran")
+        if rec["respawns"] != 1 or "respawns=1" not in rec["status"]:
+            raise AssertionError(f"respawns {rec['respawns']}, status "
+                                 f"{rec['status']}")
+        saved = load_checkpoint_to_cpu(os.path.join(
+            save, "checkpoint_last.pt"))["extra_state"]["train_iterator"]
+        if saved != ref["state"][DW_SIGTERM_AT]:
+            raise AssertionError(f"saved iterator {saved}, want "
+                                 f"{ref['state'][DW_SIGTERM_AT]}")
+        if alive or listed:
+            raise AssertionError(f"workers alive {alive} or listed "
+                                 f"{listed} {DW_REAP_S} s after SIGTERM")
+        report["bert"]["d_sigterm"] = {
+            "run_s": run_s, "killed_pid": rec["killed"],
+            "respawns": rec["respawns"], "status": rec["status"],
+            "pool_fork_s": [p["fork_s"] for p in rec["pools"]],
+            "workers": len(pids), "saved_iterator": saved,
+            "batch_wait_ms": [w * 1e3 for w in rec["wait_s"]],
+            "step_ms": [s * 1e3 for s in rec["step_s"]]}
+    emit("data_workers", card=card(), updates=DW_UPDATES,
+         modes={k: " ".join(v) or "(no data flag)"
+                for k, v in DW_MODES.items()},
+         bert={"model": "bert_base", "dtype": "bf16", "batch": TRAIN_BATCH,
+               "seq_len": 512, **report["bert"]},
+         mol={"model": "unimol_base", "dtype": "fp16", "batch": MOL_BATCH,
+              "max_atoms": MOL_ATOMS, **report["mol"]},
+         launches={k: dict(v) for k, v in launches.items()})
+    return {k: dict(v) for k, v in launches.items()}
+
+
 # lm_run_control: run a and b's flags (validation every 4 updates at
 # batch 8, at most 2 batches; epoch 1 unshuffled; mem_gb every 2
 # dispatches; a checkpoint every 4 updates)
@@ -3826,46 +4122,92 @@ RC_ANNEAL_RECORDS = 3 * TRAIN_BATCH
 RC_PROFILE_UPDATES = 3
 
 
-def observe_cli(argv, sigterm_at=None):
+def observe_cli(argv, sigterm_at=None, kill_at=None):
     """Run the port's CLI on ``argv`` in this process and record what it
-    did: each update's loss (nats), flash launches, seconds (the card
+    did: each update's loss (nats, and the summed loss and sample size
+    as exact floats), its batch's sha256, flash launches (and every
+    flash and softmax_dropout kernel that launched), seconds (the card
     synchronized before and after) and training time
-    (``cumulative_training_time``) after it, the card's memory at the
-    start and its peak over the run (GB), the updates it
-    validated and saved at, each validation pass's summed loss and
-    sample size, flash launches and ms, the epochs it trained and the
-    update count it started from.  ``sigterm_at``: the process sends
-    itself SIGTERM once that update has run.  Returns (loop, record)."""
+    (``cumulative_training_time``) after it, the iterator's state after
+    it, the host seconds the loop waited for each batch
+    (``_EpochStream.__next__``), each worker pool's fork seconds and
+    PIDs, the card's memory at the start and its peak over the run (GB),
+    the updates it validated and saved at, each validation pass's summed
+    loss and sample size, flash launches and ms, the epochs it trained
+    and the update count it started from.  ``kill_at``: once that update
+    has run, SIGKILL one worker of the newest pool; ``sigterm_at``: the
+    process sends itself SIGTERM once that update has run.  Returns
+    (loop, record)."""
     import signal
 
     from unicore_tpu_torch import checkpoint_utils
     from unicore_tpu_torch import trainer as trainer_mod
     from unicore_tpu_torch.cli import train as cli
+    from unicore_tpu_torch.data import iterators
     from unicore_tpu_torch.ops import flash_attention as fa
+    from unicore_tpu_torch.ops import softmax_dropout as sd
 
     Trainer, Loop = trainer_mod.Trainer, cli.TrainLoop
     Manager = checkpoint_utils.CheckpointManager
+    Stream = iterators._EpochStream
     real = {"train_step": Trainer.train_step,
             "valid_step": Trainer.valid_step, "run": Loop.run,
             "train_epoch": Loop.train_epoch, "validate": Loop.validate,
-            "save": Manager.save}
-    rec = {"nats": [], "update_launches": [], "step_s": [], "train_s": [],
-           "validated": [], "saved": [], "valid": [], "epochs": []}
+            "validate_and_save": Loop.validate_and_save,
+            "save": Manager.save, "next": Stream.__next__,
+            "make_pool": Stream._make_pool}
+    rec = {"nats": [], "loss": [], "digest": [], "update_launches": [],
+           "launches": [], "step_s": [], "train_s": [], "state": {},
+           "wait_s": [], "pools": [], "validated": [], "saved": [],
+           "valid": [], "epochs": []}
+    pooled = []  # the streams that forked a pool
 
     def train_step(self, samples):
-        before = dict(fa.launches)
+        rec["digest"].append(batch_digest(samples[0]))
+        before = {**fa.launches, **sd.launches}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = real["train_step"](self, samples)
         torch.cuda.synchronize()
         rec["step_s"].append(time.perf_counter() - t0)
-        rec["nats"].append(float(out[0]["loss"])
-                           / float(out[0]["sample_size"]))
+        loss, size = float(out[0]["loss"]), float(out[0]["sample_size"])
+        rec["loss"].append((loss, size))
+        rec["nats"].append(loss / size)
         rec["update_launches"].append(
-            {k: fa.launches[k] - before[k] for k in before})
+            {k: fa.launches[k] - before[k] for k in fa.launches})
+        rec["launches"].append({
+            k: v - before[k] for k, v in {**fa.launches,
+                                          **sd.launches}.items()
+            if v != before[k]})
         rec["train_s"].append(self.cumulative_training_time())
+        if self.get_num_updates() == kill_at:
+            rec["killed"] = next(iter(pooled[-1]._pool._processes.values())
+                                 ).pid
+            os.kill(rec["killed"], signal.SIGKILL)
         if self.get_num_updates() == sigterm_at:
             os.kill(os.getpid(), signal.SIGTERM)
+        return out
+
+    def stream_next(stream):
+        t0 = time.perf_counter()
+        try:
+            return real["next"](stream)
+        finally:
+            rec["wait_s"].append(time.perf_counter() - t0)
+
+    def make_pool(stream):
+        t0 = time.perf_counter()
+        pool = real["make_pool"](stream)
+        rec["pools"].append({"fork_s": time.perf_counter() - t0, "pids": [
+            p.pid for p in pool._processes.values()]})
+        if stream not in pooled:
+            pooled.append(stream)
+        return pool
+
+    def validate_and_save(loop, epoch_itr, end_of_epoch):
+        out = real["validate_and_save"](loop, epoch_itr, end_of_epoch)
+        rec["state"][loop.trainer.get_num_updates()] = epoch_itr.state_dict()
+        rec["status"] = epoch_itr.status()
         return out
 
     def valid_step(self, sample):
@@ -3906,7 +4248,8 @@ def observe_cli(argv, sigterm_at=None):
 
     Trainer.train_step, Trainer.valid_step = train_step, valid_step
     Loop.run, Loop.train_epoch, Loop.validate = run, train_epoch, validate
-    Manager.save = save
+    Loop.validate_and_save, Manager.save = validate_and_save, save
+    Stream.__next__, Stream._make_pool = stream_next, make_pool
     rec["start_gb"] = reset_peak_memory()
     try:
         loop = cli.cli_main(argv)
@@ -3916,6 +4259,9 @@ def observe_cli(argv, sigterm_at=None):
         Trainer.valid_step = real["valid_step"]
         Loop.run, Loop.train_epoch = real["run"], real["train_epoch"]
         Loop.validate, Manager.save = real["validate"], real["save"]
+        Loop.validate_and_save = real["validate_and_save"]
+        Stream.__next__, Stream._make_pool = real["next"], real["make_pool"]
+    rec["respawns"] = sum(s.respawns for s in pooled)
     return loop, rec
 
 
@@ -4586,7 +4932,9 @@ def kernels_line(res):
     Tq 256, Tk 512; its launches from cross_decoder's cross-attention),
     the forward's entry carrying every flash_cross case and type (rows
     2 and 4-7 at Tq != Tk among them).  Rows 9 and 10 in bf16 give
-    return_attn's launches beside the Evoformer's."""
+    return_attn's launches beside the Evoformer's, and data_workers'
+    beside train's (BERT, rows 3 and 8) and mol_train_fp16's (rows 9 and
+    10 in fp16)."""
     decode = res["cases"]["decode"]
     rows = [{
         "row": 1, "name": "ragged_paged_attention", "route": "cuda",
@@ -4633,7 +4981,9 @@ def kernels_line(res):
             entry["launches_by_phase"] = {
                 "train": res["train_launches"][name],
                 "bert_checkpoint_activations (flag on, 4 updates)":
-                    res["ca_launches"]["bert"][name]}
+                    res["ca_launches"]["bert"][name],
+                "data_workers (BERT: 5 modes x 8 updates, then 4)":
+                    res["dw_launches"]["bert"][name]}
         rows.append(entry)
     # the LM's causal call: causal at :142 (forward) and :199 (backward)
     lead = res["causal"]["bf16_bias"]
@@ -4720,7 +5070,9 @@ def kernels_line(res):
                         "evoformer_unifold": res["unifold_launches"][name],
                         "return_attn": res["ra_launches"][name]}
                        if dt == "bfloat16"
-                       else {"mol_train_fp16": res["mol_launches"][name]})
+                       else {"mol_train_fp16": res["mol_launches"][name],
+                             "data_workers (Uni-Mol: 4 modes x 8 updates)":
+                                 res["dw_launches"]["mol"][name]})
             rows.append({"launches_by_phase": callers,
                 "row": row, "name": name, "dtype": dt, "route": "cuda",
                 "source": "unicore_tpu_torch/csrc/softmax_dropout.cu",
@@ -4790,7 +5142,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     report = build.build(["paged_attention", "flash_attention",
                           "flash_attention_fwd", "flash_attention_bwd",
-                          "softmax_dropout", "rounding", "ema"])
+                          "softmax_dropout", "rounding", "ema",
+                          "record_reader"])
     emit("build", kernels={
         name: {"seconds": r["seconds"],
                "ptxas": [ln.strip() for ln in r["log"].splitlines()
@@ -4831,6 +5184,8 @@ def main():
     res["unifold_launches"] = evoformer_unifold_phase()
     torch.cuda.empty_cache()
     res["mol_launches"] = mol_train_fp16_phase()
+    torch.cuda.empty_cache()
+    res["dw_launches"] = data_workers_phase()
     torch.cuda.empty_cache()
     res["lm_launches"] = lm_train_phase()["launches"]
     torch.cuda.empty_cache()

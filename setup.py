@@ -27,8 +27,10 @@ setup(
     packages=find_packages(
         exclude=["tests", "tests.*", "examples", "examples.*"]
     ),
-    # the PyTorch port compiles its CUDA sources with nvcc at first use
-    package_data={"unicore_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+    # the PyTorch port compiles its CUDA sources with nvcc, and its
+    # record reader with the host C compiler, at first use
+    package_data={"unicore_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                        "csrc/*.c"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

@@ -866,3 +866,58 @@ def test_fp16_kernels_match_plain_at_unimol_shape_on_card(cuda):
     dbias = sd._reduce_to(dx, bias.shape, bias.dtype)
     assert dbias.data_ptr() == dx.data_ptr()
     sd.check_backward(dx, g, sm, 0.1, seed, q_blk, dbias=dbias)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_token_embedding_gradient_is_one_product(dtype):
+    """The model's token embedding (``TokenEmbedding``): the forward is
+    ``F.embedding``'s bit for bit, and the weight gradient, one product
+    ``one_hot(tokens)^T @ grad`` in fp32 rounded once to the weight's
+    type, is the float64 sum within that rounding (in fp32 also
+    ``nn.Embedding``'s; its fp16 CPU backward adds in fp16)."""
+    model = UniMolModel(vocab_size=13, embed_dim=64, encoder_layers=1,
+                        ffn_embed_dim=64, attention_heads=8,
+                        pair_hidden_dim=8, gaussian_kernels=8)
+    emb = model.embed_tokens.to(dtype)
+    ref = torch.nn.Embedding(13, 64).to(dtype)
+    ref.weight.data.copy_(emb.weight.data)
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, 13, (16, 64), generator=gen)
+    grad = torch.randn(16, 64, 64, generator=gen).to(dtype)
+    out = emb(tokens)
+    assert torch.equal(out, ref(tokens))
+    out.backward(grad)
+    ref(tokens).backward(grad)
+    want = torch.zeros(13, 64, dtype=torch.float64).index_add_(
+        0, tokens.reshape(-1), grad.reshape(-1, 64).double())
+    assert emb.weight.grad.dtype == dtype
+    torch.testing.assert_close(emb.weight.grad.double(), want,
+                               rtol=1e-6 if dtype == torch.float32 else 2e-3,
+                               atol=2e-5)
+    if dtype == torch.float32:  # ~80 terms of N(0, 1) a sum
+        torch.testing.assert_close(emb.weight.grad, ref.weight.grad,
+                                   rtol=1e-6, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_token_embedding_gradient_repeats_on_card(cuda, dtype):
+    """Uni-Mol's token embedding at the full-width batch (16 x 256 atoms
+    of 13 types, width 512): 24 backward calls, the caching allocator's
+    layout shifted between them, give one gradient bit for bit (with
+    ``nn.Embedding`` in its place this fails)."""
+    model = UniMolModel(vocab_size=13, embed_dim=512, encoder_layers=1,
+                        ffn_embed_dim=64, attention_heads=8,
+                        pair_hidden_dim=8, gaussian_kernels=8)
+    emb = model.embed_tokens.to(device=cuda, dtype=dtype)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    tokens = torch.randint(0, 13, (16, 256), generator=gen, device=cuda)
+    grad = torch.randn(16, 256, 512, generator=gen, device=cuda).to(dtype)
+    rng = np.random.default_rng(0)
+    keep, seen = [], set()
+    for _ in range(24):
+        keep.append(torch.empty(int(rng.integers(1, 32 << 20)),
+                                dtype=torch.uint8, device=cuda))
+        (dw,) = torch.autograd.grad(emb(tokens), emb.weight, grad)
+        seen.add(dw.float().cpu().numpy().tobytes())
+    assert len(seen) == 1

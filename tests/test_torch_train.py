@@ -184,12 +184,36 @@ def test_unported_flags_are_refused(attr, value, flag, item):
 
 
 def test_cli_refuses_num_workers(tmp_path):
+    """The CLI used to refuse ``--num-workers > 0``; the worker pools are
+    ported, so ``--num-workers 2`` trains (2 thread workers feeding a
+    prefetch pump): 2 finite losses, and an unknown ``--worker-impl`` is
+    what the parser refuses now."""
     from unicore_tpu_torch.cli.train import cli_main
+    from unicore_tpu_torch.data import IndexedRecordWriter
 
-    base = [str(tmp_path), "--user-dir", "unicore_tpu_torch/examples/bert",
-            "--arch", "bert_base", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="num-workers"):
-        cli_main(base + ["--no-save", "--num-workers", "2"])
+    data, logdir = tmp_path / "data", tmp_path / "log"
+    data.mkdir()
+    rng = np.random.RandomState(0)
+    words = ["tok%d" % i for i in range(40)]
+    (data / "dict.txt").write_text("".join(f"{w} 1\n" for w in words))
+    with IndexedRecordWriter(str(data / "train.rec")) as w:
+        for _ in range(16):
+            w.write(list(rng.choice(words, size=rng.randint(6, 24))))
+    base = [str(data), "--user-dir", "unicore_tpu_torch/examples/bert",
+            "--arch", "bert_base", "--device", "cpu", "--pre-tokenized",
+            "--encoder-layers", "1", "--encoder-embed-dim", "32",
+            "--encoder-ffn-embed-dim", "64", "--encoder-attention-heads",
+            "2", "--max-seq-len", "32", "--batch-size", "8",
+            "--max-update", "2", "--log-interval", "1", "--log-format",
+            "none", "--tensorboard-logdir", str(logdir),
+            "--disable-validation", "--no-save"]
+    loop = cli_main(base + ["--num-workers", "2"])
+    assert loop.args.num_workers == 2 and loop.args.worker_impl == "thread"
+    with open(logdir / "train_inner.jsonl") as f:
+        losses = [json.loads(line)["loss"] for line in f]
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    with pytest.raises(SystemExit):
+        cli_main(base + ["--num-workers", "2", "--worker-impl", "fork"])
 
 
 def test_entry_points_default_to_the_card():

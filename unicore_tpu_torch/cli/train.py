@@ -20,6 +20,10 @@ before an epoch whose lr is at or below ``--stop-min-lr``.  SIGTERM or
 SIGINT (unless ``--no-graceful-shutdown``) saves a checkpoint at the
 next update's boundary and exits 0.  ``--profile`` writes a
 ``torch.profiler`` Chrome trace of the run to ``<save-dir>/torch_trace/``.
+Batches load on ``--num-workers`` workers of ``--worker-impl`` (threads
+or forked processes; the reference's defaults, 1 thread) ahead of the
+loop by ``--data-buffer-size`` batches, and a run closes its workers on
+the way out, a preempted one too.
 """
 
 import logging
@@ -176,17 +180,23 @@ class TrainLoop:
         losses = []
         for subset in args.valid_subset.split(","):
             logger.info('begin validation on "%s" subset', subset)
-            itr = self.trainer.get_valid_iterator(subset).next_epoch_itr(
-                shuffle=False)
+            valid_itr = self.trainer.get_valid_iterator(subset)
+            itr = valid_itr.next_epoch_itr(shuffle=False)
             progress = self._progress(itr, epoch_itr.epoch,
                                       prefix=f"valid on '{subset}' subset")
             with metrics.aggregate(new_root=True) as agg:
                 logging_outputs = []
-                for i, sample in enumerate(progress):
-                    if (args.max_valid_steps is not None
-                            and i > args.max_valid_steps):
-                        break
-                    logging_outputs.extend(self.trainer.valid_step(sample))
+                try:
+                    for i, sample in enumerate(progress):
+                        if (args.max_valid_steps is not None
+                                and i > args.max_valid_steps):
+                            break
+                        logging_outputs.extend(
+                            self.trainer.valid_step(sample))
+                finally:
+                    # the pass's workers and pump, also after an early
+                    # stop at --max-valid-steps
+                    valid_itr.close()
                 self.task.reduce_metrics(logging_outputs, self.trainer.loss,
                                          subset)
             stats = agg.get_smoothed_values()
@@ -237,10 +247,7 @@ def _resolve_batch_size(args, device):
 
 
 def main(args):
-    if args.num_workers > 0:
-        raise NotImplementedError(
-            "--num-workers > 0: the port loads batches inline; data worker "
-            "pools are not ported yet (ROADMAP.md A4)")
+    iterators.set_worker_impl(args.worker_impl)
     if args.cpu:
         args.device = "cpu"
     _resolve_batch_size(args, torch.device(args.device))
@@ -269,6 +276,9 @@ def main(args):
         ckpt.drain()
     finally:
         ckpt.close()
+        # the data workers and the prefetch pump go within a deadline, so
+        # a preempted run leaves no worker process behind
+        epoch_itr.close()
         if shutdown is not None:
             shutdown.uninstall()
     if shutdown is not None and shutdown.requested:

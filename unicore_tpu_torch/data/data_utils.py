@@ -8,6 +8,7 @@ the same program.
 
 import contextlib
 import logging
+import threading
 
 import numpy as np
 
@@ -69,21 +70,44 @@ def collate_dict(values, dim=0):
     }
 
 
+# numpy's global RNG is one state per process: a scope that seeds it
+# must not interleave with another thread's draws (data-worker threads
+# each open scopes), so every scope holds this lock
+_GLOBAL_RNG_LOCK = threading.RLock()
+
+
+def _scope_seed(seed, addl_seeds):
+    if len(addl_seeds) > 0:
+        return int(hash((seed, *addl_seeds)) % 1e6)
+    return seed
+
+
 @contextlib.contextmanager
 def numpy_seed(seed, *addl_seeds):
     """Context manager which seeds the numpy PRNG with the specified seed and
-    restores the state afterward."""
+    restores the state afterward.  The global state is process-wide, so
+    the scope holds a lock: scopes on different threads run one at a
+    time (a draw site that needs no global state takes
+    :func:`seeded_rng` instead and runs in parallel)."""
     if seed is None:
         yield
         return
-    if len(addl_seeds) > 0:
-        seed = int(hash((seed, *addl_seeds)) % 1e6)
-    state = np.random.get_state()
-    np.random.seed(seed)
-    try:
-        yield
-    finally:
-        np.random.set_state(state)
+    seed = _scope_seed(seed, addl_seeds)
+    with _GLOBAL_RNG_LOCK:
+        state = np.random.get_state()
+        np.random.seed(seed)
+        try:
+            yield
+        finally:
+            np.random.set_state(state)
+
+
+def seeded_rng(seed, *addl_seeds):
+    """A private ``np.random.RandomState`` whose draws are exactly those
+    that ``np.random`` makes inside ``numpy_seed(seed, *addl_seeds)``
+    (the same seed, the same MT19937 stream), without touching the
+    global state: thread workers draw from their own."""
+    return np.random.RandomState(_scope_seed(seed, addl_seeds))
 
 
 def batch_by_size(

@@ -7,9 +7,12 @@ matching the reference's LMDB record semantics
 (``unicore/data/lmdb_dataset.py:47-50``). Reads are mmap-backed and
 thread-safe; the per-item LRU cache mirrors the reference.
 
-Copied from ``unicore_tpu/data/indexed_dataset.py`` for the PyTorch port,
-without the optional native reader extension; the file format is the
-same, so either package reads the other's stores.
+Copied from ``unicore_tpu/data/indexed_dataset.py`` for the PyTorch port;
+the file format is the same, so either package reads the other's stores.
+``read_batch`` and ``prefetch`` go through the port's native reader
+(:mod:`.record_reader`, ``csrc/record_reader.c``), which the JAX package
+has as an optional extension: here it is built at first use, and a
+failed build raises.
 """
 
 import logging
@@ -19,6 +22,7 @@ from functools import lru_cache
 
 import numpy as np
 
+from . import record_reader
 from .unicore_dataset import UnicoreDataset
 
 logger = logging.getLogger(__name__)
@@ -135,15 +139,84 @@ class IndexedRecordDataset(UnicoreDataset):
                 f"not unpickle — the record is torn: {e}"
             ) from e
 
+    def read_batch(self, indices):
+        """Decode several records in one call, their span reads done by
+        the native reader with ``pread`` and the GIL released.  Public
+        API for direct consumers of the store — the batch loader's own
+        native path is ``prefetch`` (fanned down per batch through any
+        wrapper stack by ``_EpochStream._load``)."""
+        starts = [int(self._offsets[i]) for i in indices]
+        lens = [int(self._offsets[i + 1] - self._offsets[i]) for i in indices]
+        return [
+            self._loads(b, int(i))
+            for i, b in zip(indices,
+                            record_reader.read_spans(self.path, starts, lens))
+        ]
+
+    def _loads(self, raw, idx):
+        try:
+            return pickle.loads(raw)
+        except (pickle.UnpicklingError, EOFError, ValueError,
+                AttributeError, ImportError, IndexError) as e:
+            raise DataIntegrityError(
+                f"{self.path}: record {idx} does not unpickle — the "
+                f"record is torn: {e}"
+            ) from e
+
+    @property
+    def supports_prefetch(self):
+        return True
+
+    # readahead is synchronous: cap a single call's warmed volume so a
+    # direct whole-shard prefetch can't stall the caller or evict the
+    # page cache (the loader's per-batch calls are far below this)
+    PREFETCH_BYTE_CAP = 1 << 30
+
+    def prefetch(self, indices):
+        """Warm the page cache for these records' spans (native
+        readahead: no Python-side memory held, the kernel has the bytes
+        hot by the time readers fault them in).  Fan-out callers dedupe
+        stacks whose leaves share this store via ``prefetch_target``
+        (per-call, thread-safe — concurrent worker threads interleave
+        batches, so cross-call state here could not be trusted)."""
+        if len(indices) == 0:
+            return
+        idx = np.unique(np.asarray(list(indices), dtype=np.int64))
+        starts = self._offsets[idx]
+        lens = self._offsets[idx + 1] - starts
+        keep = np.cumsum(lens) <= self.PREFETCH_BYTE_CAP
+        if not keep.all():
+            logger.info(
+                "readahead capped: warming %d of %d bytes for %s",
+                int(lens[keep].sum()), int(lens.sum()), self.path,
+            )
+        touched = record_reader.readahead(self.path, starts[keep],
+                                          lens[keep])
+        logger.debug("readahead warmed %d bytes of %s", touched, self.path)
+
     def __getstate__(self):
         state = self.__dict__.copy()
         state["_mmap"] = None  # re-open after fork/pickle
         return state
 
 
+def find_split(data_dir, split):
+    """The path of ``split``'s store in ``data_dir``: ``<split>.lmdb``
+    first, then ``<split>.rec`` (either as the file or by its ``.idx``),
+    else the bare path — the lookup of the JAX tasks."""
+    split_path = os.path.join(data_dir, split)
+    for ext in (".lmdb", ".rec"):
+        if os.path.exists(split_path + ext) or os.path.exists(
+                split_path + ext + ".idx"):
+            return split_path + ext
+    return split_path
+
+
 def best_record_dataset(path):
-    """Open *path* as a ``.rec`` store (the port reads no LMDB)."""
+    """Open *path* with whichever backend matches: ``.rec`` native store or
+    LMDB file."""
     if path.endswith(".rec") or os.path.isfile(path + ".idx"):
         return IndexedRecordDataset(path)
-    raise NotImplementedError(
-        f"{path}: the port reads .rec stores only (no LMDB reader yet)")
+    from .lmdb_dataset import LMDBDataset
+
+    return LMDBDataset(path)

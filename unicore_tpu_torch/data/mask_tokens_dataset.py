@@ -94,48 +94,44 @@ class _MaskPlan(BaseWrapperDataset):
 
     @lru_cache(maxsize=16)
     def _plan(self, epoch, index):
-        with data_utils.numpy_seed(self.seed, epoch, index):
-            # the fetch happens INSIDE the seeded scope: underlying
-            # datasets that draw numpy randomness (e.g. conformer sampling
-            # in Uni-Mol-style workloads) must stay deterministic per
-            # (seed, epoch, index) — reference mask_tokens_dataset.py
-            # scopes the access the same way
-            item = np.asarray(self.dataset[index])
-            if self.mask_idx in item:
-                raise ValueError(
-                    f"sample {index} already contains mask_idx={self.mask_idx}"
-                )
-            n = len(item)
-            # mask-count rounding is probabilistic so E[count] is exact
-            count = int(self.mask_prob * n + np.random.rand())
-            chosen = np.zeros(n, dtype=bool)
-            chosen[np.random.choice(n, count, replace=False)] = True
+        # the draws come from a private RandomState seeded as the
+        # reference seeds the global one (``numpy_seed(seed, epoch,
+        # index)``): the same numbers, and thread workers cannot
+        # overwrite each other's seeded state
+        rng = data_utils.seeded_rng(self.seed, epoch, index)
+        item = np.asarray(self.dataset[index])
+        if self.mask_idx in item:
+            raise ValueError(
+                f"sample {index} already contains mask_idx={self.mask_idx}"
+            )
+        n = len(item)
+        # mask-count rounding is probabilistic so E[count] is exact
+        count = int(self.mask_prob * n + rng.rand())
+        chosen = np.zeros(n, dtype=bool)
+        chosen[rng.choice(n, count, replace=False)] = True
 
-            # split the chosen positions into mask / keep / random-replace
-            keep_or_rand = self.leave_unmasked_prob + self.random_token_prob
-            keep = np.zeros(n, dtype=bool)
-            rand = np.zeros(n, dtype=bool)
-            if keep_or_rand > 0.0:
-                in_tail = chosen & (np.random.rand(n) < keep_or_rand)
-                if self.random_token_prob == 0.0:
-                    keep = in_tail
-                elif self.leave_unmasked_prob == 0.0:
-                    rand = in_tail
-                else:
-                    as_keep = (
-                        np.random.rand(n)
-                        < self.leave_unmasked_prob / keep_or_rand
-                    )
-                    keep = in_tail & as_keep
-                    rand = in_tail & ~as_keep
+        # split the chosen positions into mask / keep / random-replace
+        keep_or_rand = self.leave_unmasked_prob + self.random_token_prob
+        keep = np.zeros(n, dtype=bool)
+        rand = np.zeros(n, dtype=bool)
+        if keep_or_rand > 0.0:
+            in_tail = chosen & (rng.rand(n) < keep_or_rand)
+            if self.random_token_prob == 0.0:
+                keep = in_tail
+            elif self.leave_unmasked_prob == 0.0:
+                rand = in_tail
+            else:
+                as_keep = rng.rand(n) < self.leave_unmasked_prob / keep_or_rand
+                keep = in_tail & as_keep
+                rand = in_tail & ~as_keep
 
-            corrupted = item.copy()
-            corrupted[chosen & ~keep & ~rand] = self.mask_idx
-            n_rand = int(rand.sum())
-            if n_rand:
-                corrupted[rand] = np.random.choice(
-                    len(self.vocab), n_rand, p=self.replacement_probs
-                )
+        corrupted = item.copy()
+        corrupted[chosen & ~keep & ~rand] = self.mask_idx
+        n_rand = int(rand.sum())
+        if n_rand:
+            corrupted[rand] = rng.choice(
+                len(self.vocab), n_rand, p=self.replacement_probs
+            )
 
         target = np.full(n, self.pad_idx, dtype=item.dtype)
         target[chosen] = item[chosen]

@@ -1,10 +1,10 @@
 """BERT masked-LM task (counterpart of ``examples/bert/task.py``).
 
-Pipeline: ``.rec`` record store of token lists -> tokenize by the
-dictionary -> BERT masking twins -> nested dict -> right-pad to
-``--max-seq-len`` -> seeded shuffle; the same datasets, in the same order,
-as the JAX task.  Records must be token lists (``--pre-tokenized``, as
-``train_bert_test.sh`` passes): the WordPiece tokenizer is not ported.
+Pipeline: record store (``.lmdb`` first, then ``.rec``) -> tokenize
+(token lists by the dictionary, raw text by WordPiece over ``dict.txt``)
+-> BERT masking twins -> nested dict -> right-pad to ``--max-seq-len``
+-> seeded shuffle; the same datasets, in the same order, as the JAX
+task.  Records of token-string lists are taken as ``--pre-tokenized``.
 """
 
 import logging
@@ -12,9 +12,10 @@ import os
 
 import numpy as np
 
-from ...data import (Dictionary, MaskTokensDataset, NestedDictionaryDataset,
-                     RightPadDataset, SortDataset, TokenizeDataset,
-                     best_record_dataset, data_utils)
+from ...data import (BertTokenizeDataset, Dictionary, MaskTokensDataset,
+                     NestedDictionaryDataset, RightPadDataset, SortDataset,
+                     TokenizeDataset, best_record_dataset, data_utils)
+from ...data.indexed_dataset import find_split
 from ...tasks import UnicoreTask, register_task
 
 logger = logging.getLogger(__name__)
@@ -51,19 +52,29 @@ class BertTask(UnicoreTask):
         return cls(args, dictionary)
 
     def load_dataset(self, split, combine=False, **kwargs):
-        split_path = os.path.join(self.args.data, split)
-        if os.path.exists(split_path + ".rec"):
-            split_path += ".rec"
+        split_path = find_split(self.args.data, split)
         dataset = best_record_dataset(split_path)
-        first = dataset[0] if len(dataset) else None
-        token_lists = (isinstance(first, (list, tuple)) and first
-                       and all(isinstance(t, str) for t in first))
-        if not (getattr(self.args, "pre_tokenized", False) or token_lists):
-            raise NotImplementedError(
-                f"{split_path} holds raw text: WordPiece tokenization is not "
-                "ported; store token lists and pass --pre-tokenized")
-        dataset = TokenizeDataset(dataset, self.dictionary,
-                                  max_seq_len=self.args.max_seq_len)
+        pre_tokenized = getattr(self.args, "pre_tokenized", False)
+        if not pre_tokenized and len(dataset):
+            first = dataset[0]
+            # preprocess.py stores token-string LISTS by default: a
+            # sequence of strings is taken as tokenized; anything else
+            # (raw text, or ids that should fail loudly) reaches the
+            # WordPiece tokenizer
+            if (isinstance(first, (list, tuple)) and first
+                    and all(isinstance(t, str) for t in first)):
+                logger.warning(
+                    "%s records are token lists, not raw text — assuming "
+                    "--pre-tokenized (pass it explicitly to silence this)",
+                    split_path)
+                pre_tokenized = True
+        if pre_tokenized:
+            dataset = TokenizeDataset(dataset, self.dictionary,
+                                      max_seq_len=self.args.max_seq_len)
+        else:
+            dataset = BertTokenizeDataset(
+                dataset, os.path.join(self.args.data, "dict.txt"),
+                max_seq_len=self.args.max_seq_len)
         src_dataset, tgt_dataset = MaskTokensDataset.apply_mask(
             dataset, self.dictionary, pad_idx=self.dictionary.pad(),
             mask_idx=self.mask_idx, seed=self.args.seed,

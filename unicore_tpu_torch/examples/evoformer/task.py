@@ -13,12 +13,12 @@ the JAX task.
 """
 
 import logging
-import os
 
 import numpy as np
 
 from ...data import (BaseWrapperDataset, NestedDictionaryDataset,
                      SortDataset, best_record_dataset, data_utils)
+from ...data.indexed_dataset import find_split
 from ...tasks import UnicoreTask, register_task
 
 logger = logging.getLogger(__name__)
@@ -66,8 +66,7 @@ class EvoformerTask(UnicoreTask):
         self._records = {}
 
     def _split_path(self, split):
-        path = os.path.join(self.args.data, split)
-        return path + ".rec" if os.path.exists(path + ".rec") else path
+        return find_split(self.args.data, split)
 
     def load_dataset(self, split, combine=False, **kwargs):
         dataset = best_record_dataset(self._split_path(split))

@@ -18,6 +18,7 @@ from ...data import (AppendTokenDataset, Dictionary, LRUCacheDataset,
                      NestedDictionaryDataset, PrependTokenDataset,
                      RightPadDataset, SortDataset, TokenizeDataset,
                      TruncateDataset, best_record_dataset, data_utils)
+from ...data.indexed_dataset import find_split
 from ...tasks import UnicoreTask, register_task
 
 logger = logging.getLogger(__name__)
@@ -48,9 +49,7 @@ class LMTask(UnicoreTask):
             raise NotImplementedError(
                 "--pack-sequences is not ported to the PyTorch trainer yet "
                 "(ROADMAP.md A11)")
-        split_path = os.path.join(self.args.data, split)
-        if os.path.exists(split_path + ".rec"):
-            split_path += ".rec"
+        split_path = find_split(self.args.data, split)
         # long lines are clipped to fit bos/eos in the padded length
         tokens = LRUCacheDataset(TokenizeDataset(
             TruncateDataset(best_record_dataset(split_path),

@@ -66,6 +66,38 @@ class GaussianBasis(nn.Module):
         return torch.exp(-0.5 * torch.square((x - self.means) / std))
 
 
+class _OneHotGradEmbedding(torch.autograd.Function):
+    """``weight[tokens]``, whose weight gradient is one product,
+    ``one_hot(tokens)^T @ grad`` accumulated in fp32 and rounded once to
+    the gradient's type: the same bits on every call.  torch's CUDA
+    embedding backward is not bit-reproducible over Uni-Mol's handful of
+    atom types, each repeated hundreds of times a batch (in fp32 and in
+    fp16), which made two identical full-width runs part after a few
+    updates."""
+
+    @staticmethod
+    def forward(ctx, tokens, weight):
+        ctx.save_for_backward(tokens)
+        ctx.vocab = weight.shape[0]
+        return F.embedding(tokens, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (tokens,) = ctx.saved_tensors
+        onehot = F.one_hot(tokens.reshape(-1), ctx.vocab).to(torch.float32)
+        dw = onehot.t() @ grad.reshape(-1, grad.shape[-1]).float()
+        return None, dw.to(grad.dtype)
+
+
+class TokenEmbedding(nn.Embedding):
+    """``nn.Embedding`` (same parameter, same name) with the reproducible
+    weight gradient of :class:`_OneHotGradEmbedding`; for small
+    vocabularies (the one-hot is tokens x vocabulary)."""
+
+    def forward(self, tokens):
+        return _OneHotGradEmbedding.apply(tokens, self.weight)
+
+
 class AtomHead(nn.Module):
     """Masked-atom logits through the tied embedding: ``LN(act(dense(x)))
     @ W_embed^T + bias``, the product rounded before the bias adds."""
@@ -103,7 +135,7 @@ class UniMolModel(BaseUnicoreModel):
         self.gbf = GaussianBasis(k, vocab_size * vocab_size)
         self.gbf_proj_in = FlaxDense(k, k)
         self.gbf_proj_out = FlaxDense(k, attention_heads)
-        self.embed_tokens = nn.Embedding(vocab_size, embed_dim)
+        self.embed_tokens = TokenEmbedding(vocab_size, embed_dim)
         self.encoder = TransformerEncoder(
             encoder_layers=encoder_layers, embed_dim=embed_dim,
             ffn_embed_dim=ffn_embed_dim, attention_heads=attention_heads,

@@ -25,6 +25,7 @@ import numpy as np
 from ...data import (BaseWrapperDataset, Dictionary, NestedDictionaryDataset,
                      RightPadDataset, RightPadDataset2D, SortDataset,
                      best_record_dataset, data_utils)
+from ...data.indexed_dataset import find_split
 from ...tasks import UnicoreTask, register_task
 
 logger = logging.getLogger(__name__)
@@ -92,28 +93,31 @@ class _MolPlan(BaseWrapperDataset):
                             dtype=np.int64)
         coord = np.asarray(rec["coord"], dtype=np.float32)
         n = len(tokens)
-        with data_utils.numpy_seed(self.seed, epoch, index):
-            count = int(self.mask_prob * n + np.random.rand())
-            chosen = np.zeros(n, dtype=bool)
-            chosen[np.random.choice(n, count, replace=False)] = True
+        # a private RandomState seeded as the reference seeds the global
+        # one (``numpy_seed(seed, epoch, index)``): the same draws, safe
+        # under thread workers
+        rng = data_utils.seeded_rng(self.seed, epoch, index)
+        count = int(self.mask_prob * n + rng.rand())
+        chosen = np.zeros(n, dtype=bool)
+        chosen[rng.choice(n, count, replace=False)] = True
 
-            corrupted = tokens.copy()
-            u = np.random.rand(n)
-            masked = chosen & (u >= self.leave_unmasked_prob
-                               + self.random_token_prob)
-            rand = chosen & (u < self.random_token_prob)
-            corrupted[masked] = self.mask_idx
-            n_rand = int(rand.sum())
-            if n_rand:
-                corrupted[rand] = np.random.choice(
-                    len(self.vocab), n_rand, p=self.replacement_probs)
+        corrupted = tokens.copy()
+        u = rng.rand(n)
+        masked = chosen & (u >= self.leave_unmasked_prob
+                           + self.random_token_prob)
+        rand = chosen & (u < self.random_token_prob)
+        corrupted[masked] = self.mask_idx
+        n_rand = int(rand.sum())
+        if n_rand:
+            corrupted[rand] = rng.choice(
+                len(self.vocab), n_rand, p=self.replacement_probs)
 
-            # the chosen atoms move by uniform noise; the model places
-            # them back
-            noisy = coord.copy()
-            noisy[chosen] += np.random.uniform(
-                -self.coord_noise, self.coord_noise,
-                size=(int(chosen.sum()), 3)).astype(np.float32)
+        # the chosen atoms move by uniform noise; the model places them
+        # back
+        noisy = coord.copy()
+        noisy[chosen] += rng.uniform(
+            -self.coord_noise, self.coord_noise,
+            size=(int(chosen.sum()), 3)).astype(np.float32)
 
         target = np.full(n, self.vocab.pad(), dtype=tokens.dtype)
         target[chosen] = tokens[chosen]
@@ -178,9 +182,7 @@ class MolTask(UnicoreTask):
         return cls(args, dictionary)
 
     def load_dataset(self, split, combine=False, **kwargs):
-        split_path = os.path.join(self.args.data, split)
-        if os.path.exists(split_path + ".rec"):
-            split_path += ".rec"
+        split_path = find_split(self.args.data, split)
         views = MolCorruptDataset.apply(
             best_record_dataset(split_path), self.dictionary,
             mask_idx=self.mask_idx, seed=self.args.seed,

@@ -35,7 +35,6 @@ def eval_str_list_int(x):
 # The JAX training parser's option strings that the port does not parse,
 # each with the ROADMAP.md item that ports it (or why none will).
 NOT_PARSED = {
-    **dict.fromkeys(("--worker-impl", "--data-buffer-size"), "ROADMAP.md A4"),
     **dict.fromkeys(("--stats-lag", "--pipeline-depth"), "ROADMAP.md A6(a)"),
     **dict.fromkeys((
         "--distributed-world-size", "--distributed-rank",
@@ -171,7 +170,14 @@ def get_training_parser(input_args=None):
                    choices=sorted(models.ARCH_MODEL_REGISTRY))
 
     g = p.add_argument_group("dataset")
-    g.add_argument("--num-workers", default=0, type=int)
+    g.add_argument("--num-workers", default=1, type=int, metavar="N",
+                   help="data-loading worker count (0 = load inline)")
+    g.add_argument("--worker-impl", default="thread",
+                   choices=["thread", "process"],
+                   help="data-worker pool: threads (zero-copy; GIL-bound, "
+                        "fine for IO-bound record reads) or forked worker "
+                        "processes (the reference DataLoader model; use "
+                        "for tokenize-heavy pipelines)")
     g.add_argument("--skip-invalid-size-inputs-valid-test",
                    action="store_true",
                    help="(compat; parsed and ignored, as in the JAX "
@@ -181,6 +187,9 @@ def get_training_parser(input_args=None):
                    help="sets --batch-size to N times the visible card "
                         "count (1 on the CPU)")
     g.add_argument("--required-batch-size-multiple", default=8, type=int)
+    g.add_argument("--data-buffer-size", default=10, type=int, metavar="N",
+                   help="number of batches to preload (host->device "
+                        "overlap)")
     g.add_argument("--train-subset", default="train")
     g.add_argument("--valid-subset", default="valid")
     g.add_argument("--validate-interval", type=int, default=1, metavar="N",

@@ -4,7 +4,11 @@ datasets, builds the model and the loss, and plans the batches — the
 same static plan as the JAX package (size order under a fixed seed,
 fixed batch size, whole batches shuffled per epoch)."""
 
+import logging
+
 from ..data import UnicoreDataset, data_utils, iterators
+
+logger = logging.getLogger(__name__)
 
 
 class StatefulContainer:
@@ -49,6 +53,7 @@ class UnicoreTask:
     def __init__(self, args, **kwargs):
         self.args = args
         self.datasets = {}
+        self.dataset_to_epoch_iter = {}
         self.state = StatefulContainer()
 
     @classmethod
@@ -67,19 +72,49 @@ class UnicoreTask:
                             "expected a UnicoreDataset")
         return ds
 
+    def can_reuse_epoch_itr(self, dataset):
+        return getattr(dataset, "can_reuse_epoch_itr_across_epochs", False)
+
     def get_batch_iterator(self, dataset, *, batch_size=None,
-                           required_batch_size_multiple=1, seed=1, epoch=1):
+                           required_batch_size_multiple=1, seed=1, epoch=1,
+                           ignore_invalid_inputs=False, num_shards=1,
+                           shard_id=0, num_workers=0, data_buffer_size=0,
+                           disable_iterator_cache=False):
         """An :class:`~unicore_tpu_torch.data.iterators.EpochBatchIterator`
-        over ``dataset``."""
+        over ``dataset`` (the JAX package's signature): the batches are
+        grouped once here, size-ordered under a fixed seed at a fixed
+        batch size, and each epoch permutes whole batches.  A dataset
+        whose epochs replay the same items keeps one iterator across
+        calls (``dataset_to_epoch_iter``) unless
+        ``disable_iterator_cache``."""
+        if not isinstance(dataset, UnicoreDataset):
+            raise TypeError(f"expected a UnicoreDataset, got {type(dataset)}")
+        cacheable = (not disable_iterator_cache
+                     and self.can_reuse_epoch_itr(dataset))
+        if cacheable:
+            cached = self.dataset_to_epoch_iter.get(dataset)
+            if cached is not None:
+                logger.debug("reusing cached epoch iterator (epoch %d)",
+                             epoch)
+                return cached
         dataset.set_epoch(epoch)
         with data_utils.numpy_seed(seed):
             order = dataset.ordered_indices()
         plan = dataset.batch_by_size(
             order, batch_size=batch_size,
             required_batch_size_multiple=required_batch_size_multiple)
-        return iterators.EpochBatchIterator(
+        epoch_iter = iterators.EpochBatchIterator(
             dataset=dataset, collate_fn=dataset.collater, batch_sampler=plan,
-            seed=seed, epoch=epoch)
+            seed=seed, num_shards=num_shards, shard_id=shard_id,
+            num_workers=num_workers, epoch=epoch,
+            buffer_size=data_buffer_size,
+            disable_shuffling=self.disable_shuffling())
+        if cacheable:
+            self.dataset_to_epoch_iter[dataset] = epoch_iter
+        return epoch_iter
+
+    def disable_shuffling(self):
+        return False
 
     def build_model(self, args):
         from .. import models

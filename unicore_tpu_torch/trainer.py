@@ -530,8 +530,10 @@ class Trainer:
     def get_train_iterator(self, epoch, combine=True, load_dataset=True,
                            data_selector=None, shard_batch_itr=True,
                            disable_iterator_cache=False):
-        """The train split's epoch iterator (the reference's signature;
-        one process, so no shards, and the iterator is built anew)."""
+        """The train split's epoch iterator (the reference's signature),
+        loading batches with ``--num-workers`` workers of
+        ``--worker-impl`` ahead of the loop by ``--data-buffer-size``; one
+        process, so one shard (ROADMAP.md A8)."""
         if load_dataset:
             self.task.load_dataset(self.args.train_subset, epoch=epoch,
                                    combine=combine,
@@ -539,16 +541,24 @@ class Trainer:
         return self.task.get_batch_iterator(
             self.task.dataset(self.args.train_subset),
             batch_size=self.args.batch_size,
+            ignore_invalid_inputs=True,
             required_batch_size_multiple=self.args.required_batch_size_multiple,
-            seed=self.seed, epoch=epoch)
+            seed=self.seed, num_shards=1, shard_id=0,
+            num_workers=self.args.num_workers, epoch=epoch,
+            data_buffer_size=self.args.data_buffer_size,
+            disable_iterator_cache=disable_iterator_cache)
 
-    def get_valid_iterator(self, subset):
+    def get_valid_iterator(self, subset, disable_iterator_cache=False):
         return self.task.get_batch_iterator(
             self.task.dataset(subset),
             batch_size=getattr(self.args, "batch_size_valid", None)
             or self.args.batch_size,
+            ignore_invalid_inputs=True,
             required_batch_size_multiple=self.args.required_batch_size_multiple,
-            seed=self.seed)
+            seed=self.seed, num_shards=1, shard_id=0,
+            num_workers=self.args.num_workers,
+            data_buffer_size=self.args.data_buffer_size,
+            disable_iterator_cache=disable_iterator_cache)
 
     # -- checkpoint state (the JAX trainer's tree) -------------------------
 
