@@ -2,7 +2,7 @@
 change, parent (P C C P).
 
     git archive HEAD | (mkdir -p build/parent && tar -x -C build/parent)
-    python3 chip_compare.py build/parent [serve|train]
+    python3 chip_compare.py build/parent [serve|train|adam]
 
 The parent's checkout must lie in a directory that .gitignore lists.
 Each turn is one process that imports ``chip_smoke.py`` and the port
@@ -17,6 +17,11 @@ from its own tree and builds its kernels there.
 - ``train``: the smoke's ``train`` and ``train_profile`` phases
   (full-width bert_base under --bf16: step times, launches, device busy
   time and the top kernels).
+- ``adam``: the smoke's ``lm_optim_fp16`` phase with its Adam run alone
+  (run a, not resumed; full-width transformer_lm_base under --fp16),
+  whose ``optimizer_step`` gives one Adam step's launches and device ms,
+  then its reduce_lr_on_plateau run; then ``adam_peak``, one Adam step's
+  memory beyond its steady state at full-width bert_large.
 
 Every line is JSON, after the card's name and power limit; a ``turn``
 line opens each turn.  Needs one card.
@@ -115,6 +120,48 @@ def window_walls(cs, model):
     return walls
 
 
+def adam_peak(cs):
+    """One Adam step's transient memory at full-width bert_large's
+    parameters (24 layers, width 1024, FFN 4096, 16 heads; fp32 params
+    and grads on the card; betas (0.9, 0.98), eps 1e-6, wd 0.01): with
+    fp32 moments and with bf16 moments rounded to nearest, the GB
+    allocated before the third step and that step's peak above them,
+    beside one fp32 copy of the parameters."""
+    import argparse
+
+    import torch
+
+    from unicore_tpu_torch.examples.bert.model import BertModel
+    from unicore_tpu_torch.optim.adam import UnicoreAdam
+
+    model = BertModel(encoder_layers=24, encoder_embed_dim=1024,
+                      encoder_ffn_embed_dim=4096,
+                      encoder_attention_heads=16).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    numel = 0
+    for p in model.parameters():
+        p.grad = torch.randn(p.shape, generator=gen, device="cuda") * 1e-3
+        numel += p.numel()
+    for bf16 in (False, True):
+        args = argparse.Namespace(
+            lr=[1e-4], adam_betas="(0.9, 0.98)", adam_eps=1e-6,
+            weight_decay=0.01, optim_bf16_moments=bf16,
+            optim_bf16_moments_rounding="nearest")
+        opt = UnicoreAdam(args, model.parameters())
+        for _ in range(3):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            opt.step()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+        cs.emit("adam_peak", moments="bf16" if bf16 else "fp32",
+                params=numel, param_copy_gb=numel * 4 / 1e9,
+                steady_gb=before / 1e9, step_over_steady_gb=(
+                    peak - before) / 1e9)
+        del opt
+
+
 def turn(root, label, mode):
     os.chdir(root)
     sys.path.insert(0, root)
@@ -132,6 +179,13 @@ def turn(root, label, mode):
         build.build(["flash_attention", "flash_attention_fwd",
                      "flash_attention_bwd"])
         cs.train_phase()
+        return 0
+    if mode == "adam":
+        build.build(["flash_attention", "flash_attention_fwd",
+                     "flash_attention_bwd", "softmax_dropout"])
+        cs.LM_OPTIM_RUNS = {"a_adam_fixed": (cs.LM_ADAM, False)}
+        cs.lm_optim_fp16_phase()
+        adam_peak(cs)
         return 0
     build.build(["paged_attention"])
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -165,6 +219,6 @@ if __name__ == "__main__":
     if len(sys.argv) == 5 and sys.argv[1] == "--turn":
         sys.exit(turn(*sys.argv[2:]))
     if len(sys.argv) not in (2, 3) or sys.argv[2:] not in (
-            [], ["serve"], ["train"]):
+            [], ["serve"], ["train"], ["adam"]):
         sys.exit(__doc__)
     sys.exit(main(sys.argv[1], (sys.argv[2:] or ["serve"])[0]))

@@ -115,6 +115,28 @@ code is non-zero:
    launched once per layer per update in both runs; reports the save's
    step-path stall, the file's bytes, the background write's and the
    restore's seconds.
+   bert_large_train — the port's CLI trains full-width ``bert_large``
+   (24 layers, width 1024, FFN 4096, 16 heads of 64) under ``--bf16`` on
+   the train phase's corpus, batch 16 x 512, Adam (0.9, 0.98) eps 1e-6,
+   lr 1e-4 after 2 warmup updates, for 6 updates: every loss finite and
+   the last below the first, 24 + 24 + 24 bf16 flash launches every
+   update and no other flash kernel; step median, peak memory, a profiled
+   window of 3 more updates (device busy, idle share, launches) and one
+   Adam step's launches and device ms.  Then a classification head (2
+   classes) registered at full width: the head's logits and grads on the
+   card against the same head on the CPU fed the same card features
+   (one bf16 ulp of each tensor's largest magnitude for the logits, two
+   for the grads), the model's ``classification_head_name`` call equal
+   to the head's, and pooler dropout at rate 0.1 on the card (kept share
+   within 4 sigma of 0.9, survivors x / bf16(0.9) exactly).
+   xlm_train — first rows 3 and 8 at xlm's attention call (B 16, H 16, T
+   512, D 80, a [1, 16, 512, 512] bias, bf16: the D = 128 kernel build
+   with 48 zero columns) held against their plain versions as the flash
+   phase holds them, the forward's keep bits read back exactly, timed
+   beside their bounds, the plain versions and SDPA (cuDNN among its
+   backends), then the same B, H, T at D = 64 timed beside them; then
+   ``xlm`` (16 layers, width 1280, FFN 5120, 16 heads of 80) trained as
+   bert_large_train, 16 + 16 + 16 flash launches an update.
 8. flash_multiblock — the same checks at the shapes the JAX package
    sends to its multi-block kernels (rows 2 and 4-7 of the TPU kernel
    table): T=1024 without a bias (one key block: the joint dq/dk/dv
@@ -322,7 +344,10 @@ code is non-zero:
    apart), and the fp16 rows 3 and 8 with lm_optim_fp16's causal
    launches beside train_fp16's; rows 3 and 8 once more for
    cross-attention's call at Tq 256, Tk 512, launches from
-   cross_decoder, with every flash_cross case beside them; the
+   cross_decoder, with every flash_cross case beside them; rows 3 and
+   8 once more for xlm's call at D = 80, launches from xlm_train, the D
+   = 64 call's times beside them (bert_large_train's launches beside
+   BERT's rows 3 and 8); the
    checkpoint-activation runs' and return_attn's launches beside the
    rows they ran, and data_workers' beside BERT's rows 3 and 8 and the
    fp16 rows 9 and 10; last the EMA kernel, which replaces no
@@ -1322,67 +1347,24 @@ CAUSAL_CASES = (("bf16_bias", torch.bfloat16, True, (10, 5, 10)),
                 ("bf16_nobias", torch.bfloat16, False, (10, 5, 10)),
                 ("fp16_bias", torch.float16, True, (5, 3, 5)),
                 ("fp32_bias", torch.float32, True, (5, 3, 5)))
-KEEP_PER_DIM = 4  # keys whose keep bits one output element carries
-
-
 def keep_bits(dtype, shape, with_bias, seed_rng, causal=True, tk=None):
-    """The forward kernel's keep bits read back exactly, under the
-    case's tail padding and per-row seeds (and causal, or at
-    cross-attention's ``tk`` keys): with q = k = 0 (and a zero bias of
-    the case's type) every admitted key scores 0, so p = 1 there and the
-    output is the kept keys' v summed, scaled by the rounded 1 /
-    keep_prob and divided by the admitted count.  v holds 2^j for key
-    4 d + j of a window of 4 D keys (all the keys where there are fewer)
-    in dim d, so each output element is an integer 0-15 that spells four
-    keys' bits; the windows cover every key.  Returns the count of
-    admitted (query, key) pairs read and of those whose bit differs from
-    the plain version's mask (the reference's draw); a key the causal or
-    padding mask excludes must read 0."""
+    """The forward kernel's keep bits read back exactly
+    (``fa.kernel_keep_bits``) under the case's tail padding and per-row
+    seeds (and causal, or at cross-attention's ``tk`` keys).  Returns the
+    count of admitted (query, key) pairs read and of those whose bit
+    differs from the plain version's mask (the reference's draw); a key
+    the causal or padding mask excludes must read 0."""
     from unicore_tpu_torch.ops import flash_attention as fa
 
     B, H, T, D = shape
     tk = T if tk is None else tk
-    _, _, _, bias, pad, seed, _, npad = flash_operands(
+    _, _, _, bias, pad, seed, _, _ = flash_operands(
         np.random.default_rng(seed_rng), dtype, shape, with_bias,
         None if tk == T else tk)
-    zero_q = torch.zeros((B, T, H, D), dtype=dtype, device="cuda")
-    zero_k = torch.zeros((B, tk, H, D), dtype=dtype, device="cuda")
-    bias0 = None if bias is None else torch.zeros_like(bias)
-    geom = fa.geometry(T, tk, bias0)
-    keep_prob = 1.0 - FLASH_P
-    inv = torch.tensor(1.0 / keep_prob, dtype=torch.float32)
-    rate = float(inv if dtype == torch.float32 else inv.to(dtype))
-    live = torch.from_numpy(tk - npad).cuda()
-    rows = torch.arange(T, device="cuda")
-    admitted_n = (torch.minimum(rows[None, :] + 1, live[:, None]) if causal
-                  else live[:, None].expand(B, T))              # [B, T]
-    width = min(KEEP_PER_DIM * D, tk)
-    bits = torch.zeros((B, H, T, tk), dtype=torch.bool, device="cuda")
-    worst = 0.0
-    for w in range(tk // width):
-        keys = torch.arange(width, device="cuda")
-        v = torch.zeros((B, tk, H, D), dtype=torch.float32, device="cuda")
-        v[:, w * width + keys, :, keys // KEEP_PER_DIM] = (
-            2.0 ** (keys % KEEP_PER_DIM)).float()[:, None, None]
-        out, _ = fa.flash_fwd_cuda(zero_q, zero_k, v.to(dtype), bias0, pad,
-                                   FLASH_P, seed, causal, D ** -0.5, geom)
-        counts = out.float() * admitted_n[:, :, None, None] / rate
-        near = counts.round()
-        worst = max(worst, float((counts - near).abs().max()))
-        near = near.to(torch.int64).permute(0, 2, 1, 3)      # [B, H, T, D]
-        near = near[..., :width // KEEP_PER_DIM]
-        for j in range(KEEP_PER_DIM):
-            bits[..., w * width + j:(w + 1) * width:KEEP_PER_DIM] = (
-                (near >> j) & 1).bool()
-    if worst > 0.25:
-        raise AssertionError(f"{dtype}: keep-bit read-back off an integer "
-                             f"by {worst}")
-    cols = torch.arange(tk, device="cuda")
-    admitted = (cols[None, None, :] < live[:, None, None]).expand(B, T, tk)
-    if causal:
-        admitted = admitted & (cols[None, None, :] <= rows[None, :, None])
-    admitted = admitted[:, None]
-    want = fa.keep_mask(seed, H, T, tk, geom, keep_prob) & admitted
+    bits, admitted = fa.kernel_keep_bits((B, T, H, D), tk, dtype, bias, pad,
+                                         seed, FLASH_P, causal)
+    want = fa.keep_mask(seed, H, T, tk, fa.geometry(T, tk, bias),
+                        1.0 - FLASH_P) & admitted
     return {"pairs_read": int(admitted.sum()) * H,
             "bits_differ": int((bits != want).sum()),
             "excluded_read_nonzero": int((bits & ~admitted).sum())}
@@ -1983,19 +1965,20 @@ def write_corpus(path):
     make_data.write_corpus(path, words=30522 - 5, seed=2048)
 
 
-def bert_args(corpus, logdir, updates, precision=("--bf16",)):
+def bert_args(corpus, logdir, updates, precision=("--bf16",),
+              arch="bert_base", warmup=4):
     """The command line of the train, checkpoint and train_fp16 phases:
-    full-width bert_base under ``precision`` (--bf16 unless given) on the
-    corpus ``write_corpus`` wrote."""
+    full-width ``arch`` (bert_base unless given) under ``precision``
+    (--bf16 unless given) on the corpus ``write_corpus`` wrote."""
     here = os.path.dirname(os.path.abspath(__file__))
     return [
         corpus, "--user-dir",
         os.path.join(here, "unicore_tpu_torch", "examples", "bert"),
         "--task", "bert", "--loss", "masked_lm", "--arch",
-        "bert_base", "--pre-tokenized", "--optimizer", "adam",
+        arch, "--pre-tokenized", "--optimizer", "adam",
         "--adam-betas", "(0.9, 0.98)", "--adam-eps", "1e-6",
         "--clip-norm", "1.0", "--lr-scheduler", "polynomial_decay",
-        "--lr", "1e-4", "--warmup-updates", "4",
+        "--lr", "1e-4", "--warmup-updates", str(warmup),
         "--total-num-update", str(TRAIN_UPDATES),
         "--batch-size", str(TRAIN_BATCH), "--update-freq", "1",
         "--seed", "1", *precision, "--max-update", str(updates),
@@ -4872,6 +4855,239 @@ def lm_checkpoint_activations_phase():
             "bert": out["bert"][1]["launches"]}
 
 
+# the reference's larger BERT configurations (examples/bert/model.py):
+# arch -> (layers, width, heads); a few updates each, warmup 2
+ARCHS = {"bert_large": (24, 1024, 16), "xlm": (16, 1280, 16)}
+ARCH_UPDATES, ARCH_WARMUP = 6, 2
+# xlm's attention call: B 16, H 16, T 512, D 80 with its [1, 16, 512,
+# 512] rel-pos bias, bf16; the same B, H, T at D 64 beside it
+XLM_FLASH_SHAPE, XLM_D64_SHAPE = (16, 16, 512, 80), (16, 16, 512, 64)
+HEAD_NAME, HEAD_CLASSES, POOLER_P = "smoke", 2, 0.1
+# max |card - CPU| of the classification head, a share of each tensor's
+# largest magnitude: the logits one bf16 ulp there (2^-7 bounds the ulp
+# of any element), the grads two (each sums 16 rows' bf16 products in
+# cuBLAS's order on the card and another on the CPU)
+HEAD_REL_TOL = {"logits": 2.0 ** -7, "grads": 2.0 ** -6}
+
+
+def xlm_flash_case(flush):
+    """Rows 3 and 8 at xlm's head dim of 80 (the D = 128 kernel build
+    with 48 zero columns): the forward and the backward's two kernels
+    against their plain versions at xlm's attention call, as
+    ``flash_case`` holds them, SDPA (cuDNN among its backends) on the
+    same call, the forward's keep bits read back exactly; then the same
+    B, H, T at D = 64, held and timed the same way, so the two head dims
+    read side by side.  Returns {"d80": report, "d64": report}."""
+    d80 = flash_case(flush, torch.bfloat16, XLM_FLASH_SHAPE, True,
+                     np.random.default_rng(80), (10, 3, 10))
+    keep = keep_bits(torch.bfloat16, XLM_FLASH_SHAPE, True, 80,
+                     causal=False)
+    if keep["bits_differ"] or keep["excluded_read_nonzero"]:
+        raise AssertionError(f"xlm D = 80: keep bits {keep}")
+    d80["keep_bits"] = keep
+    d64 = flash_case(flush, torch.bfloat16, XLM_D64_SHAPE, True,
+                     np.random.default_rng(80), (10, 3, 10))
+    ratio = {n: d80["kernels"][n]["ms"] / d64["kernels"][n]["ms"]
+             for n in TRAIN_FLASH}
+    emit("xlm_flash", card=card(), d80=d80, d64=d64, d80_over_d64=ratio)
+    return {"d80": d80, "d64": d64}
+
+
+def classification_head_check(trainer):
+    """A classification head (``HEAD_CLASSES`` outputs) registered on the
+    trained model's bf16 copy, at full width: the [CLS] features of one
+    batch from the card's encoder (``classification_head_name`` forces
+    the features path), the head's logits and the grads of sum(logits *
+    w) for the features and the head's weights on the card, against the
+    same head on the CPU fed the same features, within HEAD_REL_TOL; the
+    model's own call with ``classification_head_name`` gives the card
+    head's logits.  Then pooler dropout at rate ``POOLER_P`` from a card
+    generator: the kept share within 4 sigma of 1 - rate over 2^22
+    draws, the survivors the inputs divided by bf16(1 - rate), the rest
+    0, and the same generator state the same mask."""
+    import copy
+
+    from unicore_tpu_torch.ops.dropout import bernoulli_dropout
+
+    model = trainer.compute_model
+    model.eval()
+    head = model.register_classification_head(HEAD_NAME, HEAD_CLASSES)
+    itr = trainer.get_train_iterator(epoch=3).next_epoch_itr()
+    toks = torch.as_tensor(next(itr)["net_input"]["src_tokens"]).cuda()
+    with torch.no_grad():
+        feats = model(toks, features_only=True)
+        via_model = model(toks, classification_head_name=HEAD_NAME)
+    w = torch.randn(feats.shape[0], HEAD_CLASSES,
+                    generator=torch.Generator().manual_seed(2))
+    sides = {}
+    for device, h in (("cuda", head), ("cpu", copy.deepcopy(head).cpu())):
+        x = feats.to(device).detach().requires_grad_()
+        h.zero_grad()
+        logits = h(x)
+        (logits.float() * w.to(device)).sum().backward()
+        sides[device] = {"logits": logits.detach()[:, :], "features": x.grad,
+                         **{n: p.grad for n, p in h.named_parameters()}}
+    if not torch.equal(via_model, sides["cuda"]["logits"]):
+        raise AssertionError("the model's classification call differs "
+                             "from its head's")
+    errs = {}
+    for name, got in sides["cuda"].items():
+        want = sides["cpu"][name].float()
+        got = got.float().cpu()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"head {name}: shape {tuple(got.shape)} "
+                                 "or non-finite values")
+        tol = HEAD_REL_TOL["logits" if name == "logits" else "grads"]
+        err = float((got - want).abs().max())
+        if err > tol * float(want.abs().max()):
+            raise AssertionError(f"head {name}: max |card - CPU| {err} > "
+                                 f"{tol} of {float(want.abs().max())}")
+        errs[name] = err / float(want.abs().max())
+    x = torch.randn(4096, 1024, generator=torch.Generator().manual_seed(3)
+                    ).to(torch.bfloat16).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    state = gen.get_state()
+    dropped = bernoulli_dropout(x, POOLER_P, gen)
+    gen.set_state(state)
+    again = bernoulli_dropout(x, POOLER_P, gen)
+    kept = dropped != 0
+    share = float(kept.double().mean())
+    sigma = (POOLER_P * (1 - POOLER_P) / x.numel()) ** 0.5
+    scale = torch.tensor(1 - POOLER_P, dtype=torch.bfloat16, device="cuda")
+    exact = bool(torch.equal(dropped[kept], (x / scale)[kept]))
+    if abs(share - (1 - POOLER_P)) > 4 * sigma or not exact or \
+            not torch.equal(dropped, again):
+        raise AssertionError(f"pooler dropout: kept {share}, survivors "
+                             f"scaled exactly {exact}")
+    del model.classification_heads[HEAD_NAME]
+    model.train()
+    return {"num_classes": HEAD_CLASSES, "features": list(feats.shape),
+            "dtype": str(feats.dtype).replace("torch.", ""),
+            "max_err_share_of_max": errs, "tolerance": HEAD_REL_TOL,
+            "model_call_equals_head": True,
+            "pooler_dropout": {"rate": POOLER_P, "kept_share": share,
+                               "draws": x.numel(), "sigma": sigma,
+                               "survivors_scaled_exactly": exact,
+                               "same_state_same_mask": True}}
+
+
+def bert_arch_train(arch, corpus, logdir):
+    """The port's CLI trains full-width ``arch`` under --bf16 (batch 16
+    x 512, Adam (0.9, 0.98), eps 1e-6, lr 1e-4 after 2 warmup updates,
+    polynomial decay over 20) for
+    ``ARCH_UPDATES`` updates: every loss finite and the last below the
+    first, every update's flash launches once a layer for each bf16
+    kernel and no other flash kernel, softmax_dropout's plain route
+    never.  Returns (the run's report, its trainer)."""
+    from unicore_tpu_torch import trainer as trainer_mod
+    from unicore_tpu_torch.cli.train import cli_main
+    from unicore_tpu_torch.ops import flash_attention as fa
+    from unicore_tpu_torch.ops import softmax_dropout as sd
+
+    layers, width, heads = ARCHS[arch]
+    steps = []
+    train_step = trainer_mod.Trainer.train_step
+
+    def timed(self, samples):
+        before = dict(fa.launches)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = train_step(self, samples)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t,
+                      {k: fa.launches[k] - before[k] for k in before}))
+        return out
+
+    for counts in (fa.launches, sd.plain_route):
+        for name in counts:
+            counts[name] = 0
+    trainer_mod.Trainer.train_step = timed
+    start_gb = reset_peak_memory()
+    t0 = time.perf_counter()
+    try:
+        loop = cli_main(bert_args(corpus, logdir, ARCH_UPDATES, arch=arch,
+                                  warmup=ARCH_WARMUP)
+                        + ["--no-save"])
+    finally:
+        trainer_mod.Trainer.train_step = train_step
+    run_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if any(sd.plain_route.values()):
+        raise AssertionError(f"{arch}: softmax_dropout took the plain route "
+                             f"{sd.plain_route}")
+    model = loop.trainer.model
+    got = (model.encoder_layers, model.encoder_embed_dim,
+           model.flax_heads)
+    if got != (layers, width, heads):
+        raise AssertionError(f"{arch}: built {got}, the preset is "
+                             f"{(layers, width, heads)}")
+    per_update = {n: layers if n in TRAIN_FLASH else 0 for n in fa.launches}
+    for i, (_, launches) in enumerate(steps):
+        if launches != per_update:
+            raise AssertionError(f"{arch} update {i + 1}: flash launches "
+                                 f"{launches}, want {per_update}")
+    with open(os.path.join(logdir, "train_inner.jsonl")) as f:
+        nats = [json.loads(line)["loss"] * np.log(2) for line in f]
+    if len(nats) != ARCH_UPDATES or not np.isfinite(nats).all():
+        raise AssertionError(f"{arch}: losses {nats}")
+    if not nats[-1] < nats[0]:
+        raise AssertionError(f"{arch}: loss did not fall: {nats}")
+    med_s = float(np.median([s for s, _ in steps[2:]]))
+    return {
+        "model": arch, "layers": layers, "width": width, "heads": heads,
+        "head_dim": width // heads, "dtype": "bf16", "batch": TRAIN_BATCH,
+        "seq_len": 512, "updates": ARCH_UPDATES,
+        "params": sum(p.numel() for p in model.parameters()),
+        "run_s": run_s, "losses_nats": nats,
+        "step_ms_all": [s * 1e3 for s, _ in steps],
+        "step_ms_median": med_s * 1e3,
+        "samples_per_s": TRAIN_BATCH / med_s,
+        "peak_mem_gb": peak_gb, "mem_at_start_gb": start_gb,
+        "flash_launches_per_update": per_update,
+        "launches": dict(fa.launches)}, loop.trainer
+
+
+def bert_archs_phase():
+    """bert_large_train, then xlm_train, on one corpus (``write_corpus``):
+    each ``bert_arch_train`` and a ``torch.profiler`` window of 3 more
+    updates (device busy, idle share, launches, top kernels), then one
+    Adam step's launches and device ms at that width.  bert_large_train
+    adds the classification-head check (``classification_head_check``),
+    xlm_train first the D = 80 kernels (``xlm_flash_case``).  Returns
+    {arch: the flash launch counts of its run}, with xlm's kernel
+    reports under "xlm_flash"."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_corpus(tmp)
+        corpus_s = time.perf_counter() - t0
+        for arch in ARCHS:
+            t0 = time.perf_counter()
+            extra = {}
+            if arch == "xlm":
+                flush = torch.empty(256 << 20, dtype=torch.uint8,
+                                    device="cuda")
+                out["xlm_flash"] = xlm_flash_case(flush)
+                del flush
+                torch.cuda.empty_cache()
+            report, trainer = bert_arch_train(
+                arch, tmp, os.path.join(tmp, f"log_{arch}"))
+            prof = profile_updates(trainer)
+            extra["optimizer_step"] = optimizer_step_profile(trainer)
+            if arch == "bert_large":
+                extra["classification_head"] = classification_head_check(
+                    trainer)
+            out[arch] = report["launches"]
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+            emit(f"{arch}_train", card=card(), corpus_s=corpus_s,
+                 phase_s=time.perf_counter() - t0, **report, **extra,
+                 profile={"window": "3 updates, batch 16 x 512, bf16",
+                          **prof})
+    return out
+
+
 PALLAS = "unicore_tpu/ops/pallas/"
 
 
@@ -4983,7 +5199,9 @@ def kernels_line(res):
                 "bert_checkpoint_activations (flag on, 4 updates)":
                     res["ca_launches"]["bert"][name],
                 "data_workers (BERT: 5 modes x 8 updates, then 4)":
-                    res["dw_launches"]["bert"][name]}
+                    res["dw_launches"]["bert"][name],
+                f"bert_large_train (H 16, {ARCH_UPDATES} updates)":
+                    res["archs"]["bert_large"][name]}
         rows.append(entry)
     # the LM's causal call: causal at :142 (forward) and :199 (backward)
     lead = res["causal"]["bf16_bias"]
@@ -5042,6 +5260,25 @@ def kernels_line(res):
             "sdpa_other": r["sdpa_other"], "max_abs_err": r["max_abs_err"],
             "keep_bits": r["keep_bits"]}
         for case, by_type in res["cross"].items() for dt, r in by_type.items()}
+    # xlm's call at head dim 80 (B 16, H 16, T 512), launched by xlm_train,
+    # with the same B, H, T at D = 64 beside it
+    xlm = res["archs"]["xlm_flash"]
+    for row, name, replaces in (
+            (3, "flash_fwd_bf16", "flash_attention.py:121"),
+            (8, "flash_bwd_dkdv", "flash_attention.py:164"),
+            (8, "flash_bwd_dq", "flash_attention.py:164")):
+        entry = flash_row(row, name, replaces, xlm["d80"],
+                          res["archs"]["xlm"][name])
+        entry["head_dim"] = 80
+        entry["launches_by_phase"] = {
+            f"xlm_train ({ARCH_UPDATES} updates)": res["archs"]["xlm"][name]}
+        entry["d64_same_bht"] = {
+            "ms": xlm["d64"]["kernels"][name]["ms"],
+            "bound_ms": xlm["d64"]["kernels"][name]["bound_ms"],
+            "plain_ms": xlm["d64"]["plain_fwd_ms" if row == 3
+                                  else "plain_bwd_ms"]}
+        rows.append(entry)
+    rows[-3]["keep_bits"] = xlm["d80"]["keep_bits"]
     # the fp16 kernels at the same shapes, on the --fp16 path
     fp16 = {id(hb): res["flash"]["float16"],
             id(joint): multiblock["t1024_nobias_fp16"],
@@ -5178,6 +5415,8 @@ def main():
     res["fp16_launches"] = train_fp16_phase(train)
     torch.cuda.empty_cache()
     emit("checkpoint", **checkpoint_phase())
+    torch.cuda.empty_cache()
+    res["archs"] = bert_archs_phase()
     torch.cuda.empty_cache()
     res["evo_launches"] = evoformer_train_phase()
     torch.cuda.empty_cache()

@@ -195,6 +195,31 @@ def test_plain_matches_jax_flash_causal_padded_rows(pad_kind):
                                    err_msg=gname)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_jax_flash_at_head_dim_80(dtype):
+    """xlm's head dim (1280 / 16 = 80, no model before it used one that is
+    not a power of two) at T = 256 with a full bias, tail padding and
+    dropout 0.1.  fp32 within FWD_ATOL / GRAD_ATOL; bf16 (q, k, v and the
+    bias in bf16 on both sides, the ``--bf16`` path) each tensor within
+    1e-2 of its max, about one bf16 ulp there: the plain version rounds p,
+    p_drop and dS to bf16 as the reference does, and the fp32 sums run in
+    another order."""
+    rng = np.random.RandomState(80)
+    case = make_case(rng, 2, 256, 2, 80, "full", "tail")
+    scale = 80 ** -0.5
+    want_out, want_grads = jax_flash(case, 0.1, False, scale, dtype)
+    got_out, got_grads = port_flash(case, 0.1, False, scale,
+                                    dtype=getattr(torch, dtype))
+    fp32 = dtype == "float32"
+    np.testing.assert_allclose(
+        got_out, want_out, rtol=0,
+        atol=FWD_ATOL if fp32 else 1e-2 * np.abs(want_out).max())
+    for gname, g, w in zip("q k v bias".split(), got_grads, want_grads):
+        np.testing.assert_allclose(
+            g, w, rtol=0, err_msg=gname,
+            atol=GRAD_ATOL if fp32 else 1e-2 * np.abs(w).max())
+
+
 @pytest.mark.parametrize("T,bias_itemsize", [(128, 4), (512, 2)])
 def test_causal_keep_bits_equal_jax(T, bias_itemsize):
     """The keep mask of the LM's causal call (one reference block at
@@ -523,6 +548,8 @@ CARD_CASES = {
     "causal_drop": (3, 256, 2, 32, None, None, True, 0.1, False),
     "d128": (3, 256, 2, 128, "full", "tail", False, 0.1, True),
     "d24": (3, 256, 2, 24, "full", "tail", False, 0.1, True),
+    # xlm's head dim: the D = 128 build with 48 zero columns
+    "d80": (3, 256, 2, 80, "full", "tail", False, 0.1, True),
     "b5": (5, 256, 2, 64, "full", "all_row", False, 0.1, True),
     "t128": (3, 128, 2, 64, "full", "tail", False, 0.1, False),
     "causal_bias_all_row": (3, 256, 2, 32, "full", "all_row", True, 0.1,
@@ -669,6 +696,25 @@ def test_causal_dbias_is_zero_above_the_diagonal_on_card(cuda, dtype,
     assert torch.isfinite(dbias).all()
     assert int((dbias[:, above] != 0).sum()) == 0
     assert float(dbias[:, ~above].abs().max()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_keep_bits_are_exact_on_card(cuda, dtype):
+    """The forward kernel's keep bits at CARD_CASES["d80"], read back
+    exactly (``kernel_keep_bits``: q = k = 0, a zero bias, v spelling
+    four keys' bits in each output element) and equal to the plain
+    version's mask on the unpadded keys, 0 on the padded ones."""
+    B, T, H, D, _, pad_kind, causal, p, _ = CARD_CASES["d80"]
+    _, _, _, _, bias, pad, seed = make_case(np.random.RandomState(5), B, T,
+                                            H, D, "full", pad_kind)
+    dt = getattr(torch, dtype)
+    bias = torch.zeros(bias.shape, dtype=dt, device=cuda)
+    pad, seed = torch.from_numpy(pad).to(cuda), torch.from_numpy(seed)
+    bits, admitted = fa.kernel_keep_bits((B, T, H, D), T, dt, bias, pad,
+                                         seed.to(cuda), p, causal)
+    want = fa.keep_mask(seed, H, T, T, fa.geometry(T, T, bias), 1.0 - p)
+    assert torch.equal(bits.cpu(), want & admitted.cpu())
 
 
 @pytest.mark.gpu

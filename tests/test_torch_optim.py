@@ -6,8 +6,10 @@ optimizer-agnostic state (``trainer.py``).
 - One update per optimizer: seeded params, grads and state through the
   jitted JAX ``optimizer.update`` plus ``p + u`` and through the port's
   ``step()``, 3 chained updates, weight decay and momentum on and off.
-  SGD and Adagrad bit for bit in fp32.  Adadelta's one differing op is
-  named in ``ADADELTA_BOUND``.
+  SGD, Adagrad and Adam (fp32 moments, and bf16 moments rounded to
+  nearest) bit for bit in fp32.  Adadelta's one differing op is named in
+  ``ADADELTA_BOUND``.  Adam's four bias-correction scalars against the
+  jitted JAX expressions over updates 1-5,000.
 - The CLI flags and defaults of every optimizer and scheduler equal the
   JAX classes'.
 - The lr tables of the six schedulers over updates 0-300 equal the JAX
@@ -71,6 +73,13 @@ UPDATES = {
                      adadelta_eps=1e-6),
     "adadelta-wd": dict(weight_decay=0.01, adadelta_rho=0.9,
                         adadelta_eps=1e-6),
+    # the betas and eps of examples/bert/train_bert_test.sh
+    "adam": dict(adam_betas="(0.9, 0.98)", adam_eps=1e-6, weight_decay=0.0),
+    "adam-wd": dict(adam_betas="(0.9, 0.98)", adam_eps=1e-6,
+                    weight_decay=0.01),
+    "adam-bf16moments": dict(adam_betas="(0.9, 0.98)", adam_eps=1e-6,
+                             weight_decay=0.01, optim_bf16_moments=True,
+                             optim_bf16_moments_rounding="nearest"),
 }
 # XLA rewrites Adadelta's sqrt(acc + eps) / sqrt(sq + eps) into
 # sqrt(acc + eps) * rsqrt(sq + eps) with an approximate rsqrt on the CPU;
@@ -91,6 +100,11 @@ def ulps(a, b):
 
 def _name(case):
     return case.split("-")[0]
+
+
+def bits(t):
+    """The bit patterns of an fp32 or bf16 tensor, as integers."""
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
 
 
 @pytest.mark.parametrize("case", sorted(UPDATES))
@@ -125,7 +139,7 @@ def test_update_is_the_jitted_jax_update(case):
     assert int(got["step"]) == int(state["step"]) == 3
     pairs = [("params", [p.detach().numpy() for p in leaves],
               [tree[f"l{i}"] for i in range(len(SHAPES))])]
-    pairs += [(key, [t.numpy() for t in got[key]],
+    pairs += [(key, [t.float().numpy() for t in got[key]],
                [state[key][f"l{i}"] for i in range(len(SHAPES))])
               for key in port.state_keys]
     for key, mine, want in pairs:
@@ -139,6 +153,35 @@ def test_update_is_the_jitted_jax_update(case):
             else:
                 assert (np.abs(a - b) <= ADADELTA_BOUND["state"]
                         * np.abs(b)).all(), key
+
+
+@pytest.mark.parametrize("betas,lr", [((0.9, 0.98), 2e-3),
+                                      ((0.9, 0.999), 1e-4)])
+def test_adam_bias_corrections_are_the_jitted_jax_scalars(betas, lr):
+    """``bc1``, ``bc2``, the step size and ``eps sqrt(bc2)`` of updates
+    1-5,000: the port's host fp32 values against the JAX update's
+    expressions (``unicore_tpu/optim/adam.py``), jitted over every update
+    at once, bit for bit."""
+    from unicore_tpu_torch.optim.adam import bias_corrections
+
+    b1, b2 = betas
+    eps = 1e-6
+
+    @jax.jit
+    @jax.vmap
+    def scalars(step):
+        stepf = step.astype(jnp.float32)
+        bc1 = 1.0 - b1 ** stepf
+        bc2 = 1.0 - b2 ** stepf
+        return (bc1, bc2, jnp.float32(lr) * jnp.sqrt(bc2) / bc1,
+                eps * jnp.sqrt(bc2))
+
+    steps = np.arange(1, 5001, dtype=np.int32)
+    want = np.stack([np.asarray(x) for x in scalars(jnp.asarray(steps))], 1)
+    got = np.asarray([bias_corrections(b1, b2, eps, lr, int(n))
+                      for n in steps], np.float32)
+    assert got.dtype == want.dtype == np.float32
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
 
 
 @pytest.mark.parametrize("kind,name", [
@@ -598,4 +641,4 @@ def test_card_step_is_the_cpu_step(cuda, case):
                      + [t.cpu() for key in opt.state_keys
                         for t in state[key]])
     for a, b in zip(*sides):
-        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.equal(bits(a), bits(b))

@@ -7,7 +7,9 @@ port's ``state_dict`` under the reference torch names, so the same
 weights run in both packages.  :func:`flax_from_state_dict` goes the
 other way, to exactly the tree, paths and shapes that
 ``arch_flax_params("bert", ...)`` gives.  The tied LM projection has no
-tensor of its own, as in the reference.
+tensor of its own, as in the reference.  A classification head
+``classification_heads.{name}.*`` is ``classification_heads_{name}/*``
+in flax, as the JAX converter maps it.
 """
 
 from ..lm.convert import (_qkv_weight, apply_inverse_rules, apply_rules,
@@ -36,6 +38,10 @@ _RULES = [
     (r"lm_head/dense/bias", "lm_head.dense.bias", None),
     (r"lm_head/layer_norm/(weight|bias)", "lm_head.layer_norm.{0}", None),
     (r"lm_head/bias", "lm_head.bias", None),
+    (r"classification_heads_([^/]+)/(dense|out_proj)/kernel",
+     "classification_heads.{0}.{1}.weight", lambda k: k.T),
+    (r"classification_heads_([^/]+)/(dense|out_proj)/bias",
+     "classification_heads.{0}.{1}.bias", None),
 ]
 
 
@@ -62,6 +68,10 @@ _INVERSE_RULES = [
     (r"lm_head\.dense\.bias", "lm_head/dense/bias", None),
     (r"lm_head\.layer_norm\.(weight|bias)", "lm_head/layer_norm/{0}", None),
     (r"lm_head\.bias", "lm_head/bias", None),
+    (r"classification_heads\.([^.]+)\.(dense|out_proj)\.weight",
+     "classification_heads_{0}/{1}/kernel", linear_kernel),
+    (r"classification_heads\.([^.]+)\.(dense|out_proj)\.bias",
+     "classification_heads_{0}/{1}/bias", None),
 ]
 
 

@@ -1,6 +1,7 @@
 """BERT (counterpart of ``examples/bert/model.py``): token + learned
 position embeddings, the post-LN (default) or pre-LN encoder with the
-bucketed relative-position bias, and the tied-weight masked-LM head.
+bucketed relative-position bias, the tied-weight masked-LM head, and
+sentence-level classification heads over the [CLS] position.
 
 The masked-token-only head has a static slot budget
 (:meth:`BertModel.slot_count`): the masked positions' indices, then the
@@ -10,6 +11,13 @@ index first — so only ~mask_prob of the positions pay the vocab
 projection.  ``fused_head=True`` returns the head's features with the tied
 kernel and bias instead of logits, so the loss can run the projection
 chunk by chunk.  Parameter names are the reference torch model's.
+
+flax makes a classification head's parameters at its first call with
+``classification_head_name``; a torch module's must exist before that, so
+a head is registered first (:meth:`BertModel.register_classification_head`)
+into ``classification_heads``, under the reference torch names
+(``classification_heads.{name}.dense.weight``, ...).  The architectures
+are the JAX package's: ``bert``/``bert_base``, ``bert_large`` and ``xlm``.
 """
 
 import torch
@@ -19,6 +27,7 @@ from torch import nn
 from ...models import (BaseUnicoreModel, register_model,
                        register_model_architecture)
 from ...modules import FlaxDense, LayerNorm, TransformerEncoder
+from ...ops.dropout import bernoulli_dropout
 from ...utils import arg_bool, eval_bool, get_activation_fn
 from . import convert
 
@@ -41,6 +50,31 @@ class BertLMHead(nn.Module):
         return F.linear(self.features(x), weight) + self.bias
 
 
+class BertClassificationHead(nn.Module):
+    """Sentence-level classification head over the [CLS] position:
+    dropout, ``dense``, the pooler activation, dropout, ``out_proj``.
+    Its dropout is flax's ``nn.Dropout`` (:func:`bernoulli_dropout`),
+    drawn from the caller's generator while training."""
+
+    def __init__(self, input_dim, inner_dim, num_classes, activation_fn,
+                 pooler_dropout):
+        super().__init__()
+        self.dense = FlaxDense(input_dim, inner_dim)
+        self.activation_fn = get_activation_fn(activation_fn)
+        self.pooler_dropout = pooler_dropout
+        self.out_proj = FlaxDense(inner_dim, num_classes)
+
+    def _dropout(self, x, generator):
+        if not self.training or self.pooler_dropout <= 0.0:
+            return x
+        return bernoulli_dropout(x, self.pooler_dropout, generator)
+
+    def forward(self, features, generator=None):
+        x = self._dropout(features[:, 0, :], generator)  # [CLS]
+        x = self._dropout(self.activation_fn(self.dense(x)), generator)
+        return self.out_proj(x)
+
+
 @register_model("bert")
 class BertModel(BaseUnicoreModel):
     supports_fused_head = True
@@ -51,7 +85,8 @@ class BertModel(BaseUnicoreModel):
                  encoder_attention_heads=12, emb_dropout=0.1, dropout=0.1,
                  attention_dropout=0.1, activation_dropout=0.0,
                  max_seq_len=512, activation_fn="gelu", post_ln=True,
-                 masked_loss_capacity=0.25, checkpoint_activations=False):
+                 masked_loss_capacity=0.25, checkpoint_activations=False,
+                 pooler_activation_fn="tanh", pooler_dropout=0.0):
         super().__init__()
         self.vocab_size = vocab_size
         self.padding_idx = padding_idx
@@ -72,6 +107,30 @@ class BertModel(BaseUnicoreModel):
             checkpoint_activations=checkpoint_activations)
         self.lm_head = BertLMHead(encoder_embed_dim, vocab_size,
                                   activation_fn)
+        self.encoder_embed_dim = encoder_embed_dim
+        self.pooler_activation_fn = pooler_activation_fn
+        self.pooler_dropout = pooler_dropout
+        self.classification_heads = nn.ModuleDict()
+
+    def register_classification_head(self, name, num_classes=2):
+        """Add the classification head ``name`` (``num_classes`` outputs,
+        2 as in the JAX model unless given; inner width the encoder's) on
+        the model's device and dtype, initialized as the JAX package
+        inits it: normal(0.02) kernels, drawn from a CPU generator seeded
+        0, and zero biases.  Returns the head."""
+        head = BertClassificationHead(
+            self.encoder_embed_dim, self.encoder_embed_dim, num_classes,
+            self.pooler_activation_fn, self.pooler_dropout)
+        generator = torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            for proj in (head.dense, head.out_proj):
+                proj.weight.normal_(0.0, 0.02, generator=generator)
+                proj.bias.zero_()
+        ref = self.embed_tokens.weight
+        head.to(device=ref.device, dtype=ref.dtype)
+        head.train(self.training)
+        self.classification_heads[name] = head
+        return head
 
     @staticmethod
     def add_args(parser):
@@ -85,6 +144,9 @@ class BertModel(BaseUnicoreModel):
                             metavar="A", help="num encoder attention heads")
         parser.add_argument("--activation-fn",
                             help="activation function to use")
+        parser.add_argument("--pooler-activation-fn",
+                            help="activation function to use for pooler "
+                                 "layer")
         parser.add_argument("--emb-dropout", type=float, metavar="D",
                             help="dropout probability for embeddings")
         parser.add_argument("--dropout", type=float, metavar="D",
@@ -94,6 +156,9 @@ class BertModel(BaseUnicoreModel):
         parser.add_argument("--activation-dropout", type=float, metavar="D",
                             help="dropout probability after activation in "
                                  "FFN")
+        parser.add_argument("--pooler-dropout", type=float, metavar="D",
+                            help="dropout probability in the masked_lm "
+                                 "pooler layers")
         parser.add_argument("--max-seq-len", type=int,
                             help="number of positional embeddings to learn")
         parser.add_argument("--post-ln", type=eval_bool,
@@ -130,6 +195,8 @@ class BertModel(BaseUnicoreModel):
             activation_dropout=args.activation_dropout,
             max_seq_len=args.max_seq_len, activation_fn=args.activation_fn,
             post_ln=args.post_ln,
+            pooler_activation_fn=args.pooler_activation_fn,
+            pooler_dropout=args.pooler_dropout,
             masked_loss_capacity=0.25 if capacity is None else capacity,
             checkpoint_activations=bool(
                 getattr(args, "checkpoint_activations", False)))
@@ -169,12 +236,22 @@ class BertModel(BaseUnicoreModel):
         return slot_index, flat[slot_index] > 0
 
     def forward(self, src_tokens, masked_tokens=None, features_only=False,
-                generator=None, fused_head=False):
+                generator=None, fused_head=False,
+                classification_head_name=None):
+        if classification_head_name is not None:
+            features_only = True
         padding_mask = (src_tokens == self.padding_idx).to(torch.int32)
         x = self.embed_tokens(src_tokens)
         x = x + self.embed_positions.weight[:src_tokens.shape[1]].to(x.dtype)
         x = self.sentence_encoder(x, padding_mask=padding_mask,
                                   generator=generator)
+        if classification_head_name is not None:
+            if classification_head_name not in self.classification_heads:
+                raise KeyError(
+                    f"no classification head {classification_head_name!r}: "
+                    "register_classification_head() makes it first")
+            return self.classification_heads[classification_head_name](
+                x, generator=generator)
         if features_only:
             return x
         weight = self.embed_tokens.weight
@@ -205,11 +282,34 @@ def base_architecture(args):
     args.emb_dropout = getattr(args, "emb_dropout", 0.1)
     args.attention_dropout = getattr(args, "attention_dropout", 0.1)
     args.activation_dropout = getattr(args, "activation_dropout", 0.0)
+    args.pooler_dropout = getattr(args, "pooler_dropout", 0.0)
     args.max_seq_len = getattr(args, "max_seq_len", 512)
     args.activation_fn = getattr(args, "activation_fn", "gelu")
+    args.pooler_activation_fn = getattr(args, "pooler_activation_fn", "tanh")
     args.post_ln = getattr(args, "post_ln", True)
 
 
 @register_model_architecture("bert", "bert_base")
 def bert_base_architecture(args):
+    base_architecture(args)
+
+
+@register_model_architecture("bert", "bert_large")
+def bert_large_architecture(args):
+    args.encoder_layers = getattr(args, "encoder_layers", 24)
+    args.encoder_embed_dim = getattr(args, "encoder_embed_dim", 1024)
+    args.encoder_ffn_embed_dim = getattr(args, "encoder_ffn_embed_dim", 4096)
+    args.encoder_attention_heads = getattr(args, "encoder_attention_heads",
+                                           16)
+    base_architecture(args)
+
+
+@register_model_architecture("bert", "xlm")
+def xlm_architecture(args):
+    args.encoder_layers = getattr(args, "encoder_layers", 16)
+    args.encoder_embed_dim = getattr(args, "encoder_embed_dim", 1280)
+    args.encoder_ffn_embed_dim = getattr(args, "encoder_ffn_embed_dim",
+                                         1280 * 4)
+    args.encoder_attention_heads = getattr(args, "encoder_attention_heads",
+                                           16)
     base_architecture(args)

@@ -9,6 +9,11 @@ once per distinct rate, or raised under ``UNICORE_TPU_STRICT_DROPOUT=1``
 or ``strict=True``.  The bits come from a ``torch.Generator`` on the
 tensor's device, so they are not the JAX package's bits; the rate and the
 scale are.
+
+:func:`bernoulli_dropout` is flax's ``nn.Dropout`` instead, which the
+reference's BERT classification head uses: keep with probability
+``1 - rate`` at fp32 resolution, survivors divided by ``1 - rate`` in the
+input's type.
 """
 
 import logging
@@ -56,3 +61,22 @@ def dropout(x, rate, generator, strict=None):
                          device=x.device, dtype=torch.uint8)
     return torch.where(bits < q, x * (256.0 / q), torch.zeros((), dtype=x.dtype,
                                                               device=x.device))
+
+
+def bernoulli_dropout(x, rate, generator):
+    """flax's ``nn.Dropout`` (training path): each element kept where a
+    uniform fp32 draw from ``generator`` (on ``x``'s device) lies below
+    ``1 - rate``, as ``jax.random.bernoulli`` keeps, and the survivors
+    divided by ``1 - rate`` taken to ``x``'s dtype, as jnp divides by a
+    Python float.  A rate of 0 is the identity and 1 a full drop."""
+    rate = float(rate)
+    if rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < keep_prob
+    scale = torch.tensor(keep_prob, dtype=x.dtype, device=x.device)
+    return torch.where(keep, x / scale, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))

@@ -446,6 +446,59 @@ def flash_fwd_cuda(q, k, v, bias, pad, dropout_prob, seed, causal, scale,
     return out, lse
 
 
+KEEP_PER_DIM = 4  # keys whose keep bits one output element carries
+
+
+def kernel_keep_bits(q_shape, tk, dtype, bias, pad, seed, dropout_prob,
+                     causal):
+    """The forward kernel's keep mask at one call, read back exactly, to
+    hold against :func:`keep_mask` on the card.  With q = k = 0 and a zero
+    bias of ``bias``'s shape and type every admitted key scores 0, so
+    p = 1 there and the output is the kept keys' v summed, scaled by the
+    rounded 1 / keep_prob and divided by the admitted count.  v holds
+    2^j for key 4 d + j of a window of 4 D keys (all the keys where there
+    are fewer) in dim d, so each output element is an integer 0-15 that
+    spells four keys' bits; the windows cover every key (the last one
+    partly where 4 D does not divide ``tk``).  Returns ``(bits,
+    admitted)``: the [B, H, Tq, Tk] bits read and the [B, 1, Tq, Tk]
+    (query, key) pairs the pad and causal masks admit."""
+    bsz, tq, heads, d = q_shape
+    dev = pad.device
+    zero_q = torch.zeros((bsz, tq, heads, d), dtype=dtype, device=dev)
+    zero_k = torch.zeros((bsz, tk, heads, d), dtype=dtype, device=dev)
+    bias0 = None if bias is None else torch.zeros_like(bias)
+    geom = geometry(tq, tk, bias0)
+    inv = torch.tensor(1.0 / (1.0 - dropout_prob), dtype=torch.float32)
+    rate = float(inv if dtype == torch.float32 else inv.to(dtype))
+    admitted = (pad == 0)[:, None, :].expand(bsz, tq, tk)
+    if causal:
+        rows = torch.arange(tq, device=dev)[:, None]
+        admitted = admitted & (torch.arange(tk, device=dev)[None] <= rows)
+    admitted_n = admitted.sum(-1)                               # [B, Tq]
+    width = min(KEEP_PER_DIM * d, tk)
+    bits = torch.zeros((bsz, heads, tq, tk), dtype=torch.bool, device=dev)
+    for w in range(-(-tk // width)):
+        n = min(width, tk - w * width)  # keys in this window
+        keys = torch.arange(n, device=dev)
+        v = torch.zeros((bsz, tk, heads, d), dtype=torch.float32,
+                        device=dev)
+        v[:, w * width + keys, :, keys // KEEP_PER_DIM] = (
+            2.0 ** (keys % KEEP_PER_DIM)).float()[:, None, None]
+        out, _ = flash_fwd_cuda(zero_q, zero_k, v.to(dtype), bias0, pad,
+                                dropout_prob, seed, causal, d ** -0.5, geom)
+        counts = out.float() * admitted_n[:, :, None, None] / rate
+        near = counts.round()
+        worst = float((counts - near).abs().max())
+        if worst > 0.25:
+            raise AssertionError(f"{dtype}: keep-bit read-back off an "
+                                 f"integer by {worst}")
+        near = near.to(torch.int64).permute(0, 2, 1, 3)   # [B, H, Tq, D]
+        for j in range(KEEP_PER_DIM):
+            cols = bits[..., w * width + j:w * width + n:KEEP_PER_DIM]
+            cols[...] = ((near[..., :cols.shape[-1]] >> j) & 1).bool()
+    return bits, admitted[:, None]
+
+
 def flash_bwd_cuda(q, k, v, bias, pad, dropout_prob, seed, causal, scale,
                    geom, lse, delta, dout, want_dbias):
     """Launch the backward kernels: ``(dq, dk, dv, dbias_full)`` as
