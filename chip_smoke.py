@@ -274,6 +274,33 @@ code is non-zero:
    call (temperature 0.8, top-k 40, ``PRNGKey(18)``) twice the same.
    Prefill ms, decode-step median, tokens/s, one decode step's and one
    sampled pick's launches, the cache's bytes, peak memory.
+   fleet_deploy — inside lm_serve_checkpoint, whose rotary run saved at
+   5 and 10 with ``--publish-dir`` (a manifest for each save): first
+   ``unicore_tpu_torch.serve --fleet --replicas 2 --publish-dir`` in
+   process on the update-5 file and the 8 prompts (the update-10 publish
+   canaried and promoted, every finish eos/length/capacity, pools idle,
+   no watchdog fired, paged launches 12 x dispatches); then two replicas
+   of the update-5 file (fp32, 512 pages of 16 each, batch 8, a 30 s
+   step watchdog) behind ``FleetRouter`` with a ``RolloutController``
+   serve a seeded 24-request trace replay (17-200-token prompts, shared
+   prefixes, 16 new tokens): (a) update 10 canaried then promoted, every
+   request settled by then within eos/length/capacity, both replicas on
+   update 10's weights bit for bit; (b) a checkpoint with one NaN leaf
+   published: canaried, rolled back, never on the second replica, and the
+   canary's greedy stream afterwards ``solo_greedy`` of update 10; (c) a
+   torn publish condemned without a swap.  Each swap's host stall and
+   the card's allocated bytes around it (an in-place swap adds 0), the
+   rollout's fleet steps, paged launches = 12 x ragged dispatches, no
+   watchdog fired, TTFT p50/p99 and decode tokens/s, then the
+   decode-step median with the watchdog off and armed (engines in turns
+   off, on, on, off).
+   watchdog — two children started together, each with a 3 s step
+   timeout and one step's sync hung about 10 s by the smoke's own
+   ``torch.cuda._sleep``: a serve engine (its first steps healthy while
+   paged attention builds cold, outside the armed window) and 2
+   ``--rotary True`` LM updates through the training CLI: each exits 87
+   within the timeout plus one poll, with faulthandler's dump of the
+   thread blocked in the step and the watchdog's context line.
    lm_optim_fp16 — the same model under ``--fp16`` (initial loss scale
    128), 10 updates a run, saving at 5, once per optimizer and
    schedule: (a) Adam on ``fixed``, (b) SGD, momentum 0.9, weight decay
@@ -333,7 +360,7 @@ code is non-zero:
    without and with the flag: losses and params bit-equal, the forward
    launches doubled.
 16. the ``kernels`` line (rows 1-11 of the TPU kernel table, row 1's
-   launches from serve and serve_sampling, rows 2-10
+   launches from serve, serve_sampling and fleet_deploy, rows 2-10
    once for the bf16 kernels and once for the fp16 ones, the flash rows'
    launches from the train and train_fp16 phases, the softmax_dropout
    rows' from evoformer_train (bf16) and mol_train_fp16 (fp16), rows
@@ -365,6 +392,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from collections import Counter
 
@@ -2591,15 +2619,19 @@ def lm_train_phase():
 
 def lm_serve_checkpoint_phase():
     """10 ``--rotary True`` updates of the lm_train phase's model and
-    flags, saved without the optimizer state; ``python -m
+    flags, saved at 5 and 10 without the optimizer state and each save
+    published (``--publish-dir``: a verified manifest per save, read
+    back as ``ok`` by the port's ``scan_publish_dir``); ``python -m
     unicore_tpu_torch.serve --checkpoint`` on that file serves 8 prompts
     of 16-200 corpus tokens greedily (16 new tokens each), in process on
     the card, and each stream equals ``solo_greedy`` of the loaded model
     (a divergence passes only at a top-2 logit gap below 1e-4, an fp32
     tie, and is reported).  Then the update-10 file of a rel-pos run
-    (2 updates) is refused with the JAX decoder's message."""
+    (2 updates) is refused with the JAX decoder's message.  Last, in the
+    same directory, the fleet_deploy and watchdog phases (their lines
+    printed here)."""
     from unicore_tpu_torch.cli.train import cli_main
-    from unicore_tpu_torch.deploy import load_serve_model
+    from unicore_tpu_torch.deploy import load_serve_model, scan_publish_dir
     from unicore_tpu_torch.examples.lm.model import solo_greedy
     from unicore_tpu_torch.modules.transformer_decoder import (
         DECODE_REL_POS_REFUSAL)
@@ -2610,14 +2642,23 @@ def lm_serve_checkpoint_phase():
     with tempfile.TemporaryDirectory() as tmp:
         lm_corpus(tmp)
         save, relpos = os.path.join(tmp, "rotary"), os.path.join(tmp, "rp")
+        pub = os.path.join(tmp, "pub")
         for name in fa.launches:
             fa.launches[name] = 0
         t0 = time.perf_counter()
         run = cli_main(lm_args(
             tmp, os.path.join(tmp, "log"), LM_SERVE_UPDATES, "--rotary",
             "True", "--save-dir", save, "--tmp-save-dir", save,
-            "--no-save-optimizer-state"))
+            "--no-save-optimizer-state", "--save-interval-updates",
+            str(LM_SERVE_UPDATES // 2), "--publish-dir", pub))
         train_s = time.perf_counter() - t0
+        published = scan_publish_dir(pub)
+        manifests = {pid: os.path.basename(path)
+                     for pid, (path, state) in published.items()
+                     if state == "ok"}
+        if len(manifests) != run.ckpt.saves or sorted(manifests) != [1, 2]:
+            raise AssertionError(f"{run.ckpt.saves} saves published "
+                                 f"{published}")
         train_launches = dict(fa.launches)
         layers = run.trainer.model.decoder_layers
         want = {n: layers * LM_SERVE_UPDATES if n in TRAIN_FLASH else 0
@@ -2713,11 +2754,22 @@ def lm_serve_checkpoint_phase():
             raise AssertionError(f"rel-pos refusal {refusal!r}")
         file_bytes = os.path.getsize(path)
         del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        fleet = fleet_deploy_phase(
+            tmp, os.path.join(save, "checkpoint_1_5.pt"),
+            os.path.join(save, f"checkpoint_1_{LM_SERVE_UPDATES}.pt"),
+            dict_path, pub, prompt_file)
+        emit("fleet_deploy", **fleet)
+        emit("watchdog", **watchdog_phase(tmp))
     return {"model": "transformer_lm_base", "rotary": True,
             "updates": LM_SERVE_UPDATES, "train_s": train_s,
             "flash_launches": train_launches, "card": card(),
             "file_bytes": file_bytes, "requests": len(served["results"]),
             "serve_s": serve_s, "paged_launches": paged_launches,
+            "manifests": manifests,
+            "fleet_paged_launches": fleet["paged_launches"],
+            "fleet_cli_paged_launches": fleet["cli"]["paged_launches"],
             "stats": served["stats"], "solo_checks": checks,
             "oracle_vs_plain": oracle, "relpos_refusal": refusal}
 
@@ -2861,6 +2913,522 @@ EVO_UPDATES, EVO_S, EVO_R = 10, 128, 256
 LM_OPTIM_UPDATES, LM_OPTIM_SAVE_AT = 10, 5
 # run: (optimizer and schedule flags, whether a fresh trainer resumes its
 # midpoint file); every optimizer of the port and five schedules
+# the fleet_deploy phase: two replicas of the served checkpoint's model
+FLEET_REQUESTS, FLEET_NEW, FLEET_BATCH = 24, 16, 8
+FLEET_TIMEOUT_S = 30.0  # armed on every replica step; must never fire
+FLEET_STEP_MS = 20.0    # virtual ms a fleet step of the trace replay
+FLEET_NAN_LEAF = ("decoder", "layers_0", "fc1", "bias")
+FLEET_OK = {"eos", "length", "capacity"}
+
+
+def fleet_trace():
+    """The replay's seeded trace: 24 requests of 17-200 tokens (a 16-64
+    token prefix from a pool of 3 that the 6 sessions share, then a
+    lognormal body), 16 greedy new tokens each, bursty arrivals."""
+    from unicore_tpu_torch.fleet import generate_trace
+
+    return generate_trace(
+        2222, num_requests=FLEET_REQUESTS, sessions=6, prefix_pool=3,
+        prefix_len=(16, 64), body_len_lognorm=(4.0, 0.8),
+        body_len_clip=(1, 136), max_new_tokens=(FLEET_NEW, FLEET_NEW),
+        vocab=30522, mean_iat_ms=30.0)
+
+
+def recording_swaps(rid, engine, swaps):
+    """Wrap ``engine.swap_weights`` to note each swap: the engine's host
+    stall, the whole call's ms, and the card's allocated bytes before and
+    after."""
+    swap = engine.swap_weights
+
+    def noted(params, **kw):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        stall = swap(params, **kw)
+        call_ms = (time.perf_counter() - t0) * 1e3
+        swaps.append({"replica": rid, "stall_ms": stall * 1e3,
+                      "call_ms": call_ms, "allocated_before": before,
+                      "allocated_after": torch.cuda.memory_allocated()})
+        return stall
+
+    engine.swap_weights = noted
+
+
+LM_BASE_LAYERS = 12
+
+
+# what may stay allocated after a fleet is freed: paged attention's
+# ticket counters grow once to the widest step seen (KiB); one replica's
+# pool alone is 603,979,776 B
+FREED_SLACK_B = 1 << 20
+
+
+def watchdog_threads():
+    return sum(t.name == "unicore-step-watchdog" and t.is_alive()
+               for t in threading.enumerate())
+
+
+def fleet_cli_case(ckpt5, dict_path, pub, prompt_file, out):
+    """``python -m unicore_tpu_torch.serve --fleet --publish-dir``, in
+    process: two replicas of the update-5 file serve the 8 prompts while
+    the update-10 publish is canaried and promoted.  When the CLI
+    returns, no watchdog thread is left and the card's allocated bytes
+    are back at their value before it (the replicas, their pools and
+    the promoted modules all freed)."""
+    from unicore_tpu_torch.ops import paged_attention as pa
+    from unicore_tpu_torch.serve.cli import main as serve_main
+
+    gc.collect()
+    torch.cuda.synchronize()
+    allocated0 = torch.cuda.memory_allocated()
+    pa.ragged_paged_attention.launches = 0
+    t0 = time.perf_counter()
+    serve_main(["--checkpoint", ckpt5, "--dict", dict_path, "--prompts",
+                prompt_file, "--fleet", "--replicas", "2", "--publish-dir",
+                pub, "--canary-steps", "8", "--step-timeout",
+                str(FLEET_TIMEOUT_S), "--max-new-tokens", str(FLEET_NEW),
+                "--num-pages", str(NUM_PAGES), "--page-size",
+                str(PAGE_SIZE), "--max-batch", str(FLEET_BATCH),
+                "--device", "cuda", "--json", out])
+    wall_s = time.perf_counter() - t0
+    launches = pa.ragged_paged_attention.launches
+    gc.collect()
+    torch.cuda.synchronize()
+    allocated1 = torch.cuda.memory_allocated()
+    dogs = watchdog_threads()
+    if abs(allocated1 - allocated0) > FREED_SLACK_B or dogs:
+        raise AssertionError(
+            f"--fleet left {allocated1 - allocated0} B allocated on the "
+            f"card and {dogs} watchdog thread(s) running")
+    with open(out) as f:
+        rep = json.load(f)
+    deploy = rep["fleet"]["deploy"]
+    history = [(h["publish_id"], h["outcome"]) for h in deploy["history"]]
+    reasons = Counter(r["finish_reason"] for r in rep["results"])
+    dispatches = sum(r["stats"]["ragged_dispatches"]
+                     for r in rep["replicas"].values())
+    fired = [h["watchdog"]["fired"] for h in rep["fleet"]["health"].values()]
+    if (history != [(2, "promote")] or not set(reasons) <= FLEET_OK
+            or not rep["pool_clean"] or any(fired)
+            or launches != LM_BASE_LAYERS * dispatches):
+        raise AssertionError(
+            f"--fleet --publish-dir: history {history}, reasons "
+            f"{dict(reasons)}, pool clean {rep['pool_clean']}, watchdog "
+            f"fired {fired}, {launches} paged launches for {dispatches} "
+            "dispatches of 12 layers")
+    return {"wall_s": wall_s, "history": history,
+            "allocated_before": allocated0, "allocated_after": allocated1,
+            "finish_reasons": dict(reasons), "paged_launches": launches,
+            "ragged_dispatches": dispatches,
+            "swaps": deploy["stats"]["swaps"]}
+
+
+def fleet_deploy_phase(tmp, ckpt5, ckpt10, dict_path, pub, prompt_file):
+    """Two replicas of the update-5 file (fp32, the serve phase's pool
+    each) behind ``FleetRouter``, every step armed with a 30 s watchdog,
+    serve the seeded trace replay of ``fleet_trace`` while a
+    ``RolloutController`` watches ``pub``: (a) the update-10 publish is
+    canaried and promoted, every request settled by then within
+    eos/length/capacity and both replicas on update 10's weights; (b) a
+    publish whose checkpoint has one NaN leaf is canaried and rolled back,
+    never reaching the second replica, and the canary's greedy stream
+    afterwards is ``solo_greedy`` of update 10; (c) a torn publish is
+    condemned without a swap.  Reports each swap's host stall and the
+    card's allocated bytes around it (a swap in place adds none), the
+    rollout's fleet steps, paged-attention launches held to layers x
+    ragged dispatches, the fleet's TTFT and decode tokens/s, and the
+    decode-step median with the watchdog armed and off (engines in
+    turns).  First, the CLI's ``--fleet --publish-dir`` promotes update
+    10 over the same prompts."""
+    import shutil
+
+    from unicore_tpu_torch import checkpoint_utils as cu
+    from unicore_tpu_torch.deploy import (DeploySubscriber,
+                                          RolloutController,
+                                          WeightPublisher, load_serve_model)
+    from unicore_tpu_torch.examples.lm.model import solo_greedy
+    from unicore_tpu_torch.fleet import FleetRouter, replay_trace
+    from unicore_tpu_torch.ops import paged_attention as pa
+    from unicore_tpu_torch.serve.engine import ServeEngine
+    from unicore_tpu_torch.serve.scheduler import Request
+
+    t_phase = time.perf_counter()
+    pub_cli = os.path.join(tmp, "pub_cli")
+    shutil.copytree(pub, pub_cli)
+    cli = fleet_cli_case(ckpt5, dict_path, pub_cli, prompt_file,
+                         os.path.join(tmp, "fleet_cli.json"))
+    torch.cuda.empty_cache()
+    # the NaN checkpoint: update 10's params with one NaN, published later
+    state = cu.load_checkpoint_to_cpu(ckpt10)
+    leaf = state["model"]["params"]
+    for key in FLEET_NAN_LEAF:
+        leaf = leaf[key]
+    leaf[0] = np.nan
+    nan_path = os.path.join(tmp, "nan", "checkpoint_nan.pt")
+    os.makedirs(os.path.dirname(nan_path))
+    cu.atomic_save({"model": {"params": state["model"]["params"]}},
+                   nan_path)
+    del state, leaf
+
+    torch.cuda.synchronize()
+    allocated0 = torch.cuda.memory_allocated()
+    boot = load_serve_model(ckpt5, dict_path).cuda()
+    layers = boot.decoder_layers
+    engines = {rid: ServeEngine(boot, device="cuda", num_pages=NUM_PAGES,
+                                page_size=PAGE_SIZE, max_batch=FLEET_BATCH,
+                                step_timeout=FLEET_TIMEOUT_S)
+               for rid in ("r0", "r1")}
+    torch.cuda.synchronize()
+    allocated_boot = torch.cuda.memory_allocated()
+    swaps = []
+    for rid, eng in engines.items():
+        recording_swaps(rid, eng, swaps)
+    router = FleetRouter(engines)
+    ctl = RolloutController(router, DeploySubscriber(pub))
+    publisher = WeightPublisher(pub)
+    marks = {}
+
+    def on_step(i, router):
+        hist = ctl.history
+        if "nan" not in marks and ctl.state == "idle" and hist \
+                and hist[-1]["outcome"] == "promote":
+            marks["settled_before_nan"] = {
+                k: r.finish_reason for k, r in router.results().items()}
+            marks["nan"] = publisher.publish(nan_path,
+                                             source_step=10).publish_id
+        elif "nan" in marks and "torn" not in marks and len(hist) >= 2:
+            m = publisher.publish(ckpt10, source_step=10)
+            raw = bytearray(open(m.path, "rb").read())
+            raw[-3] ^= 0xFF
+            with open(m.path, "wb") as f:
+                f.write(bytes(raw))
+            marks["torn"] = m.publish_id
+
+    events = fleet_trace()
+    pa.ragged_paged_attention.launches = 0
+    t0 = time.perf_counter()
+    steps = replay_trace(router, events, step_ms=FLEET_STEP_MS,
+                         on_step=on_step)
+    tail = 0  # the trace ran out before the rollouts settled
+    while len(ctl.history) < 3 and tail < 400:
+        on_step(steps + tail, router)
+        router.step()
+        router.collect()
+        tail += 1
+    replay_s = time.perf_counter() - t0
+    launches = pa.ragged_paged_attention.launches
+    results = router.results()
+    dispatches = sum(e.stats["ragged_dispatches"] for e in engines.values())
+    outcomes = [(h["publish_id"], h["outcome"]) for h in ctl.history]
+    want = [(2, "promote"), (marks.get("nan"), "rollback"),
+            (marks.get("torn"), "rollback")]
+    if outcomes != want or "nonfinite" not in ctl.history[1]["reason"] \
+            or "torn" not in ctl.history[2]["reason"]:
+        raise AssertionError(f"rollout history {ctl.history}")
+    early = marks["settled_before_nan"]
+    if not set(early.values()) <= FLEET_OK:
+        raise AssertionError(f"requests dropped before the NaN publish: "
+                             f"{Counter(early.values())}")
+    # the trace's requests; the rollout's canary probes settle beside them
+    served = {e.request.request_id: results[e.request.request_id]
+              for e in events if e.request.request_id in results}
+    reasons = Counter(r.finish_reason for r in served.values())
+    if len(served) != len(events) or not set(reasons) <= FLEET_OK | {
+            "failed"}:
+        raise AssertionError(f"{len(served)} of {len(events)} requests "
+                             f"settled: {dict(reasons)}")
+    if [engines[r].weight_swaps for r in ("r0", "r1")] != [3, 1] or \
+            ctl.stats["swaps"] != 4:
+        raise AssertionError(
+            f"swaps r0 {engines['r0'].weight_swaps}, r1 "
+            f"{engines['r1'].weight_swaps}, rollout {ctl.stats}")
+    if launches != layers * dispatches or dispatches == 0:
+        raise AssertionError(f"{launches} paged launches for {dispatches} "
+                             f"ragged dispatches of {layers} layers")
+    fired = {rid: e.watchdog.status() for rid, e in engines.items()}
+    if any(s["fired"] for s in fired.values()):
+        raise AssertionError(f"the healthy fleet's watchdog fired: {fired}")
+    # both replicas serve update 10's weights, bit for bit
+    model10 = load_serve_model(ckpt10, dict_path).cuda()
+    want_sd = model10.state_dict()
+    for rid, eng in engines.items():
+        got_sd = eng.model.state_dict()
+        off = [k for k, v in want_sd.items() if not torch.equal(got_sd[k], v)]
+        if off:
+            raise AssertionError(f"{rid} does not serve update 10: {off[:3]}")
+    del got_sd, eng
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in boot.parameters())
+    first, promote, nan_swap, rollback = swaps
+    in_place = [s["allocated_after"] - s["allocated_before"]
+                for s in (nan_swap, rollback)]
+    if in_place != [0, 0] or \
+            first["allocated_after"] - first["allocated_before"] < param_bytes:
+        raise AssertionError(f"swap memory {swaps}, params {param_bytes} B")
+    # the canary after its rollback: a fresh prompt is update 10's decode
+    rng = np.random.default_rng(2223)
+    req = Request(prompt=rng.integers(4, 30522, size=64).tolist(),
+                  max_new_tokens=FLEET_NEW, request_id="after-rollback")
+    [res] = engines["r0"].generate([req])
+    solo, margins = solo_greedy(model10, req.prompt, FLEET_NEW)
+    after = held_to_solo("after-rollback", res.tokens, solo, margins)
+    ttft = np.array([r.ttft_ms for r in served.values()
+                     if r.ttft_ms is not None])
+    decode_tokens = sum(e.stats["decode_tokens"] for e in engines.values())
+    decode_s = sum(e.stats["decode_time_s"] for e in engines.values())
+    rollout = [{k: h[k] for k in ("publish_id", "outcome", "step", "reason")}
+               for h in ctl.history]
+    router.close()
+    del router, ctl, engines, boot, want_sd
+    armed = watchdog_turns(model10, [e.request for e in events[:8]])
+    del model10
+    gc.collect()
+    torch.cuda.synchronize()
+    allocated_end = torch.cuda.memory_allocated()
+    if abs(allocated_end - allocated0) > FREED_SLACK_B or watchdog_threads():
+        raise AssertionError(
+            f"the fleet phase left {allocated_end - allocated0} B "
+            f"allocated and {watchdog_threads()} watchdog thread(s)")
+    torch.cuda.empty_cache()
+    return {
+        "model": "transformer_lm_base", "replicas": 2, "card": card(),
+        "requests": len(events), "fleet_steps": steps + tail,
+        "replay_s": replay_s,
+        "rollout": rollout,
+        "finish_reasons": dict(reasons),
+        "probes": sorted(set(results) - set(served)),
+        "swaps": swaps, "param_bytes": param_bytes,
+        "allocated": {"before_boot": allocated0, "boot": allocated_boot,
+                      "after_canary": first["allocated_after"],
+                      "after_promote": promote["allocated_after"],
+                      "after_second_in_place": nan_swap["allocated_after"],
+                      "second_in_place_delta": in_place[0],
+                      "end": allocated_end},
+        "paged_launches": launches, "ragged_dispatches": dispatches,
+        "ttft_p50_ms": float(np.percentile(ttft, 50)),
+        "ttft_p99_ms": float(np.percentile(ttft, 99)),
+        "decode_tokens_per_s": decode_tokens / decode_s,
+        "after_rollback": after, "watchdog": fired,
+        "decode_step_median_ms": armed, "cli": cli,
+        "phase_s": time.perf_counter() - t_phase}
+
+
+def watchdog_turns(model, requests):
+    """The decode-step median of one engine with the watchdog off and one
+    with it armed (30 s), the same requests in turns off, on, on, off
+    (prefix cache off, so every turn does the same work)."""
+    from unicore_tpu_torch.serve.engine import ServeEngine
+    from unicore_tpu_torch.serve.scheduler import Request
+
+    engines = {armed: ServeEngine(
+        model, device="cuda", num_pages=NUM_PAGES, page_size=PAGE_SIZE,
+        max_batch=FLEET_BATCH, prefix_cache=False,
+        step_timeout=FLEET_TIMEOUT_S if armed else 0.0)
+        for armed in (False, True)}
+    turns = []
+    for armed in (False, True, True, False):
+        eng = engines[armed]
+        eng.decode_ms.clear()
+        eng.generate([Request(prompt=list(r.prompt),
+                              max_new_tokens=r.max_new_tokens)
+                      for r in requests])
+        turns.append({"armed": armed,
+                      "median_ms": float(np.median(eng.decode_ms)),
+                      "steps": len(eng.decode_ms)})
+    for eng in engines.values():
+        eng.close()
+    return turns
+
+
+# the watchdog phase's children: code of the smoke's own that hangs one
+# step's sync on the card (torch.cuda._sleep spins about WATCHDOG_HANG_S)
+WATCHDOG_TIMEOUT_S, WATCHDOG_HANG_S = 3.0, 10.0
+WATCHDOG_COMMON = """
+import sys, time
+from pathlib import Path
+sys.path.insert(0, {root!r})
+import torch
+
+
+def hang_cycles(seconds):
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    n = 50_000_000
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(n)
+    b.record()
+    torch.cuda.synchronize()
+    return int(n * seconds * 1e3 / a.elapsed_time(b))
+
+
+cycles = hang_cycles({hang_s})
+"""
+WATCHDOG_SERVE = """
+from unicore_tpu_torch.ops import build
+build.BUILD_DIR = Path({cold!r})  # paged attention builds cold at step 1
+from unicore_tpu_torch.examples.lm.model import build_model
+from unicore_tpu_torch.serve.engine import ServeEngine
+from unicore_tpu_torch.serve.scheduler import Request
+model = build_model("transformer_lm_base", vocab_size=30522, seed=0,
+                    device="cuda")
+eng = ServeEngine(model, device="cuda", num_pages=64, page_size=16,
+                  max_batch=4, step_timeout={timeout_s})
+t0 = time.perf_counter()
+eng.generate([Request(prompt=list(range(5, 37)), max_new_tokens=4)])
+print("WARM", time.perf_counter() - t0, flush=True)
+features = model.features
+
+
+def hung(*args, **kwargs):
+    out = features(*args, **kwargs)
+    torch.cuda._sleep(cycles)
+    return out
+
+
+model.features = hung
+print("HANG", time.monotonic(), flush=True)
+eng.generate([Request(prompt=list(range(40, 60)), max_new_tokens=4)])
+print("NOT REACHED", flush=True)
+"""
+WATCHDOG_TRAIN = """
+from unicore_tpu_torch import trainer
+from unicore_tpu_torch.cli.train import cli_main
+accumulate = trainer.Trainer._accumulate_grads
+
+
+def hung(self, *args, **kwargs):
+    out = accumulate(self, *args, **kwargs)
+    if self._dispatch_count == 2:
+        print("HANG", time.monotonic(), flush=True)
+        torch.cuda._sleep(cycles)
+    return out
+
+
+trainer.Trainer._accumulate_grads = hung
+cli_main({argv!r})
+print("NOT REACHED", flush=True)
+"""
+WATCHDOG_TRAIN_UPDATE = """
+from unicore_tpu_torch.cli.train import cli_main
+from unicore_tpu_torch.optim import adam
+step = adam.UnicoreAdam.step
+updates = []
+
+
+def hung(self, *args, **kwargs):
+    out = step(self, *args, **kwargs)
+    updates.append(True)
+    if len(updates) == 2:
+        print("HANG", time.monotonic(), flush=True)
+        torch.cuda._sleep(cycles)
+    return out
+
+
+adam.UnicoreAdam.step = hung
+cli_main({argv!r})
+print("NOT REACHED", flush=True)
+"""
+# the phase each child's watchdog must name when it fires
+WATCHDOG_PHASES = {"serve": "serve/ragged-w", "train": "train_step/stats-sync",
+                   "train_update": "train_step/update-sync"}
+
+
+def watchdog_phase(tmp):
+    """Three children, started together, each hang one step's host sync
+    on the card (``torch.cuda._sleep`` for about 10 s, injected by the
+    smoke's own code) under a 3 s ``--step-timeout``: a serve engine (its
+    first steps healthy while paged attention builds cold, outside the
+    armed window), and twice 2 ``--rotary True`` LM updates through the
+    training CLI, the hang once before update 2's stats sync and once
+    inside update 2's optimizer step (the update's own sync must wait on
+    it).  Each must exit 87 within the timeout plus one poll of the
+    hang, its stderr holding faulthandler's dump of the thread blocked
+    in the step, and its log the phase that hung and the watchdog's
+    context line (the queue depths; the background checkpoint writer's
+    state): the GIL-released sync let the watcher run."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cold = os.path.join(tmp, "cold_build")
+    common = WATCHDOG_COMMON.format(root=root, hang_s=WATCHDOG_HANG_S)
+    children = {
+        "serve": common + WATCHDOG_SERVE.format(
+            cold=cold, timeout_s=WATCHDOG_TIMEOUT_S),
+        "train": common + WATCHDOG_TRAIN.format(argv=lm_args(
+            tmp, os.path.join(tmp, "log_dog"), 2, "--rotary", "True",
+            "--save-dir", os.path.join(tmp, "dog_save"), "--tmp-save-dir",
+            os.path.join(tmp, "dog_save"), "--step-timeout",
+            str(WATCHDOG_TIMEOUT_S))),
+        "train_update": common + WATCHDOG_TRAIN_UPDATE.format(argv=lm_args(
+            tmp, os.path.join(tmp, "log_dog_update"), 2, "--rotary",
+            "True", "--save-dir", os.path.join(tmp, "dog_save_update"),
+            "--tmp-save-dir", os.path.join(tmp, "dog_save_update"),
+            "--step-timeout", str(WATCHDOG_TIMEOUT_S))),
+    }
+    t0 = time.perf_counter()
+    procs, files, ended = {}, {}, {}
+    for name, code in children.items():
+        files[name] = [open(os.path.join(tmp, f"dog_{name}.{s}"), "w+")
+                       for s in ("out", "err")]
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-c", code], stdout=files[name][0],
+            stderr=files[name][1], text=True, cwd=root)
+    while len(ended) < len(procs):
+        for name, proc in procs.items():
+            if name not in ended and proc.poll() is not None:
+                ended[name] = time.monotonic()
+        if time.perf_counter() - t0 > 300:
+            for name, proc in procs.items():
+                if name not in ended:
+                    proc.kill()
+                    proc.wait()
+                    ended[name] = time.monotonic()
+        time.sleep(0.05)
+    outs = {}
+    for name, proc in procs.items():
+        out, err = files[name]
+        out.seek(0)
+        err.seek(0)
+        outs[name] = (proc.returncode, out.read(), err.read(), ended[name])
+        out.close()
+        err.close()
+    report = {"timeout_s": WATCHDOG_TIMEOUT_S, "hang_s": WATCHDOG_HANG_S,
+              "card": card()}
+    poll = max(0.05, min(1.0, WATCHDOG_TIMEOUT_S / 4.0))
+    for name, (rc, out, err, ended) in outs.items():
+        hang = [float(ln.split()[1]) for ln in out.splitlines()
+                if ln.startswith("HANG ")]
+        log = out + err
+        context = [ln for ln in log.splitlines()
+                   if "watchdog context:" in ln and ("running=" in ln
+                                                     if name == "serve" else
+                                                     "checkpoint writer" in ln)]
+        frame = "in _step" if name == "serve" else "in train_step"
+        if rc != 87 or not hang or "NOT REACHED" in out or not context \
+                or "most recent call first" not in err or frame not in err \
+                or f"in {WATCHDOG_PHASES[name]}" not in log:
+            raise AssertionError(
+                f"watchdog {name}: exit {rc}, hang marks {hang}, context "
+                f"{context}\nstdout tail {out[-1500:]}\nstderr tail "
+                f"{err[-3000:]}")
+        after = ended - hang[0]
+        if after > WATCHDOG_TIMEOUT_S + poll + 1.0:
+            raise AssertionError(f"watchdog {name}: exited {after:.2f} s "
+                                 "after the hang began")
+        report[name] = {"exit": rc, "context": context[0].split(
+            "watchdog context:", 1)[1].strip(), "exit_after_hang_s": after}
+    warm = [ln for ln in outs["serve"][1].splitlines()
+            if ln.startswith("WARM ")]
+    built = [f for f in os.listdir(cold) if f.endswith(".so")] \
+        if os.path.isdir(cold) else []
+    if not warm or not built:
+        raise AssertionError(f"serve child: warm {warm}, cold build {built}")
+    report["serve"]["warm_s_with_cold_build"] = float(warm[0].split()[1])
+    report["serve"]["cold_built"] = built
+    report["phase_s"] = time.perf_counter() - t0
+    return report
+
+
 LM_OPTIM_RUNS = {
     "a_adam_fixed": (LM_ADAM, True),
     "b_sgd_cosine": (("--optimizer", "sgd", "--momentum", "0.9",
@@ -5158,7 +5726,10 @@ def kernels_line(res):
         "replaces": PALLAS + "paged_attention.py:65",
         "launches": res["serve_launches"],
         "launches_by_phase": {"serve": res["serve_launches"],
-                              "serve_sampling": res["sampling_launches"]},
+                              "serve_sampling": res["sampling_launches"],
+                              "fleet_deploy": res["fleet_launches"],
+                              "fleet_deploy (--fleet CLI)":
+                                  res["fleet_cli_launches"]},
         "max_abs_err": max(c["max_abs_err"] for c in res["cases"].values()),
         "ms": decode["ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
@@ -5431,6 +6002,8 @@ def main():
     lm_serve = lm_serve_checkpoint_phase()
     emit("lm_serve_checkpoint", **lm_serve)
     res["rotary_launches"] = lm_serve["flash_launches"]
+    res["fleet_launches"] = lm_serve["fleet_paged_launches"]
+    res["fleet_cli_launches"] = lm_serve["fleet_cli_paged_launches"]
     torch.cuda.empty_cache()
     res["lm_fp16_launches"] = lm_optim_fp16_phase()
     torch.cuda.empty_cache()

@@ -584,7 +584,8 @@ def test_failed_background_write_surfaces_at_the_next_boundary(
              str(tmp_path / "save"))
 
 
-@pytest.mark.parametrize("flag,item", [(["--publish-dir", "pub"], "A12")])
+@pytest.mark.parametrize("flag,item", [(["--anomaly-guard"], "A11"),
+                                       (["--loss-spike-factor", "3"], "A11")])
 def test_cli_refuses_unported_checkpoint_flags(tmp_path, corpus, flag, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         _cli(corpus, tmp_path, "x", "--max-update", "1", "--save-dir",

@@ -152,12 +152,18 @@ def impl():
 
 
 def children():
-    """PIDs of this process's live children."""
-    pids = set()
-    for path in glob.glob(f"/proc/{os.getpid()}/task/*/children"):
-        with open(path) as f:
-            pids.update(int(p) for p in f.read().split())
-    return pids
+    """PIDs of this process's live children.  A thread that exits between
+    the listing of the tasks and the read of its ``children`` file hands
+    its children to another thread, so the scan starts over."""
+    while True:
+        pids = set()
+        try:
+            for path in glob.glob(f"/proc/{os.getpid()}/task/*/children"):
+                with open(path) as f:
+                    pids.update(int(p) for p in f.read().split())
+        except FileNotFoundError:
+            continue
+        return pids
 
 
 def alive(pid):

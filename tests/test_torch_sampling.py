@@ -269,7 +269,7 @@ def test_engine_sampling_matches_jax_engine(pair):
 
 def test_cli_demo_samples_and_keeps_refusals(tmp_path):
     """``--demo --temperature 0.7 --top-k 5`` serves, twice with the same
-    tokens; ``--fleet`` and ``--step-timeout`` still exit naming A12."""
+    tokens; the autoscaler's flags still exit naming A12."""
     from unicore_tpu_torch.serve.cli import main
 
     argv = ["--demo", "--device", "cpu", "--num-requests", "5",
@@ -284,7 +284,8 @@ def test_cli_demo_samples_and_keeps_refusals(tmp_path):
     assert len(reports[0]["results"]) == 5
     assert [r["tokens"] for r in reports[0]["results"]] == \
         [r["tokens"] for r in reports[1]["results"]]
-    for flag in (["--fleet"], ["--step-timeout", "5"]):
+    for flag in (["--fleet", "--autoscale"], ["--min-replicas", "2"],
+                 ["--max-replicas", "8"], ["--scale-cooldown-steps", "4"]):
         with pytest.raises(SystemExit, match="A12"):
             main(argv + flag)
 

@@ -17,9 +17,14 @@ writer (``--async-save``, the default) and the save and restore
 decisions.  A restore whose file is torn falls back to the previous
 intact checkpoint in the save dir.
 
-Not ported: the chaos hooks (``ROADMAP.md`` A11), sharded checkpoints
-(A8/A13: a sharded JAX file is refused by name) and the weight publisher
-(A12: ``--publish-dir`` raises).
+With ``--publish-dir`` every save that fully lands also lands a
+verified weight manifest there (:class:`~unicore_tpu_torch.deploy.
+publish.WeightPublisher`, the JAX package's manifest format), for a
+serving fleet's canary rollout; a failed publish is logged and never
+fails the save.
+
+Not ported: the chaos hooks (``ROADMAP.md`` A11) and sharded checkpoints
+(A8/A13: a sharded JAX file is refused by name).
 """
 
 import ast
@@ -374,10 +379,6 @@ class CheckpointManager:
     def __init__(self, args, is_master=True):
         self.args = args
         self.is_master = is_master
-        if getattr(args, "publish_dir", ""):
-            raise NotImplementedError(
-                "--publish-dir: the weight publisher is not ported to the "
-                "PyTorch trainer yet (ROADMAP.md A12)")
         self.best = BestTracker(args.maximize_best_checkpoint_metric)
         self.async_save = str(getattr(args, "async_save", "on")) != "off"
         self._writer = None
@@ -385,6 +386,7 @@ class CheckpointManager:
         # or the whole write when synchronous)
         self.stall_s = 0.0
         self.saves = 0
+        self._publisher = None
         if is_master and not args.no_save:
             verify_checkpoint_directory(args.save_dir)
             verify_checkpoint_directory(args.tmp_save_dir)
@@ -392,6 +394,11 @@ class CheckpointManager:
                 self._writer = AsyncCheckpointWriter(
                     max_queue=int(getattr(args, "save_queue_size", 2) or 2))
             self._sweep_stale_scratch()
+            if getattr(args, "publish_dir", ""):
+                # runtime import: deploy imports this module at its top
+                from .deploy.publish import WeightPublisher
+
+                self._publisher = WeightPublisher(args.publish_dir)
 
     @property
     def writer(self):
@@ -479,7 +486,7 @@ class CheckpointManager:
         scratch = os.path.join(self.args.tmp_save_dir, names[0])
         finals = [os.path.join(self.args.save_dir, n) for n in names]
         job = functools.partial(self._write_and_finalize, state_dict,
-                                scratch, finals, end_of_epoch)
+                                scratch, finals, end_of_epoch, updates)
         if self._writer is not None:
             self._writer.submit(job, label=names[0])
             mode = "write is async"
@@ -506,11 +513,26 @@ class CheckpointManager:
             self._writer.drain()
             self._writer.poll()
 
-    def _write_and_finalize(self, state_dict, scratch, finals, end_of_epoch):
-        """Writer-thread body: serialize, copy to the final names, prune.
-        Raises on a write or copy failure, which :meth:`poll` re-raises."""
+    def _write_and_finalize(self, state_dict, scratch, finals, end_of_epoch,
+                            publish_step=0):
+        """Writer-thread body: serialize, copy to the final names, prune,
+        then publish.  Raises on a write or copy failure, which
+        :meth:`poll` re-raises."""
         atomic_save(state_dict, scratch)
         self._finalize(scratch, finals, end_of_epoch)
+        if self._publisher is not None:
+            # publish AFTER the save fully landed, and never fail the
+            # save over it: a publish fault costs one rollout, a raised
+            # one would cost the checkpoint
+            try:
+                m = self._publisher.publish(finals[0],
+                                            source_step=publish_step)
+                logger.info("published manifest %d -> %s (step %d)",
+                            m.publish_id, finals[0], publish_step)
+            except Exception:
+                logger.error("weight publish of %s failed; training and "
+                             "the checkpoint are unaffected", finals[0],
+                             exc_info=True)
 
     def _finalize(self, scratch, finals, end_of_epoch):
         """Copy the scratch write to its final names, then prune."""

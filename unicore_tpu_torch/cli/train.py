@@ -264,6 +264,7 @@ def main(args):
     logger.info("model %s, %d parameters, device %s, compute dtype %s",
                 args.arch, n_params, trainer.device, trainer.compute_dtype)
     ckpt = CheckpointManager(args, is_master=True)
+    trainer.attach_checkpoint_writer(ckpt.writer)
     _, epoch_itr = ckpt.restore(trainer)
     shutdown = (None if args.no_graceful_shutdown
                 else GracefulShutdown().install())

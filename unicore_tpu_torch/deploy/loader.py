@@ -1,6 +1,8 @@
 """The checkpoint -> serve model path (counterpart of
-``unicore_tpu/deploy/loader.py`` ``load_serve_params`` and
-``load_serve_model``).
+``unicore_tpu/deploy/loader.py``): the CLI's startup load
+(:func:`load_serve_model`), and the hot-swap and rollback load
+(:func:`load_manifest_params`: the checkpoint re-verified against the
+digest its manifest recorded, then its params tree).
 
 The file is read through :func:`~unicore_tpu_torch.checkpoint_utils.
 load_checkpoint_to_cpu` (its ``.sum`` sidecar verified), so a torn
@@ -13,17 +15,16 @@ model with the relative-position bias, which the decoder cannot decode.
 """
 
 import logging
+import os
 from types import SimpleNamespace
 
-from ..checkpoint_utils import ShardedCheckpointError, load_checkpoint_to_cpu
+from ..checkpoint_utils import (CheckpointIntegrityError,
+                                ShardedCheckpointError,
+                                load_checkpoint_to_cpu, read_sidecar)
 from ..modules.transformer_decoder import DECODE_REL_POS_REFUSAL
+from .publish import DeployError
 
 logger = logging.getLogger(__name__)
-
-
-class DeployError(RuntimeError):
-    """A checkpoint serving cannot use (sharded, or without a params
-    tree)."""
 
 
 def _read(path):
@@ -73,3 +74,24 @@ def load_serve_model(path, dict_path):
     logger.info("loaded %s (%s, %d params) for serving", path, arch,
                 sum(p.numel() for p in model.parameters()))
     return model.eval()
+
+
+def load_manifest_params(manifest):
+    """Manifest -> host params tree (the flax layout, numpy leaves: what
+    :meth:`~unicore_tpu_torch.serve.engine.ServeEngine.swap_weights`
+    takes), re-verifying the checkpoint against the digest recorded AT
+    PUBLISH TIME.  Catches both a torn file and a checkpoint replaced
+    after its manifest landed (sidecar digest drift against the
+    manifest's record): either way the swap never sees the bytes."""
+    path = manifest.checkpoint
+    recorded = manifest.sha256.get(os.path.basename(path))
+    if recorded is not None:
+        side = read_sidecar(path)
+        if side["digest"] != recorded:
+            raise CheckpointIntegrityError(
+                f"checkpoint {path} digest {side['digest'][:12]}… does "
+                f"not match the digest manifest {manifest.publish_id} "
+                f"recorded at publish time ({recorded[:12]}…) — the "
+                f"file changed after it was published"
+            )
+    return load_serve_params(path)

@@ -14,7 +14,11 @@ the card and the CPU, and no device sync.  XLA contracts each
 ``a x + b y`` of the moments by rounding the ``(1 - b) y`` product and
 fusing ``b x`` (``add(alpha=)`` here, one rounding; from bf16 stores the
 other way round, see :meth:`UnicoreAdam.step`), and the weight-decay
-term into the quotient (one more ``add(alpha=)``).
+term into the quotient (one more ``add(alpha=)``).  XLA's CPU code leaves
+that decay unfused in part of a leaf whose rows are 3 wide (an artifact
+of its AVX-512 vector loop, not of the update); the port fuses it
+everywhere, within the bound that ``tests/test_torch_optim.py``
+``ADAM_DECAY_BOUND_ULPS`` states.
 
 With fp32 moments (the default) it runs as multi-tensor
 (``torch._foreach_*``) ops over every parameter at once.

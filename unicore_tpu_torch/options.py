@@ -54,7 +54,6 @@ NOT_PARSED = {
         "--snapshot-ring-size", "--trajectory-file", "--data-guard",
         "--data-retries", "--data-retry-backoff", "--data-corrupt-budget",
         "--data-resample-attempts", "--pack-max-segments"), "ROADMAP.md A11"),
-    "--step-timeout": "ROADMAP.md A12",
     **dict.fromkeys((
         "--pipeline-parallel-size", "--expert-parallel-size",
         "--seq-parallel-impl", "--seq-parallel-skip-attention-dropout"),
@@ -253,6 +252,10 @@ def get_training_parser(input_args=None):
 
     add_checkpoint_args(p)
     g = p.add_argument_group("Fault tolerance")
+    g.add_argument("--step-timeout", default=0, type=float, metavar="SEC",
+                   help="watchdog timeout on a hung device step: dump all "
+                        "thread stacks, then exit 87 so a supervisor "
+                        "restarts from the last checkpoint (0 = off)")
     g.add_argument("--no-graceful-shutdown", action="store_true",
                    help="do NOT install the SIGTERM/SIGINT handlers that "
                         "checkpoint and exit at the next step boundary")
@@ -260,9 +263,7 @@ def get_training_parser(input_args=None):
 
 
 def add_checkpoint_args(parser):
-    """The JAX package's checkpoint group: the same names and defaults.
-    ``--publish-dir`` (A12) parses and is refused by the checkpoint
-    manager."""
+    """The JAX package's checkpoint group: the same names and defaults."""
     g = parser.add_argument_group("Checkpointing")
     g.add_argument("--save-dir", metavar="DIR", default="checkpoints",
                    help="directory that receives checkpoint files")
@@ -277,8 +278,10 @@ def add_checkpoint_args(parser):
                         "a failed background write surfaces at the next "
                         "step boundary.  \"off\" writes synchronously")
     g.add_argument("--publish-dir", metavar="DIR", default="",
-                   help="weight-manifest publishing (not ported: ROADMAP.md "
-                        "A12)")
+                   help="after each checkpoint fully lands, publish a "
+                        "verified weight manifest into DIR for a serving "
+                        "fleet's canary rollout (a failed publish never "
+                        "fails the save)")
     g.add_argument("--save-queue-size", type=int, default=2, metavar="N",
                    help="max in-flight background saves before submit "
                         "blocks")

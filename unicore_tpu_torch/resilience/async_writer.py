@@ -57,6 +57,7 @@ class AsyncCheckpointWriter:
         self._job_ready = threading.Condition(self._lock)
         self._failures = []
         self._active = None
+        self._active_since = None
         self._closed = False
         self._thread = None
 
@@ -105,6 +106,7 @@ class AsyncCheckpointWriter:
                     self._job_ready.wait(timeout=1.0)
                 job = self._jobs.popleft()
                 self._active = job
+                self._active_since = time.monotonic()
             try:
                 job.fn()
             except BaseException as e:  # surfaced via poll(), never lost
@@ -129,6 +131,25 @@ class AsyncCheckpointWriter:
             label, err = self._failures.pop(0)
         raise CheckpointWriteError(
             f"background checkpoint write {label!r} failed: {err}") from err
+
+    def status(self):
+        """One-line writer state for the watchdog's timeout dump: a slow
+        background writer (harmless to the device) reads apart from a
+        hung device step."""
+        with self._lock:
+            if self._active is not None:
+                busy = time.monotonic() - (self._active_since or 0)
+                return (
+                    f"background checkpoint writer: WRITING "
+                    f"{self._active.label!r} for {busy:.1f}s "
+                    f"({len(self._jobs)} queued) — a slow writer does not "
+                    f"block device dispatch; this timeout is about the "
+                    f"device step itself"
+                )
+            queued = len(self._jobs)
+        if queued:
+            return f"background checkpoint writer: {queued} job(s) queued"
+        return "background checkpoint writer: idle"
 
     def drain(self):
         """Block until every submitted job has finished (FIFO order).

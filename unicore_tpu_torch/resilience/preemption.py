@@ -1,7 +1,8 @@
 """Graceful preemption: SIGTERM/SIGINT -> drain-and-exit.
 
-A copy of ``GracefulShutdown`` from ``unicore_tpu/resilience/
-preemption.py`` (the port imports nothing of the JAX package).  The
+A copy of ``GracefulShutdown`` and ``ChildShutdown`` from
+``unicore_tpu/resilience/preemption.py`` (the port imports nothing of
+the JAX package).  The
 handler only SETS A FLAG — all real work (closing admission, shedding
 queued requests, writing the drain report) happens at the next step
 boundary on the main thread, because a signal handler must not run in
@@ -72,6 +73,16 @@ class GracefulShutdown:
         if signum is not None:
             self.signum = signum
 
+    # -- fleet fan-out -------------------------------------------------
+
+    def child(self, name=None):
+        """A per-replica drain flag linked to this (fleet-level)
+        shutdown: the fleet router wires one child into every
+        ServeEngine replica, so ONE SIGTERM to the fleet process drains
+        every replica, while a rolling restart requests one child at a
+        time and leaves the rest serving."""
+        return ChildShutdown(parent=self, name=name)
+
     # -- handler -------------------------------------------------------
 
     def _handle(self, signum, frame):
@@ -87,3 +98,73 @@ class GracefulShutdown:
             "boundary (send SIGINT again to abort immediately)",
             signal.Signals(signum).name,
         )
+
+
+class ChildShutdown:
+    """One replica's drain flag, ORed with an optional parent
+    :class:`GracefulShutdown`.
+
+    A replica must drain when EITHER the whole fleet was signalled (the
+    parent's SIGTERM/SIGINT handler fired) or the router singled it out
+    (rolling restart calls :meth:`request` with ``signal.SIGTERM`` —
+    the same flag path a delivered signal flips, so the engine's drain
+    machinery cannot tell the difference).  :meth:`clear` re-opens the
+    replica after its restart; a fleet-wide parent request is NOT
+    clearable from a child — a draining fleet stays draining.
+
+    :meth:`mark_lost` is the FAILOVER terminal state: the router marks
+    a dead replica's child lost when it evicts it without a drain.  A
+    lost child's flag is permanent — ``clear()`` no longer re-opens it
+    — so a wedged engine that later "wakes up" finds its drain flag set
+    and sheds instead of serving stale ring traffic; the replacement
+    replica always gets a FRESH child.  (The JAX package's
+    ``mark_retired``, the autoscaler's scale-down state, comes with the
+    autoscaler: ROADMAP.md A12.)"""
+
+    def __init__(self, parent=None, name=None):
+        self.parent = parent
+        self.name = name
+        self._requested = False
+        self._signum = None
+        self.lost = False
+
+    @property
+    def requested(self):
+        return self._requested or bool(
+            self.parent is not None and self.parent.requested
+        )
+
+    @property
+    def signum(self):
+        if self._signum is not None:
+            return self._signum
+        return None if self.parent is None else self.parent.signum
+
+    def request(self, signum=None):
+        """Single this replica out for drain (rolling restart)."""
+        self._requested = True
+        if signum is not None:
+            self._signum = signum
+
+    def mark_lost(self):
+        """Permanently drain this child: the replica it guards was
+        evicted WITHOUT a drain (crash/wedge failover).  The flag can
+        never be cleared again — a zombie replica must shed, not
+        serve."""
+        self.lost = True
+        self._requested = True
+
+    def clear(self):
+        """Reset the CHILD's own flag (post-restart re-open).  The
+        parent's fleet-wide request, if any, still reads through; a LOST
+        child stays drained forever (an eviction is not a restart — a
+        comeback gets a fresh child)."""
+        if self.lost:
+            logger.warning(
+                "ChildShutdown.clear() on lost replica %r ignored — an "
+                "evicted replica cannot re-open its own drain flag",
+                self.name,
+            )
+            return
+        self._requested = False
+        self._signum = None

@@ -14,13 +14,24 @@ Two sources of model + prompts:
 
 Decoding is greedy unless ``--temperature > 0``: then seeded sampling
 (``--top-k`` to filter), request ``i`` keyed by seed ``--seed + i``, the
-JAX CLI's tokens for the same flags.  ``--fleet`` and ``--step-timeout``
-(ROADMAP.md A12) are not ported and exit saying so.
-``--device`` picks the device (default ``cuda``; without a card the run
-fails rather than falling back to the CPU).
+JAX CLI's tokens for the same flags.  ``--device`` picks the device
+(default ``cuda``; without a card the run fails rather than falling back
+to the CPU).  ``--step-timeout`` arms each engine's step watchdog.
+
+``--fleet`` routes the requests through a
+:class:`~unicore_tpu_torch.fleet.router.FleetRouter` over ``--replicas``
+in-process engines that share the model (session keys ``s{i mod
+--sessions}``), with failover and circuit-breaker rejoin; with
+``--publish-dir`` a :class:`~unicore_tpu_torch.deploy.rollout.
+RolloutController` watches the directory and rolls each verified
+manifest out canary-first.  The autoscaler's flags (``--autoscale``,
+``--min-replicas``, ``--max-replicas``, ``--scale-cooldown-steps``)
+parse and exit naming ROADMAP.md A12.
 
 Output: one JSON object (``--json FILE`` or stdout) with per-request
-generated ids, finish reasons, TTFT, and the engine's aggregate stats.
+generated ids, finish reasons, TTFT, and the engine's aggregate stats
+(under ``--fleet``: per-replica stats and drain records, and the
+router's ``fleet`` report).
 """
 
 import argparse
@@ -38,8 +49,10 @@ from .scheduler import DEFAULT_REQUEST_RETRIES, Request
 logger = logging.getLogger("unicore_tpu_torch.serve.cli")
 
 NOT_PORTED = "is not ported to unicore_tpu_torch yet"
-# flag -> the ROADMAP.md item that ports it
-ITEMS = {"--fleet": "A12", "--step-timeout": "A12"}
+# flag -> (the ROADMAP.md item that ports it, the parsed value that
+# leaves it off)
+ITEMS = {"--autoscale": ("A12", False), "--min-replicas": ("A12", 1),
+         "--max-replicas": ("A12", 4), "--scale-cooldown-steps": ("A12", 16)}
 
 
 def make_parser():
@@ -80,8 +93,50 @@ def make_parser():
     eng.add_argument("--prefix-cache", choices=("on", "off"),
                      default="on",
                      help="shared-prefix KV page dedup (default: on)")
-    eng.add_argument("--fleet", action="store_true",
-                     help=f"route through a fleet router ({NOT_PORTED})")
+    flt = p.add_argument_group("fleet")
+    flt.add_argument("--fleet", action="store_true",
+                     help="route through a FleetRouter over --replicas "
+                          "in-process engines (consistent-hash session "
+                          "affinity + SLO-aware overflow) instead of one "
+                          "engine; the report carries per-replica stats, "
+                          "drain records and the fleet aggregate")
+    flt.add_argument("--replicas", type=int, default=2,
+                     help="fleet mode: replica count (default: 2)")
+    flt.add_argument("--sessions", type=int, default=4,
+                     help="fleet mode: requests are spread over this many "
+                          "session keys (affinity groups)")
+    flt.add_argument("--max-failovers", type=int, default=2,
+                     help="how many replica deaths one request may survive "
+                          "before it finishes 'replica_lost' (default: 2)")
+    flt.add_argument("--suspect-steps", type=int, default=4,
+                     help="fleet steps of frozen progress before a replica "
+                          "is suspect (default: 4)")
+    flt.add_argument("--progress-budget-steps", type=int, default=8,
+                     help="fleet steps of frozen progress before a wedged "
+                          "replica is declared dead and evicted "
+                          "(default: 8)")
+    flt.add_argument("--breaker-cooldown", type=int, default=8,
+                     help="fleet steps after an eviction before a "
+                          "replacement may probe for rejoin (default: 8)")
+    flt.add_argument("--flap-limit", type=int, default=3,
+                     help="trips inside the flap window that hold a replica "
+                          "slot quarantined (default: 3)")
+    flt.add_argument("--autoscale", action="store_true",
+                     help=f"elastic scaling policy ({NOT_PORTED})")
+    flt.add_argument("--min-replicas", type=int, default=1,
+                     help=f"autoscale floor ({NOT_PORTED})")
+    flt.add_argument("--max-replicas", type=int, default=4,
+                     help=f"autoscale ceiling ({NOT_PORTED})")
+    flt.add_argument("--scale-cooldown-steps", type=int, default=16,
+                     help=f"autoscale refractory period ({NOT_PORTED})")
+    flt.add_argument("--publish-dir", default=None,
+                     help="deploy: watch this directory for published "
+                          "weight manifests and roll them out live, "
+                          "canary first")
+    flt.add_argument("--canary-steps", type=int, default=24,
+                     help="deploy: fleet steps the canary serves new "
+                          "weights off-ring before its gates decide "
+                          "promote or rollback (default: 24)")
     rob = p.add_argument_group("robustness")
     rob.add_argument("--max-waiting", type=int, default=None,
                      help="bound on the waiting queue; overflow is SHED "
@@ -96,7 +151,11 @@ def make_parser():
                      help="seconds in-flight work gets to finish after "
                           "SIGTERM before it is shed (graceful drain)")
     rob.add_argument("--step-timeout", type=float, default=0.0,
-                     help=f"step watchdog ({NOT_PORTED}; 0 = off)")
+                     help="arm a StepWatchdog around every step's host "
+                          "sync; a hung step dumps stacks + queue depths "
+                          "and exits 87 (0 = off)")
+    rob.add_argument("--progress-file", default=None,
+                     help="append one line per decode step")
     p.add_argument("--json", dest="json_out",
                    help="write the report here instead of stdout")
     return p
@@ -155,17 +214,130 @@ def _file_requests(args, path):
     return reqs
 
 
+def _engine_kwargs(args):
+    return dict(
+        device=args.device, num_pages=args.num_pages,
+        page_size=args.page_size, max_batch=args.max_batch,
+        prefill_token_budget=args.prefill_token_budget,
+        prefill_chunk=args.prefill_chunk,
+        prefix_cache=args.prefix_cache == "on",
+        max_waiting=args.max_waiting,
+        request_retries=args.request_retries,
+        drain_timeout=args.drain_timeout, step_timeout=args.step_timeout,
+        progress_path=args.progress_file,
+    )
+
+
+def _result_record(r):
+    return {
+        "request_id": r.request_id,
+        "prompt": r.prompt,
+        "tokens": r.tokens,
+        "finish_reason": r.finish_reason,
+        "ttft_ms": None if r.ttft_ms is None else round(r.ttft_ms, 2),
+        "evictions": r.evictions,
+    }
+
+
+def _rounded(stats):
+    return {k: (round(v, 4) if isinstance(v, float) else v)
+            for k, v in stats.items()}
+
+
+def _write(args, report):
+    text = json.dumps(report, indent=2)
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            f.write(text + "\n")
+        logger.info("wrote %s", args.json_out)
+    else:
+        print(text)
+
+
+def _fleet_main(args, model, requests, shutdown):
+    """``--fleet``: route the requests through a FleetRouter over
+    ``--replicas`` in-process engines that share ``model``, drive the
+    fleet to completion, then drain every replica: the report shows
+    every pool idle and one drain record per replica."""
+    from ..fleet.health import CircuitBreaker, ReplicaHealth
+    from ..fleet.router import FleetRouter
+
+    def make_engine(rid):
+        del rid
+        return ServeEngine(model, **_engine_kwargs(args))
+
+    engines = {f"r{i}": make_engine(f"r{i}")
+               for i in range(max(1, args.replicas))}
+    router = FleetRouter(
+        engines, shutdown=shutdown,
+        # dead replicas are evicted and replaced through the circuit
+        # breaker's canary probe; the same recipe builds the replacement
+        factory=make_engine,
+        max_failovers=args.max_failovers,
+        health=ReplicaHealth(suspect_steps=args.suspect_steps,
+                             dead_steps=args.progress_budget_steps),
+        breaker=lambda rid: CircuitBreaker(
+            cooldown_steps=args.breaker_cooldown,
+            flap_limit=args.flap_limit),
+    )
+    if args.publish_dir:
+        from ..deploy import DeploySubscriber, RolloutController
+
+        # the controller attaches itself to the router; its describe()
+        # rides out through fleet_report()["deploy"]
+        RolloutController(router, DeploySubscriber(args.publish_dir),
+                          canary_steps=args.canary_steps)
+    logger.info(
+        "fleet: %d request(s) over %d session(s) into %d replica(s) on "
+        "%s (pool %d pages x %d slots each, max batch %d)",
+        len(requests), args.sessions, len(engines), args.device,
+        args.num_pages, args.page_size, args.max_batch,
+    )
+    try:
+        for i, req in enumerate(requests):
+            router.submit(req,
+                          session_key=f"s{i % max(1, args.sessions)}")
+        router.run_until_complete()
+        drains = router.drain()
+        results = router.results()
+    finally:
+        router.close()
+    audited = dict(engines)
+    audited.update(router.engines)
+    pool_clean = all(e.pool.is_idle() for e in audited.values())
+    for eng in audited.values():
+        eng.pool.check_invariants()
+    _write(args, {
+        "device": str(next(iter(audited.values())).device),
+        "results": [_result_record(results[r.request_id])
+                    for r in requests],
+        "replicas": {
+            rid: {
+                "stats": _rounded(engines[rid].stats),
+                # a replica evicted by failover has no drain record: the
+                # fleet report's "lost" section carries its story
+                "drain": drains.get(rid),
+                "pool_clean": engines[rid].pool.is_idle(),
+            }
+            for rid in sorted(engines)
+        },
+        "fleet": router.fleet_report(),
+        "sessions": {s: rids for s, rids in
+                     sorted(router.session_replicas.items())},
+        "pool_clean": pool_clean,
+    })
+    return 0
+
+
 def main(argv=None):
     logging.basicConfig(
         format="%(asctime)s | %(levelname)s | %(name)s | %(message)s",
         level="INFO", stream=sys.stderr,
     )
     args = make_parser().parse_args(argv)
-    for flag, used in (("--fleet", args.fleet),
-                       ("--step-timeout", args.step_timeout > 0)):
-        if used:
-            raise SystemExit(f"{flag} {NOT_PORTED} (ROADMAP.md "
-                             f"{ITEMS[flag]})")
+    for flag, (item, off) in ITEMS.items():
+        if getattr(args, flag[2:].replace("-", "_")) != off:
+            raise SystemExit(f"{flag} {NOT_PORTED} (ROADMAP.md {item})")
     if not args.demo and not args.checkpoint:
         raise SystemExit("need --checkpoint (with --dict) or --demo")
 
@@ -194,16 +366,12 @@ def main(argv=None):
     # step boundary, in-flight work gets --drain-timeout to finish or
     # is shed, and the process still writes its report and exits 0
     shutdown = GracefulShutdown().install()
-    engine = ServeEngine(
-        model, device=args.device, num_pages=args.num_pages,
-        page_size=args.page_size, max_batch=args.max_batch,
-        prefill_token_budget=args.prefill_token_budget,
-        prefill_chunk=args.prefill_chunk,
-        prefix_cache=args.prefix_cache == "on",
-        max_waiting=args.max_waiting,
-        request_retries=args.request_retries,
-        drain_timeout=args.drain_timeout, shutdown=shutdown,
-    )
+    if args.fleet:
+        try:
+            return _fleet_main(args, model, requests, shutdown)
+        finally:
+            shutdown.uninstall()
+    engine = ServeEngine(model, shutdown=shutdown, **_engine_kwargs(args))
     logger.info(
         "serving %d request(s) on %s: pool %d pages x %d slots, max "
         "batch %d", len(requests), engine.device, args.num_pages,
@@ -217,20 +385,8 @@ def main(argv=None):
     engine.pool.check_invariants()
     report = {
         "device": str(engine.device),
-        "results": [
-            {
-                "request_id": r.request_id,
-                "prompt": r.prompt,
-                "tokens": r.tokens,
-                "finish_reason": r.finish_reason,
-                "ttft_ms": (None if r.ttft_ms is None
-                            else round(r.ttft_ms, 2)),
-                "evictions": r.evictions,
-            }
-            for r in results
-        ],
-        "stats": {k: (round(v, 4) if isinstance(v, float) else v)
-                  for k, v in engine.stats.items()},
+        "results": [_result_record(r) for r in results],
+        "stats": _rounded(engine.stats),
         "drain": engine.drain_report,
         "pool_clean": pool_clean,
     }
@@ -248,13 +404,7 @@ def main(argv=None):
             "deadline_exceeded": False,
             "pool_idle": pool_clean,
         }
-    text = json.dumps(report, indent=2)
-    if args.json_out:
-        with open(args.json_out, "w") as f:
-            f.write(text + "\n")
-        logger.info("wrote %s", args.json_out)
-    else:
-        print(text)
+    _write(args, report)
     return 0
 
 

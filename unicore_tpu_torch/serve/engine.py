@@ -31,11 +31,36 @@ derived on the device from the rows' seeds and steps, so a preempted and
 re-prefilled request resumes at the same fold index and its tokens are
 the JAX engine's for the same seed.
 
-Not ported yet: the step watchdog, the autotuner's prefill-chunk
-lookup, live weight swaps, the fleet hooks and the static and
-determinism audit surfaces.
+Watchdog: ``step_timeout > 0`` arms a :class:`~unicore_tpu_torch.
+resilience.watchdog.StepWatchdog` around each step's one host sync (the
+``.cpu()`` of the picked tokens; kernel launches, and a kernel's build
+at its first launch, stay outside the window), with a context line
+naming the queue depths before the process exits 87.
+
+Fleet-facing API, as in the JAX engine: :meth:`submit` enqueues,
+:meth:`serve_step` advances one scheduler iteration,
+:meth:`collect_finished` drains results, :meth:`load_snapshot` is the
+typed load and health snapshot a router polls, :meth:`adopt` takes a
+request salvaged from a dead replica with its generated tokens, and
+:meth:`reclaim_waiting` / :meth:`reopen` are the rolling-restart hooks.
+One injectable ``clock`` stamps enqueues, TTFT, deadlines and the drain
+timer.
+
+Live weight swaps (:meth:`swap_weights`) take the flax-layout host tree
+that ``deploy/loader.py`` loads, and :attr:`params` gives the tree the
+engine serves.  Replicas of an in-process fleet share one boot module,
+so an engine's first swap gives it its own parameter storage (the
+staged tensors become its module's parameters; nothing a sibling or the
+caller holds is written), and later swaps copy in place, so parameter
+addresses stay fixed.
+
+Not ported yet: the autotuner's prefill-chunk lookup (ROADMAP.md A14)
+and the static and determinism audit surfaces (``trace_step_fns``,
+``width_fn``, ``_input_capture``; A15).
 """
 
+import contextlib
+import copy
 import dataclasses
 import logging
 import time
@@ -47,6 +72,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.build import KernelError
+from ..resilience.watchdog import StepWatchdog
 from .attention import PagedMeta
 from .kv_pool import PagedKVPool, PoolExhausted
 from .sampling import finite_rows, greedy_tokens, sample_tokens, step_keys
@@ -67,10 +93,19 @@ class ServeResult:
     request_id: Optional[str]
     prompt: List[int]
     tokens: List[int]          # generated tokens (eos included if hit)
-    # "eos" | "length" | "capacity" | "expired" | "shed" | "failed"
+    # "eos" | "length" | "capacity" | "expired" | "shed" | "failed" —
+    # plus "replica_lost", synthesized by the fleet router (never by an
+    # engine) when a request outlives max_failovers replica deaths
     finish_reason: str
     ttft_ms: Optional[float]   # None when no token was ever emitted
     evictions: int
+
+
+class WeightSwapError(RuntimeError):
+    """Typed hot-swap precondition failure: the incoming param tree does
+    not match the serving tree (structure, leaf shape or dtype).  It is
+    raised before anything is written; the deploy rollout treats it like
+    any other bad-manifest fault: quarantine and roll back."""
 
 
 class ServeEngine:
@@ -85,10 +120,11 @@ class ServeEngine:
 
     def __init__(self, model, *, device="cuda", num_pages=64, page_size=16,
                  max_batch=8, prefill_token_budget=512, max_context=None,
-                 prefill_chunk=0, prefix_cache=True, chaos_rate=0.0,
-                 chaos_rng=None, max_waiting=None,
+                 prefill_chunk=0, prefix_cache=True, unified=True,
+                 chaos_rate=0.0, chaos_rng=None, max_waiting=None,
                  request_retries=DEFAULT_REQUEST_RETRIES,
-                 drain_timeout=30.0, shutdown=None, poison_requests=None):
+                 drain_timeout=30.0, shutdown=None, step_timeout=0.0,
+                 clock=None, poison_requests=None, progress_path=None):
         self.device = resolve_device(device)
         # the serve path is fp32 end to end: full fp32 matmuls, no TF32
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -106,6 +142,9 @@ class ServeEngine:
         self.pool = PagedKVPool(self.num_pages, self.page_size,
                                 prefix_cache=prefix_cache)
         self.table_width = self.pool.pages_for(self.max_context)
+        # unified=False is the A/B baseline: prefill rows and decode rows
+        # dispatch as two separate steps instead of one mixed dispatch
+        self.unified = bool(unified)
         self.scheduler = Scheduler(
             self.pool, self.max_batch,
             prefill_token_budget=self.prefill_token_budget,
@@ -117,6 +156,9 @@ class ServeEngine:
         # tokens per ragged step (bounded-TTFT slices); 0 = the default
         chunk = int(prefill_chunk) or DEFAULT_PREFILL_CHUNK
         self.prefill_chunk = max(1, min(chunk, self.max_context))
+        # one host clock for enqueue stamps, TTFT, deadlines and the
+        # drain timer — injectable so deadline and drain tests are exact
+        self._clock = clock or time.perf_counter
         self.drain_timeout = float(drain_timeout)
         self.shutdown = shutdown
         self.drain_report = None
@@ -126,10 +168,15 @@ class ServeEngine:
         self._drain_shed0 = 0
         self._drain_expired0 = 0
         self._stalled = 0
+        self.progress_path = progress_path
         # seeded poisoned-request injection (the quarantine test hook):
         # listed request ids get their sampled-from logits row NaN'd
         # inside the step
         self._poison_ids = frozenset(poison_requests or ())
+        self.watchdog = None
+        if step_timeout and float(step_timeout) > 0:
+            self.watchdog = StepWatchdog(float(step_timeout),
+                                         context=self._watchdog_context)
         # recent per-decode-step wall latencies
         self.decode_ms = deque(maxlen=4096)
         self.stats = {
@@ -142,6 +189,12 @@ class ServeEngine:
             "capacity_failfast": 0, "peak_waiting": 0,
             "prefix_hits": 0, "prefix_tokens_saved": 0,
         }
+        # live weight swaps installed by swap_weights; _owns_params flips
+        # on the first swap: the boot module may be SHARED (the other
+        # replicas of an in-process fleet, the caller), so only storage
+        # the engine placed itself is written in place
+        self.weight_swaps = 0
+        self._owns_params = False
 
     # -- pool buffers --------------------------------------------------
 
@@ -190,31 +243,38 @@ class ServeEngine:
         ``sampling`` is not greedy).  Returns host arrays
         ``(tokens [B], finite [B])``."""
         dev = self.device
+
+        def h2d(a):
+            return torch.from_numpy(a).to(dev)
+
+        # a copy from pageable host memory synchronizes the stream, so
+        # every one comes before the first launch: after it, the step's
+        # only sync is the copy of the picked tokens back
         meta = PagedMeta(
-            page_table=torch.from_numpy(tables).to(dev),
-            slot_mapping=torch.from_numpy(slot_mapping).to(dev),
-            lengths=torch.from_numpy(lengths).to(dev),
-            page_size=self.page_size, kv_pages=self.pages,
+            page_table=h2d(tables), slot_mapping=h2d(slot_mapping),
+            lengths=h2d(lengths), page_size=self.page_size,
+            kv_pages=self.pages,
         )
-        x = self.model.features(
-            torch.from_numpy(tokens).to(dev),
-            positions=torch.from_numpy(positions).to(dev), paged=meta,
-        )
-        rows = x[torch.arange(x.shape[0], device=dev),
-                 torch.from_numpy(last_col).to(dev)]
-        logits = self.model.head(rows)
-        if poison is not None:  # chaos injection
-            logits = torch.where(torch.from_numpy(poison).to(dev)[:, None],
-                                 torch.full_like(logits, float("nan")),
-                                 logits)
+        tokens_d, positions_d, last_col_d = (
+            h2d(a) for a in (tokens, positions, last_col))
+        poison_d = None if poison is None else h2d(poison)
         if sampling != "greedy":
             seeds, steps, temperature, top_k = (
-                torch.from_numpy(a).to(dev)
-                for a in (seeds, steps, temperature, top_k))
+                h2d(a) for a in (seeds, steps, temperature, top_k))
+        x = self.model.features(tokens_d, positions=positions_d, paged=meta)
+        rows = x[torch.arange(x.shape[0], device=dev), last_col_d]
+        logits = self.model.head(rows)
+        if poison_d is not None:  # chaos injection
+            logits = torch.where(poison_d[:, None],
+                                 torch.full_like(logits, float("nan")),
+                                 logits)
         picked = self._pick_tokens(logits, seeds, steps, temperature,
                                    top_k, sampling)
-        out = torch.stack([picked.long(),
-                           finite_rows(logits).long()]).cpu().numpy()
+        out = torch.stack([picked.long(), finite_rows(logits).long()])
+        # the step's one host sync, and the only armed window: a hung
+        # kernel surfaces here, every launch (and build) came before it
+        with self._armed(f"serve/ragged-w{tokens.shape[1]}"):
+            out = out.cpu().numpy()
         return out[0], out[1].astype(bool)
 
     def _width_for(self, chunk):
@@ -224,6 +284,31 @@ class ServeEngine:
         return 1 if chunk <= 1 else self.prefill_chunk
 
     # -- host-side step assembly ---------------------------------------
+
+    def _armed(self, phase):
+        """Watchdog guard for the step's blocking sync (a no-op when no
+        ``step_timeout`` was configured)."""
+        if self.watchdog is None:
+            return contextlib.nullcontext()
+        return self.watchdog.armed(phase)
+
+    def close(self):
+        """Stop the step watchdog's thread.  The engine keeps working
+        unarmed; the router calls this for a replica it evicts or
+        replaces, and the CLI for every replica when it is done."""
+        if self.watchdog is not None:
+            self.watchdog.close()
+
+    def _watchdog_context(self):
+        """Queue-depth snapshot for the watchdog's timeout dump: a hung
+        serve step dies naming what was in flight."""
+        sched = self.scheduler
+        return (
+            f"waiting={len(sched.waiting)} running={len(sched.running)} "
+            f"prefills={self.stats['prefills']} "
+            f"decode_steps={self.stats['decode_steps']} "
+            f"pool_free_pages={self.pool.num_free_pages}"
+        )
 
     def _quarantine(self, seq, phase):
         """Retire one poisoned-row sequence: reason ``"failed"``, pages
@@ -354,6 +439,9 @@ class ServeEngine:
             self.decode_ms.append(dt * 1e3)
             self.stats["decode_steps"] += 1
             self.stats["decode_tokens"] += sum(1 for r in rows if r[4])
+            if self.progress_path:
+                with open(self.progress_path, "a") as fh:
+                    fh.write(f"{self.stats['decode_steps']}\n")
         for b, (seq, start, m, emit, _) in enumerate(rows):
             if seq.done:
                 continue  # quarantined through an earlier row this step
@@ -375,7 +463,7 @@ class ServeEngine:
         seq.generated.append(token)
         self.stats["generated_tokens"] += 1
         if seq.first_token_at is None:
-            seq.first_token_at = time.perf_counter()
+            seq.first_token_at = self._clock()  # enqueued_at's clock
         req = seq.req
         if req.eos_id is not None and token == req.eos_id:
             self.scheduler.finish(seq, "eos")
@@ -390,20 +478,39 @@ class ServeEngine:
 
     def submit(self, requests):
         """Validate and enqueue a batch of :class:`Request`s WITHOUT
-        driving them; returns the scheduler's Sequence handles.  A
-        bounded queue may shed some of them immediately; the shed
-        sequences come back terminal."""
+        driving them; returns the scheduler's Sequence handles (the
+        fleet router's admission path: pair with :meth:`serve_step` and
+        :meth:`collect_finished`).  A bounded queue may shed some of
+        them immediately; the shed sequences come back terminal."""
         self._validate_requests(requests)
-        seqs = []
-        for req in requests:
-            seq = self.scheduler.add(req)
-            seq.enqueued_at = time.perf_counter()
-            self.stats["peak_waiting"] = max(
-                self.stats["peak_waiting"], len(self.scheduler.waiting))
-            seqs.append(seq)
+        seqs = [self._enqueue(req) for req in requests]
         if self.scheduler.num_shed:
             self._sync_lifecycle_stats()
         return seqs
+
+    def _enqueue(self, req, generated=None):
+        """One validated request into the scheduler (may shed at once)
+        with its enqueue stamp on the engine clock."""
+        seq = self.scheduler.add(req, generated=generated)
+        seq.enqueued_at = self._clock()
+        self.stats["peak_waiting"] = max(
+            self.stats["peak_waiting"], len(self.scheduler.waiting))
+        return seq
+
+    def adopt(self, request, generated=None):
+        """Enqueue one request salvaged from a dead replica together with
+        the tokens it already generated there (the fleet router's
+        failover path).  It enters like a preempted requeue: admission
+        re-prefills ``prompt + generated`` (mostly page-table lookups
+        under a warm prefix cache) and the absolute-step sampling keys
+        continue the stream.  The deadline restamps from this enqueue.
+        A bounded queue may shed it at once; it then comes back
+        terminal."""
+        self._validate_requests([request])
+        seq = self._enqueue(request, generated=generated)
+        if self.scheduler.num_shed:
+            self._sync_lifecycle_stats()
+        return seq
 
     def _validate_requests(self, requests):
         # validate EVERYTHING before enqueuing anything: a mid-list
@@ -438,8 +545,7 @@ class ServeEngine:
         seqs = self.submit(requests)
         t0 = time.perf_counter()
         try:
-            while self.serve_step():
-                pass
+            self._run_to_completion()
         except BaseException:
             # mid-run failure (device fault, interrupt): detach THIS
             # call's unfinished sequences and free their pages so the
@@ -519,6 +625,30 @@ class ServeEngine:
         self.scheduler.finish(seq, "capacity")
         self.stats["capacity_failfast"] += 1
 
+    def _run_to_completion(self):
+        while self.serve_step():
+            pass
+
+    def has_work(self):
+        return self.scheduler.has_work()
+
+    def _step_rows(self, todo):
+        """Dispatch this step's planned rows: ONE mixed ragged dispatch,
+        or (``unified=False``, the A/B baseline) the prefill rows and the
+        decode rows as two separate dispatches."""
+        rows = self._plan_rows(todo)
+        if not rows:
+            return
+        if self.unified:
+            self._dispatch(rows)
+            return
+        for group in ([r for r in rows if not r[4]],
+                      [r for r in rows if r[4]]):
+            live = [r for r in group
+                    if r[0] in self.scheduler.running and not r[0].done]
+            if live:
+                self._dispatch(live)
+
     def _host_fault(self, seqs, phase, exc):
         """A host-side step fault (bad batch assembly, a model error on
         one batch) fails the IN-FLIGHT sequences, not the engine: they
@@ -546,7 +676,7 @@ class ServeEngine:
             self._maybe_finalize_drain()
             self._stalled = 0
             return False
-        now = time.perf_counter()
+        now = self._clock()
         # deadline expiry at the ADMISSION boundary: a blown
         # request must not take (or keep) pool pages
         expired = bool(sched.expire(now))
@@ -599,9 +729,7 @@ class ServeEngine:
                 todo = sched.prepare_decode()
                 if todo:
                     try:
-                        rows = self._plan_rows(todo)
-                        if rows:
-                            self._dispatch(rows)
+                        self._step_rows(todo)
                     except DEVICE_FAULTS:
                         raise  # the device path is broken, not a request
                     except Exception as exc:  # host fault isolation
@@ -609,7 +737,7 @@ class ServeEngine:
                     did_dispatch = True
             # deadline expiry at the DECODE boundary: pages free
             # the moment the deadline blows, not a decode tail later
-            expired = bool(sched.expire(time.perf_counter())) or expired
+            expired = bool(sched.expire(self._clock())) or expired
         except PoolExhausted:
             # an admission race got past the can_alloc/extend guards:
             # recoverable — preempt the scheduler's LIFO victim (the
@@ -657,7 +785,7 @@ class ServeEngine:
         a later submit enqueues)."""
         if not self._draining:
             return
-        drain_ms = (time.perf_counter() - self._drain_started) * 1e3
+        drain_ms = (self._clock() - self._drain_started) * 1e3
         signame = None
         if (self.shutdown is not None
                 and self.shutdown.signum is not None):
@@ -676,3 +804,192 @@ class ServeEngine:
         }
         self._draining = False
         logger.warning("drain complete: %s", self.drain_report)
+
+    # -- fleet-facing surface ------------------------------------------
+
+    def load_snapshot(self):
+        """Cheap router-facing load and health snapshot — a STABLE typed
+        dict, the JAX engine's keys and types:
+
+        ``free_pages``/``total_pages`` (int) pool headroom (cached
+        prefix pages count as free), ``waiting``/``running`` (int) queue
+        depths, ``free_slots`` (int) open decode-batch rows,
+        ``max_waiting`` (int or None) the bounded-queue shed line,
+        ``draining`` (bool) admission closed, ``step_ms`` (float) median
+        of the recent decode-step wall latencies (0.0 before the first
+        decode), the prefix-cache surface ``prefix_hits`` (int),
+        ``prefix_tokens_saved`` (int), ``prefix_hit_rate`` (float), and
+        the health surface: ``last_progress`` (int), the monotonic count
+        of tokens this replica has emitted (a replica holding work whose
+        watermark does not move for the router's budget is WEDGED), and
+        ``host_faults`` (int), the monotonic host-fault counter."""
+        sched = self.scheduler
+        recent = list(self.decode_ms)[-33:]
+        step_ms = float(sorted(recent)[len(recent) // 2]) if recent else 0.0
+        ps = self.pool.prefix_stats
+        hit_rate = (ps["hits"] / ps["lookups"]) if ps["lookups"] else 0.0
+        return {
+            "free_pages": int(self.pool.num_free_pages),
+            "total_pages": int(self.pool.num_usable_pages),
+            "waiting": int(len(sched.waiting)),
+            "running": int(len(sched.running)),
+            "free_slots": int(max(0, self.max_batch - len(sched.running))),
+            "max_waiting": (None if sched.max_waiting is None
+                            else int(sched.max_waiting)),
+            "draining": bool(self._draining or self._drain_requested()),
+            "step_ms": round(step_ms, 4),
+            "prefix_hits": int(ps["hits"]),
+            "prefix_tokens_saved": int(ps["tokens_saved"]),
+            "prefix_hit_rate": round(float(hit_rate), 4),
+            "last_progress": int(self.stats["generated_tokens"]),
+            "host_faults": int(self.stats["host_faults"]),
+        }
+
+    def reclaim_waiting(self, *, include_running=False):
+        """Detach and return every WAITING request (rolling restart: the
+        router reroutes them before this replica drains; they hold no
+        pool pages).
+
+        ``include_running=True`` is the failover salvage: RUNNING
+        sequences are force-detached too, and the return value becomes
+        ``[(Request, generated), ...]`` — running first, then waiting in
+        queue order — for a healthy replica to :meth:`adopt`.  Page
+        frees on the dead pool are best-effort."""
+        sched = self.scheduler
+        if not include_running:
+            reqs = [seq.req for seq in sched.waiting]
+            sched.waiting.clear()
+            return reqs
+        salvaged = []
+        for seq in list(sched.running):
+            salvaged.append((seq.req, list(seq.generated)))
+            sched.running.remove(seq)
+            try:
+                self.pool.free(seq.sid)
+            except Exception as e:  # noqa: BLE001 - dying pool, best effort
+                logger.warning(
+                    "failover salvage: freeing %r on the dead replica's "
+                    "pool failed (%s) — the pool leaves with the replica",
+                    seq.sid, e,
+                )
+        salvaged.extend((seq.req, list(seq.generated))
+                        for seq in sched.waiting)
+        sched.waiting.clear()
+        return salvaged
+
+    def reopen(self):
+        """Re-open admission after a COMPLETED drain (the router's
+        in-place restart).  Refuses on a non-idle pool or queued work."""
+        if self.scheduler.has_work() or not self.pool.is_idle():
+            raise RuntimeError(
+                "reopen() on a busy engine: drain to idle first "
+                f"(waiting={len(self.scheduler.waiting)} "
+                f"running={len(self.scheduler.running)} "
+                f"pool_idle={self.pool.is_idle()})"
+            )
+        self._drain_flag = False
+        self._draining = False
+        # the restart's drain record must not pass for a later drain's
+        self.drain_report = None
+        if self.shutdown is not None and hasattr(self.shutdown, "clear"):
+            self.shutdown.clear()  # ChildShutdown: a fleet drain reads through
+
+    # -- live weight swaps ---------------------------------------------
+
+    @property
+    def params(self):
+        """The tree the engine serves, on the host: the JAX package's
+        flax layout of numpy copies (``deploy/loader.py``
+        ``load_serve_params`` gives the same layout).  A rollout keeps it
+        as the fallback it swaps back on a rollback."""
+        return self.model.flax_tree(dict(self.model.named_parameters()))
+
+    def _checked_swap(self, new_params):
+        """``new_params`` (a flax-layout tree) as parameter name -> fp32
+        CPU tensor, after checking its structure, every leaf's shape
+        and dtype against the serving tree; raises
+        :class:`WeightSwapError` before anything is written."""
+        want = dict(self.model.named_parameters())
+        # the host tree's leaves are numpy arrays of the serving dtype
+        serving = torch.empty(0, dtype=next(iter(want.values())).dtype)
+        serving = serving.numpy().dtype
+        for path, leaf in _flax_leaves(new_params):
+            dtype = np.asarray(leaf).dtype
+            if dtype != serving:
+                raise WeightSwapError(
+                    f"param leaf {'/'.join(path)} mismatch: engine serves "
+                    f"{serving}, swap offered {dtype}")
+        try:
+            named = self.model.named_from_flax(new_params)
+        except (KeyError, ValueError) as e:
+            raise WeightSwapError(
+                f"param tree structure mismatch: {e}") from e
+        if set(named) != set(want):
+            raise WeightSwapError(
+                "param tree structure mismatch: engine serves "
+                f"{sorted(set(want) - set(named))} that the swap lacks, "
+                f"swap offered {sorted(set(named) - set(want))} that the "
+                "engine does not serve")
+        for name, p in want.items():
+            if tuple(named[name].shape) != tuple(p.shape):
+                raise WeightSwapError(
+                    f"param leaf {name} mismatch: engine serves "
+                    f"{tuple(p.shape)}/{p.dtype}, swap offered "
+                    f"{tuple(named[name].shape)}/{named[name].dtype}")
+        return named
+
+    @torch.no_grad()
+    def swap_weights(self, new_params):
+        """Install ``new_params`` (the flax-layout host tree) between
+        serve steps.  The KV pool, the prefix-cache index, page tables
+        and every in-flight sequence survive untouched.
+
+        Structure and every leaf's shape and dtype are checked against
+        the serving tree first (:class:`WeightSwapError`, nothing
+        written).  The new tensors are then staged on the device and
+        synced before the cutover, so a failed transfer leaves the old
+        weights in place.  Only storage a previous swap placed is
+        written in place: the first swap makes the staged tensors this
+        engine's own parameters (a module of its own), never touching
+        the boot module a sibling replica or the caller may hold; later
+        swaps copy into those parameters, so their addresses stay fixed
+        and memory holds one param set per replica, never two waiting
+        on the allocator.
+
+        Call it at a step boundary, never from inside a dispatch.
+        Returns the host-side stall in seconds."""
+        named = self._checked_swap(new_params)
+        t0 = self._clock()
+        staged = {name: t.to(self.device) for name, t in named.items()}
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        params = dict(self.model.named_parameters())
+        if self._owns_params:
+            for name, p in params.items():
+                p.copy_(staged[name])
+        else:
+            # a module of the engine's own whose parameters ARE the
+            # staged tensors (deepcopy with them in its memo): nothing
+            # the old module's other holders see changes
+            memo = {id(p): torch.nn.Parameter(staged[name],
+                                              requires_grad=p.requires_grad)
+                    for name, p in params.items()}
+            self.model = copy.deepcopy(self.model, memo)
+        del staged
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._owns_params = True
+        self.weight_swaps += 1
+        stall = self._clock() - t0
+        logger.info("weight swap #%d installed (%d leaves, %.2f ms host "
+                    "stall)", self.weight_swaps, len(params), stall * 1e3)
+        return stall
+
+
+def _flax_leaves(tree, prefix=()):
+    """``(path, leaf)`` of a nested-dict param tree, depth first."""
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _flax_leaves(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value

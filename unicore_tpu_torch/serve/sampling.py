@@ -73,7 +73,9 @@ def sample_tokens(logits, keys, temperature, top_k, use_top_k=True):
     ``top_k = 0`` row samples identically either way."""
     logits = logits.float()
     greedy = torch.argmax(logits, dim=-1)
-    floor = torch.tensor(1e-6, dtype=torch.float32, device=logits.device)
+    # device fills, not host copies: a copy from host memory would sync
+    # the stream outside the engine's armed window
+    floor = torch.full((), 1e-6, dtype=torch.float32, device=logits.device)
     temp = torch.maximum(temperature.float(), floor)[:, None]
     filtered = (_top_k_mask(logits, top_k) if use_top_k else logits) / temp
     sampled = categorical(keys, filtered)
@@ -93,6 +95,6 @@ def sample_token(logits, key=None, temperature=0.0, top_k=0):
         k = torch.full(logits.shape[:-1], int(top_k), dtype=torch.int64,
                        device=logits.device)
         logits = _top_k_mask(logits, k)
-    temp = torch.tensor(float(temperature), dtype=torch.float32,
-                        device=logits.device)
+    temp = torch.full((), float(temperature), dtype=torch.float32,
+                      device=logits.device)
     return categorical(key.to(logits.device), logits / temp)

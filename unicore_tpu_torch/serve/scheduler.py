@@ -154,13 +154,21 @@ class Scheduler:
 
     # -- queue management ---------------------------------------------
 
-    def add(self, req):
+    def add(self, req, *, generated=None):
         """Enqueue a request; rejects requests that could NEVER run
         (a prompt alone outgrowing the pool) instead of livelocking the
         eviction loop on them later.  Generation beyond the pool is NOT
         rejected — the engine truncates those with a "capacity" finish,
-        so a sequence's live KV never exceeds what a solo run fits."""
-        prefix_len = len(req.prompt)
+        so a sequence's live KV never exceeds what a solo run fits.
+
+        ``generated``: tokens the request already produced on another
+        replica (a failed-over sequence, engine
+        :meth:`~unicore_tpu_torch.serve.engine.ServeEngine.adopt`).  It
+        enqueues like a preempted requeue: admission re-prefills
+        prompt + generated and the absolute-step sampling keys continue
+        the stream.  The could-never-run guard covers that whole
+        prefix, so a salvage that outgrows THIS pool is rejected here."""
+        prefix_len = len(req.prompt) + len(generated or ())
         need = self.pool.pages_for(prefix_len)
         if need > self.pool.num_usable_pages:
             raise ValueError(
@@ -183,6 +191,8 @@ class Scheduler:
             )
         seq = Sequence(self._next_sid, req)
         self._next_sid += 1
+        if generated:
+            seq.generated = list(generated)
         # free decode slots count as headroom: a bound that shed while
         # the batch sat idle would throttle capacity, not overload.
         # Saturated (running == max_batch) the bound is exactly

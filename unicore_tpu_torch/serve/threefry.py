@@ -120,14 +120,15 @@ def uniform(key, shape, minval=0.0):
     1)``, fp32: ``u * (1 - minval) + minval`` (``minval`` rounded to fp32
     first), then at least ``minval``."""
     floats = _uniform01(random_bits(key, shape))
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
+    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, floats * (1.0 - lo) + lo)
 
 
 def _fma(a, b, c):
     """fp32 ``a * b + c`` rounded once (``b``, ``c`` tensors or fp32
     values)."""
-    c = torch.as_tensor(c, dtype=torch.float32, device=a.device)
+    if not isinstance(c, torch.Tensor):  # a fill, not a host copy
+        c = torch.full((), c, dtype=torch.float32, device=a.device)
     return fma_fp32(a, b, c)
 
 

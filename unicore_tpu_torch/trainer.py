@@ -52,6 +52,13 @@ whose outputs are non-finite on the step's first micro-batch, then the
 non-finite leaves of the params and the optimizer's state, by their
 flax paths.
 
+``--step-timeout SEC`` arms a :class:`~unicore_tpu_torch.resilience.
+watchdog.StepWatchdog` around the step's two host syncs, where a hung
+kernel shows: the stats ``tolist`` (forward, backward and the gradient
+norm) and, after the optimizer and the EMA, the sample size's read. A
+sync that outlasts it dumps every thread's stack, names the checkpoint
+writer's state, and exits 87.
+
 ``--log-memory N`` logs ``mem_gb``, the caching allocator's bytes in use
 on the card, every N dispatches (nothing on the CPU, where the JAX
 trainer's backend has no memory stats either); a step whose forward or
@@ -96,6 +103,7 @@ from .optim.dynamic_loss_scaler import scaler_init, scaler_update
 from .optim.fp16_optimizer import (default_scale_window, grads_finite,
                                    sync_master_to_model)
 from .optim.lr_scheduler import build_lr_scheduler
+from .resilience.watchdog import StepWatchdog
 
 logger = logging.getLogger(__name__)
 
@@ -221,7 +229,25 @@ class Trainer:
         self._dispatch_count = 0
         self._start_time = time.time()
         self._previous_training_time = 0.0
+        # --step-timeout: armed around the step's host syncs only, so
+        # a kernel's build at its first launch (minutes of nvcc on a cold
+        # run) never reads as a hung step
+        self._ckpt_writer = None
+        self._watchdog = StepWatchdog(
+            float(getattr(args, "step_timeout", 0) or 0),
+            context=self._watchdog_context)
         metrics.log_start_time("wall", priority=790, round=0)
+
+    def attach_checkpoint_writer(self, writer):
+        """Wire the checkpoint manager's background writer in: the
+        watchdog's timeout dump then names the writer's state (a slow
+        background write must not read as a hung device step)."""
+        self._ckpt_writer = writer
+
+    def _watchdog_context(self):
+        if self._ckpt_writer is not None:
+            return str(self._ckpt_writer.status())
+        return "no context sources attached"
 
     # -- one update --------------------------------------------------------
 
@@ -293,8 +319,11 @@ class Trainer:
                                         self.scale_window,
                                         min_scale=self.min_loss_scale / 2.0)
             stats.append(scale)  # the scale this step used
-        # the step's one host sync
-        grad_norm, overflow, *used = torch.stack(stats).tolist()
+        stats = torch.stack(stats)
+        # the step's first host sync (the JAX trainer's dispatch and its
+        # stats sync in one), armed
+        with self._watchdog.armed("train_step/stats-sync"):
+            grad_norm, overflow, *used = stats.tolist()
         scale = used[0] if used else None
         self._log_memory_gauge()
         logging_outputs = [logs]
@@ -319,8 +348,14 @@ class Trainer:
                 self.optimizer.step()
             if self.ema is not None:
                 ema_update_(self.ema, self._master_params(), self.ema_decay)
+            # the update's sync: it waits on the optimizer's and the EMA's
+            # kernels (the JAX step's update sits inside its armed stats
+            # sync), so a hung update exits 87 here, not at some later
+            # unarmed sync
+            with self._watchdog.armed("train_step/update-sync"):
+                sample_size = float(sample_size)
             self.set_num_updates(self._num_updates + 1)
-            self._reduce_and_log_stats(logging_outputs, float(sample_size),
+            self._reduce_and_log_stats(logging_outputs, sample_size,
                                        grad_norm)
         if self.use_scaler:
             metrics.log_scalar("loss_scale", scale, priority=700, round=4)
