@@ -359,6 +359,23 @@ code is non-zero:
    bert_checkpoint_activations — the train phase's bert_base, 4 updates
    without and with the flag: losses and params bit-equal, the forward
    launches doubled.
+   data_parallel — (a) the train phase's CLI command at world size 1
+   over NCCL (a process group of one, ``--distributed-init-method``), 4
+   updates without and with ``--zero1 --comms-overlap``: losses and
+   params bit-equal, 12 bf16 flash launches of each kernel an update.
+   (b) two ranks on the one card over gloo (NCCL refuses two ranks on a
+   card; gloo takes every collective the trainer runs on CUDA tensors),
+   bert_base's widths at 4 layers, T 512, 4 rows a rank, fp32, dropout
+   0: 3 updates each of plain DP, ``--zero1`` and ``--zero1
+   --optim-bf16-moments``, the replicas' params bit-equal after every
+   update (their sha256), each update's loss within the CPU test's
+   2e-4 of one process stepping both ranks' rows, the fp32 flash
+   kernels launched once per layer an update on each rank and the SR
+   table kernel once an update under ``--optim-bf16-moments``; each
+   rank's optimizer-state bytes against plain DP's, step ms and the
+   seconds waited on collectives an update.  Then the SR kernel on
+   each rank's slice of every sharded bert_base leaf (its window in the
+   leaf) against the plain version, bit for bit.
 16. the ``kernels`` line (rows 1-11 of the TPU kernel table, row 1's
    launches from serve, serve_sampling and fleet_deploy, rows 2-10
    once for the bf16 kernels and once for the fp16 ones, the flash rows'
@@ -378,7 +395,8 @@ code is non-zero:
    checkpoint-activation runs' and return_attn's launches beside the
    rows they ran, and data_workers' beside BERT's rows 3 and 8 and the
    fp16 rows 9 and 10; last the EMA kernel, which replaces no
-   ``pallas_call``),
+   ``pallas_call``; data_parallel's launches beside BERT's rows 3 and 8
+   and row 11),
    the card's name and power limit, and the closing ``{"ok": true, ...}``
    line.
 
@@ -5656,6 +5674,316 @@ def bert_archs_phase():
     return out
 
 
+DP_LAYERS, DP_ROWS, DP_UPDATES, DP_T = 4, 4, 3, 512
+DP_LOSS_RTOL = 2e-4  # tests/test_torch_distributed.py's LOSS_RTOL
+DP_MODES = {"dp": {}, "zero1": {"zero1": True},
+            "zero1_bf16m": {"zero1": True, "optim_bf16_moments": True}}
+DP_TIMEOUT_S = 180
+
+
+def dp_args(**over):
+    """The trainer's flags of data_parallel (b): the train phase's Adam,
+    schedule and clip, fp32, ``--update-freq 1``."""
+    from argparse import Namespace
+
+    d = dict(seed=1, update_freq=[1], clip_norm=1.0, ema_decay=-1.0,
+             fp16=False, bf16=False, bf16_sr=False, optimizer="adam",
+             lr=[1e-4], adam_betas="(0.9, 0.98)", adam_eps=1e-6,
+             weight_decay=0.01, lr_scheduler="polynomial_decay",
+             force_anneal=None, warmup_updates=2, warmup_ratio=-1.0,
+             end_learning_rate=0.0, power=1.0, total_num_update=10,
+             max_update=10, max_epoch=0, tensor_parallel_size=1,
+             seq_parallel_size=1, fsdp_size=1, fused_lm_head="on",
+             fused_ce_chunk=0)
+    d.update(over)
+    return Namespace(**d)
+
+
+def dp_batches(rank=None):
+    """Update u's batch of rank ``rank`` (4 rows of 512 tokens, 15% of
+    them targets, a padded tail on the first row), or (None) both ranks'
+    rows in one batch."""
+    rng = np.random.RandomState(2048)
+    out = []
+    for _ in range(DP_UPDATES):
+        toks = rng.randint(5, 30522, size=(2 * DP_ROWS, DP_T))
+        toks[::DP_ROWS, DP_T - 100:] = 0
+        target = np.zeros_like(toks)
+        pick = (rng.rand(*toks.shape) < 0.15) & (toks != 0)
+        target[pick] = rng.randint(5, 30522, size=int(pick.sum()))
+        rows = slice(None) if rank is None else slice(
+            rank * DP_ROWS, (rank + 1) * DP_ROWS)
+        out.append({"net_input": {"src_tokens": toks[rows]},
+                    "target": target[rows]})
+    return out
+
+
+def dp_trainer(args, device):
+    from types import SimpleNamespace
+
+    from unicore_tpu_torch import trainer as trainer_mod
+    from unicore_tpu_torch.examples.bert.model import BertModel
+    from unicore_tpu_torch.losses.masked_lm import MaskedLMLoss
+    from unicore_tpu_torch.tasks import UnicoreTask
+
+    task = UnicoreTask(args)
+    task.dictionary = SimpleNamespace(pad=lambda: 0)
+    model = BertModel(vocab_size=30522, padding_idx=0,
+                      encoder_layers=DP_LAYERS, emb_dropout=0.0, dropout=0.0,
+                      attention_dropout=0.0, activation_dropout=0.0)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    return trainer_mod.Trainer(args, task, model, MaskedLMLoss(task),
+                               device=device)
+
+
+def _params_digest(trainer):
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in trainer._full_weights(trainer._master_params()):
+        h.update(p.detach().contiguous().view(torch.uint8).cpu()
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_rank(rank, port, out):
+    """A rank of data_parallel (b): gloo on CUDA tensors of card 0."""
+    import torch.distributed as dist
+
+    from unicore_tpu_torch.distributed import all_gather_objects
+    from unicore_tpu_torch.distributed import data_parallel as dpm
+    from unicore_tpu_torch.ops import flash_attention as fa
+    from unicore_tpu_torch.ops import rounding as sr
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    rec = {}
+    try:
+        batches = dp_batches(rank)
+        for mode, over in DP_MODES.items():
+            trainer = dp_trainer(dp_args(**over), "cuda:0")
+            for counts in (fa.launches, sr.launches):
+                for name in counts:
+                    counts[name] = 0
+            run = {"loss": [], "sample_size": [], "step_ms": [],
+                   "comm_s": [], "comm_calls": [], "replicas_equal": []}
+            for b in batches:
+                torch.cuda.synchronize()
+                s0, c0 = dpm.comm_stats["seconds"], dpm.comm_stats["calls"]
+                t0 = time.perf_counter()
+                log = trainer.train_step([b])[0]
+                torch.cuda.synchronize()
+                run["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                run["comm_s"].append(dpm.comm_stats["seconds"] - s0)
+                run["comm_calls"].append(dpm.comm_stats["calls"] - c0)
+                run["loss"].append(float(log["loss"]))
+                run["sample_size"].append(float(log["sample_size"]))
+                digests = all_gather_objects(_params_digest(trainer))
+                run["replicas_equal"].append(len(set(digests)) == 1)
+            state = trainer.optimizer.state_dict()
+            run["opt_state_bytes"] = sum(
+                t.numel() * t.element_size()
+                for key, ts in state.items() if key != "step" for t in ts)
+            run["launches"] = {**{k: v for k, v in fa.launches.items()
+                                  if v}, **dict(sr.launches)}
+            run["buckets"] = len(trainer.dp.buckets)
+            rec[mode] = run
+            trainer.dp.close()
+            del trainer
+            torch.cuda.empty_cache()
+    except Exception:
+        import traceback
+
+        rec["error"] = traceback.format_exc()
+    with open(f"{out}.{rank}", "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+
+
+def dp_world_one(tmp):
+    """data_parallel (a): the train phase's command at world size 1 over
+    NCCL, without and with --zero1 --comms-overlap."""
+    from unicore_tpu_torch.cli.train import cli_main
+    from unicore_tpu_torch.distributed.utils import free_port
+    from unicore_tpu_torch.ops import flash_attention as fa
+
+    updates = 4
+    runs = {}
+    for name, extra in (("plain", []),
+                        ("zero1_overlap", ["--zero1", "--comms-overlap"])):
+        logdir = os.path.join(tmp, "log_" + name)
+        for k in fa.launches:
+            fa.launches[k] = 0
+        t0 = time.perf_counter()
+        loop = cli_main(bert_args(tmp, logdir, updates) + [
+            "--no-save", "--distributed-world-size", "1",
+            "--distributed-init-method", f"tcp://localhost:{free_port()}",
+            *extra])
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(logdir, "train_inner.jsonl")) as f:
+            losses = [json.loads(line)["loss"] for line in f]
+        runs[name] = {"losses": losses, "seconds": seconds,
+                      "launches": {k: v for k, v in fa.launches.items()
+                                   if v},
+                      "params": [p.detach().clone() for p in
+                                 loop.trainer.model.parameters()]}
+        layers = loop.trainer.model.encoder_layers
+        del loop
+        torch.cuda.empty_cache()
+    a, b = runs["plain"], runs["zero1_overlap"]
+    if len(a["losses"]) != updates or a["losses"] != b["losses"]:
+        raise AssertionError(f"(a) losses {a['losses']} vs {b['losses']}")
+    if not all(torch.equal(x, y) for x, y in zip(a["params"], b["params"])):
+        raise AssertionError("(a) params differ under --zero1 "
+                             "--comms-overlap at world size 1")
+    want = {n: layers * updates for n in TRAIN_FLASH}
+    for name, run in runs.items():
+        if run["launches"] != want:
+            raise AssertionError(f"(a) {name} flash launches "
+                                 f"{run['launches']}, want {want}")
+        del run["params"]
+    return runs
+
+
+def dp_sliced_rounding():
+    """The SR kernel on each rank's slice of every sharded bert_base leaf
+    (4 layers), with its window in the leaf, against the plain version
+    of the same slice: mismatched elements (must be 0)."""
+    from unicore_tpu_torch.distributed.data_parallel import leaf_layouts
+    from unicore_tpu_torch.examples.bert.model import BertModel
+    from unicore_tpu_torch.ops import rounding as sr
+
+    model = BertModel(vocab_size=30522, padding_idx=0,
+                      encoder_layers=DP_LAYERS).to("meta")
+    gen = torch.Generator().manual_seed(23)
+    checked = mismatched = 0
+    for r in range(2):
+        leaves = [leaf for leaf in leaf_layouts(model, 2, r) if leaf.sharded]
+        xs = [torch.randn(leaf.slice_numel, generator=gen) * 3
+              for leaf in leaves]
+        seeds = torch.randint(0, 2 ** 31 - 1, (len(xs),), generator=gen,
+                              dtype=torch.int32)
+        windows = [leaf.window() for leaf in leaves]
+        outs = [torch.empty(x.shape, dtype=torch.bfloat16, device="cuda")
+                for x in xs]
+        sr.fp32_to_bf16_sr_multi([x.cuda() for x in xs], seeds.cuda(), outs,
+                                 windows)
+        plain = sr.fp32_to_bf16_sr_multi_plain(
+            xs, seeds, [torch.empty(x.shape, dtype=torch.bfloat16)
+                        for x in xs], windows)
+        for o, p in zip(outs, plain):
+            checked += p.numel()
+            mismatched += int((o.cpu().view(torch.int16)
+                               != p.view(torch.int16)).sum())
+    if mismatched:
+        raise AssertionError(f"sliced SR: {mismatched} of {checked} "
+                             "elements differ from the plain version")
+    return {"leaves_checked": len(leaves), "elements": checked,
+            "mismatched": mismatched}
+
+
+def data_parallel_phase():
+    """(a) world size 1 over NCCL, (b) two gloo ranks on the card, then
+    the sliced SR check; returns the launches of (a) and (b)."""
+    import torch.multiprocessing as mp
+
+    from unicore_tpu_torch.distributed.utils import free_port
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_corpus(tmp)
+        world_one = dp_world_one(tmp)
+        out = os.path.join(tmp, "dp_rank")
+        ctx = mp.get_context("spawn")
+        port = free_port()
+        procs = [ctx.Process(target=_dp_rank, args=(r, port, out))
+                 for r in range(2)]
+        t0 = time.perf_counter()
+        for proc in procs:
+            proc.start()
+        for proc in procs:
+            proc.join(timeout=max(1.0, DP_TIMEOUT_S
+                                  - (time.perf_counter() - t0)))
+        hung = [proc.pid for proc in procs if proc.is_alive()]
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        if hung:
+            raise AssertionError(f"data_parallel ranks {hung} still running "
+                                 f"after {DP_TIMEOUT_S} s")
+        ranks_s = time.perf_counter() - t0
+        recs = []
+        for r in range(2):
+            with open(f"{out}.{r}") as f:
+                recs.append(json.load(f))
+        for r, rec in enumerate(recs):
+            if "error" in rec:
+                raise AssertionError(f"rank {r}:\n{rec['error']}")
+    # one process stepping both ranks' rows, the yardstick of the losses
+    single = {}
+    for mode, over in (("dp", {}), ("zero1_bf16m",
+                                     {"optim_bf16_moments": True})):
+        trainer = dp_trainer(dp_args(**over), "cuda")
+        single[mode] = [float(trainer.train_step([b])[0]["loss"])
+                        for b in dp_batches()]
+        del trainer
+        torch.cuda.empty_cache()
+    modes = {}
+    layers = DP_LAYERS
+    for mode in DP_MODES:
+        a, b = recs[0][mode], recs[1][mode]
+        if not (all(a["replicas_equal"]) and all(b["replicas_equal"])):
+            raise AssertionError(f"(b) {mode}: replicas differ "
+                                 f"{a['replicas_equal']}")
+        if a["loss"] != b["loss"]:
+            raise AssertionError(f"(b) {mode}: losses differ across ranks")
+        ref = single["zero1_bf16m" if mode == "zero1_bf16m" else "dp"]
+        rel = [abs(x - y) / abs(y) for x, y in zip(a["loss"], ref)]
+        if max(rel) > DP_LOSS_RTOL:
+            raise AssertionError(f"(b) {mode}: losses {a['loss']} vs one "
+                                 f"process {ref}")
+        for rec in (a, b):
+            fl = {k: v for k, v in rec["launches"].items()
+                  if k.startswith("flash")}
+            want = {"flash_fwd": layers * DP_UPDATES,
+                    "flash_dkdv": layers * DP_UPDATES,
+                    "flash_dq": layers * DP_UPDATES}
+            if {k: fl.get(k) for k in want} != want:
+                raise AssertionError(f"(b) {mode}: flash launches {fl}")
+            sr_want = DP_UPDATES if mode == "zero1_bf16m" else 0
+            if rec["launches"]["fp32_to_bf16_sr"] != sr_want:
+                raise AssertionError(
+                    f"(b) {mode}: SR launches "
+                    f"{rec['launches']['fp32_to_bf16_sr']}, want {sr_want}")
+        modes[mode] = {
+            "losses": a["loss"], "one_process_losses": ref,
+            "max_rel_loss_diff": max(rel),
+            "step_ms": [a["step_ms"], b["step_ms"]],
+            "step_ms_median": float(np.median(a["step_ms"][1:]
+                                              + b["step_ms"][1:])),
+            "collective_wait_s": [a["comm_s"], b["comm_s"]],
+            "collectives_per_update": a["comm_calls"],
+            "opt_state_bytes": [a["opt_state_bytes"], b["opt_state_bytes"]],
+            "buckets": a["buckets"], "launches": [a["launches"],
+                                                  b["launches"]]}
+    for mode in ("zero1", "zero1_bf16m"):
+        modes[mode]["opt_state_vs_dp"] = (modes[mode]["opt_state_bytes"][0]
+                                          / modes["dp"]["opt_state_bytes"][0])
+    sliced = dp_sliced_rounding()
+    emit("data_parallel", card=card(), world_one=world_one,
+         two_ranks={"backend": "gloo", "model": "bert_base widths",
+                    "layers": DP_LAYERS, "rows_per_rank": DP_ROWS,
+                    "seq_len": DP_T, "dtype": "fp32",
+                    "updates": DP_UPDATES, "seconds": ranks_s,
+                    "modes": modes},
+         sliced_rounding=sliced,
+         seconds=time.perf_counter() - t_phase)
+    return {"world_one": {k: v["launches"] for k, v in world_one.items()},
+            "two_ranks": {m: modes[m]["launches"] for m in modes}}
+
+
 PALLAS = "unicore_tpu/ops/pallas/"
 
 
@@ -5772,7 +6100,19 @@ def kernels_line(res):
                 "data_workers (BERT: 5 modes x 8 updates, then 4)":
                     res["dw_launches"]["bert"][name],
                 f"bert_large_train (H 16, {ARCH_UPDATES} updates)":
-                    res["archs"]["bert_large"][name]}
+                    res["archs"]["bert_large"][name],
+                "data_parallel (a): world size 1 over NCCL, plain and "
+                "--zero1 --comms-overlap, 4 updates each":
+                    sum(r.get(name, 0)
+                        for r in res["dp"]["world_one"].values())}
+            # the fp32 kernels on data_parallel (b)'s two ranks
+            fp32_name = {"flash_fwd_bf16": "flash_fwd",
+                         "flash_bwd_dkdv": "flash_dkdv",
+                         "flash_bwd_dq": "flash_dq"}[name]
+            entry["fp32_launches_by_phase"] = {
+                f"data_parallel (b) {mode}, ranks 0 and 1":
+                    [r.get(fp32_name, 0) for r in by_rank]
+                for mode, by_rank in res["dp"]["two_ranks"].items()}
         rows.append(entry)
     # the LM's causal call: causal at :142 (forward) and :199 (backward)
     lead = res["causal"]["bf16_bias"]
@@ -5917,7 +6257,11 @@ def kernels_line(res):
         "library_ms": None,
         "launches_by_phase": {
             "evoformer_train": res["evo_launches"]["fp32_to_bf16_sr"],
-            "evoformer_unifold": res["unifold_launches"]["fp32_to_bf16_sr"]},
+            "evoformer_unifold": res["unifold_launches"]["fp32_to_bf16_sr"],
+            "data_parallel (b) --zero1 --optim-bf16-moments, ranks 0 and "
+            "1 (slices, with their windows)": [
+                r["fp32_to_bf16_sr"]
+                for r in res["dp"]["two_ranks"]["zero1_bf16m"]]},
         "per_leaf_launches_ms": table["per_leaf_launches_ms"],
         "cases": res["sr"],
     })
@@ -6012,6 +6356,8 @@ def main():
     res["cross_launches"] = cross_decoder_phase()
     res["ra_launches"] = return_attn_phase()
     res["ca_launches"] = lm_checkpoint_activations_phase()
+    torch.cuda.empty_cache()
+    res["dp"] = data_parallel_phase()
     print(json.dumps({"kernels": kernels_line(res)}), flush=True)
     print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {

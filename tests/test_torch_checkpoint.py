@@ -94,13 +94,51 @@ def test_torch_zip_is_refused(tmp_path):
 
 
 def test_sharded_jax_checkpoint_is_refused(tmp_path):
+    """A sharded layout that only ROADMAP.md A13's parallelism writes is
+    refused by name: params sharded without ``--comms-overlap`` (fsdp's),
+    and a file saved under ``--fsdp-size 2``."""
     from unicore_tpu.checkpoint_utils import ShardedLeaf, atomic_save
 
     path = str(tmp_path / "checkpoint_last.pt")
     atomic_save({"model": {"params": {"w": ShardedLeaf((4,), "float32")}}},
                 path)
-    with pytest.raises(NotImplementedError, match="A8/A13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A13"):
         cu.load_checkpoint_to_cpu(path)
+    atomic_save({"args": Namespace(fsdp_size=2), "model": {
+        "opt_state": {"m": ShardedLeaf((4, 2), "float32")}}}, path)
+    with pytest.raises(NotImplementedError, match="--fsdp-size.*A13"):
+        cu.load_checkpoint_to_cpu(path)
+
+
+def test_zero1_jax_checkpoint_loads(tmp_path):
+    """A ``--zero1`` file of the JAX layout (a marker in the main file,
+    its pieces in ``.shard<p>`` files) loads: the markers read back as
+    the port's ``ShardedLeaf``, a stale shard file of another save is
+    rejected by its token, and the port's writer pickles the markers
+    under the JAX class's name, which the JAX package unpickles."""
+    from unicore_tpu import checkpoint_utils as jcu
+
+    path = str(tmp_path / "checkpoint_last.pt")
+    jcu.write_checkpoint(
+        {"args": Namespace(zero1=True), "shard_token": "t",
+         "model": {"opt_state": {"m": jcu.ShardedLeaf((4, 2), "float32")}}},
+        {"opt_state/m": [(((0, 2), (0, 2)), np.ones((2, 2), np.float32))]},
+        path, True, 0, shard_token="t")
+    # a stale .shard1 of an earlier save (another token) would cover
+    # the missing half: the token rejects it
+    cu.atomic_save({"process_index": 1, "token": "old", "entries": {
+        "opt_state/m": [(((2, 4), (0, 2)), np.ones((2, 2), np.float32))]}},
+        cu.shard_file(path, 1))
+    state = cu.load_checkpoint_to_cpu(path)
+    marker = state["model"]["opt_state"]["m"]
+    assert isinstance(marker, cu.ShardedLeaf) and marker.shape == (4, 2)
+    reader = cu.ShardReader(path, "t", rank=1)
+    assert reader.piece("opt_state/m", ((0, 2), (0, 2))).sum() == 4
+    with pytest.raises(ValueError, match="do not cover"):
+        reader.full("opt_state/m", marker)
+    cu.atomic_save(state, path)
+    back = jcu.load_checkpoint_to_cpu(path)["model"]["opt_state"]["m"]
+    assert type(back) is jcu.ShardedLeaf and back.shape == (4, 2)
 
 
 def test_bf16_leaves_without_ml_dtypes_name_it(tmp_path, monkeypatch):

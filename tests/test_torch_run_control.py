@@ -74,6 +74,28 @@ def _action(parser, flag):
     return next(a for a in parser._actions if flag in a.option_strings)
 
 
+# A8's flags, data parallelism (tests/test_torch_distributed.py runs them)
+DATA_PARALLEL_FLAGS = (
+    "--distributed-world-size", "--distributed-rank",
+    "--distributed-backend", "--distributed-init-method",
+    "--distributed-port", "--device-id", "--local_rank",
+    "--distributed-no-spawn", "--ddp-backend", "--bucket-cap-mb",
+    "--fix-batches-to-gpus", "--find-unused-parameters", "--fast-stat-sync",
+    "--broadcast-buffers", "--nprocs-per-node", "--data-parallel-size",
+    "--coordinator-address", "--num-processes", "--process-id",
+    "--comms-bucket-mb", "--all-gather-list-size", "--allreduce-fp32-grad",
+    "--zero1", "--comms-overlap")
+
+
+@pytest.mark.parametrize("flag", DATA_PARALLEL_FLAGS)
+def test_data_parallel_flag_parses_as_the_jax_parser_does(flag):
+    """Each data-parallel flag parses with the JAX parser's option
+    strings, action, default, type, choices, nargs and const, and is not
+    in ``NOT_PARSED``."""
+    assert flag not in port_options.NOT_PARSED
+    test_flag_parses_as_the_jax_parser_does(flag)
+
+
 @pytest.mark.parametrize("flag", SLICE_FLAGS)
 def test_flag_parses_as_the_jax_parser_does(flag):
     """The same option strings, action, default, type, choices, nargs

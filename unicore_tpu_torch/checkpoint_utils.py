@@ -23,8 +23,22 @@ publish.WeightPublisher`, the JAX package's manifest format), for a
 serving fleet's canary rollout; a failed publish is logged and never
 fails the save.
 
-Not ported: the chaos hooks (``ROADMAP.md`` A11) and sharded checkpoints
-(A8/A13: a sharded JAX file is refused by name).
+Under data parallelism rank 0 writes the main file and each rank with
+sharded state (``--zero1``'s optimizer slices; ``--comms-overlap``'s
+params and EMA too) writes ``<file>.shard<rank>`` beside it, each with
+its sidecar: the JAX package's layout, in which the main file holds a
+``unicore_tpu.checkpoint_utils.ShardedLeaf`` marker for each sharded leaf
+(pickled under that name, :class:`ShardedLeaf`, without importing the JAX
+package) and a ``shard_token`` that rejects stale shard files of another
+save.  A shard file holds ``{"process_index", "token", "entries"}``,
+``entries`` mapping a leaf's path to its pieces keyed by their index
+(``((start, stop), ...)`` per dimension).  A restore reads its own file's
+pieces and, where the piece it needs is not there (another world size),
+every shard file of the save (:class:`ShardReader`).
+
+Not ported: the chaos hooks (``ROADMAP.md`` A11); a file of the layouts
+only A13 writes (fsdp, tensor or sequence parallelism) is refused by
+name.
 """
 
 import ast
@@ -41,6 +55,8 @@ import shutil
 import time
 import traceback
 
+import numpy as np
+
 from .resilience.async_writer import AsyncCheckpointWriter, CheckpointWriteError
 
 logger = logging.getLogger(__name__)
@@ -54,8 +70,57 @@ class CheckpointIntegrityError(RuntimeError):
 
 
 class ShardedCheckpointError(NotImplementedError):
-    """A sharded JAX checkpoint (its leaves in ``.shard<p>`` files): the
-    port restores none (ROADMAP.md A8/A13)."""
+    """A sharded JAX checkpoint of a layout only ``ROADMAP.md`` A13 writes
+    (fsdp, tensor or sequence parallelism)."""
+
+
+class ShardedLeaf:
+    """A leaf whose data lives in the ``.shard<p>`` files: its shape and
+    dtype name.  Pickled as the JAX package's
+    ``unicore_tpu.checkpoint_utils.ShardedLeaf`` (same slots), and read
+    back from that name, so the markers of either package's files are
+    the same bytes."""
+
+    __slots__ = ("shape", "dtype")
+
+    def __init__(self, shape, dtype):
+        self.shape = tuple(shape)
+        self.dtype = str(dtype)
+
+    @property
+    def ndim(self):
+        return len(self.shape)
+
+    def __repr__(self):
+        return f"ShardedLeaf(shape={self.shape}, dtype={self.dtype})"
+
+
+JAX_SHARDED_LEAF = ("unicore_tpu.checkpoint_utils", "ShardedLeaf")
+
+
+class _JaxNamePickler(pickle._Pickler):
+    """Pickler that writes :class:`ShardedLeaf` under the JAX package's
+    module and name (the STACK_GLOBAL opcode, with no import of that
+    module to check it, as the standard pickler would)."""
+
+    def save_global(self, obj, name=None):
+        if obj is ShardedLeaf:
+            self.save(JAX_SHARDED_LEAF[0])
+            self.save(JAX_SHARDED_LEAF[1])
+            self.write(pickle.STACK_GLOBAL)
+            self.memoize(obj)
+            return
+        super().save_global(obj, name)
+
+
+def has_markers(tree):
+    if isinstance(tree, ShardedLeaf):
+        return True
+    if isinstance(tree, dict):
+        return any(has_markers(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(has_markers(v) for v in tree)
+    return False
 
 
 class CheckpointFormatError(ValueError):
@@ -104,7 +169,10 @@ def atomic_save(obj, filename, retries=3, backoff=0.5):
         try:
             with open(filename + ".tmp", "wb") as f:
                 w = _HashingWriter(f)
-                pickle.dump(obj, w, protocol=4)
+                if has_markers(obj):
+                    _JaxNamePickler(w, protocol=4).dump(obj)
+                else:
+                    pickle.dump(obj, w, protocol=4)
             marker = json.dumps({
                 "algo": "sha256", "digest": w.hasher.hexdigest(),
                 "size": w.size,
@@ -234,15 +302,13 @@ class _Unpickler(pickle.Unpickler):
     """Unpickler that never imports the JAX package.  A JAX-written file
     holds numpy arrays, plain values and an ``argparse.Namespace``; a
     sharded one also holds ``unicore_tpu.checkpoint_utils.ShardedLeaf``
-    markers, which the port refuses.  bf16 arrays need ``ml_dtypes``."""
+    markers, read as :class:`ShardedLeaf`.  bf16 arrays need
+    ``ml_dtypes``."""
 
     def find_class(self, module, name):
+        if (module, name) == JAX_SHARDED_LEAF:
+            return ShardedLeaf
         if _JAX_PACKAGE.fullmatch(module):
-            if name == "ShardedLeaf":
-                raise ShardedCheckpointError(
-                    "sharded checkpoint (its leaves live in .shard<p> "
-                    "files): sharded restore is not ported to the PyTorch "
-                    "trainer yet (ROADMAP.md A8/A13)")
             raise CheckpointFormatError(
                 f"the checkpoint refers to {module}.{name} of the JAX "
                 "package, which the port does not import")
@@ -276,16 +342,146 @@ def load_checkpoint_to_cpu(path, arg_overrides=None):
         # bytes that passed the digest check (or carried no sidecar) but
         # do not unpickle are still a torn checkpoint to the caller
         raise CheckpointIntegrityError(f"{path} does not unpickle: {e}") from e
+    _refuse_a13_layout(state, path)
     if arg_overrides and state.get("args") is not None:
         for name, value in arg_overrides.items():
             setattr(state["args"], name, value)
     return state
 
 
+def _refuse_a13_layout(state, path):
+    """Raise for a sharded file of a layout that only ROADMAP.md A13's
+    parallelism writes: one saved under fsdp, tensor or sequence
+    parallelism, or whose params are sharded without
+    ``--comms-overlap``."""
+    model = state.get("model") if isinstance(state, dict) else None
+    if not isinstance(model, dict) or not has_markers(model):
+        return
+    args = state.get("args")
+    a13 = [flag for flag, attr, off in (
+        ("--fsdp-size", "fsdp_size", 1), ("--fsdp", "fsdp", False),
+        ("--tensor-parallel-size", "tensor_parallel_size", 1),
+        ("--seq-parallel-size", "seq_parallel_size", 1))
+        if getattr(args, attr, off) not in (off, None)]
+    if not a13 and not getattr(args, "comms_overlap", False) and any(
+            has_markers(model.get(k)) for k in ("params", "ema")):
+        a13 = ["sharded params without --comms-overlap"]
+    if a13:
+        raise ShardedCheckpointError(
+            f"{path} is sharded in a layout the PyTorch trainer does not "
+            f"restore yet ({', '.join(a13)}; ROADMAP.md A13)")
+
+
+def shard_file(path, rank):
+    return f"{path}.shard{rank}"
+
+
+def write_checkpoint(state_dict, shard_entries, filename, is_master, rank):
+    """Write rank ``rank``'s part of a save: its shard file when it holds
+    pieces of sharded leaves (``{"process_index", "token", "entries"}``,
+    the JAX package's), and the main file on rank 0."""
+    if shard_entries:
+        atomic_save({"process_index": rank,
+                     "token": state_dict.get("shard_token"),
+                     "entries": shard_entries}, shard_file(filename, rank))
+    if is_master:
+        atomic_save(state_dict, filename)
+
+
+def load_shard_entries(path, rank=None, token=None):
+    """The pieces of ``path``'s shard files: rank ``rank``'s file, or
+    every ``.shard<N>`` file when ``rank`` is None.  A file whose token is
+    not ``token`` (a stale file of another save) is skipped with a
+    warning; each read is verified against its sidecar.  Returns
+    ``{leaf path: [(index, array), ...]}`` merged across the files."""
+    if rank is not None:
+        files = [shard_file(path, rank)]
+        if not os.path.exists(files[0]):
+            return {}
+    else:
+        files = [fn for fn in sorted(glob.glob(path + ".shard*"))
+                 if re.fullmatch(r".*\.shard\d+", fn)]
+    merged = {}
+    for fn in files:
+        payload = _Unpickler(io.BytesIO(read_verified(fn))).load()
+        if token is not None and payload.get("token") != token:
+            logger.warning("ignoring stale shard file %s (token %r != %r)",
+                           fn, payload.get("token"), token)
+            continue
+        for key, entries in payload["entries"].items():
+            merged.setdefault(key, []).extend(entries)
+    return merged
+
+
+class ShardReader:
+    """The sharded leaves of one checkpoint: a piece by its index from
+    this rank's own file first, then from every shard file of the save
+    (read once, when a piece is not in the own file: another world
+    size), or a whole leaf assembled from all pieces."""
+
+    def __init__(self, path, token, rank=0):
+        self.path, self.token = path, token
+        self.own = load_shard_entries(path, rank, token)
+        self._all = None
+
+    @property
+    def everything(self):
+        if self._all is None:
+            logger.warning("checkpoint: shard layout changed for %s; "
+                           "reading every shard file", self.path)
+            self._all = load_shard_entries(self.path, None, self.token)
+        return self._all
+
+    def piece(self, key, index):
+        """The piece of leaf ``key`` at ``index``, or None."""
+        for idx, arr in self.own.get(key, []):
+            if tuple(map(tuple, idx)) == tuple(index):
+                return np.asarray(arr)
+        for idx, arr in self.everything.get(key, []):
+            if tuple(map(tuple, idx)) == tuple(index):
+                return np.asarray(arr)
+        return None
+
+    def full(self, key, marker):
+        """Leaf ``key`` whole (fp32 numpy), from every piece of it; a gap
+        or two pieces that disagree raise."""
+        full = np.empty(marker.shape, np.float32)
+        covered = np.zeros(marker.shape, bool)
+        for idx, piece in self.everything.get(key, []):
+            sl = tuple(slice(a, b) for a, b in idx)
+            piece = np.asarray(piece, np.float32)
+            overlap = covered[sl]
+            if overlap.any() and not np.array_equal(
+                    full[sl][overlap], piece[overlap], equal_nan=True):
+                raise ValueError(
+                    f"conflicting shard pieces for {key} at {idx}: mixed "
+                    f"shard files of different saves next to {self.path}?")
+            full[sl] = piece
+            covered[sl] = True
+        if not covered.all():
+            raise ValueError(
+                f"checkpoint shard files do not cover {key} "
+                f"({int(covered.size - covered.sum())} of {covered.size} "
+                f"elements missing); missing .shard files next to "
+                f"{self.path}?")
+        return full
+
+    def assembled(self, tree, prefix):
+        """``tree`` (a flax subtree at ``prefix``) with every marker
+        replaced by its whole leaf."""
+        if isinstance(tree, ShardedLeaf):
+            return self.full(prefix, tree)
+        if isinstance(tree, dict):
+            return {k: self.assembled(v, f"{prefix}/{k}")
+                    for k, v in tree.items()}
+        return tree
+
+
 def verify_checkpoint_directory(save_dir):
     """Fail fast if the checkpoint directory is not writable."""
     os.makedirs(save_dir, exist_ok=True)
-    probe = os.path.join(save_dir, ".write-probe")
+    # one name a process: the ranks of a group probe the same directory
+    probe = os.path.join(save_dir, f".write-probe.{os.getpid()}")
     try:
         with open(probe, "w"):
             pass
@@ -334,7 +530,9 @@ def _prune(args, end_of_epoch):
         if reverse:
             survivors = survivors[::-1]
         for stale in survivors[limit:]:
-            for path in (stale, _sum_path(stale)):
+            # a sharded save's .shard<N> files (and sidecars) go with it
+            for path in [stale, _sum_path(stale)] + glob.glob(
+                    stale + ".shard*"):
                 try:
                     os.remove(path)
                     logger.info("removed old checkpoint %s", path)
@@ -376,9 +574,10 @@ class CheckpointManager:
     thread at the next step boundary (:meth:`poll`); ``--async-save off``
     writes synchronously (failures raise from :meth:`save`)."""
 
-    def __init__(self, args, is_master=True):
+    def __init__(self, args, is_master=True, rank=0):
         self.args = args
         self.is_master = is_master
+        self.rank = rank  # the .shard<rank> file this process writes
         self.best = BestTracker(args.maximize_best_checkpoint_metric)
         self.async_save = str(getattr(args, "async_save", "on")) != "off"
         self._writer = None
@@ -387,12 +586,14 @@ class CheckpointManager:
         self.stall_s = 0.0
         self.saves = 0
         self._publisher = None
-        if is_master and not args.no_save:
+        if not args.no_save:
+            # every rank may write its shard file
             verify_checkpoint_directory(args.save_dir)
             verify_checkpoint_directory(args.tmp_save_dir)
             if self.async_save:
                 self._writer = AsyncCheckpointWriter(
                     max_queue=int(getattr(args, "save_queue_size", 2) or 2))
+        if is_master and not args.no_save:
             self._sweep_stale_scratch()
             if getattr(args, "publish_dir", ""):
                 # runtime import: deploy imports this module at its top
@@ -468,7 +669,7 @@ class CheckpointManager:
         IO, copies and retention run on the background writer, and a
         failed write surfaces at the next boundary (:meth:`poll`)."""
         improved = self.best.update(val_loss)
-        if self.args.no_save or not do_save or not self.is_master:
+        if self.args.no_save or not do_save:
             return
         epoch = epoch_itr.epoch
         end_of_epoch = epoch_itr.end_of_epoch()
@@ -483,10 +684,14 @@ class CheckpointManager:
             extra_state["best"] = self.best.value
         t0 = time.perf_counter()
         state_dict = trainer.collect_checkpoint_state(extra_state)
+        shards = trainer.shard_entries()
+        if not self.is_master and not shards:
+            return  # nothing this rank holds alone
         scratch = os.path.join(self.args.tmp_save_dir, names[0])
         finals = [os.path.join(self.args.save_dir, n) for n in names]
         job = functools.partial(self._write_and_finalize, state_dict,
-                                scratch, finals, end_of_epoch, updates)
+                                scratch, finals, end_of_epoch, updates,
+                                shards)
         if self._writer is not None:
             self._writer.submit(job, label=names[0])
             mode = "write is async"
@@ -514,12 +719,14 @@ class CheckpointManager:
             self._writer.poll()
 
     def _write_and_finalize(self, state_dict, scratch, finals, end_of_epoch,
-                            publish_step=0):
-        """Writer-thread body: serialize, copy to the final names, prune,
-        then publish.  Raises on a write or copy failure, which
-        :meth:`poll` re-raises."""
-        atomic_save(state_dict, scratch)
-        self._finalize(scratch, finals, end_of_epoch)
+                            publish_step=0, shards=None):
+        """Writer-thread body: serialize (the main file on rank 0, this
+        rank's shard file where it holds sharded pieces), copy to the
+        final names, prune, then publish.  Raises on a write or copy
+        failure, which :meth:`poll` re-raises."""
+        write_checkpoint(state_dict, shards, scratch, self.is_master,
+                         self.rank)
+        self._finalize(scratch, finals, end_of_epoch, bool(shards))
         if self._publisher is not None:
             # publish AFTER the save fully landed, and never fail the
             # save over it: a publish fault costs one rollout, a raised
@@ -534,20 +741,28 @@ class CheckpointManager:
                              "the checkpoint are unaffected", finals[0],
                              exc_info=True)
 
-    def _finalize(self, scratch, finals, end_of_epoch):
-        """Copy the scratch write to its final names, then prune."""
+    def _finalize(self, scratch, finals, end_of_epoch, has_shards=False):
+        """Copy the scratch write (the main file on rank 0, the shard
+        file where there is one) to its final names, then prune."""
         copied_any = False
         failed = []
+        pairs = []
         for dst in finals:
-            if dst == scratch:
+            if self.is_master:
+                pairs.append((scratch, dst))
+            if has_shards:
+                pairs.append((shard_file(scratch, self.rank),
+                              shard_file(dst, self.rank)))
+        for src, dst in pairs:
+            if dst == src:
                 continue
             try:
                 # data first, .sum last: a crash mid-copy leaves a
                 # destination that verified reads reject
-                shutil.copyfile(scratch, dst)
-                shutil.copyfile(_sum_path(scratch), _sum_path(dst))
+                shutil.copyfile(src, dst)
+                shutil.copyfile(_sum_path(src), _sum_path(dst))
                 copied_any = True
-                logger.info("copied %s -> %s", scratch, dst)
+                logger.info("copied %s -> %s", src, dst)
             except Exception as e:
                 logger.error("checkpoint copy to %s failed", dst,
                              exc_info=True)
@@ -555,10 +770,16 @@ class CheckpointManager:
         try:
             if (copied_any and not failed
                     and self.args.tmp_save_dir != self.args.save_dir):
-                for q in (scratch, _sum_path(scratch)):
-                    if os.path.lexists(q):
-                        os.remove(q)
-            _prune(self.args, end_of_epoch)
+                # only this rank's own files: rank 0's main scratch file
+                # may still be copying on a shared disk
+                mine = ([scratch] if self.is_master else []) + (
+                    [shard_file(scratch, self.rank)] if has_shards else [])
+                for p in mine:
+                    for q in (p, _sum_path(p)):
+                        if os.path.lexists(q):
+                            os.remove(q)
+            if self.is_master:
+                _prune(self.args, end_of_epoch)
         except Exception:
             logger.warning("checkpoint retention pass failed", exc_info=True)
         if failed:

@@ -24,6 +24,14 @@ Batches load on ``--num-workers`` workers of ``--worker-impl`` (threads
 or forked processes; the reference's defaults, 1 thread) ahead of the
 loop by ``--data-buffer-size`` batches, and a run closes its workers on
 the way out, a preempted one too.
+
+Data parallelism (:func:`~unicore_tpu_torch.distributed.call_main`): one
+rank per card, spawned here when ``--distributed-world-size`` asks for
+more than one (default: every visible card; on the CPU, ``--device cpu
+--distributed-world-size N`` runs N gloo ranks), or one rank of a group
+that ``--distributed-init-method`` names.  Rank 0 logs, writes the
+main checkpoint file and the ``--tensorboard-logdir`` records; the
+ranks agree on every stop.
 """
 
 import logging
@@ -37,6 +45,7 @@ import torch
 from .. import options, tasks
 from ..checkpoint_utils import CheckpointManager
 from ..data import iterators
+from ..distributed import utils as distributed_utils
 from ..logging import metrics, progress_bar
 from ..resilience.preemption import GracefulShutdown
 from ..trainer import Trainer
@@ -151,8 +160,11 @@ class TrainLoop:
         if preempted:
             logger.warning("preemption: checkpointing and exiting at this "
                            "step boundary")
+        # every rank takes the same decisions (the ranks' clocks and
+        # signals may differ)
+        preempted = self.trainer.agree(preempted)
         updates = self.trainer.get_num_updates()
-        stop = self._hit_hard_limits() or preempted
+        stop = self.trainer.agree(self._hit_hard_limits()) or preempted
         save_now = stop or (
             end_of_epoch and epoch_itr.epoch % args.save_interval == 0
             and not args.no_epoch_checkpoints
@@ -197,8 +209,9 @@ class TrainLoop:
                     # the pass's workers and pump, also after an early
                     # stop at --max-valid-steps
                     valid_itr.close()
-                self.task.reduce_metrics(logging_outputs, self.trainer.loss,
-                                         subset)
+                self.task.reduce_metrics(
+                    self.trainer.gather_logging_outputs(logging_outputs),
+                    self.trainer.loss, subset)
             stats = agg.get_smoothed_values()
             stats["num_updates"] = self.trainer.get_num_updates()
             metric = args.best_checkpoint_metric
@@ -215,7 +228,8 @@ class TrainLoop:
         return progress_bar.progress_bar(
             itr, log_format=self.args.log_format,
             log_interval=self.args.log_interval, epoch=epoch, prefix=prefix,
-            tensorboard_logdir=self.args.tensorboard_logdir or None,
+            tensorboard_logdir=(self.args.tensorboard_logdir or None)
+            if distributed_utils.get_data_parallel_rank() == 0 else None,
             default_log_format=("simple" if self.args.no_progress_bar
                                 else "tqdm"))
 
@@ -263,7 +277,8 @@ def main(args):
     n_params = sum(p.numel() for p in model.parameters())
     logger.info("model %s, %d parameters, device %s, compute dtype %s",
                 args.arch, n_params, trainer.device, trainer.compute_dtype)
-    ckpt = CheckpointManager(args, is_master=True)
+    ckpt = CheckpointManager(args, is_master=trainer.is_data_parallel_master,
+                             rank=trainer.data_parallel_rank)
     trainer.attach_checkpoint_writer(ckpt.writer)
     _, epoch_itr = ckpt.restore(trainer)
     shutdown = (None if args.no_graceful_shutdown
@@ -318,7 +333,14 @@ def cli_main(input_args=None):
         datefmt="%Y-%m-%d %H:%M:%S", level=logging.INFO, stream=sys.stdout)
     parser = options.get_training_parser(input_args)
     args = options.parse_args_and_arch(parser, input_args)
-    return _profiled(args, main) if args.profile else main(args)
+    if args.cpu:
+        args.device = "cpu"
+    return distributed_utils.call_main(
+        args, _profiled_main if args.profile else main)
+
+
+def _profiled_main(args):
+    return _profiled(args, main)
 
 
 if __name__ == "__main__":

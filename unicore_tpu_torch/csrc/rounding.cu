@@ -30,6 +30,17 @@
 // consecutive elements of one row with two 16-byte loads and one 16-byte
 // store where the entry's pointers allow, else element by element (a
 // leaf's ragged tail).
+//
+// An entry may be a slice of a larger leaf (a ZeRO-1 rank's part of it):
+// its element i then draws the bits of the whole leaf's element
+//
+//   g = (i / span) * stride + origin + i % span,
+//
+// runs of span elements, stride apart, from origin on (a slice along the
+// leaf's leading dimension is one run: span >= n), with r_blk the whole
+// leaf's.  A whole tensor is origin 0, span = stride = n.  The fields are
+// 32-bit (a leaf has fewer than 2^31 elements), so an entry stays 40
+// bytes and a launch takes 800 of them.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -42,10 +53,13 @@
 struct SrEntry {
   const float* x;
   uint16_t* out;
-  long long n;
-  long long first_block;
-  int r_blk;
-  int seed;  // index into the seeds array
+  int n;
+  int first_block;
+  int origin;  // the slice's place in its leaf (see above)
+  int span;
+  int stride;
+  short seed;  // index into the launch's seeds
+  short r_blk;
 };
 static_assert(sizeof(SrEntry) == 40, "SrEntry is mirrored by ctypes");
 
@@ -73,6 +87,24 @@ __device__ __forceinline__ uint32_t sr_bits(uint32_t bits, uint32_t seed,
   return hi;
 }
 
+// Element i of the entry's slice -> its index in the whole leaf.
+__device__ __forceinline__ long long leaf_index(const SrEntry& e,
+                                                long long i) {
+  if (e.span >= e.n) return e.origin + i;
+  const long long q = i / e.span;
+  return q * e.stride + e.origin + (i - q * e.span);
+}
+
+__device__ __forceinline__ uint32_t leaf_bits(uint32_t bits, int seed0,
+                                              int r_blk, long long g) {
+  const long long row = g >> 10;
+  const int shift = __ffs(r_blk) - 1;  // r_blk is a power of two
+  return sr_bits(bits, static_cast<uint32_t>(seed0) +
+                           static_cast<uint32_t>(row >> shift),
+                 (static_cast<uint32_t>(row & (r_blk - 1)) << 10) |
+                     static_cast<uint32_t>(g & 1023));
+}
+
 __global__ void __launch_bounds__(kThreads)
     fp32_to_bf16_sr_kernel(const __grid_constant__ SrTable t) {
   const long long b = blockIdx.x;
@@ -89,16 +121,20 @@ __global__ void __launch_bounds__(kThreads)
   const long long i0 =
       (b - e.first_block) * kBlockElems + threadIdx.x * kPerThread;
   if (i0 >= e.n) return;
-  // i0 is a multiple of 8: its 8 elements share one 1024-wide row
-  const long long row = i0 >> 10;
+  const int seed0 = t.seeds[e.seed];
+  const long long g0 = leaf_index(e, i0);
+  // the 8 elements run on in the leaf and, g0 a multiple of 8, share one
+  // 1024-wide row of it
+  const bool run = e.span >= e.n || (i0 % e.span) + kPerThread <= e.span;
+  const long long row = g0 >> 10;
   const int shift = __ffs(e.r_blk) - 1;  // r_blk is a power of two
-  const uint32_t seed = static_cast<uint32_t>(t.seeds[e.seed]) +
+  const uint32_t seed = static_cast<uint32_t>(seed0) +
                         static_cast<uint32_t>(row >> shift);
   const uint32_t idx = (static_cast<uint32_t>(row & (e.r_blk - 1)) << 10) |
-                       static_cast<uint32_t>(i0 & 1023);
+                       static_cast<uint32_t>(g0 & 1023);
   const float* x = e.x + i0;
   uint16_t* out = e.out + i0;
-  const bool vec = i0 + kPerThread <= e.n &&
+  const bool vec = i0 + kPerThread <= e.n && run && (g0 & 7) == 0 &&
                    ((reinterpret_cast<uintptr_t>(x) |
                      reinterpret_cast<uintptr_t>(out)) & 15) == 0;
   if (vec) {
@@ -116,8 +152,8 @@ __global__ void __launch_bounds__(kThreads)
         make_uint4(packed[0], packed[1], packed[2], packed[3]);
   } else {
     for (int j = 0; j < kPerThread && i0 + j < e.n; ++j) {
-      out[j] = static_cast<uint16_t>(
-          sr_bits(__float_as_uint(x[j]), seed, idx + j));
+      out[j] = static_cast<uint16_t>(leaf_bits(
+          __float_as_uint(x[j]), seed0, e.r_blk, leaf_index(e, i0 + j)));
     }
   }
 }
@@ -128,8 +164,9 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" int unicore_fp32_to_bf16_sr_capacity() { return kMaxEntries; }
 
 // Round `count` entries (1 <= count <= kMaxEntries; each n > 0, r_blk a
-// power of two; first_block ignored) in one launch on `stream`; seeds is
-// the int32 seed array on the card that each entry's seed indexes.
+// power of two, span > 0; first_block ignored) in one launch on
+// `stream`; seeds is the int32 seed array on the card that each entry's
+// seed indexes.
 // Returns cudaGetLastError() (0 on success).
 extern "C" int unicore_fp32_to_bf16_sr(const SrEntry* entries, int count,
                                        const int* seeds, void* stream) {
@@ -142,14 +179,15 @@ extern "C" int unicore_fp32_to_bf16_sr(const SrEntry* entries, int count,
   long long blocks = 0;
   for (int k = 0; k < count; ++k) {
     const SrEntry& in = entries[k];
-    if (in.n <= 0 || in.r_blk <= 0 || (in.r_blk & (in.r_blk - 1))) {
+    if (in.n <= 0 || in.r_blk <= 0 || (in.r_blk & (in.r_blk - 1)) ||
+        in.span <= 0 || in.origin < 0 || in.stride < in.span) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     t.e[k] = in;
-    t.e[k].first_block = blocks;
+    t.e[k].first_block = static_cast<int>(blocks);
     blocks += (in.n + kBlockElems - 1) / kBlockElems;
+    if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   fp32_to_bf16_sr_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(t);
   return static_cast<int>(cudaGetLastError());

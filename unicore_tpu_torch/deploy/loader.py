@@ -19,7 +19,7 @@ import os
 from types import SimpleNamespace
 
 from ..checkpoint_utils import (CheckpointIntegrityError,
-                                ShardedCheckpointError,
+                                ShardedCheckpointError, has_markers,
                                 load_checkpoint_to_cpu, read_sidecar)
 from ..modules.transformer_decoder import DECODE_REL_POS_REFUSAL
 from .publish import DeployError
@@ -27,25 +27,30 @@ from .publish import DeployError
 logger = logging.getLogger(__name__)
 
 
+_SHARDED = ("{} is a SHARDED checkpoint (FSDP/TP run: params live in "
+            ".shard* sibling files); consolidate it first — resume the run "
+            "on one host and save, or load via Trainer.load_checkpoint")
+
+
 def _read(path):
     try:
         return load_checkpoint_to_cpu(path)
     except ShardedCheckpointError as e:
-        raise DeployError(
-            f"{path} is a SHARDED checkpoint (FSDP/TP run: params live "
-            "in .shard* sibling files); consolidate it first — resume "
-            "the run on one host and save, or load via "
-            "Trainer.load_checkpoint") from e
+        raise DeployError(_SHARDED.format(path)) from e
 
 
 def _params_of(state, path):
     """The serve params tree of a train checkpoint's state:
-    ``model.params``, the fp32 master tree."""
+    ``model.params``, the fp32 master tree; refused where its leaves are
+    sharded (a ``--comms-overlap`` file, as the JAX loader refuses it)."""
     try:
-        return state["model"]["params"]
+        tree = state["model"]["params"]
     except (KeyError, TypeError) as e:
         raise DeployError(
             f"{path} has no model.params tree to serve from") from e
+    if has_markers(tree):
+        raise DeployError(_SHARDED.format(path))
+    return tree
 
 
 def load_serve_params(path):

@@ -13,7 +13,7 @@ in flax, as the JAX converter maps it.
 """
 
 from ..lm.convert import (_qkv_weight, apply_inverse_rules, apply_rules,
-                          linear_kernel, qkv_bias, qkv_kernel)
+                          inverse_items, linear_kernel, qkv_bias, qkv_kernel)
 
 _L = r"sentence_encoder/layers_(\d+)"
 _RULES = [
@@ -85,3 +85,9 @@ def flax_from_state_dict(state_dict, heads):
     """The port's ``state_dict`` -> the flax ``BertModel`` tree (numpy
     arrays).  Raises on a tensor no rule maps."""
     return apply_inverse_rules(state_dict, _INVERSE_RULES, heads)
+
+
+def flax_items(state_dict, heads):
+    """Names, flax paths and flax-layout views of the port's tensors
+    (:func:`~unicore_tpu_torch.examples.lm.convert.inverse_items`)."""
+    return inverse_items(state_dict, _INVERSE_RULES, heads)

@@ -10,7 +10,8 @@ goes the other way: a 2-D ``weight`` is a Dense kernel, a 1-D one a
 LayerNorm scale (the model has no other weights).
 """
 
-from ..lm.convert import apply_inverse_rules, apply_rules, linear_kernel
+from ..lm.convert import (apply_inverse_rules, apply_rules, inverse_items,
+                          linear_kernel)
 
 
 def _t(kernel):
@@ -39,13 +40,29 @@ _INVERSE_RULES = [
 def flax_from_state_dict(state_dict, heads=None):
     """The port's ``state_dict`` -> the flax Evoformer tree (numpy
     arrays).  Raises on a tensor no rule maps."""
+    return apply_inverse_rules(_flax_named(state_dict), _INVERSE_RULES,
+                               heads)
+
+
+def _flax_named(state_dict):
+    """The port's names with each ``weight`` renamed as its flax leaf: a
+    2-D one ``kernel``, a 1-D one ``scale``."""
     named = {}
     for name, value in state_dict.items():
         stem, _, leaf = name.rpartition(".")
         if leaf == "weight":
             leaf = "kernel" if value.ndim == 2 else "scale"
         named[f"{stem}.{leaf}"] = value
-    return apply_inverse_rules(named, _INVERSE_RULES, heads)
+    return named
+
+
+def flax_items(state_dict, heads=None):
+    """Names, flax paths and flax-layout views of the port's tensors
+    (:func:`~unicore_tpu_torch.examples.lm.convert.inverse_items`)."""
+    names = dict(zip(_flax_named(state_dict), state_dict))
+    for name, path, value in inverse_items(_flax_named(state_dict),
+                                           _INVERSE_RULES, heads):
+        yield names[name], path, value
 
 
 def state_dict_from_flax(params):

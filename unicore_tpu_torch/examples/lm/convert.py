@@ -120,6 +120,12 @@ def flax_from_state_dict(state_dict, heads):
     return apply_inverse_rules(state_dict, _INVERSE_RULES, heads)
 
 
+def flax_items(state_dict, heads):
+    """:func:`inverse_items` of the LM's rules (names, flax paths and
+    flax-layout views)."""
+    return inverse_items(state_dict, _INVERSE_RULES, heads)
+
+
 def apply_rules(params, rules):
     """A flax param tree through an ordered ``(flax path regex, torch name
     template, transform)`` table -> a ``state_dict`` of float32 tensors;
@@ -164,6 +170,20 @@ def apply_inverse_rules(state_dict, rules, heads=None):
     changes the layout, on the tensor's device.  The first matching rule
     wins, and a tensor no rule maps raises."""
     tree = {}
+    for _, path, value in inverse_items(state_dict, rules, heads):
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = _host_copy(value)
+    return tree
+
+
+def inverse_items(state_dict, rules, heads=None):
+    """``(name, flax path, value)`` for each entry of a port
+    ``state_dict``, in its order: the path a tuple of keys, the value in
+    the flax layout (a view of a tensor, never a copy: the
+    layout's strides are the port tensor's).  The first matching rule
+    wins, and a tensor no rule maps raises."""
     for name, value in state_dict.items():
         for pattern, template, transform in rules:
             m = re.fullmatch(pattern, name)
@@ -171,13 +191,8 @@ def apply_inverse_rules(state_dict, rules, heads=None):
                 continue
             if transform is not None:
                 value = transform(value, heads)
-            path = template.format(
-                *[g.replace(".", "/") for g in m.groups()]).split("/")
-            node = tree
-            for part in path[:-1]:
-                node = node.setdefault(part, {})
-            node[path[-1]] = _host_copy(value)
+            yield name, tuple(template.format(
+                *[g.replace(".", "/") for g in m.groups()]).split("/")), value
             break
         else:
             raise KeyError(f"no flax param for port tensor {name!r}")
-    return tree

@@ -11,7 +11,7 @@ shapes of the flax model's own init.
 """
 
 from ..lm.convert import (_qkv_weight, apply_inverse_rules, apply_rules,
-                          linear_kernel, qkv_bias, qkv_kernel)
+                          inverse_items, linear_kernel, qkv_bias, qkv_kernel)
 
 _DENSE = "gbf_proj_in|gbf_proj_out|pair_q|pair_k|pair_mlp|dist_head|coord_head"
 _L = r"encoder/layers_(\d+)"
@@ -75,3 +75,9 @@ def flax_from_state_dict(state_dict, heads):
     """The port's ``state_dict`` -> the flax ``UniMolModel`` tree (numpy
     arrays).  Raises on a tensor no rule maps."""
     return apply_inverse_rules(state_dict, _INVERSE_RULES, heads)
+
+
+def flax_items(state_dict, heads):
+    """Names, flax paths and flax-layout views of the port's tensors
+    (:func:`~unicore_tpu_torch.examples.lm.convert.inverse_items`)."""
+    return inverse_items(state_dict, _INVERSE_RULES, heads)

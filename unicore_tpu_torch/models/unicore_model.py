@@ -39,6 +39,13 @@ class BaseUnicoreModel(nn.Module):
         flax tree of numpy copies."""
         return self._converter().flax_from_state_dict(named, self.flax_heads)
 
+    def flax_items(self, named):
+        """``(name, flax path, value)`` of each entry of ``named``: the
+        path a tuple of the flax tree's keys, the value in the flax layout
+        (for a tensor, a view of it, so its strides say where each flax
+        element lies in the port's tensor)."""
+        return self._converter().flax_items(named, self.flax_heads)
+
     def named_from_flax(self, tree):
         """A flax tree of this model's layout -> parameter name -> float32
         tensor."""

@@ -8,7 +8,8 @@ or 1) escapes to identity or a full drop at the caller's rate: warned
 once per distinct rate, or raised under ``UNICORE_TPU_STRICT_DROPOUT=1``
 or ``strict=True``.  The bits come from a ``torch.Generator`` on the
 tensor's device, so they are not the JAX package's bits; the rate and the
-scale are.
+scale are.  Under data parallelism each rank draws these masks from a
+generator of its own (:func:`set_rank_generator`).
 
 :func:`bernoulli_dropout` is flax's ``nn.Dropout`` instead, which the
 reference's BERT classification head uses: keep with probability
@@ -24,6 +25,26 @@ import torch
 logger = logging.getLogger(__name__)
 
 _warned_rates = set()
+
+# data parallelism: (the generator every rank shares, this rank's own)
+_rank_generator = None
+
+
+def set_rank_generator(shared, own):
+    """Under data parallelism every rank draws the same numbers from the
+    generator it passes down (the kernels' seeds, the stochastic
+    roundings); the masks drawn here from it come from ``own`` instead,
+    this rank's generator, so different ranks drop different elements
+    and the shared one stays the same on every rank.  ``None`` undoes
+    it."""
+    global _rank_generator
+    _rank_generator = None if shared is None else (shared, own)
+
+
+def _drawing(generator):
+    if _rank_generator is not None and generator is _rank_generator[0]:
+        return _rank_generator[1]
+    return generator
 
 
 def _quantization_escape(rate, q, effect, strict):
@@ -57,7 +78,7 @@ def dropout(x, rate, generator, strict=None):
         if rate < 1.0:
             _quantization_escape(rate, q, "a full drop (all zeros)", strict)
         return torch.zeros_like(x)
-    bits = torch.randint(0, 256, x.shape, generator=generator,
+    bits = torch.randint(0, 256, x.shape, generator=_drawing(generator),
                          device=x.device, dtype=torch.uint8)
     return torch.where(bits < q, x * (256.0 / q), torch.zeros((), dtype=x.dtype,
                                                               device=x.device))
@@ -75,7 +96,8 @@ def bernoulli_dropout(x, rate, generator):
     if rate == 1.0:
         return torch.zeros_like(x)
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+    keep = torch.rand(x.shape, generator=_drawing(generator),
+                      device=x.device) \
         < keep_prob
     scale = torch.tensor(keep_prob, dtype=x.dtype, device=x.device)
     return torch.where(keep, x / scale, torch.zeros((), dtype=x.dtype,

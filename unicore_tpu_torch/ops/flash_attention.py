@@ -605,11 +605,16 @@ def flash(q, k, v, bias, pad, dropout_prob, seed, causal, scale):
 def row_seeds(generator, bsz, device):
     """Per-row dropout seeds as the reference derives them: a base seed
     in [0, 2^31 - 1) drawn from ``generator``, plus ``row * -1640531527``
-    with int32 wrap.  Drawn and computed on the generator's device, so a
+    with int32 wrap, the row numbered in the global batch (data-parallel
+    rank r's rows start at ``r * bsz``, the reference's
+    ``batch_seed_offset``; :func:`~unicore_tpu_torch.ops.prng.
+    set_row_shard`).  Drawn and computed on the generator's device, so a
     CUDA generator never syncs with the host."""
     base = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
                          device=generator.device, dtype=torch.int64)
     rows = torch.arange(bsz, device=generator.device, dtype=torch.int64)
+    if prng.row_shard():
+        rows = rows + prng.row_shard() * bsz
     seed = (base + rows * -1640531527 + 2 ** 31) % 2 ** 32 - 2 ** 31
     return seed.to(device=device, dtype=torch.int32)
 

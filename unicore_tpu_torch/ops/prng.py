@@ -14,6 +14,23 @@ so each multiply is split in 16-bit halves of the constant.
 import torch
 
 MASK32 = 0xFFFFFFFF
+
+# this process's data-parallel rank: the kernels' dropout sites number a
+# rank's rows after those of the ranks before it, as the JAX package
+# numbers the rows of its global batch
+_row_shard = 0
+
+
+def set_row_shard(rank):
+    """Make this process data-parallel rank ``rank``: a seeded dropout
+    site then gives its local row i the seed of global row
+    ``rank·batch + i``."""
+    global _row_shard
+    _row_shard = int(rank)
+
+
+def row_shard():
+    return _row_shard
 GOLDEN = 0x9E3779B9
 MIX1 = 0x21F0AAAD
 MIX2 = 0x735A2D97

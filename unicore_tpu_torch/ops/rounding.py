@@ -18,6 +18,12 @@ the reference's kernel gives it within its own tensor under that
 tensor's seed: the optimizer rounds every parameter leaf in one or two
 launches.  A single tensor is a table of one.
 
+An entry may be a slice of a larger leaf, as a ZeRO-1 rank holds it
+(``window=(leaf_numel, origin, span, stride)``): slice element i is leaf
+element ``(i // span)·stride + origin + i % span`` and draws that
+element's bits, the leaf's layout (``pick_layout(leaf_numel)``) and seed
+throughout, so the slices of a leaf round exactly as the whole leaf does.
+
 The JAX function draws its int32 seed from a key; these take the seeds
 (int32 tensors, read on the card, or an int), which a caller draws from
 its ``torch.Generator``.  Dispatch is by device: a CPU tensor takes the
@@ -42,8 +48,10 @@ launches = {"fp32_to_bf16_sr": 0}
 class _Entry(ctypes.Structure):
     """``SrEntry`` of the CUDA source, field for field."""
     _fields_ = [("x", ctypes.c_void_p), ("out", ctypes.c_void_p),
-                ("n", ctypes.c_longlong), ("first_block", ctypes.c_longlong),
-                ("r_blk", ctypes.c_int), ("seed", ctypes.c_int)]
+                ("n", ctypes.c_int), ("first_block", ctypes.c_int),
+                ("origin", ctypes.c_int), ("span", ctypes.c_int),
+                ("stride", ctypes.c_int), ("seed", ctypes.c_short),
+                ("r_blk", ctypes.c_short)]
 
 
 def pick_layout(n):
@@ -56,12 +64,26 @@ def pick_layout(n):
     return rows, r_blk
 
 
-def fp32_to_bf16_sr_plain(x, seed):
-    """The kernel's function in plain PyTorch: bf16 of x's shape."""
+def whole(n):
+    """The window of an n-element tensor that is a leaf of its own."""
+    return (n, 0, max(n, 1), max(n, 1))
+
+
+def leaf_index(i, window):
+    """Slice element indices ``i`` -> their indices in the leaf."""
+    _, origin, span, stride = window
+    return (i // span) * stride + origin + i % span
+
+
+def fp32_to_bf16_sr_plain(x, seed, window=None):
+    """The kernel's function in plain PyTorch: bf16 of x's shape; with
+    ``window``, x is that slice of a larger leaf."""
     x32 = x.float().reshape(-1)
     n = x32.numel()
-    _, r_blk = pick_layout(n)
-    i = torch.arange(n, dtype=torch.int64, device=x.device)
+    window = window or whole(n)
+    _, r_blk = pick_layout(window[0])
+    i = leaf_index(torch.arange(n, dtype=torch.int64, device=x.device),
+                   window)
     row = i // LANE
     noise = prng.random_bits(
         torch.as_tensor(seed, device=x.device).reshape(()).long()
@@ -76,13 +98,15 @@ def fp32_to_bf16_sr_plain(x, seed):
     return hi.to(torch.int16).view(torch.bfloat16).reshape(x.shape)
 
 
-def fp32_to_bf16_sr_multi_plain(xs, seeds, outs):
+def fp32_to_bf16_sr_multi_plain(xs, seeds, outs, windows=None):
     """The table kernel's function in plain PyTorch: ``outs[i]`` gets
     :func:`fp32_to_bf16_sr_plain` of ``xs[i]`` under ``seeds[i]`` (seeds
-    flattened).  Returns ``outs``."""
+    flattened) and ``windows[i]``.  Returns ``outs``."""
     seeds = torch.as_tensor(seeds).reshape(-1)
+    windows = windows or [None] * len(xs)
     for i, (x, out) in enumerate(zip(xs, outs)):
-        out.copy_(fp32_to_bf16_sr_plain(x, seeds[i]).reshape(out.shape))
+        out.copy_(fp32_to_bf16_sr_plain(x, seeds[i], windows[i])
+                  .reshape(out.shape))
     return outs
 
 
@@ -102,12 +126,12 @@ def capacity():
     return _library().unicore_fp32_to_bf16_sr_capacity()
 
 
-def fp32_to_bf16_sr_multi_cuda(xs, seeds, outs):
+def fp32_to_bf16_sr_multi_cuda(xs, seeds, outs, windows=None):
     """Launch the kernel over every (``xs[i]``, ``outs[i]``) pair: fp32
     inputs (a contiguous fp32 copy of one that is not), contiguous bf16
-    outputs of the same sizes, and ``seeds`` an int32 tensor with one
-    seed per pair, all on one card.  One launch per
-    :func:`capacity` entries; empty tensors take none."""
+    outputs of the same sizes, ``seeds`` an int32 tensor with one seed
+    per pair and ``windows[i]`` (None: a whole leaf), all on one card.
+    One launch per :func:`capacity` entries; empty tensors take none."""
     if len(xs) != len(outs) or seeds.numel() != len(xs):
         raise ValueError(f"{len(xs)} inputs, {len(outs)} outputs and "
                          f"{seeds.numel()} seeds do not pair up")
@@ -116,7 +140,8 @@ def fp32_to_bf16_sr_multi_cuda(xs, seeds, outs):
         raise ValueError(f"seeds must be int32 on the card, got "
                          f"{seeds.dtype} on {device}")
     seeds = seeds.contiguous()
-    entries, keep = [], []
+    windows = windows or [None] * len(xs)
+    entries, keep = [], []  # (seed index, fields, r_blk) per entry
     for i, (x, out) in enumerate(zip(xs, outs)):
         x = x.float().contiguous()
         if (out.dtype != torch.bfloat16 or out.numel() != x.numel()
@@ -125,17 +150,29 @@ def fp32_to_bf16_sr_multi_cuda(xs, seeds, outs):
             raise ValueError(f"entry {i}: out must be a contiguous bf16 "
                              f"tensor of x's size, both on {device}")
         if x.numel():
+            leaf, origin, span, stride = windows[i] or whole(x.numel())
+            if leaf >= 2 ** 31:
+                raise ValueError(f"entry {i}: a leaf of {leaf} elements; "
+                                 "the kernel indexes leaves below 2^31")
             keep.append(x)  # alive until the launch
-            entries.append(_Entry(x.data_ptr(), out.data_ptr(), x.numel(),
-                                  0, pick_layout(x.numel())[1], i))
+            entries.append((i, (x.data_ptr(), out.data_ptr(), x.numel(), 0,
+                                origin, span, stride), pick_layout(leaf)[1]))
     lib, step = _library(), capacity()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         for s in range(0, len(entries), step):
             chunk = entries[s:s + step]
+            # the chunk's seeds from its first entry's on: each entry's
+            # index into them fits the kernel's 16 bits
+            base = chunk[0][0]
+            if chunk[-1][0] - base >= 2 ** 15:
+                raise ValueError("more than 32,767 empty tensors between "
+                                 "two rounded ones")
+            table = (_Entry * len(chunk))(*(
+                _Entry(*fields, i - base, r_blk)
+                for i, fields, r_blk in chunk))
             err = lib.unicore_fp32_to_bf16_sr(
-                (_Entry * len(chunk))(*chunk), len(chunk), seeds.data_ptr(),
-                stream)
+                table, len(chunk), seeds.data_ptr() + 4 * base, stream)
             if err:
                 raise build.KernelError(
                     f"fp32_to_bf16_sr kernel launch failed: CUDA error {err}")
@@ -143,19 +180,20 @@ def fp32_to_bf16_sr_multi_cuda(xs, seeds, outs):
     return outs
 
 
-def fp32_to_bf16_sr_multi(xs, seeds, outs):
+def fp32_to_bf16_sr_multi(xs, seeds, outs, windows=None):
     """Stochastically rounded bf16 of every tensor of ``xs`` into the
     matching tensor of ``outs`` (bf16, same sizes), ``xs[i]`` under
-    ``seeds[i]`` of the int32 tensor ``seeds`` (flattened); one launch
+    ``seeds[i]`` of the int32 tensor ``seeds`` (flattened), as the slice
+    ``windows[i]`` of its leaf where ``windows`` gives one; one launch
     for all of them on the card.  Returns ``outs``."""
     if not xs:
         return outs
     device = xs[0].device
     if device.type == "cpu":
-        return fp32_to_bf16_sr_multi_plain(xs, seeds, outs)
+        return fp32_to_bf16_sr_multi_plain(xs, seeds, outs, windows)
     if device.type != "cuda":
         raise ValueError(f"fp32_to_bf16_sr has no path for {device}")
-    return fp32_to_bf16_sr_multi_cuda(xs, seeds.reshape(-1), outs)
+    return fp32_to_bf16_sr_multi_cuda(xs, seeds.reshape(-1), outs, windows)
 
 
 def fp32_to_bf16_sr_cuda(x, seed, out=None):

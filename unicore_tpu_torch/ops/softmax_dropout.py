@@ -515,12 +515,23 @@ class _SoftmaxDropout(torch.autograd.Function):
         return (*grads, None, None, None, None)
 
 
+def _pid_origin(x, mask, bias):
+    """Where this data-parallel rank's row blocks start in the global
+    batch's numbering (x's leading dim is the batch): rank r's first
+    block is global block ``r · blocks``, so a seed drawn the same on
+    every rank, plus this, gives the seed + pid of the reference's
+    kernel on the global batch (int32 wrap)."""
+    blocks = x.numel() // (x.shape[-1] * pick_q_blk_for(x, mask, bias))
+    return ((prng.row_shard() * blocks + 2 ** 31) % 2 ** 32) - 2 ** 31
+
+
 def softmax_dropout(x, dropout_prob, is_training=True, mask=None, bias=None,
                     generator=None, seed=None):
     """``dropout(softmax(x + mask + bias))`` over x's last dim (the JAX
     package's ``softmax_dropout`` minus ``return_softmax`` and the
     autotuner's ``q_blk``).  With dropout on, the int32 seed is ``seed``
-    when given, else drawn from ``generator``."""
+    when given, else drawn from ``generator`` (plus, on data-parallel
+    rank r, the number of row blocks of the ranks before it)."""
     mask, bias = canon(x, mask, bias)
     p = float(dropout_prob) if is_training else 0.0
     if p > 0.0:
@@ -529,6 +540,8 @@ def softmax_dropout(x, dropout_prob, is_training=True, mask=None, bias=None,
                 raise ValueError("softmax_dropout: a generator or seed is "
                                  "required when training with dropout")
             seed = prng.draw_seeds(generator, (1,))
+            if prng.row_shard():
+                seed = seed + _pid_origin(x, mask, bias)
         seed = torch.as_tensor(seed, dtype=torch.int32).reshape(1).to(
             x.device)
     else:

@@ -31,6 +31,10 @@ one multi-tensor rounding call
 (:func:`~unicore_tpu_torch.ops.rounding.fp32_to_bf16_sr_multi`).
 ``--optim-bf16-moments-rounding nearest`` rounds to nearest instead
 (:func:`~unicore_tpu_torch.optim.fp16_optimizer.cast_moments`).
+Under ZeRO-1 each parameter is a rank's slice of its leaf, and each
+slice's moments round with the bits of those elements of the whole leaf
+(:attr:`UnicoreOptimizer.sr_windows`), so a sharded run stores the bits
+an unsharded one would.
 Its state is the JAX package's ``opt_state``, ``{"step", "exp_avg",
 "exp_avg_sq"}`` (:meth:`UnicoreOptimizer.state_dict`), so the
 checkpoints of both packages carry the same moments.
@@ -162,6 +166,9 @@ class UnicoreAdam(UnicoreOptimizer):
             raise ValueError("bf16 moments with stochastic rounding "
                              "need a generator for their seeds")
         seeds = draw_seeds(generator, (len(self.params), 2))
+        windows = (None if self.sr_windows is None
+                   else [w for w in self.sr_windows for _ in range(2)])
         fp32_to_bf16_sr_multi(
             [t for pair in zip(m, v) for t in pair], seeds,
-            [t for pair in zip(self.exp_avg, self.exp_avg_sq) for t in pair])
+            [t for pair in zip(self.exp_avg, self.exp_avg_sq) for t in pair],
+            windows)

@@ -24,17 +24,18 @@ from ..ops.rounding import fp32_to_bf16_sr, fp32_to_bf16_sr_multi
 
 
 @torch.no_grad()
-def sync_master_to_model(master, model, generator=None):
+def sync_master_to_model(master, model, generator=None, windows=None):
     """Copy the fp32 ``master`` tensors into the ``model`` tensors (the
     compute copy), in place.  With ``generator`` and a bf16 copy, each
-    leaf is stochastically rounded under its own seed; else the copy
-    rounds to nearest (the only rounding of an fp16 copy, as the
-    reference's ``astype``)."""
+    leaf is stochastically rounded under its own seed (``windows``: the
+    slices of their leaves the tensors are, as ``ops/rounding.py`` takes
+    them); else the copy rounds to nearest (the only rounding of an fp16
+    copy, as the reference's ``astype``)."""
     if generator is None or not model or model[0].dtype != torch.bfloat16:
         torch._foreach_copy_(model, master)
         return
     fp32_to_bf16_sr_multi(master, draw_seeds(generator, (len(master),)),
-                          model)
+                          model, windows)
 
 
 def cast_moments(x, dtype, seed=None, rounding="sr", out=None):

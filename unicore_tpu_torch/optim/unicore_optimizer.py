@@ -24,6 +24,10 @@ class UnicoreOptimizer:
     # the per-parameter entries of the state, the JAX ``opt_state`` keys;
     # each is an attribute holding one tensor a parameter, in order
     state_keys = ()
+    # per parameter, the window of its leaf that it is (a ZeRO-1 rank's
+    # slice; see ``ops/rounding.py``), or None for whole leaves: what a
+    # stochastically rounded state store draws its bits by
+    sr_windows = None
 
     def __init__(self, args, params):
         self.args = args

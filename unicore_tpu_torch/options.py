@@ -37,16 +37,6 @@ def eval_str_list_int(x):
 NOT_PARSED = {
     **dict.fromkeys(("--stats-lag", "--pipeline-depth"), "ROADMAP.md A6(a)"),
     **dict.fromkeys((
-        "--distributed-world-size", "--distributed-rank",
-        "--distributed-backend", "--distributed-init-method",
-        "--distributed-port", "--device-id", "--local_rank",
-        "--distributed-no-spawn", "--ddp-backend", "--bucket-cap-mb",
-        "--fix-batches-to-gpus", "--find-unused-parameters",
-        "--fast-stat-sync", "--broadcast-buffers", "--nprocs-per-node",
-        "--data-parallel-size", "--coordinator-address", "--num-processes",
-        "--process-id", "--comms-bucket-mb", "--all-gather-list-size",
-        "--allreduce-fp32-grad"), "ROADMAP.md A8"),
-    **dict.fromkeys((
         "--anomaly-guard", "--anomaly-backoff-after",
         "--anomaly-rewind-after", "--anomaly-abort-after",
         "--loss-spike-factor", "--loss-spike-margin", "--loss-spike-window",
@@ -127,6 +117,12 @@ def get_training_parser(input_args=None):
     g.add_argument("--fp16-no-flatten-grads", action="store_true",
                    help="(compat; parsed and ignored, as in the JAX "
                         "package)")
+    g.add_argument("--allreduce-fp32-grad", action="store_true",
+                   help="(compat; the gradients are reduced in fp32 "
+                        "whatever the compute type)")
+    g.add_argument("--all-gather-list-size", default=16384, type=int,
+                   help="max bytes for pickled non-summable logging outputs "
+                        "gathered across hosts")
     g.add_argument("--bf16", action="store_true",
                    help="bf16 forward/backward over fp32 master params")
     g.add_argument("--fp16", action="store_true",
@@ -214,13 +210,7 @@ def get_training_parser(input_args=None):
                         "epochs")
     g.add_argument("--pack-sequences", action="store_true")
 
-    g = p.add_argument_group("distributed")
-    g.add_argument("--tensor-parallel-size", type=int, default=1)
-    g.add_argument("--seq-parallel-size", type=int, default=1)
-    g.add_argument("--fsdp-size", type=int, default=1)
-    g.add_argument("--fsdp", action="store_true")
-    g.add_argument("--zero1", action="store_true")
-    g.add_argument("--comms-overlap", action="store_true")
+    add_distributed_training_args(p)
 
     g = p.add_argument_group("optimization")
     g.add_argument("--max-epoch", "--me", default=0, type=int)
@@ -260,6 +250,94 @@ def get_training_parser(input_args=None):
                    help="do NOT install the SIGTERM/SIGINT handlers that "
                         "checkpoint and exit at the next step boundary")
     return p
+
+
+def add_distributed_training_args(parser):
+    """The JAX package's distributed group, with its names and defaults:
+    one rank per card over ``torch.distributed`` (``distributed/``)."""
+    g = parser.add_argument_group("distributed")
+    g.add_argument("--distributed-world-size", type=int, metavar="N",
+                   default=None,
+                   help="total number of ranks across all hosts (default: "
+                        "every visible card; 1 on the CPU)")
+    g.add_argument("--distributed-rank", default=0, type=int,
+                   help="this process's rank, with --distributed-init-"
+                        "method (the spawned ranks set their own)")
+    g.add_argument("--distributed-backend", default="xla", type=str,
+                   help="process group backend: nccl or gloo; the default "
+                        "'xla' picks the device's own (NCCL on the card, "
+                        "gloo on the CPU)")
+    g.add_argument("--distributed-init-method", default=None, type=str,
+                   help="rendezvous of an existing group (tcp://host:port, "
+                        "file://..., env://); without it the ranks are "
+                        "spawned on this host")
+    g.add_argument("--distributed-port", default=-1, type=int,
+                   help="port of the spawned ranks' rendezvous on localhost "
+                        "(default: a free one)")
+    g.add_argument("--device-id", "--local_rank", default=0, type=int,
+                   help="the card of this rank (set per spawned rank; a "
+                        "launcher's LOCAL_RANK under env://)")
+    g.add_argument("--distributed-no-spawn", action="store_true",
+                   help="do not spawn: this process is one rank of a group "
+                        "a launcher started (env:// unless an init method "
+                        "is given)")
+    g.add_argument("--ddp-backend", default="spmd", type=str,
+                   help="(compat; parsed and ignored, as in the JAX "
+                        "package: the trainer owns the gradient reduction)")
+    g.add_argument("--bucket-cap-mb", default=25, type=int, metavar="MB",
+                   help="(compat; parsed and ignored, as in the JAX "
+                        "package: --comms-bucket-mb sizes the buckets)")
+    g.add_argument("--fix-batches-to-gpus", action="store_true",
+                   help="(compat; parsed and ignored, as in the JAX "
+                        "package)")
+    g.add_argument("--find-unused-parameters", action="store_true",
+                   help="(compat; parsed and ignored, as in the JAX "
+                        "package: an unused param reduces a zero gradient)")
+    g.add_argument("--fast-stat-sync", action="store_true",
+                   help="(compat; parsed and ignored, as in the JAX "
+                        "package: the stats are summed in one collective)")
+    g.add_argument("--broadcast-buffers", action="store_true",
+                   help="(compat; parsed and ignored, as in the JAX "
+                        "package)")
+    g.add_argument("--nprocs-per-node", type=int, default=None,
+                   help="ranks spawned on this host (default: the world "
+                        "size; a spawn starts every rank)")
+    g.add_argument("--data-parallel-size", type=int, default=-1, metavar="N",
+                   help="size of the data-parallel axis (-1 = every rank; "
+                        "another value must be the world size)")
+    g.add_argument("--tensor-parallel-size", type=int, default=1)
+    g.add_argument("--seq-parallel-size", type=int, default=1)
+    g.add_argument("--fsdp-size", type=int, default=1)
+    g.add_argument("--fsdp", action="store_true")
+    g.add_argument("--zero1", action="store_true",
+                   help="ZeRO-1 weight-update sharding: grads "
+                        "reduce-scatter over the ranks, each rank updates "
+                        "only its slice of every leaf of two or more "
+                        "dimensions (and keeps only that slice of the "
+                        "optimizer state), the updated slices all-gather "
+                        "back into the replicated params; a no-op on one "
+                        "rank")
+    g.add_argument("--comms-overlap", action="store_true",
+                   help="bucketed collectives for --zero1: master params "
+                        "and EMA are slices too, each bucket's grads "
+                        "reduce-scatter from the backward's hooks as they "
+                        "land, and only the compute copy is gathered at "
+                        "the top of an update.  Requires --zero1")
+    g.add_argument("--comms-bucket-mb", type=float, default=4.0,
+                   metavar="MB",
+                   help="bucket size cap of the gradient collectives: "
+                        "leaves fill buckets greedily in the flax tree's "
+                        "canonical order up to this many MB each (the JAX "
+                        "package's assignment, a pure function of the tree "
+                        "and the cap)")
+    g.add_argument("--coordinator-address", type=str, default=None,
+                   help="host:port of rank 0's rendezvous (the same as "
+                        "--distributed-init-method tcp://host:port)")
+    g.add_argument("--num-processes", type=int, default=None,
+                   help="number of ranks (--distributed-world-size)")
+    g.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank (--distributed-rank)")
+    return g
 
 
 def add_checkpoint_args(parser):

@@ -79,6 +79,24 @@ trainer ignores.  Under ``--fp16`` the tree has the JAX trainer's
 ``"scaler": {"scale", "growth_tracker"}`` slot, and ``dispatch_count``
 counts every dispatched step, skipped ones included.
 
+Data parallelism (a process group of more than one rank,
+``distributed/``): each rank steps its shard of the batches
+(``num_shards=world, shard_id=rank``), and one update is the JAX step's
+on the ranks' batches side by side: the fp32 gradient, the sample size
+and the logging outputs are summed across ranks before the division,
+the norm, the clip and the overflow verdict, which every rank then
+shares (:class:`~unicore_tpu_torch.distributed.data_parallel.
+DataParallel`).  A micro-batch slot counts only where every rank has a
+batch in it (the ragged epoch tail).  ``--zero1`` keeps each rank's
+slices of the optimizer state only, ``--comms-overlap`` the master
+params' and the EMA's too; their checkpoints are the JAX package's
+sharded files.  Every rank draws the same numbers from the trainer's
+generator (the kernels' seeds, with the rank's rows numbered after the
+ranks before it, and every stochastic rounding), so the replicas stay
+bit-equal; the masks drawn elementwise come from a generator of the
+rank's own, reseeded each update from (seed, rank, update).  At world
+size 1 the data-parallel flags change nothing.
+
 Flags of the JAX trainer this slice does not port raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` item
 (:func:`refuse_unported`); none is ignored.
@@ -95,8 +113,12 @@ import torch
 
 from . import checkpoint_utils
 from .device import resolve_device
+from .distributed import utils as distributed_utils
+from .distributed.data_parallel import DataParallel
 from .logging import metrics
 from .nan_detector import log_nonfinite_modules, log_nonfinite_state
+from .ops import dropout as dropout_ops
+from .ops import prng
 from .ops.ema import ema_update_
 from .optim import build_optimizer
 from .optim.dynamic_loss_scaler import scaler_init, scaler_update
@@ -109,8 +131,6 @@ logger = logging.getLogger(__name__)
 
 # (attribute, value meaning "off", flag, ROADMAP.md item)
 UNPORTED = (
-    ("zero1", False, "--zero1", "A8"),
-    ("comms_overlap", False, "--comms-overlap", "A8"),
     ("fsdp_size", 1, "--fsdp-size", "A13"),
     ("fsdp", False, "--fsdp", "A13"),
     ("tensor_parallel_size", 1, "--tensor-parallel-size", "A13"),
@@ -120,8 +140,26 @@ UNPORTED = (
 
 
 def refuse_unported(args):
-    """Raise ``NotImplementedError`` for the first flag that asks for a
-    feature this slice has not ported."""
+    """Raise for a combination the JAX trainer refuses (``--zero1`` with
+    fsdp or sequence parallelism, ``--comms-overlap`` without
+    ``--zero1``), then ``NotImplementedError`` for the first flag that
+    asks for a feature this slice has not ported."""
+    if getattr(args, "zero1", False):
+        if (getattr(args, "fsdp_size", 1) or 1) > 1:
+            raise NotImplementedError(
+                "--zero1 with --fsdp-size > 1 is redundant: the fsdp "
+                "axis already shards the optimizer state (ZeRO); pick "
+                "one scheme")
+        if (getattr(args, "seq_parallel_size", 1) or 1) > 1:
+            raise NotImplementedError(
+                "--zero1 with --seq-parallel-size > 1 is not supported "
+                "yet; the certified meshes are dp and dp x tp")
+    if getattr(args, "comms_overlap", False) and not getattr(args, "zero1",
+                                                             False):
+        raise ValueError(
+            "--comms-overlap requires --zero1 (it restructures the "
+            "ZeRO-1 weight-update collectives; fsdp schedules its "
+            "own gathers)")
     for attr, off, flag, item in UNPORTED:
         value = getattr(args, attr, off)
         if value is not None and value != off:
@@ -190,6 +228,35 @@ class Trainer:
             raise ValueError(
                 "--per-sample-clip-norm requires summable logging outputs "
                 "(per-example logs are accumulated inside the step)")
+        self.seed = int(getattr(args, "seed", 1))
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(self.seed)
+        # data parallelism: the process group's world, and its
+        # collectives (--zero1 and --comms-overlap act only above one
+        # rank, as the JAX trainer's on a data axis of one device)
+        self.data_parallel_world_size = \
+            distributed_utils.get_data_parallel_world_size()
+        self.data_parallel_rank = distributed_utils.get_data_parallel_rank()
+        self.is_data_parallel_master = self.data_parallel_rank == 0
+        self.dp = None
+        if self.data_parallel_world_size > 1:
+            self.dp = DataParallel(
+                self.model, self.compute_model,
+                zero1=getattr(args, "zero1", False),
+                overlap=getattr(args, "comms_overlap", False),
+                bucket_bytes=int(float(getattr(args, "comms_bucket_mb", 4.0)
+                                       or 4.0) * (1 << 20)))
+            prng.set_row_shard(self.data_parallel_rank)
+            self.rank_generator = torch.Generator(device=self.device)
+            dropout_ops.set_rank_generator(self.generator,
+                                           self.rank_generator)
+            # the shard token's run nonce, agreed once here
+            import uuid
+
+            self._run_nonce = distributed_utils.all_gather_objects(
+                uuid.uuid4().hex)[0]
+        self._shard_entries = {}
+        self._reader = None  # the loaded file's shard pieces
         self.ema_decay = float(getattr(args, "ema_decay", -1) or -1)
         # the JAX init_state's EMA: a copy of the params as they are now
         self.ema = ([p.detach().clone(memory_format=torch.contiguous_format)
@@ -201,16 +268,14 @@ class Trainer:
         if isinstance(update_freq, (list, tuple)):
             update_freq = update_freq[0]
         self.scale_window = (getattr(args, "fp16_scale_window", None)
-                             or default_scale_window(1, update_freq))
+                             or default_scale_window(
+                                 self.data_parallel_world_size, update_freq))
         self.min_loss_scale = float(getattr(args, "min_loss_scale", 1e-4))
         self.scaler = (scaler_init(float(getattr(args, "fp16_init_scale",
                                                  2 ** 7)),
                                    device=self.device)
                        if self.use_scaler else None)
-        self.seed = int(getattr(args, "seed", 1))
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(self.seed)
-        self.optimizer = build_optimizer(args, list(self.model.parameters()))
+        self.optimizer = self._build_optimizer()
         if (getattr(args, "optim_bf16_moments", False)
                 and getattr(self.optimizer, "moments_dtype", torch.float32)
                 == torch.float32):
@@ -238,6 +303,16 @@ class Trainer:
             context=self._watchdog_context)
         metrics.log_start_time("wall", priority=790, round=0)
 
+    def _build_optimizer(self):
+        """The optimizer over the master params, or under ZeRO-1 over this
+        rank's slices (whose stochastic roundings draw their leaves'
+        bits)."""
+        if self.dp is None:
+            return build_optimizer(self.args, list(self.model.parameters()))
+        optimizer = build_optimizer(self.args, self.dp.optimizer_params())
+        optimizer.sr_windows = self.dp.sr_windows()
+        return optimizer
+
     def attach_checkpoint_writer(self, writer):
         """Wire the checkpoint manager's background writer in: the
         watchdog's timeout dump then names the writer's state (a slow
@@ -253,12 +328,27 @@ class Trainer:
 
     def _master_params(self):
         """The fp32 master parameters the checkpoint and the EMA carry,
-        in parameter order."""
+        in parameter order (this rank's slices of the sharded leaves
+        under ``--comms-overlap``)."""
+        if self.dp is not None and self.dp.overlap:
+            return self.dp.master_tensors()
         return [p for p in self.model.parameters() if p.requires_grad]
+
+    def _full_weights(self, tensors):
+        """Weights in parameter order that this rank may hold as slices
+        (``--comms-overlap``'s master params and EMA), whole: the sharded
+        ones all-gathered (a collective: every rank calls it)."""
+        if self.dp is None or not self.dp.overlap:
+            return list(tensors)
+        return self.dp.gather_full(list(tensors))
 
     def _sync_compute_params(self, stochastic=False):
         """Refresh the compute copy from the master params: round to
-        nearest, or stochastically with fresh seeds."""
+        nearest, or stochastically with fresh seeds (under
+        ``--comms-overlap``, from the slices, then gathered)."""
+        if self.dp is not None and self.dp.overlap:
+            self.dp.gather_compute(self.generator if stochastic else None)
+            return
         if self.compute_model is self.model:
             return
         sync_master_to_model(list(self.model.parameters()),
@@ -285,8 +375,23 @@ class Trainer:
         """One update over the micro-batches ``samples`` (a list of
         collated numpy batches).  Returns the summed logging output as a
         one-element list."""
+        samples = self._agreed_samples(samples)
+        if not samples:
+            # the epoch's ragged tail left no slot with data on every
+            # rank: nothing to step on (the JAX step would apply a zero
+            # gradient, then divide its logs by a zero sample size)
+            logger.info("no micro-batch slot has data on every rank; no "
+                        "update")
+            return []
         self.compute_model.train()
         self._dispatch_count += 1
+        if self.dp is not None:
+            # this rank's own elementwise dropout masks: a stream of its
+            # own a dispatch, from (seed, rank, dispatch count) alone
+            self.rank_generator.manual_seed(int(np.random.SeedSequence(
+                [self.seed & 0xFFFFFFFF, self.data_parallel_rank,
+                 self._dispatch_count]).generate_state(1, np.uint64)[0]
+                >> np.uint64(1)))
         self.optimizer.set_lr(self.lr_scheduler.step_update(self._num_updates))
         scale = self.scaler["scale"] if self.use_scaler else None
         if not self.bf16_sr:
@@ -297,22 +402,31 @@ class Trainer:
             # the JAX trainer logs the device's memory when a step fails
             self.log_memory_stats(level=logging.ERROR)
             raise
-        grads = [p.grad for p in self.model.parameters()
-                 if p.grad is not None]
+        if self.dp is not None and self.dp.zero1:
+            grads = self.dp.grads()  # this rank's slices
+        else:
+            grads = [p.grad for p in self.model.parameters()
+                     if p.grad is not None]
         # unscale and normalize in one divide, as the reference
         denom = torch.clamp(sample_size, min=1.0)
         if scale is not None:
             denom = denom * scale
         torch._foreach_div_(grads, denom)
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
+        finite = None
+        if self.dp is not None:
+            grad_norm, finite = self.dp.global_norm(grads)
+        else:
+            grad_norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads)))
         if self.clip_norm > 0:
             # a tensor over a tensor: ``number / tensor`` multiplies by a
             # reciprocal, rounding twice where the reference divides once
             clip = grad_norm.new_full((), self.clip_norm)
             torch._foreach_mul_(
                 grads, torch.clamp(clip / (grad_norm + 1e-6), max=1.0))
-        overflow = ~(grads_finite(grads) & torch.isfinite(grad_norm))
+        if finite is None:
+            finite = grads_finite(grads)
+        overflow = ~(finite & torch.isfinite(grad_norm))
         stats = [grad_norm.float(), overflow.float()]
         if self.use_scaler:
             self.scaler = scaler_update(self.scaler, overflow,
@@ -346,6 +460,8 @@ class Trainer:
                 self.optimizer.step(generator=self.generator)
             else:
                 self.optimizer.step()
+            if self.dp is not None and self.dp.zero1 and not self.dp.overlap:
+                self.dp.gather_params()
             if self.ema is not None:
                 ema_update_(self.ema, self._master_params(), self.ema_decay)
             # the update's sync: it waits on the optimizer's and the EMA's
@@ -361,37 +477,67 @@ class Trainer:
             metrics.log_scalar("loss_scale", scale, priority=700, round=4)
         return logging_outputs
 
+    def _agreed_samples(self, samples):
+        """The micro-batches to run: all of them on one rank; under data
+        parallelism only the slots where every rank has a batch (the
+        JAX trainer's ragged-tail rule: a rank's shard ends in empty
+        batches where the epoch's batches ran out), in one collective."""
+        if self.dp is None:
+            return samples
+        mine = [0.0 if s is None or len(s) == 0 else 1.0 for s in samples]
+        agreed = self.dp.agree_slots(mine, self.device)
+        dropped = int(sum(mine) - sum(agreed))
+        if dropped:
+            logger.info("dropping %d ragged-tail micro-batch(es) to keep "
+                        "hosts in lockstep", dropped)
+        return [s for s, w in zip(samples, agreed) if w > 0]
+
     def _accumulate_grads(self, samples, scale):
         """Forward and backward over the micro-batches ``samples`` (one
         example at a time under ``--per-sample-clip-norm``); the summed
-        fp32 gradients land in the master params' ``.grad``.  Returns the
-        summed sample size (a device scalar) and logging output.  No host
-        sync."""
+        fp32 gradients land in the master params' ``.grad`` (under data
+        parallelism summed across ranks: the masters', or this rank's
+        slices' under ``--zero1``).  Returns the summed sample size (a
+        device scalar) and logging output (summed across ranks).  No host
+        sync on one rank."""
         for p in self.model.parameters():
             p.grad = None
+        if self.dp is not None:
+            for p in self.dp.optimizer_params():
+                p.grad = None
         sample_size = torch.zeros((), device=self.device)
         logs = {}
         clipped = None
-        for sample in samples:
-            batches = (_examples(sample) if self.per_sample_clip_norm > 0
-                       else [sample])
-            for batch in batches:
-                ss, log = self._forward_backward(batch, scale)
-                if self.per_sample_clip_norm > 0:
-                    clipped = self._add_clipped(clipped, scale)
-                sample_size = sample_size + ss
-                for k, v in log.items():
-                    logs[k] = logs.get(k, 0.0) + v
+        runs = [batch for sample in samples
+                for batch in (_examples(sample)
+                              if self.per_sample_clip_norm > 0
+                              else [sample])]
+        for i, batch in enumerate(runs):
+            # the group's last backward launches the reductions from its
+            # gradient hooks (after the last example's clip, under
+            # --per-sample-clip-norm, which needs its whole gradient)
+            last = (self.dp is not None and i == len(runs) - 1
+                    and self.per_sample_clip_norm <= 0)
+            ss, log = self._forward_backward(batch, scale, last)
+            if self.per_sample_clip_norm > 0:
+                clipped = self._add_clipped(clipped, scale)
+            sample_size = sample_size + ss
+            for k, v in log.items():
+                logs[k] = logs.get(k, 0.0) + v
         if clipped is not None:
             for p, g in zip(self.model.parameters(), clipped):
                 p.grad = g
+        if self.dp is not None:
+            self.dp.finish_grads()
+            sample_size, logs = self.dp.sum_stats(sample_size, logs)
         return sample_size, logs
 
-    def _forward_backward(self, sample, scale):
+    def _forward_backward(self, sample, scale, last=False):
         """Forward and backward of one batch on the compute copy (after
         its stochastic rounding under ``--bf16-sr``); the fp32 gradients
-        add into the master params' ``.grad``.  Returns the sample size
-        and the logging output."""
+        add into the master params' ``.grad``.  ``last``: the group's
+        last backward, whose hooks start the reductions across ranks.
+        Returns the sample size and the logging output."""
         if self.bf16_sr:
             self._sync_compute_params(stochastic=True)
         sample = _to_device(sample, self.device)
@@ -400,6 +546,8 @@ class Trainer:
         loss = loss.float()
         if scale is not None:
             loss = loss * scale
+        if last:
+            self.dp.arm()
         loss.backward()
         self._fold_compute_grads()
         return ss, log
@@ -467,39 +615,55 @@ class Trainer:
         not applied): the modules with non-finite outputs on ``sample``,
         then the non-finite leaves of params and optimizer state.  A failure
         of the detector is logged and never masks the step's error."""
+        state = None
+        if self.dp is not None:
+            # the collectives outside the guard, on every rank alike
+            state = self.detector_state()
+            if self.dp.overlap:
+                self.dp.gather_params()  # the fp32 module runs the re-run
         try:
             log_nonfinite_modules(self.model, _to_device(sample, self.device))
-            log_nonfinite_state(self.detector_state(), header="train state")
+            log_nonfinite_state(state or self.detector_state(),
+                                header="train state")
         except Exception as e:  # the detector must never mask the abort
             logger.warning("NanDetector re-run failed: %s", e)
 
     def detector_state(self):
         """``{"params", "opt_state"}`` as the JAX trainer hands them to its
-        state detector: flax trees of numpy copies."""
-        return {"params": self._flax(self._master_params()),
+        state detector: flax trees of numpy copies (whole leaves, also
+        of what this rank holds as slices)."""
+        return {"params": self._flax(self._full_weights(
+                    self._master_params())),
                 "opt_state": self._flax_opt_state()}
 
     @torch.no_grad()
     def valid_step(self, sample):
         """Loss of one validation batch, dropout off; on the EMA weights
-        (cast to the compute type) under ``--validate-with-ema``."""
+        (cast to the compute type) under ``--validate-with-ema``.  Under
+        data parallelism an empty batch (a rank's shard padding) runs the
+        step's collectives and returns no output."""
         self.compute_model.eval()
-        sample = _to_device(sample, self.device)
-        if not (self.validate_with_ema and self.ema is not None):
+        use_ema = self.validate_with_ema and self.ema is not None
+        if not use_ema:
             self._sync_compute_params()
+        ema = self._full_weights(self.ema) if use_ema else None
+        if self.dp is not None and (sample is None or len(sample) == 0):
+            return []
+        sample = _to_device(sample, self.device)
+        if not use_ema:
             _, _, log = self.loss(self.compute_model, sample)
             return [log]
         if self.compute_model is not self.model:
-            sync_master_to_model(self.ema, [
+            sync_master_to_model(ema, [
                 p for p in self.compute_model.parameters() if p.requires_grad])
             _, _, log = self.loss(self.compute_model, sample)
             return [log]
         # fp32: the model is its own compute copy; swap the EMA in and
         # the master weights back, untouched
-        params = self._master_params()
+        params = [p for p in self.model.parameters() if p.requires_grad]
         saved = [p.data for p in params]
         try:
-            for p, e in zip(params, self.ema):
+            for p, e in zip(params, ema):
                 p.data = e
             _, _, log = self.loss(self.compute_model, sample)
         finally:
@@ -567,8 +731,9 @@ class Trainer:
                            disable_iterator_cache=False):
         """The train split's epoch iterator (the reference's signature),
         loading batches with ``--num-workers`` workers of
-        ``--worker-impl`` ahead of the loop by ``--data-buffer-size``; one
-        process, so one shard (ROADMAP.md A8)."""
+        ``--worker-impl`` ahead of the loop by ``--data-buffer-size``;
+        this rank's shard of the batches (all of them with
+        ``shard_batch_itr=False``)."""
         if load_dataset:
             self.task.load_dataset(self.args.train_subset, epoch=epoch,
                                    combine=combine,
@@ -578,10 +743,33 @@ class Trainer:
             batch_size=self.args.batch_size,
             ignore_invalid_inputs=True,
             required_batch_size_multiple=self.args.required_batch_size_multiple,
-            seed=self.seed, num_shards=1, shard_id=0,
+            seed=self.seed,
+            num_shards=(self.data_parallel_world_size if shard_batch_itr
+                        else 1),
+            shard_id=self.data_parallel_rank if shard_batch_itr else 0,
             num_workers=self.args.num_workers, epoch=epoch,
             data_buffer_size=self.args.data_buffer_size,
             disable_iterator_cache=disable_iterator_cache)
+
+    def gather_logging_outputs(self, logging_outputs):
+        """Every rank's validation outputs, summed per rank and listed in
+        rank order (``--all-gather-list-size`` bounds each rank's);
+        unchanged on one rank."""
+        if self.dp is None:
+            return logging_outputs
+        summed = {}
+        for log in logging_outputs:
+            for k, v in log.items():
+                summed[k] = summed.get(k, 0.0) + float(v)
+        return distributed_utils.all_gather_objects(
+            summed, int(getattr(self.args, "all_gather_list_size", 16384)))
+
+    def agree(self, flag):
+        """A host decision (stop, preempted) taken on any rank, taken on
+        every rank."""
+        if self.dp is None:
+            return flag
+        return self.dp.any(flag, self.device)
 
     def get_valid_iterator(self, subset, disable_iterator_cache=False):
         return self.task.get_batch_iterator(
@@ -590,7 +778,8 @@ class Trainer:
             or self.args.batch_size,
             ignore_invalid_inputs=True,
             required_batch_size_multiple=self.args.required_batch_size_multiple,
-            seed=self.seed, num_shards=1, shard_id=0,
+            seed=self.seed, num_shards=self.data_parallel_world_size,
+            shard_id=self.data_parallel_rank,
             num_workers=self.args.num_workers,
             data_buffer_size=self.args.data_buffer_size,
             disable_iterator_cache=disable_iterator_cache)
@@ -605,19 +794,107 @@ class Trainer:
         """Tensors in parameter order -> the flax tree of numpy copies."""
         return self.model.flax_tree(dict(zip(self._param_names(), leaves)))
 
-    def _leaves(self, tree):
-        """A flax tree of the model's layout -> tensors in parameter
-        order."""
-        named = self.model.named_from_flax(tree)
-        return [named[n] for n in self._param_names()]
-
     def _flax_opt_state(self):
         """The optimizer's state as the JAX trainer's ``opt_state`` tree:
         ``"step"`` as it is, and every per-parameter entry (Adam's
         moments, SGD's momentum buffer, Adagrad's sum, ...) mapped onto
-        the params' flax tree, whatever its key."""
+        the params' flax tree, whatever its key; whole leaves, gathered
+        where this rank holds slices (a collective under ``--zero1``)."""
+        state = self.optimizer.state_dict()
+        if self.dp is not None and self.dp.zero1:
+            state = {key: value if key == "step"
+                     else self.dp.gather_full(value)
+                     for key, value in state.items()}
         return {key: value if key == "step" else self._flax(value)
-                for key, value in self.optimizer.state_dict().items()}
+                for key, value in state.items()}
+
+    def _tree(self, tensors, prefix, sliced):
+        """Tensors in parameter order -> the checkpoint's flax tree at
+        ``prefix`` (``"params"``, ``"ema"``, ``"opt_state/exp_avg"``...).
+        Under data parallelism, with ``sliced`` (this rank holds the
+        sharded leaves as slices) a sharded leaf is a
+        :class:`~unicore_tpu_torch.checkpoint_utils.ShardedLeaf` marker
+        and its piece goes to this rank's shard entries; the whole leaves
+        are copied on rank 0 only (None elsewhere: only rank 0 writes the
+        main file)."""
+        if self.dp is None:
+            return self._flax(tensors)
+        tree = {}
+        for leaf, t in zip(self.dp.leaves, tensors):
+            if sliced and leaf.sharded:
+                value = checkpoint_utils.ShardedLeaf(
+                    leaf.flax_shape, "bfloat16" if t.dtype == torch.bfloat16
+                    else "float32")
+                self._shard_entries["/".join((prefix,) + leaf.path)] = [
+                    (leaf.flax_index(), _host(leaf.to_flax(t)))]
+            elif self.is_data_parallel_master:
+                value = _host(leaf.to_flax(t))
+            else:
+                value = None
+            node = tree
+            for key in leaf.path[:-1]:
+                node = node.setdefault(key, {})
+            node[leaf.path[-1]] = value
+        return tree
+
+    def _leaves(self, tree, prefix="params", sliced=False):
+        """A flax tree of the model's layout (at ``prefix`` in the file)
+        -> tensors in parameter order: whole, or with ``sliced`` this
+        rank's slice of each sharded leaf.  A marker of a sharded file
+        reads its piece from the shard files (this rank's own first), or
+        assembles the whole leaf."""
+        if self.dp is None:
+            if self._reader is not None:
+                tree = self._reader.assembled(tree, prefix)
+            named = self.model.named_from_flax(tree)
+            return [named[n] for n in self._param_names()]
+        return [self._dp_leaf(leaf, tree, prefix, sliced)
+                for leaf in self.dp.leaves]
+
+    def _dp_leaf(self, leaf, tree, prefix, sliced):
+        value = tree
+        for key in leaf.path:
+            value = value[key]
+        key = "/".join((prefix,) + leaf.path)
+        marker = isinstance(value, checkpoint_utils.ShardedLeaf)
+        if sliced and leaf.sharded:
+            if marker:
+                piece = self._reader.piece(key, leaf.flax_index())
+                if piece is not None:
+                    return leaf.from_flax(np.asarray(piece, np.float32),
+                                          piece=True)
+            whole = (self._reader.full(key, value) if marker else value)
+            return leaf.take(leaf.from_flax(np.asarray(whole, np.float32),
+                                            piece=False))
+        if marker:
+            value = self._reader.full(key, value)
+        return leaf.from_flax(np.asarray(value, np.float32), piece=False)
+
+    @torch.no_grad()
+    def _load_params(self, tree, prefix):
+        """The file's params (or EMA, ``prefix``) into the master weights:
+        the module's params, and under ZeRO-1 this rank's slices (the
+        masters themselves under ``--comms-overlap``)."""
+        if self.dp is None:
+            self.model.load_flax_params(
+                tree if self._reader is None
+                else self._reader.assembled(tree, prefix))
+            return
+        dp = self.dp
+        for leaf, t in zip(dp.leaves, self._leaves(tree, prefix,
+                                                   dp.overlap)):
+            if dp.overlap and leaf.sharded:
+                dp.shards[leaf.index].copy_(t)
+            else:
+                dp.masters[leaf.index].copy_(t)
+                if leaf.index in dp.shards:
+                    dp.shards[leaf.index].copy_(
+                        leaf.take(dp.masters[leaf.index]))
+
+    def shard_entries(self):
+        """This rank's pieces of the sharded leaves of the last collected
+        state (``{leaf path: [(index, array)]}``; empty without ZeRO-1)."""
+        return self._shard_entries
 
     def _load_opt_state(self, saved):
         """The file's ``opt_state`` into the optimizer, as the JAX
@@ -635,15 +912,22 @@ class Trainer:
                 logger.warning("checkpoint: /opt_state/%s missing; keeping "
                                "fresh init", key)
         self.optimizer.load_state_dict({
-            key: value if key == "step" else self._leaves(value)
+            key: value if key == "step" else self._leaves(
+                value, f"opt_state/{key}", self.dp is not None
+                and self.dp.zero1)
             for key, value in saved.items() if key in fresh})
 
     def state_dict(self):
         """The checkpoint: numpy arrays and plain values only, so the JAX
-        package reads it without torch."""
+        package reads it without torch.  Under data parallelism the
+        sharded leaves are markers and :meth:`shard_entries` holds this
+        rank's pieces of them; the tree carries the save's
+        ``shard_token``."""
+        self._shard_entries = {}
+        overlap = self.dp is not None and self.dp.overlap
         model = {
             "step": np.asarray(self._num_updates, np.int32),
-            "params": self._flax(self._master_params()),
+            "params": self._tree(self._master_params(), "params", overlap),
             # the JAX trainer's anomaly-guard scalars (its guard_init); the
             # port has no guard, and zeros load there without a warning
             "guard": {"loss_ema": np.zeros((), np.float32),
@@ -652,14 +936,20 @@ class Trainer:
                          for k in ("count", "streak", "skips", "spikes")}},
         }
         if self.ema is not None:
-            model["ema"] = self._flax(self.ema)
+            model["ema"] = self._tree(self.ema, "ema", overlap)
         if self.use_scaler:
             model["scaler"] = {
                 "scale": self.scaler["scale"].cpu().numpy(),
                 "growth_tracker": self.scaler["growth_tracker"].cpu().numpy()}
         if not getattr(self.args, "no_save_optimizer_state", False):
-            model["opt_state"] = self._flax_opt_state()
-        return {
+            # "step" as it is, and every per-parameter entry (Adam's
+            # moments, SGD's momentum buffer, ...) on the params' tree
+            model["opt_state"] = {
+                key: value if key == "step" else self._tree(
+                    value, f"opt_state/{key}",
+                    self.dp is not None and self.dp.zero1)
+                for key, value in self.optimizer.state_dict().items()}
+        state = {
             "args": _plain_args(self.args),
             "model": model,
             "optimizer_history": [{
@@ -679,6 +969,11 @@ class Trainer:
                 "previous_training_time": self.cumulative_training_time(),
             },
         }
+        if self.dp is not None:
+            # binds the .shard<N> files to this save (the JAX trainer's
+            # token: the run's nonce, agreed by the ranks, and the update)
+            state["shard_token"] = f"{self._run_nonce}:{self._num_updates}"
+        return state
 
     def collect_checkpoint_state(self, extra_state):
         """Everything a checkpoint write needs, copied to the host: the
@@ -688,10 +983,16 @@ class Trainer:
         return state_dict
 
     def save_checkpoint(self, filename, extra_state):
-        """Direct synchronous save."""
+        """Direct synchronous save: the main file on rank 0, each rank's
+        shard file where it holds sharded pieces."""
         logger.info("Saving checkpoint to %s", filename)
-        checkpoint_utils.atomic_save(
-            self.collect_checkpoint_state(extra_state), filename)
+        state = self.collect_checkpoint_state(extra_state)
+        if self.dp is None:
+            checkpoint_utils.atomic_save(state, filename)
+        else:
+            checkpoint_utils.write_checkpoint(
+                state, self._shard_entries, filename,
+                self.is_data_parallel_master, self.data_parallel_rank)
         logger.info("Finished saving checkpoint to %s", filename)
 
     def load_checkpoint(self, filename, reset_optimizer=False,
@@ -707,24 +1008,28 @@ class Trainer:
             return None
         state = checkpoint_utils.load_checkpoint_to_cpu(filename)
         last = state.get("optimizer_history", [{}])[-1]
+        # the pieces of a sharded file's leaves: this rank's .shard file
+        # first, every one of the save where a piece is not there
+        self._reader = (checkpoint_utils.ShardReader(
+            filename, state.get("shard_token"), self.data_parallel_rank)
+            if checkpoint_utils.has_markers(state.get("model")) else None)
         if optimizer_overrides:
             for k, v in optimizer_overrides.items():
                 logger.info("overriding optimizer arg %s=%r", k, v)
                 setattr(self.args, k, v)
-            self.optimizer = build_optimizer(
-                self.args, list(self.model.parameters()))
+            self.optimizer = self._build_optimizer()
             self.lr_scheduler = build_lr_scheduler(
                 self.args, self.optimizer, self.total_train_steps)
         if load_from_ema is None:
             load_from_ema = bool(getattr(self.args, "load_from_ema", False))
         model_state = state.get("model")
         if model_state is not None:
-            params = model_state["params"]
+            params, prefix = model_state["params"], "params"
             if (load_from_ema and not reset_optimizer
                     and model_state.get("ema") is not None):
                 logger.info("loading EMA weights as model params")
-                params = model_state["ema"]
-            self.model.load_flax_params(params)
+                params, prefix = model_state["ema"], "ema"
+            self._load_params(params, prefix)
             self._load_ema(model_state.get("ema"), reset_optimizer, filename)
             if reset_optimizer:
                 logger.info("--reset-optimizer: restoring params only")
@@ -775,7 +1080,8 @@ class Trainer:
             logger.warning("checkpoint: %s holds no EMA; keeping the fresh "
                            "one", filename)
             return
-        for e, s in zip(self.ema, self._leaves(saved)):
+        for e, s in zip(self.ema, self._leaves(
+                saved, "ema", self.dp is not None and self.dp.overlap)):
             e.copy_(s)
 
     def _load_scaler(self, saved, reset_optimizer, filename):
@@ -819,6 +1125,13 @@ class Trainer:
         logger.warning("checkpoint holds no torch generator state for this "
                        "device; dropout restarts from (seed %d, update %d)",
                        self.seed, self._num_updates)
+
+
+def _host(t):
+    """A C-contiguous fp32 numpy copy of tensor ``t`` (bf16 widens
+    exactly)."""
+    t = t.detach().float().contiguous()
+    return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
 
 
 def _plain(value):
