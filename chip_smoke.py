@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line; any failed phase raises, so the exit
-code is non-zero:
+code is non-zero.  The ``torch.profiler`` windows trace the device alone,
+but for evoformer_unifold's, which reads the host time of two calls:
+tracing the host took tens of seconds a window to sum.
 
 1. build — compile every kernel of the serve and training paths from
    ``unicore_tpu_torch/csrc/`` with ``nvcc`` for sm_90a (one process per
@@ -209,6 +211,33 @@ code is non-zero:
    file's EMA as params; then one master weight poisoned with inf under
    ``--bf16`` and no scaler: FloatingPointError, and the NaN detector
    names that weight's module and leaf and no module before it.
+   evoformer_structure — the port's CLI trains the same evoformer_base
+   with ``--structure-module True --structure-layers 3`` (IPA and the
+   backbone update, one shared-weight layer 3 times, head dim 32) at
+   evoformer_train's shape under ``--bf16 --bf16-sr --optim-bf16-moments
+   --dropout 0.1``, Adam at 5e-4: 6 updates of batch 1 on 8 records.
+   Every loss finite, the mean of the last 3 below the first, gnorm above
+   0 every update; softmax_dropout 4 x blocks launches an update each
+   way, the SR table as evoformer_train counts it over this model's
+   leaves, no flash, no plain route; under --bf16 the trunk's output bf16
+   and the structure module's inputs, frames and positions fp32 on its
+   bf16 weights; the IPA at full width (C 256, Cz 128, H 8, R 256, fp32)
+   unchanged by one global rigid motion within 1e-5 of its output's max.
+   Step time, residue pairs/s, peak memory, and one forward and backward
+   of the structure module alone (wall, device busy, launches).
+   pair_train — the port's CLI trains ``evoformer_pair_base`` (12
+   blocks, c_z 128, 8 heads of 16) on N = 512 points of 16 bins written
+   by the pair example's ``make_data``, ``--bf16 --dropout 0.1``, Adam at
+   3e-4, 6 updates of batch 1 on 8 records: losses finite, the mean of
+   the last 3 below the first; 2 x blocks launches of each bf16 flash
+   kernel an update (triangle attention at T = 512 takes flash) and no
+   other flash or softmax_dropout launch; step time, residue pairs/s,
+   peak memory and a device-only profile of 2 updates.  Then pair_flash:
+   rows 3 and 8 at its triangle attention call (B·G 512, H 8, T 512, D
+   16: the D = 32 build; the [1, 8, 512, 512] bias's gradient summed over
+   the 512 rows) held as flash_case holds them, keep bits exact, times
+   beside the bounds, the plain versions and SDPA (cuDNN among its
+   backends).
 14. mol_train_fp16 — the port's CLI, in process, trains a seeded random
    ``unimol_base`` (15 layers, width 512, FFN 2048, 64 heads of 8, 64
    pair channels, 128 Gaussian kernels) under ``--fp16
@@ -391,7 +420,9 @@ code is non-zero:
    cross_decoder, with every flash_cross case beside them; rows 3 and
    8 once more for xlm's call at D = 80, launches from xlm_train, the D
    = 64 call's times beside them (bert_large_train's launches beside
-   BERT's rows 3 and 8); the
+   BERT's rows 3 and 8); rows 3 and 8 once more for the pair model's
+   call at D = 16, launches from pair_train; rows 9-11 in bf16 with
+   evoformer_structure's launches beside them; the
    checkpoint-activation runs' and return_attn's launches beside the
    rows they ran, and data_workers' beside BERT's rows 3 and 8 and the
    fp16 rows 9 and 10; last the EMA kernel, which replaces no
@@ -766,8 +797,7 @@ def profile_phase(model):
                     max_new_tokens=16, request_id=f"p{i}") for i in range(8)]
     engine.generate([Request(prompt=[5] * 20, max_new_tokens=2)])
     dispatches0 = engine.stats["ragged_dispatches"]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         engine.generate(reqs)
         torch.cuda.synchronize()
@@ -797,8 +827,7 @@ def device_launches(fn):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
@@ -2046,15 +2075,14 @@ def reset_peak_memory():
 def profile_updates(trainer, n=3, named=()):
     """Device busy and idle time, launches and top kernels of ``n`` more
     updates of ``trainer`` on epoch 2's first batches, under
-    ``torch.profiler``; with ``named``, each named kernel's device time
-    in the window too."""
+    ``torch.profiler`` tracing the device alone; with ``named``, each
+    named kernel's device time in the window too."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     itr = trainer.get_train_iterator(epoch=2).next_epoch_itr()
     batches = [next(itr) for _ in range(n)]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for b in batches:
             trainer.train_step([b])
@@ -3783,6 +3811,38 @@ def lm_optim_fp16_phase():
     return launches
 
 
+def timed_cli(argv):
+    """``cli_main(argv)`` with every train step synchronized and timed;
+    returns (the loop, the step seconds, the run's seconds)."""
+    from unicore_tpu_torch import trainer as trainer_mod
+    from unicore_tpu_torch.cli.train import cli_main
+
+    step_s = []
+    train_step = trainer_mod.Trainer.train_step
+
+    def timed(self, samples):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = train_step(self, samples)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        return out
+
+    trainer_mod.Trainer.train_step = timed
+    t0 = time.perf_counter()
+    try:
+        loop = cli_main(argv)
+    finally:
+        trainer_mod.Trainer.train_step = train_step
+    return loop, step_s, time.perf_counter() - t0
+
+
+def zero_counts(*counts):
+    for c in counts:
+        for name in c:
+            c[name] = 0
+
+
 def evoformer_train_phase():
     """The port's CLI trains full-width evoformer_base under --bf16
     --bf16-sr --optim-bf16-moments; returns the launch counts of its 10
@@ -3790,8 +3850,6 @@ def evoformer_train_phase():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from unicore_tpu_torch import trainer as trainer_mod
-    from unicore_tpu_torch.cli.train import cli_main
     from unicore_tpu_torch.examples.evoformer.make_data import write_corpus
     from unicore_tpu_torch.ops import flash_attention as fa
     from unicore_tpu_torch.ops import rounding as sr
@@ -3804,44 +3862,24 @@ def evoformer_train_phase():
                      seed=7)
         corpus_s = time.perf_counter() - t0
         logdir = os.path.join(tmp, "log")
-        step_s = []
-        train_step = trainer_mod.Trainer.train_step
-
-        def timed(self, samples):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = train_step(self, samples)
-            torch.cuda.synchronize()
-            step_s.append(time.perf_counter() - t)
-            return out
-
-        trainer_mod.Trainer.train_step = timed
-        for counts in (fa.launches, sd.launches, sd.plain_route,
-                       sr.launches):
-            for name in counts:
-                counts[name] = 0
+        zero_counts(fa.launches, sd.launches, sd.plain_route, sr.launches)
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        try:
-            loop = cli_main([
-                tmp, "--user-dir",
-                os.path.join(here, "unicore_tpu_torch", "examples",
-                             "evoformer"),
-                "--task", "evoformer", "--loss", "evoformer_mse", "--arch",
-                "evoformer_base", "--bf16", "--bf16-sr",
-                "--optim-bf16-moments", "--dropout", "0.1",
-                "--optimizer", "adam", "--adam-betas", "(0.9, 0.98)",
-                "--lr", "2e-3", "--clip-norm", "1.0", "--lr-scheduler",
-                "fixed", "--batch-size", "1", "--update-freq", "1",
-                "--seed", "1", "--max-update", str(EVO_UPDATES),
-                "--log-interval", "1", "--log-format", "none",
-                "--tensorboard-logdir", logdir, "--disable-validation",
-                "--required-batch-size-multiple", "1", *INLINE_DATA,
-                "--no-save",
-            ])
-        finally:
-            trainer_mod.Trainer.train_step = train_step
-        run_s = time.perf_counter() - t0
+        loop, step_s, run_s = timed_cli([
+            tmp, "--user-dir",
+            os.path.join(here, "unicore_tpu_torch", "examples",
+                         "evoformer"),
+            "--task", "evoformer", "--loss", "evoformer_mse", "--arch",
+            "evoformer_base", "--bf16", "--bf16-sr",
+            "--optim-bf16-moments", "--dropout", "0.1",
+            "--optimizer", "adam", "--adam-betas", "(0.9, 0.98)",
+            "--lr", "2e-3", "--clip-norm", "1.0", "--lr-scheduler",
+            "fixed", "--batch-size", "1", "--update-freq", "1",
+            "--seed", "1", "--max-update", str(EVO_UPDATES),
+            "--log-interval", "1", "--log-format", "none",
+            "--tensorboard-logdir", logdir, "--disable-validation",
+            "--required-batch-size-multiple", "1", *INLINE_DATA,
+            "--no-save",
+        ])
         launches = {**sd.launches, **sr.launches,
                     "flash": sum(fa.launches.values()),
                     "softmax_dropout_plain_route": sum(
@@ -3885,8 +3923,7 @@ def evoformer_train_phase():
         # where a step's time goes: 2 more updates under the profiler
         itr = trainer.get_train_iterator(epoch=3).next_epoch_itr()
         batches = [next(itr) for _ in range(2)]
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for b in batches:
                 trainer.train_step([b])
@@ -4251,6 +4288,302 @@ def evoformer_unifold_phase():
     return launches
 
 
+# the structure module on evoformer_base (8 blocks, c_m 256, c_z 128, 8
+# MSA heads: 3 IPA iterations at head dim 32) at evoformer_train's shape
+STRUCT_LAYERS, STRUCT_UPDATES = 3, 6
+# Adam's lr for both phases: at evoformer_train's 2e-3 (and the pair model
+# at 1e-3) single-record updates overshoot (on the CPU at R 32 and N 64:
+# a loss of 48-50 from 17-24 within 4-7 updates)
+STRUCT_LR, PAIR_LR = "5e-4", "3e-4"
+# max |out - out after one global rigid motion| of the IPA at full width in
+# fp32, a share of max |out| (the CPU gives 2.4e-7 at this width)
+IPA_INVARIANCE_TOL = 1e-5
+# the pair model: evoformer_pair_base (12 blocks, c_z 128, 8 heads of 16)
+# on N 512 points of 16 bins
+PAIR_N, PAIR_BINS, PAIR_UPDATES = 512, 16, 6
+# its triangle attention call: the (B, G) groups folded into the batch,
+# [B·G, H, T, D] with the [1, H, T, T] pair bias, bf16
+PAIR_FLASH_SHAPE = (PAIR_N, 8, PAIR_N, 16)
+
+
+def ipa_invariance_case():
+    """The reference's invariance test (``tests/test_structure_module.py``
+    ``test_ipa_global_rigid_invariance``) at evoformer_base's width on the
+    card: one global rigid motion composed onto every frame leaves the
+    IPA's output within IPA_INVARIANCE_TOL of its max (fp32, params at
+    the port's init moved by +0.05 as the reference moves them)."""
+    from unicore_tpu_torch.modules import structure_module as sm
+    from unicore_tpu_torch.modules.triangle_attention import \
+        reset_evoformer_parameters
+
+    c, cz, h, r = 256, 128, 8, EVO_R
+    g = torch.Generator(device="cuda").manual_seed(24)
+    mod = sm.InvariantPointAttention(c, h, pair_dim=cz)
+    reset_evoformer_parameters(mod, torch.Generator().manual_seed(24))
+    mod = mod.cuda()
+    with torch.no_grad():
+        for p in mod.parameters():
+            p.add_(0.05)
+
+        def randn(*shape):
+            return torch.randn(*shape, generator=g, device="cuda")
+
+        s, z = randn(1, r, c), randn(1, r, r, cz)
+        rot, trans = sm.quat_to_rot(randn(1, r, 4)), randn(1, r, 3) * 3.0
+        out1 = mod(s, z, rot, trans)
+        g_rot, g_trans = sm.quat_to_rot(randn(1, 1, 4)), randn(1, 1, 3) * 3.0
+        rot2, trans2 = sm.rigid_compose(g_rot.expand_as(rot),
+                                        g_trans.expand_as(trans), rot, trans)
+        out2 = mod(s, z, rot2, trans2)
+    err, scale = float((out1 - out2).abs().max()), float(out1.abs().max())
+    if not (torch.isfinite(out1).all() and err <= IPA_INVARIANCE_TOL * scale):
+        raise AssertionError(f"IPA invariance: max |diff| {err}, max |out| "
+                             f"{scale}")
+    return {"shape": {"C": c, "Cz": cz, "H": h, "R": r}, "dtype": "float32",
+            "max_abs_diff": err, "max_abs_out": scale,
+            "rel_diff": err / scale, "tol_rel": IPA_INVARIANCE_TOL}
+
+
+def structure_module_cost(module):
+    """One forward and backward of the compute copy's structure module at
+    the phase's shapes (single [1, R, 256], pair [1, R, R, 128], fp32 on
+    the bf16 weights): the synchronized wall ms, the device busy ms and
+    the kernel launches of a call, means over 3 calls after a warm-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    s = torch.randn(1, EVO_R, 256, device="cuda", requires_grad=True)
+    z = torch.randn(1, EVO_R, EVO_R, 128, device="cuda", requires_grad=True)
+
+    def call():
+        module(s, z)[2].sum().backward()
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    module.zero_grad(set_to_none=True)
+    return {"wall_ms": wall_ms,
+            "device_busy_ms": sum(e.self_device_time_total
+                                  for e in kernels) / 1e3 / 3,
+            "kernel_launches": sum(e.count for e in kernels) / 3}
+
+
+def evoformer_structure_phase():
+    """The port's CLI trains full-width evoformer_base with
+    ``--structure-module True --structure-layers 3`` under --bf16
+    --bf16-sr --optim-bf16-moments; returns the launch counts of its
+    updates."""
+    from unicore_tpu_torch.examples.evoformer.make_data import write_corpus
+    from unicore_tpu_torch.ops import flash_attention as fa
+    from unicore_tpu_torch.ops import rounding as sr
+    from unicore_tpu_torch.ops import softmax_dropout as sd
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_corpus(tmp, n_res=EVO_R, n_seqs=EVO_S, train=8, valid=1,
+                     seed=7)
+        logdir = os.path.join(tmp, "log")
+        zero_counts(fa.launches, sd.launches, sd.plain_route, sr.launches)
+        held = reset_peak_memory()
+        loop, step_s, run_s = timed_cli([
+            tmp, "--user-dir",
+            os.path.join(here, "unicore_tpu_torch", "examples", "evoformer"),
+            "--task", "evoformer", "--loss", "evoformer_mse", "--arch",
+            "evoformer_base", "--structure-module", "True",
+            "--structure-layers", str(STRUCT_LAYERS), "--bf16", "--bf16-sr",
+            "--optim-bf16-moments", "--dropout", "0.1",
+            "--optimizer", "adam", "--adam-betas", "(0.9, 0.98)",
+            "--lr", STRUCT_LR, "--clip-norm", "1.0", "--lr-scheduler",
+            "fixed", "--batch-size", "1", "--seed", "1",
+            "--max-update", str(STRUCT_UPDATES), "--log-interval", "1",
+            "--log-format", "none", "--tensorboard-logdir", logdir,
+            "--disable-validation", "--required-batch-size-multiple", "1",
+            *INLINE_DATA, "--no-save"])
+        launches = {**sd.launches, **sr.launches,
+                    "flash": sum(fa.launches.values()),
+                    "softmax_dropout_plain_route": sum(
+                        sd.plain_route.values())}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        with open(os.path.join(logdir, "train_inner.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        losses = [r["loss"] for r in records]
+        gnorms = [r["gnorm"] for r in records]
+        trainer = loop.trainer
+        model = trainer.model
+        blocks = model.evoformer_layers
+        leaves = len(list(model.parameters()))
+        if len(losses) != STRUCT_UPDATES or not np.isfinite(losses).all():
+            raise AssertionError(f"losses {losses}")
+        if not np.mean(losses[-3:]) < losses[0]:
+            raise AssertionError(f"loss did not fall: {losses}")
+        if not all(g > 0 for g in gnorms):
+            raise AssertionError(f"gnorm 0 (the zero-init saddle): {gnorms}")
+        if model.final_norm is not None or model.head is not None:
+            raise AssertionError("the structure model owns final_norm/head")
+        cap = sr.capacity()
+        want = {"softmax_dropout_fwd": 4 * blocks * STRUCT_UPDATES,
+                "softmax_dropout_bwd": 4 * blocks * STRUCT_UPDATES,
+                "fp32_to_bf16_sr": (-(-leaves // cap) + -(-2 * leaves // cap))
+                * STRUCT_UPDATES,
+                "flash": 0, "softmax_dropout_plain_route": 0}
+        if launches != want:
+            raise AssertionError(f"launches {launches}, want {want}")
+
+        # the types under --bf16: one validation forward of the compute
+        # copy, its trunk's output and the structure module's in and out
+        seen = {}
+        cm = trainer.compute_model
+        hooks = [cm.blocks[-1].register_forward_hook(
+                     lambda mod, args, out: seen.update(trunk=out)),
+                 cm.structure_module.register_forward_hook(
+                     lambda mod, args, out: seen.update(args=args, out=out))]
+        itr = trainer.get_train_iterator(epoch=2).next_epoch_itr()
+        try:
+            with torch.no_grad():
+                trainer.valid_step(next(itr))
+        finally:
+            for hk in hooks:
+                hk.remove()
+        _, (rot, trans), pos = seen["out"]
+        types = {"trunk": [str(t.dtype) for t in seen["trunk"]],
+                 "single": str(seen["args"][0].dtype),
+                 "pair": str(seen["args"][1].dtype),
+                 "frames": [str(rot.dtype), str(trans.dtype)],
+                 "positions": str(pos.dtype),
+                 "weights": str(cm.structure_module.single_in.weight.dtype)}
+        if types != {"trunk": ["torch.bfloat16"] * 2,
+                     "single": "torch.float32", "pair": "torch.float32",
+                     "frames": ["torch.float32"] * 2,
+                     "positions": "torch.float32",
+                     "weights": "torch.bfloat16"}:
+            raise AssertionError(f"types under --bf16: {types}")
+        med_s = float(np.median(step_s[2:]))
+        ipa_cost = structure_module_cost(cm.structure_module)
+        report = dict(
+            model="evoformer_base", dtype="bf16",
+            flags="--structure-module True --structure-layers 3 --bf16 "
+                  "--bf16-sr --optim-bf16-moments --dropout 0.1",
+            msa_rows=EVO_S, residues=EVO_R, batch=1, blocks=blocks,
+            structure_layers=STRUCT_LAYERS,
+            parameters=sum(p.numel() for p in model.parameters()),
+            structure_parameters=sum(
+                p.numel() for p in model.structure_module.parameters()),
+            parameter_leaves=leaves, updates=STRUCT_UPDATES, run_s=run_s,
+            losses_mse=losses, gnorms=gnorms, first_loss=losses[0],
+            last3_mean=float(np.mean(losses[-3:])),
+            step_ms_median=med_s * 1e3,
+            step_ms_all=[s * 1e3 for s in step_s],
+            residue_pairs_per_s=EVO_R * EVO_R / med_s, peak_mem_gb=peak_gb,
+            held_before_gb=held, launches=launches, types_under_bf16=types,
+            structure_module_fwd_bwd=ipa_cost)
+        del loop, trainer, model, cm, seen
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["ipa_invariance"] = ipa_invariance_case()
+    emit("evoformer_structure", card=card(), **report,
+         phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
+def pair_flash_case(flush):
+    """Rows 3 and 8 at the pair model's triangle attention call
+    (PAIR_FLASH_SHAPE: B·G 512, H 8, T 512, D 16, the D = 32 kernel build
+    with 16 zero columns; a [1, 8, 512, 512] bias whose gradient sums over
+    the 512 rows, 0-200 padded keys a row, dropout 0.1, bf16): the forward
+    and the backward's two kernels against their plain versions as
+    ``flash_case`` holds them, the forward's keep bits read back exactly,
+    times beside the bounds, the plain versions and SDPA (cuDNN among its
+    backends)."""
+    report = flash_case(flush, torch.bfloat16, PAIR_FLASH_SHAPE, True,
+                        np.random.default_rng(512), (10, 2, 5))
+    keep = keep_bits(torch.bfloat16, PAIR_FLASH_SHAPE, True, 512,
+                     causal=False)
+    if keep["bits_differ"] or keep["excluded_read_nonzero"]:
+        raise AssertionError(f"pair call: keep bits {keep}")
+    report["keep_bits"] = keep
+    return report
+
+
+def pair_train_phase():
+    """The port's CLI trains evoformer_pair_base at N 512 under --bf16,
+    then ``pair_flash_case``; returns {"launches": the flash launch
+    counts of the run, "flash": the case's report}."""
+    from unicore_tpu_torch.examples.pair.make_data import write_corpus
+    from unicore_tpu_torch.ops import flash_attention as fa
+    from unicore_tpu_torch.ops import softmax_dropout as sd
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_corpus(tmp, n_points=PAIR_N, bins=PAIR_BINS, train=8, valid=1)
+        logdir = os.path.join(tmp, "log")
+        zero_counts(fa.launches, sd.launches, sd.plain_route)
+        held = reset_peak_memory()
+        loop, step_s, run_s = timed_cli([
+            tmp, "--user-dir",
+            os.path.join(here, "unicore_tpu_torch", "examples", "pair"),
+            "--task", "pair", "--loss", "pair_mse", "--arch",
+            "evoformer_pair_base", "--bf16", "--dropout", "0.1",
+            "--optimizer", "adam", "--adam-betas", "(0.9, 0.98)",
+            "--lr", PAIR_LR, "--clip-norm", "1.0", "--lr-scheduler",
+            "fixed", "--batch-size", "1", "--seed", "1",
+            "--max-update", str(PAIR_UPDATES), "--log-interval", "1",
+            "--log-format", "none", "--tensorboard-logdir", logdir,
+            "--disable-validation", "--required-batch-size-multiple", "1",
+            *INLINE_DATA, "--no-save"])
+        launches = {**fa.launches, **sd.launches,
+                    "softmax_dropout_plain_route": sum(
+                        sd.plain_route.values())}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        with open(os.path.join(logdir, "train_inner.jsonl")) as f:
+            losses = [json.loads(line)["loss"] for line in f]
+        model = loop.trainer.model
+        blocks = model.pair_layers
+        if len(losses) != PAIR_UPDATES or not np.isfinite(losses).all():
+            raise AssertionError(f"losses {losses}")
+        if not np.mean(losses[-3:]) < losses[0]:
+            raise AssertionError(f"loss did not fall: {losses}")
+        want = {name: 0 for name in launches}
+        want.update({name: 2 * blocks * PAIR_UPDATES for name in TRAIN_FLASH})
+        if launches != want:
+            raise AssertionError(f"launches {launches}, want {want}")
+        med_s = float(np.median(step_s[2:]))
+        prof = profile_updates(loop.trainer, n=2, named=TRAIN_FLASH)
+        report = dict(
+            model="evoformer_pair_base", dtype="bf16",
+            flags="--bf16 --dropout 0.1", points=PAIR_N, bins=PAIR_BINS,
+            batch=1, blocks=blocks,
+            parameters=sum(p.numel() for p in model.parameters()),
+            updates=PAIR_UPDATES, run_s=run_s, losses_mse=losses,
+            first_loss=losses[0], last3_mean=float(np.mean(losses[-3:])),
+            step_ms_median=med_s * 1e3,
+            step_ms_all=[s * 1e3 for s in step_s],
+            residue_pairs_per_s=PAIR_N * PAIR_N / med_s,
+            peak_mem_gb=peak_gb, held_before_gb=held,
+            launches={n: c for n, c in launches.items() if c},
+            profile={"window": "2 updates, N=512, bf16", **prof})
+        del loop, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    train_s = time.perf_counter() - t_phase
+    emit("pair_train", card=card(), **report, phase_s=train_s)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    case = pair_flash_case(flush)
+    del flush
+    torch.cuda.empty_cache()
+    emit("pair_flash", card=card(), **case,
+         phase_s=time.perf_counter() - t_phase - train_s)
+    return {"launches": launches, "flash": case}
+
+
 MOL_UPDATES, MOL_BATCH, MOL_ATOMS, MOL_MOLECULES = 20, 16, 256, 1024
 MOL_MAX_SKIPS = 4  # at least 16 of the first 20 dispatches apply
 
@@ -4487,8 +4820,7 @@ def pipeline_profile(trainer, n=3):
         trainer.train_step([next(stream)])
         torch.cuda.synchronize()
         waits = []
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(n):
                 t = time.perf_counter()
@@ -6046,7 +6378,10 @@ def kernels_line(res):
     2 and 4-7 at Tq != Tk among them).  Rows 9 and 10 in bf16 give
     return_attn's launches beside the Evoformer's, and data_workers'
     beside train's (BERT, rows 3 and 8) and mol_train_fp16's (rows 9 and
-    10 in fp16)."""
+    10 in fp16).  Rows 3 and 8 have a bf16 entry each for the pair model's
+    triangle attention at D = 16 (pair_flash; its launches from
+    pair_train), and rows 9-11 in bf16 give evoformer_structure's
+    launches beside the Evoformer's."""
     decode = res["cases"]["decode"]
     rows = [{
         "row": 1, "name": "ragged_paged_attention", "route": "cuda",
@@ -6190,6 +6525,20 @@ def kernels_line(res):
                                   else "plain_bwd_ms"]}
         rows.append(entry)
     rows[-3]["keep_bits"] = xlm["d80"]["keep_bits"]
+    # the pair model's triangle attention at B·G 512, H 8, T 512, D 16 (the
+    # D = 32 build), launched by pair_train
+    pair = res["pair"]
+    for row, name, replaces in (
+            (3, "flash_fwd_bf16", "flash_attention.py:121"),
+            (8, "flash_bwd_dkdv", "flash_attention.py:164"),
+            (8, "flash_bwd_dq", "flash_attention.py:164")):
+        entry = flash_row(row, name, replaces, pair["flash"],
+                          pair["launches"][name])
+        entry["head_dim"] = 16
+        entry["launches_by_phase"] = {
+            f"pair_train ({PAIR_UPDATES} updates)": pair["launches"][name]}
+        rows.append(entry)
+    rows[-3]["keep_bits"] = pair["flash"]["keep_bits"]
     # the fp16 kernels at the same shapes, on the --fp16 path
     fp16 = {id(hb): res["flash"]["float16"],
             id(joint): multiblock["t1024_nobias_fp16"],
@@ -6216,6 +6565,8 @@ def kernels_line(res):
             name = f"softmax_dropout_{kind}"
             callers = ({"evoformer_train": res["evo_launches"][name],
                         "evoformer_unifold": res["unifold_launches"][name],
+                        "evoformer_structure":
+                            res["structure_launches"][name],
                         "return_attn": res["ra_launches"][name]}
                        if dt == "bfloat16"
                        else {"mol_train_fp16": res["mol_launches"][name],
@@ -6258,6 +6609,8 @@ def kernels_line(res):
         "launches_by_phase": {
             "evoformer_train": res["evo_launches"]["fp32_to_bf16_sr"],
             "evoformer_unifold": res["unifold_launches"]["fp32_to_bf16_sr"],
+            "evoformer_structure":
+                res["structure_launches"]["fp32_to_bf16_sr"],
             "data_parallel (b) --zero1 --optim-bf16-moments, ranks 0 and "
             "1 (slices, with their windows)": [
                 r["fp32_to_bf16_sr"]
@@ -6336,6 +6689,9 @@ def main():
     res["evo_launches"] = evoformer_train_phase()
     torch.cuda.empty_cache()
     res["unifold_launches"] = evoformer_unifold_phase()
+    torch.cuda.empty_cache()
+    res["structure_launches"] = evoformer_structure_phase()
+    res["pair"] = pair_train_phase()
     torch.cuda.empty_cache()
     res["mol_launches"] = mol_train_fp16_phase()
     torch.cuda.empty_cache()

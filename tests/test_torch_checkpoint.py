@@ -222,7 +222,7 @@ def _lm_port():
 
 def _reference_tree(arch, model):
     """The JAX package's tree for ``model``'s weights."""
-    if arch == "evoformer":
+    if arch in ("evoformer", "evoformer_structure"):
         import jax
         import jax.numpy as jnp
         from examples.evoformer.model import EvoformerModel as FlaxEvoformer
@@ -231,10 +231,24 @@ def _reference_tree(arch, model):
         kw = dict(evoformer_layers=1, msa_embed_dim=16, pair_embed_dim=8,
                   msa_attention_heads=2, pair_attention_heads=2,
                   opm_hidden_dim=4)
+        if arch == "evoformer_structure":
+            kw.update(structure_module=True, structure_layers=2)
         params = jax.device_get(jax.jit(FlaxEvoformer(**kw).init)(
             jax.random.PRNGKey(0), jnp.zeros((1, 4, 6, 8)),
             jnp.zeros((1, 6, 6, 8)))["params"])
         model = EvoformerModel(8, 8, **kw)
+        model.load_flax_params(params)
+        return model, params
+    if arch == "evoformer_pair":
+        import jax
+        import jax.numpy as jnp
+        from examples.pair.model import EvoformerPairModel as FlaxPair
+        from unicore_tpu_torch.examples.pair.model import EvoformerPairModel
+
+        kw = dict(pair_layers=2, pair_embed_dim=16, pair_attention_heads=2)
+        params = jax.device_get(jax.jit(FlaxPair(**kw).init)(
+            jax.random.PRNGKey(0), jnp.zeros((1, 6, 6, 8)))["params"])
+        model = EvoformerPairModel(8, **kw)
         model.load_flax_params(params)
         return model, params
     from unicore_tpu.tools.convert_torch_checkpoint import arch_flax_params
@@ -245,12 +259,14 @@ def _reference_tree(arch, model):
     return model, tree
 
 
-@pytest.mark.parametrize("arch", ["bert", "transformer_lm", "evoformer"])
+@pytest.mark.parametrize("arch", ["bert", "transformer_lm", "evoformer",
+                                  "evoformer_structure", "evoformer_pair"])
 def test_flax_tree_is_the_reference_tree(arch):
     """``flax_tree`` of the model's parameters gives the JAX package's
     tree — the same paths, shapes (in_proj's [D, 3, H, Dh] kernel and
-    [3, H, Dh] bias among them) and values — and ``load_flax_params``
-    takes it back bit for bit."""
+    [3, H, Dh] bias among them; with the structure module the IPA's
+    ``point_weights``, and no ``final_norm`` or ``head``) and values —
+    and ``load_flax_params`` takes it back bit for bit."""
     import jax
 
     model = {"bert": _bert_port, "transformer_lm": _lm_port}.get(
@@ -260,6 +276,10 @@ def test_flax_tree_is_the_reference_tree(arch):
     flat_w = jax.tree_util.tree_leaves_with_path(want)
     flat_g = jax.tree_util.tree_leaves_with_path(got)
     assert [p for p, _ in flat_g] == [p for p, _ in flat_w]
+    if arch == "evoformer_structure":
+        assert "final_norm" not in got and "head" not in got
+        assert got["structure_module"]["layer"]["ipa"][
+            "point_weights"].shape == (2,)
     for (path, w), (_, g) in zip(flat_w, flat_g):
         assert isinstance(g, np.ndarray) and g.dtype == np.float32
         assert g.shape == np.shape(w), path

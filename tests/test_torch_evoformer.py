@@ -456,7 +456,6 @@ def test_cli_trains_tiny_evoformer_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("flags,error,match", [
     (["--bf16-sr"], ValueError, "requires --bf16"),
-    (["--structure-module", "True"], NotImplementedError, "ROADMAP.md A10"),
     # the reference runs the Evoformer in fp32 under --fp16, the port in
     # the compute type: not held in fp16 (the case keeps its first id)
     pytest.param(["--fp16"], NotImplementedError,

@@ -7,7 +7,8 @@ to ``blocks.{i}``, a ``Dense`` kernel transposed into ``weight``, a
 LayerNorm ``scale`` into ``weight``.  It takes the tree of the whole
 ``EvoformerModel`` or of any one of its modules.  :func:`flax_from_state_dict`
 goes the other way: a 2-D ``weight`` is a Dense kernel, a 1-D one a
-LayerNorm scale (the model has no other weights).
+LayerNorm scale (the model has no other weights); the IPA's
+``point_weights`` keep their name both ways.
 """
 
 from ..lm.convert import (apply_inverse_rules, apply_rules, inverse_items,
@@ -22,6 +23,7 @@ _RULES = [
     (r"blocks_(\d+)/(.+)/kernel", "blocks.{0}.{1}.weight", _t),
     (r"blocks_(\d+)/(.+)/scale", "blocks.{0}.{1}.weight", None),
     (r"blocks_(\d+)/(.+)/bias", "blocks.{0}.{1}.bias", None),
+    (r"((?:.+/)?)point_weights", "{0}point_weights", None),
     (r"(.+)/kernel", "{0}.weight", _t),
     (r"(.+)/scale", "{0}.weight", None),
     (r"(.+)/bias", "{0}.bias", None),
@@ -32,6 +34,7 @@ _INVERSE_RULES = [
     # (port name regex, flax path template, transform(value, heads))
     (r"blocks\.(\d+)\.(.+)\.kernel", "blocks_{0}/{1}/kernel", linear_kernel),
     (r"blocks\.(\d+)\.(.+)\.(scale|bias)", "blocks_{0}/{1}/{2}", None),
+    (r"((?:.+\.)?)point_weights", "{0}point_weights", None),
     (r"(.+)\.kernel", "{0}/kernel", linear_kernel),
     (r"(.+)\.(scale|bias)", "{0}/{1}", None),
 ]
@@ -52,7 +55,7 @@ def _flax_named(state_dict):
         stem, _, leaf = name.rpartition(".")
         if leaf == "weight":
             leaf = "kernel" if value.ndim == 2 else "scale"
-        named[f"{stem}.{leaf}"] = value
+        named[f"{stem}.{leaf}" if stem else leaf] = value
     return named
 
 

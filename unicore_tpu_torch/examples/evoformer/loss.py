@@ -13,11 +13,14 @@ from ...losses import UnicoreLoss, register_loss
 
 @register_loss("evoformer_mse")
 class EvoformerMSELoss(UnicoreLoss):
+    def predict(self, model, sample, generator):
+        return model(**sample["net_input"], msa_mask=sample.get("msa_mask"),
+                     pair_mask=sample.get("pair_mask"), generator=generator)
+
     def forward(self, model, sample, generator=None):
         target = sample["target"]
         pair_mask = sample.get("pair_mask")
-        pred = model(**sample["net_input"], msa_mask=sample.get("msa_mask"),
-                     pair_mask=pair_mask, generator=generator)
+        pred = self.predict(model, sample, generator)
         err2 = (pred.float() - target.float()) ** 2
         if pair_mask is not None:
             w = pair_mask.float()

@@ -68,32 +68,39 @@ class EvoformerTask(UnicoreTask):
     def _split_path(self, split):
         return find_split(self.args.data, split)
 
+    def fields(self, dataset):
+        """The sample's nested fields, each a view of the records."""
+        return {
+            "net_input": {
+                "msa": _Field(dataset, "msa"),
+                "pair": _Field(dataset, "pair"),
+            },
+            "target": _Field(dataset, "target"),
+            "msa_mask": _Field(dataset, "msa_mask", default=_all_valid_msa),
+            "pair_mask": _Field(dataset, "pair_mask",
+                                default=_all_valid_pair),
+        }
+
     def load_dataset(self, split, combine=False, **kwargs):
         dataset = best_record_dataset(self._split_path(split))
         self._records[split] = dataset
         with data_utils.numpy_seed(self.args.seed):
             shuffle = np.random.permutation(len(dataset))
         self.datasets[split] = SortDataset(
-            NestedDictionaryDataset({
-                "net_input": {
-                    "msa": _Field(dataset, "msa"),
-                    "pair": _Field(dataset, "pair"),
-                },
-                "target": _Field(dataset, "target"),
-                "msa_mask": _Field(dataset, "msa_mask",
-                                   default=_all_valid_msa),
-                "pair_mask": _Field(dataset, "pair_mask",
-                                    default=_all_valid_pair),
-            }),
+            NestedDictionaryDataset(self.fields(dataset)),
             sort_order=[shuffle])
 
-    def input_dims(self):
-        """(MSA alphabet, pair feature bins) of the records — the input
-        widths of the model — read from the first training record."""
+    def first_record(self):
+        """The first training record (the model's input widths)."""
         split = self.args.train_subset
         records = self._records.get(split)
         if records is None:
             records = best_record_dataset(self._split_path(split))
-        rec = records[0]
+        return records[0]
+
+    def input_dims(self):
+        """(MSA alphabet, pair feature bins) of the records — the input
+        widths of the model."""
+        rec = self.first_record()
         return (int(np.asarray(rec["msa"]).shape[-1]),
                 int(np.asarray(rec["pair"]).shape[-1]))

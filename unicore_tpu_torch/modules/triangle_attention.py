@@ -54,7 +54,8 @@ def flax_layer_norm(dim):
 
 def reset_evoformer_parameters(module, generator):
     """The JAX package's init, drawn from ``generator``: every
-    :class:`Dense` by its initializer, LayerNorms to unit scale."""
+    :class:`Dense` by its initializer, LayerNorms to unit scale, the IPA's
+    point weights to softplus's inverse of 1."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, Dense):
@@ -62,6 +63,8 @@ def reset_evoformer_parameters(module, generator):
             elif isinstance(m, LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
+            elif hasattr(m, "reset_point_weights"):
+                m.reset_point_weights()
 
 
 def group_flash_attention(q, k, v, pair_bias, mask, dropout, training,
