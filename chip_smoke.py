@@ -269,8 +269,8 @@ tracing the host took tens of seconds a window to sum.
    CLI's exit 0) with checkpoint_last.pt's iterator position (a)'s at
    update 4 and no worker alive or listed as a child within 5 s.  Per
    mode: step median and spread, the host ms the loop waited for each
-   batch, the pool's fork seconds, and a profiled window of 3 updates
-   pulled through the mode's pipeline.
+   batch, the pool's fork seconds, and for (a) and (d) a profiled window
+   of 3 updates pulled through the mode's pipeline.
 15. lm_train — the port's CLI, in process, trains a seeded
    random ``transformer_lm_base`` (12 layers, width 768, FFN 3072, 12
    heads of 64, T=512, vocab 30522, the reference's rel-pos bias and
@@ -283,6 +283,24 @@ tracing the host took tens of seconds a window to sum.
    kernel; B's losses and final params bit-equal to A's.  Step median,
    tokens/s (unpadded target tokens; the padded-slot rate beside it),
    peak memory, then a profiled window of 3 updates.
+   lm_packed — the same model, rotary, under ``--pack-sequences
+   --anomaly-guard`` with 2-update snapshots and the chaos tool's spike
+   settings, ``UNICORE_TPU_CHAOS_INJECT=spike:5``, 8 updates: every
+   dispatch 12 + 12 softmax_dropout launches and no flash, dispatch 5
+   skipped, the loss falling; real-token share and unpadded tokens/s
+   beside lm_train's, peak memory; a rewind at full width restoring the
+   snapshot bit for bit (capture and restore seconds); a child SIGKILLed
+   mid-run after its save at 4, resumed here, its trajectory bit-exact.
+   Before it, softmax_dropout_packed holds rows 9-10 at the packed call
+   (x bf16 [16, 12, 512, 512], the fp32 segment + causal bias [16, 1,
+   512, 512], the key padding's -inf in x) against plain: keep bits
+   exact, out and softmax within one bf16 ulp, pad rows among them.
+   After it, guard_cost: ``guard_update``'s launches, host and device ms
+   a call on the card, and the host ms as a share of train's and
+   lm_train's step medians.
+   data_guard — the LM unpacked under ``--data-guard`` with 2 worker
+   processes on 128 records, 3 torn: exactly the 3 skipped, equal to
+   the chaos tool's ``predict_skips``, the log carried into a resume.
    lm_serve_checkpoint — 10 ``--rotary True`` updates of the same model
    saved without the optimizer state (36 flash launches an update, no
    bias), served by ``unicore_tpu_torch.serve``'s ``--checkpoint
@@ -4749,6 +4767,7 @@ DW_KILL_AT, DW_SIGTERM_AT = 1, 4  # run d_sigterm's updates
 DW_LAUNCHES = {"bert": {n: 12 for n in TRAIN_FLASH},
                "mol": {"softmax_dropout_fwd": 15, "softmax_dropout_bwd": 15}}
 DW_REAP_S = 5.0
+DW_PROFILED = "ad"  # the modes whose pipeline a profiled window measures
 
 
 def with_data_mode(argv, mode):
@@ -4849,8 +4868,9 @@ def mode_report(rec, prof):
            "step_ms_spread": [float(warm.min()), float(warm.max())],
            "batch_wait_ms_median": float(np.median(waits)),
            "batch_wait_ms_max": float(waits.max()),
-           "batch_wait_ms_first": rec["wait_s"][0] * 1e3,
-           "profile": prof}
+           "batch_wait_ms_first": rec["wait_s"][0] * 1e3}
+    if prof is not None:
+        out["profile"] = prof
     if rec["pools"]:
         out["pool_fork_s"] = [p["fork_s"] for p in rec["pools"]]
     return out
@@ -4875,7 +4895,8 @@ def data_workers_phase():
     under (a) --num-workers 0 (buffer 10: the pump still runs), (e)
     --num-workers 0 --data-buffer-size 0 (no pump), (b) no data flag
     (the reference's defaults: 1 thread worker, a buffer of 10), (c) 4
-    thread workers and (d) 4 worker processes, run in turns; then (d)
+    thread workers and (d) 4 worker processes, run in turns (a profiled
+    window after (a) and (d)); then (d)
     again with one pool worker SIGKILLed after update 1 and SIGTERM
     after update 4; then unimol_base (--fp16, --max-atoms 256, batch 16)
     for 8 updates under (a), (e), (c) and (d).  Checks: every mode's per-update losses and sample
@@ -4913,7 +4934,10 @@ def data_workers_phase():
                         else mol_args(mol_dir, logdir)
                         + ["--max-update", str(DW_UPDATES)])
                 loop, rec = observe_cli(with_data_mode(argv, mode))
-                prof = pipeline_profile(loop.trainer)
+                # the profiled windows, measurements only, at the two ends:
+                # inline loading (a) and 4 worker processes (d)
+                prof = (pipeline_profile(loop.trainer) if mode in DW_PROFILED
+                        else None)
                 del loop
                 reset_peak_memory()
                 runs[model, mode] = rec
@@ -6316,6 +6340,449 @@ def data_parallel_phase():
             "two_ranks": {m: modes[m]["launches"] for m in modes}}
 
 
+# -- A11: packing, the anomaly guard's ladder and the data guard ----------
+
+PACKED_B, PACKED_H, PACKED_T = 16, 12, 512
+PACKED_SEGMENTS = (2, 6)  # segments a row of the kernel case, inclusive
+PACKED_UPDATES, PACKED_SAVE_AT, PACKED_SPIKE_AT = 8, 4, 5
+PACKED_FLAGS = ("--rotary", "True", "--pack-sequences", "--anomaly-guard",
+                "--snapshot-interval-updates", "2", "--loss-spike-warmup",
+                "2", "--loss-spike-window", "8", "--loss-spike-margin", "1.0")
+GUARD_RECORDS, GUARD_CORRUPT = 128, 3  # 8 updates an epoch of 16
+
+
+def packed_segment_ids(gen, batch, seq_len, segments=PACKED_SEGMENTS):
+    """[batch, seq_len] int32 segment ids of a seeded packed batch: each
+    row 2-6 segments (1-based) of random lengths, then a padded tail of
+    0-63 slots (segment 0)."""
+    rows = []
+    for _ in range(batch):
+        n = int(torch.randint(segments[0], segments[1] + 1, (1,),
+                              generator=gen))
+        tail = int(torch.randint(0, 64, (1,), generator=gen))
+        cuts = torch.randperm(seq_len - tail - 1, generator=gen)[:n - 1] + 1
+        edges = [0, *sorted(int(c) for c in cuts), seq_len - tail]
+        row = torch.zeros(seq_len, dtype=torch.int32)
+        for s, (a, b) in enumerate(zip(edges[:-1], edges[1:]), start=1):
+            row[a:b] = s
+        rows.append(row)
+    return torch.stack(rows).cuda()
+
+
+def softmax_dropout_packed_case(flush):
+    """Rows 9 and 10 at the packed LM's call, on the operands ``_attend``
+    gives them for a seeded packed batch: x bf16 [16, 12, 512, 512] with
+    the key padding's -inf at the padded tail keys, the fp32
+    segment-plus-causal bias [16, 1, 512, 512] (broadcast over heads,
+    stride 0), dropout 0.1.  Against the plain versions: the forward's
+    keep pattern exactly, its out and softmax within one bf16 ulp at
+    every element (the pad rows, segment 0, whose every key is -1e30 or
+    -inf, among them), all finite, and the backward's dx exactly on the
+    keep bits.  Reports ms, the bytes bounds, torch.softmax's time and
+    the plain versions'."""
+    from unicore_tpu_torch.modules.multihead_attention import (
+        _padding_bias, _segment_bias)
+    from unicore_tpu_torch.ops import softmax_dropout as sd
+    from unicore_tpu_torch.utils import causal_iota_mask
+
+    gen = torch.Generator().manual_seed(25)
+    seg = packed_segment_ids(gen, PACKED_B, PACKED_T)
+    bias = _segment_bias(seg, PACKED_T) + causal_iota_mask(
+        PACKED_T, PACKED_T, device="cuda")
+    shape = (PACKED_B, PACKED_H, PACKED_T, PACKED_T)
+    cg = torch.Generator(device="cuda").manual_seed(25)
+    x = torch.randn(shape, generator=cg, device="cuda").to(torch.bfloat16)
+    x = x + _padding_bias(seg == 0).to(torch.bfloat16)
+    g = torch.randn(shape, generator=cg, device="cuda").to(torch.bfloat16)
+    if sd.route(x, None, bias) != "kernel":
+        raise AssertionError("the packed call does not route to the kernel")
+    q_blk = sd.pick_q_blk_for(x, None, bias)
+    seed = torch.tensor([1234567], dtype=torch.int32, device="cuda")
+
+    def kernel_fwd():
+        return sd.softmax_dropout_fwd_cuda(x, None, bias, SD_P, seed, q_blk,
+                                           True)
+
+    def plain_fwd():
+        return sd.softmax_dropout_fwd_plain(x, None, bias, SD_P, seed, q_blk,
+                                            True)
+
+    (out_k, sm_k), (out_p, sm_p) = kernel_fwd(), plain_fwd()
+
+    def kernel_bwd():
+        return sd.softmax_dropout_bwd_cuda(g, sm_k, SD_P, seed, q_blk)
+
+    def plain_bwd():
+        return sd.softmax_dropout_bwd_plain(g, sm_p, SD_P, seed, q_blk)
+
+    dx_k, dx_p = kernel_bwd(), plain_bwd()
+    torch.cuda.synchronize()
+    for what, t in (("out", out_k), ("softmax", sm_k), ("dx", dx_k)):
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"packed {what}: non-finite")
+    if not torch.equal(out_k == 0, out_p == 0):
+        raise AssertionError("packed: keep patterns differ at "
+                             f"{int(((out_k == 0) != (out_p == 0)).sum())}")
+    errs = sd.check_backward(dx_k, g, sm_k, SD_P, seed, q_blk)
+    ulps = {"out": ulp_distance(out_k, out_p, torch.bfloat16),
+            "softmax": ulp_distance(sm_k, sm_p, torch.bfloat16)}
+    if max(ulps.values()) > 1.0:
+        raise AssertionError(f"packed forward vs plain: bf16 ulps {ulps} "
+                             "(bound 1)")
+    pad = (seg == 0)[:, None, :, None].expand(shape)
+    pad_ulps = ulp_distance(sm_k[pad], sm_p[pad], torch.bfloat16)
+    errs["out"] = float((out_k.float() - out_p.float()).abs().max())
+    errs["softmax"] = float((sm_k.float() - sm_p.float()).abs().max())
+    # dx is held exactly by check_backward on the kernel's own softmax;
+    # against the plain backward of the plain softmax, one ulp apart,
+    # to 2e-2 of its largest magnitude as in softmax_dropout_phase
+    errs["dx_vs_plain"] = float((dx_k.float() - dx_p.float()).abs().max())
+    if errs["dx_vs_plain"] > 2e-2 * float(dx_p.float().abs().max()):
+        raise AssertionError(f"packed dx: max |kernel - plain| "
+                             f"{errs['dx_vs_plain']}")
+    ms = kernel_times_ms(lambda: (kernel_fwd(), kernel_bwd()), flush,
+                         ("softmax_dropout_fwd", "softmax_dropout_bwd"),
+                         iters=10)
+    pre = (x.float() + bias).to(torch.bfloat16)
+    y_lib = torch.softmax(pre, dim=-1)
+    item = x.element_size()
+    nbytes = {"fwd": 3 * x.numel() * item + bias.numel() * 4,
+              "bwd": 3 * x.numel() * item}
+    bound = {k: n / HBM_BYTES_PER_S * 1e3 for k, n in nbytes.items()}
+    report = {
+        "shape": list(shape), "bias_shape": list(bias.shape),
+        "bias_dtype": "float32", "q_blk": q_blk, "max_abs_err": errs,
+        "max_bf16_ulps": ulps, "ulp_bound": 1.0,
+        "pad_rows": int((seg == 0).sum()), "pad_softmax_bf16_ulps": pad_ulps,
+        "segments_per_row": [int(r.max()) for r in seg],
+        "dropped_share": float((out_k == 0).float().mean()),
+        "fwd_ms": ms["softmax_dropout_fwd"],
+        "bwd_ms": ms["softmax_dropout_bwd"],
+        "bound_fwd_ms": bound["fwd"], "bound_bwd_ms": bound["bwd"],
+        "fwd_share_of_bound": bound["fwd"] / ms["softmax_dropout_fwd"],
+        "bwd_share_of_bound": bound["bwd"] / ms["softmax_dropout_bwd"],
+        "plain_fwd_ms": time_ms(plain_fwd, flush, iters=3),
+        "plain_bwd_ms": time_ms(plain_bwd, flush, iters=3),
+        "library_fwd_ms": time_ms(lambda: torch.softmax(pre, dim=-1), flush,
+                                  iters=10),
+        "library_bwd_ms": time_ms(
+            lambda: torch._softmax_backward_data(g, y_lib, -1,
+                                                 torch.bfloat16),
+            flush, iters=10),
+    }
+    emit("softmax_dropout_packed", card=card(), **report)
+    return report
+
+
+def guard_cost_case(steps_ms):
+    """What ``guard_update`` adds to every training step on the card, the
+    guard's state and loss on the device as the trainer holds them: its
+    launches (one call under ``torch.profiler``), the host's wall ms a
+    call over 500 back-to-back calls with one sync at the end (the
+    launch loop a host-bound step pays), the device ms a call, and that
+    wall time's share of each step median in ``steps_ms`` ({phase:
+    ms}, this run's)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from unicore_tpu_torch.resilience.anomaly import (AnomalyGuardConfig,
+                                                      guard_init,
+                                                      guard_update)
+
+    cfg = AnomalyGuardConfig()  # the trainer's defaults: spike factor 4
+    guard = guard_init("cuda")
+    loss = torch.full((), 7.5, device="cuda")
+    overflow = torch.zeros((), dtype=torch.bool, device="cuda")
+    for _ in range(20):
+        guard, _, _ = guard_update(guard, loss, overflow, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        guard_update(guard, loss, overflow, cfg)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    n = 500
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(n):
+        guard, _, _ = guard_update(guard, loss, overflow, cfg)
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    report = {"launches_per_call": sum(e.count for e in kernels),
+              "wall_ms_per_call": wall_ms,
+              "device_ms_per_call": start.elapsed_time(end) / n,
+              "device_busy_ms_per_call": sum(
+                  e.self_device_time_total for e in kernels) / 1e3,
+              "share_of_step": {k: wall_ms / v for k, v in steps_ms.items()},
+              "steps_ms": steps_ms}
+    emit("guard_cost", card=card(), **report)
+    return report
+
+
+def packed_rewind_case(trainer):
+    """The ladder's rewind at full width, in process, on the trainer of a
+    finished run whose ring's newest snapshot is its last update: one
+    more clean update (no snapshot), then the token embedding filled with
+    inf and three dispatches on one batch — skip, skip, rewind (bf16: no
+    backoff rung).  The restored params and Adam moments equal the
+    snapshot bit for bit, the update count is the snapshot's again, and a
+    clean update follows.  Reports the capture's and the restore's
+    host seconds."""
+    ds = trainer.task.dataset(trainer.args.train_subset)
+    batch = ds.collater([ds[i] for i in range(TRAIN_BATCH)])
+    trainer.train_step([batch])
+    n = trainer.get_num_updates()
+    snap_updates, _, snap = trainer._snapshot_ring.latest()
+    if snap_updates != n - 1:
+        raise AssertionError(f"snapshot @ {snap_updates}, update {n}")
+    with torch.no_grad():
+        trainer.model.embed_tokens.weight.fill_(float("inf"))
+    actions = []
+    for _ in range(3):
+        trainer.train_step([batch])
+        actions.append(trainer._escalation.rewinds)
+    if actions != [0, 0, 1] or trainer.get_num_updates() != snap_updates:
+        raise AssertionError(f"rewinds {actions}, update "
+                             f"{trainer.get_num_updates()}")
+    live = trainer._live_state()
+    equal = all(torch.equal(a.cpu(), b) for a, b in zip(
+        live["params"], snap["params"])) and all(
+        torch.equal(a.cpu(), b) for key in live["opt_state"]
+        for a, b in zip(live["opt_state"][key], snap["opt_state"][key]))
+    if not equal:
+        raise AssertionError("the rewind did not restore the snapshot bit "
+                             "for bit")
+    streak = int(trainer.guard["streak"])
+    trainer.train_step([batch])
+    if trainer.get_num_updates() != snap_updates + 1:
+        raise AssertionError("no clean update after the rewind")
+    return {"snapshot_updates": snap_updates, "restored_bit_equal": equal,
+            "streak_carried": streak,
+            "snapshot_capture_s": trainer.snapshot_seconds,
+            "restore_s": trainer.restore_seconds,
+            "snapshot_bytes": sum(t.numel() * t.element_size()
+                                  for t in snap["params"]) + sum(
+                t.numel() * t.element_size()
+                for v in snap["opt_state"].values() for t in v)}
+
+
+def lm_packed_phase(lm_report):
+    """The packed LM at full width (``transformer_lm_base``, rotary,
+    --bf16 --pack-sequences, batch 16 x 512 on lm_corpus) under
+    --anomaly-guard with 2-update snapshots and the chaos tool's spike
+    settings, UNICORE_TPU_CHAOS_INJECT=spike:5: (a) in process, 8
+    updates, no save — every dispatch 12 + 12 softmax_dropout launches and
+    no flash, dispatch 5 skipped, the loss falling, real-token share and
+    unpadded tokens/s against lm_train's (also without the steps that
+    took a snapshot), peak memory; (c) the rewind at full width on (a)'s
+    trainer (:func:`packed_rewind_case`), then a profiled window; (b) the
+    same command in a child saving at 4 (synchronously), SIGKILLed
+    mid-run after it, then resumed here (saving nothing more): its
+    trajectory bit-exact against (a)'s."""
+    from unicore_tpu_torch import trainer as trainer_mod
+    from unicore_tpu_torch.cli.train import cli_main
+    from unicore_tpu_torch.ops import flash_attention as fa
+    from unicore_tpu_torch.ops import softmax_dropout as sd
+    from unicore_tpu_torch.resilience import read_trajectory
+    from unicore_tpu_torch.tools import chaos
+
+    Trainer = trainer_mod.Trainer
+    train_step = Trainer.train_step
+    steps = []
+
+    def step(self, samples):
+        before = {**fa.launches, **sd.launches}
+        snap = self.snapshot_seconds
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = train_step(self, samples)
+        torch.cuda.synchronize()
+        after = {**fa.launches, **sd.launches}
+        steps.append({"s": time.perf_counter() - t,
+                      # a snapshot's host copy rode this step
+                      "snapshot": self.snapshot_seconds is not snap,
+                      "nats": float(out[0]["loss"])
+                      / float(out[0]["sample_size"]),
+                      "tokens": float(out[0]["sample_size"]),
+                      "slots": int(np.prod(samples[0]["target"].shape)),
+                      "launches": {k: after[k] - before[k] for k in after}})
+        return out
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus_s = lm_corpus(tmp)
+        v = os.path.join(tmp, "victim")
+        traj_a, traj_v = (os.path.join(tmp, "a.jsonl"),
+                          os.path.join(tmp, "victim.jsonl"))
+        inject = f"spike:{PACKED_SPIKE_AT}"
+
+        def argv(traj, logdir, *save):
+            return lm_args(tmp, logdir, PACKED_UPDATES, *PACKED_FLAGS,
+                           "--trajectory-file", traj, *save)
+
+        zero_counts(fa.launches, sd.launches, sd.plain_route)
+        Trainer.train_step = step
+        os.environ["UNICORE_TPU_CHAOS_INJECT"] = inject
+        start_gb = reset_peak_memory()
+        try:
+            t0 = time.perf_counter()
+            run_a = cli_main(argv(traj_a, os.path.join(tmp, "log_a"),
+                                  "--no-save"))
+            run_s = time.perf_counter() - t0
+        finally:
+            Trainer.train_step = train_step
+            del os.environ["UNICORE_TPU_CHAOS_INJECT"]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches = {k: v_ for k, v_ in {**fa.launches, **sd.launches}.items()
+                    if v_}
+        if any(sd.plain_route.values()):
+            raise AssertionError(f"plain route taken: {sd.plain_route}")
+        layers = run_a.trainer.model.decoder_layers
+        want = {k: (layers if k.startswith("softmax_dropout") else 0)
+                for k in steps[0]["launches"]}
+        for u, r in enumerate(steps):
+            if r["launches"] != want:
+                raise AssertionError(f"dispatch {u}: launches "
+                                     f"{r['launches']}, want {want}")
+        oracle = read_trajectory(traj_a)
+        skipped = [r["dispatch"] for r in oracle if r["skipped"]]
+        if skipped != [PACKED_SPIKE_AT] or oracle[-1]["update"] \
+                != PACKED_UPDATES:
+            raise AssertionError(f"skips {skipped}, last {oracle[-1]}")
+        nats = [r["nats"] for r in steps]
+        if not np.isfinite(nats).all() or not np.mean(nats[-3:]) < nats[0]:
+            raise AssertionError(f"loss did not fall: {nats}")
+        warm = steps[2:]
+        tokens = sum(r["tokens"] for r in warm)
+        share = tokens / sum(r["slots"] for r in warm)
+        plain = [r for r in warm if not r["snapshot"]]
+        unpacked_share = lm_report["tokens_per_update"] / (
+            TRAIN_BATCH * FLASH_T)
+        rewind = packed_rewind_case(run_a.trainer)
+        prof = profile_updates(run_a.trainer,
+                               named=("softmax_dropout_fwd",
+                                      "softmax_dropout_bwd"))
+        del run_a
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (b) SIGKILL mid-run after the save at 4 (synchronous: it has
+        # landed before dispatch 4 runs), then resume, in children
+        env = dict(os.environ, PYTHONPATH=here,
+                   UNICORE_TPU_CHAOS_INJECT=inject)
+        cmd = [sys.executable, "-m", "unicore_tpu_torch.cli.train",
+               *argv(traj_v, os.path.join(tmp, "log_v"),
+                     "--save-interval-updates", str(PACKED_SAVE_AT),
+                     "--save-dir", v, "--tmp-save-dir", v + "_tmp",
+                     "--async-save", "off")]
+        landed = os.path.join(v, "checkpoint_last.pt.sum")
+        t0 = time.perf_counter()
+        chaos.run_and_kill(
+            cmd, env, traj_v, graceful=False,
+            trigger=lambda: os.path.exists(landed)
+            and chaos.traj_lines(traj_v) >= PACKED_SAVE_AT + 2,
+            desc="the save at 4 landed", timeout=600)
+        killed_lines = chaos.traj_lines(traj_v)
+        if killed_lines > PACKED_UPDATES:
+            raise AssertionError(f"the kill landed after the last update "
+                                 f"({killed_lines} records)")
+        # the resume, in this process: the victim's command line, saving
+        # nothing more
+        os.environ["UNICORE_TPU_CHAOS_INJECT"] = inject
+        try:
+            resumed = cli_main([*cmd[3:], "--no-save"])
+        finally:
+            del os.environ["UNICORE_TPU_CHAOS_INJECT"]
+        chaos_s = time.perf_counter() - t0
+        if resumed.trainer.get_num_updates() != PACKED_UPDATES \
+                or chaos.traj_lines(traj_v) <= killed_lines:
+            raise AssertionError("the resume did not run to the end")
+        del resumed
+        mismatches, compared = chaos.compare_trajectories(
+            oracle, read_trajectory(traj_v))
+        if mismatches or read_trajectory(traj_v)[-1]["update"] \
+                != PACKED_UPDATES:
+            raise AssertionError(f"resumed trajectory: {mismatches[:3]}")
+    report = {
+        "model": "transformer_lm_base (rotary)", "dtype": "bf16",
+        "batch": TRAIN_BATCH, "seq_len": FLASH_T, "updates": PACKED_UPDATES,
+        "corpus_records": LM_RECORDS, "corpus_s": corpus_s, "run_s": run_s,
+        "losses_nats": nats, "skipped_dispatches": skipped,
+        "launches_per_dispatch": want, "launches": launches,
+        "step_ms_all": [r["s"] * 1e3 for r in steps],
+        "step_ms_median": float(np.median([r["s"] for r in warm])) * 1e3,
+        # the steps without a snapshot's host copy
+        "step_ms_median_no_snapshot":
+            float(np.median([r["s"] for r in plain])) * 1e3,
+        "snapshot_step_ms": [r["s"] * 1e3 for r in steps if r["snapshot"]],
+        "real_token_share": share,
+        "unpacked_real_token_share": unpacked_share,
+        "tokens_per_s": tokens / sum(r["s"] for r in warm),
+        "tokens_per_s_no_snapshot": sum(r["tokens"] for r in plain)
+        / sum(r["s"] for r in plain),
+        "unpacked_tokens_per_s": lm_report["tokens_per_s"],
+        "peak_mem_gb": peak_gb, "mem_at_start_gb": start_gb,
+        "resume": {"killed_after_lines": killed_lines,
+                   "records_compared": compared, "bit_exact": True,
+                   "seconds": chaos_s},
+        "rewind": rewind, "phase_s": time.perf_counter() - t_phase,
+        "card": card()}
+    emit("lm_packed", **report)
+    emit("lm_packed_profile", window="3 updates, packed 16 x 512, bf16",
+         **prof)
+    return {"launches": launches, **report}
+
+
+def data_guard_phase():
+    """--data-guard at full width: the LM of lm_train (unpacked: packing
+    reads every record's length at load, before the guard) on 128 records
+    of lm_corpus's law with 3 seeded records torn, under --data-guard
+    --num-workers 2 --worker-impl process: one epoch of 8 updates skips
+    exactly the 3 (the checkpoint's skip log equal to the chaos tool's
+    ``predict_skips`` oracle), then a run resumed from it for 2 updates
+    carries the log (its epoch-1 entries unchanged)."""
+    from unicore_tpu_torch.cli.train import cli_main
+    from unicore_tpu_torch.examples.lm import make_data
+    from unicore_tpu_torch.tools import chaos
+
+    t_phase = time.perf_counter()
+    updates = GUARD_RECORDS // TRAIN_BATCH
+    with tempfile.TemporaryDirectory() as tmp:
+        make_data.write_corpus(tmp, train=GUARD_RECORDS, valid=8, seed=2048)
+        picks = chaos.corrupt_train_records(tmp, GUARD_CORRUPT, seed=1)
+        save = os.path.join(tmp, "save")
+        base = lm_args(tmp, os.path.join(tmp, "log"), updates, "--save-dir",
+                       save, "--tmp-save-dir", save + "_tmp")
+        # the guard's process workers replace lm_args's inline loading
+        flags = list(chaos.DATA_GUARD_FLAGS)
+        _, step_s, run_s = timed_cli(base + flags)
+        log1 = chaos.read_skip_log(save)
+        predicted = chaos.predict_skips(log1, picks, seed=1,
+                                        n=GUARD_RECORDS)
+        if sorted(e["index"] for e in log1) != picks or log1 != predicted:
+            raise AssertionError(f"skips {log1}, torn {picks}, oracle "
+                                 f"{predicted}")
+        loop, _, _ = timed_cli([*base, *flags, "--max-update",
+                                str(updates + 2), "--no-save"])
+        guard, = loop.task._guarded_datasets.values()
+        log2 = sorted(({k: e[k] for k in ("epoch", "index", "replacement",
+                                          "attempt")}
+                       for e in guard.skip_log.entries),
+                      key=lambda e: (e["epoch"], e["index"]))
+        del loop
+        if [e for e in log2 if e["epoch"] == 1] != log1:
+            raise AssertionError(f"resumed log {log2} lost {log1}")
+    report = {"records": GUARD_RECORDS, "torn": picks, "updates": updates,
+              "skips": log1, "oracle_equal": True,
+              "resumed_log": log2, "step_ms_median":
+              float(np.median(step_s[2:])) * 1e3, "run_s": run_s,
+              "phase_s": time.perf_counter() - t_phase}
+    emit("data_guard", **report)
+    return report
+
+
 PALLAS = "unicore_tpu/ops/pallas/"
 
 
@@ -6595,6 +7062,29 @@ def kernels_line(res):
                     for t, by_case in by_type.items()
                     for case, r in by_case.items()},
             })
+    # the packed LM's call: x bf16 [16, 12, 512, 512] with an fp32
+    # segment-plus-causal bias [16, 1, 512, 512], launched by lm_packed
+    packed = res["packed_sd"]
+    for row, kind, body, errs in ((9, "fwd", ":64", ("out", "softmax")),
+                                  (10, "bwd", ":87", ("dx",))):
+        name = f"softmax_dropout_{kind}"
+        rows.append({
+            "row": row, "name": name, "dtype": "bfloat16", "packed": True,
+            "route": "cuda",
+            "source": "unicore_tpu_torch/csrc/softmax_dropout.cu",
+            "replaces": PALLAS + "softmax_dropout.py" + body,
+            "launches": res["lm_packed"]["launches"][name],
+            "launches_by_phase": {
+                f"lm_packed ({PACKED_UPDATES} updates, "
+                f"{PACKED_UPDATES + 1} dispatches)":
+                    res["lm_packed"]["launches"][name]},
+            "max_abs_err": max(packed["max_abs_err"][e] for e in errs),
+            "ms": packed[f"{kind}_ms"],
+            "plain_ms": packed[f"plain_{kind}_ms"],
+            "bound_ms": packed[f"bound_{kind}_ms"], "bound_by": "bytes",
+            # torch's softmax (backward) of pre-added scores: no dropout
+            "library_ms": packed[f"library_{kind}_ms"],
+            "shape": packed["shape"], "bias_shape": packed["bias_shape"]})
     # the SR sync of every evoformer_base leaf in one table launch
     table = res["sr"]["table"]
     rows.append({
@@ -6671,6 +7161,7 @@ def main():
     res["multiblock"] = flash_multiblock_phase(flush)
     emit("head", **head_phase(flush))
     res["sd"] = softmax_dropout_phase(flush)
+    res["packed_sd"] = softmax_dropout_packed_case(flush)
     emit("softmax_dropout_route", **softmax_dropout_route_case(flush))
     res["sr"] = rounding_phase(flush)
     res["ema_report"] = ema_case(flush)
@@ -6697,7 +7188,14 @@ def main():
     torch.cuda.empty_cache()
     res["dw_launches"] = data_workers_phase()
     torch.cuda.empty_cache()
-    res["lm_launches"] = lm_train_phase()["launches"]
+    lm_report = lm_train_phase()
+    res["lm_launches"] = lm_report["launches"]
+    torch.cuda.empty_cache()
+    res["lm_packed"] = lm_packed_phase(lm_report)
+    guard_cost_case({"train": train["step_ms_median"],
+                     "lm_train": lm_report["step_ms_median"]})
+    torch.cuda.empty_cache()
+    data_guard_phase()
     torch.cuda.empty_cache()
     lm_serve = lm_serve_checkpoint_phase()
     emit("lm_serve_checkpoint", **lm_serve)

@@ -33,20 +33,13 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_thread_module  # noqa: F401
 from unicore_tpu_torch.examples.bert import convert
 from unicore_tpu_torch.examples.bert.model import (BertClassificationHead,
                                                    BertModel)
 from unicore_tpu_torch.ops.dropout import bernoulli_dropout
 
 V, PAD, HEAD = 33, 1, "sentiment"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def flax_kw(layers, width, ffn, heads, max_seq_len=128):

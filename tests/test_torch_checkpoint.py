@@ -645,9 +645,17 @@ def test_failed_background_write_surfaces_at_the_next_boundary(
 @pytest.mark.parametrize("flag,item", [(["--anomaly-guard"], "A11"),
                                        (["--loss-spike-factor", "3"], "A11")])
 def test_cli_refuses_unported_checkpoint_flags(tmp_path, corpus, flag, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        _cli(corpus, tmp_path, "x", "--max-update", "1", "--save-dir",
-             str(tmp_path / "save"), *flag)
+    """The anomaly guard's flags were refused until ``ROADMAP.md`` ``item``
+    was ported; now the run takes them and its file's guard slot holds
+    the live guard: 2 clean updates folded into the EMA, not zeros."""
+    losses = _cli(corpus, tmp_path, "x", "--max-update", "2", "--save-dir",
+                  str(tmp_path / "save"), *flag)
+    assert item == "A11" and sorted(losses) == [1, 2]
+    guard = cu.load_checkpoint_to_cpu(
+        str(tmp_path / "save" / "checkpoint_last.pt"))["model"]["guard"]
+    assert int(guard["count"]) == 2 and int(guard["skips"]) == 0
+    assert guard["loss_ema"].dtype == np.float32
+    assert float(guard["loss_ema"]) > 0 and float(guard["loss_emsq"]) > 0
 
 
 def test_bf16_moments_round_trip_exactly(tmp_path):

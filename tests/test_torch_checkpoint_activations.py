@@ -18,19 +18,11 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_thread_module  # noqa: F401
 from unicore_tpu_torch.modules import TransformerDecoder, TransformerEncoder
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 D, H, F, L = 32, 4, 64, 2
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: test workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def stack(kind, t):

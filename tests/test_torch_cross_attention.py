@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_thread_module  # noqa: F401
 from unicore_tpu_torch.examples.lm import convert
 from unicore_tpu_torch.modules import (CrossMultiheadAttention,
                                        TransformerDecoder)
@@ -25,15 +26,6 @@ from unicore_tpu_torch.ops import flash_attention as fa
 D, H, F, L = 32, 4, 64, 2
 TOL = 1e-4
 ON_GRID, OFF_GRID = (128, 256), (12, 20)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: test workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def perturbed(params, seed=1):

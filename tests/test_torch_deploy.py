@@ -36,6 +36,7 @@ import torch
 from test_torch_fleet import (POOL, V, Clock, jax_engines, make_pair,
                               port_engines)
 
+from torch_threads import one_thread_module  # noqa: F401
 from unicore_tpu_torch import checkpoint_utils as cu
 from unicore_tpu_torch.deploy import (WeightPublisher, load_manifest_params,
                                       read_manifest, scan_publish_dir)
@@ -45,14 +46,6 @@ from unicore_tpu_torch.fleet import FleetRouter, clip_trace, generate_trace
 from unicore_tpu_torch.ops.build import KernelError
 from unicore_tpu_torch.serve.engine import WeightSwapError
 from unicore_tpu_torch.serve.scheduler import Request
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

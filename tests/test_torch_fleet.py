@@ -38,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_thread_module  # noqa: F401
 from unicore_tpu_torch.examples.lm.model import TransformerLMModel, solo_greedy
 from unicore_tpu_torch.fleet import (SCENARIOS, CircuitBreaker, FleetRouter,
                                      HashRing, ReplicaHealth, clip_trace,
@@ -50,14 +51,6 @@ from unicore_tpu_torch.serve.scheduler import Request
 V, D, H, F, L = 29, 32, 4, 64, 2
 POOL = dict(num_pages=24, page_size=4, max_batch=4)
 MAX_CONTEXT = (POOL["num_pages"] - 1) * POOL["page_size"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_thread_module  # noqa: F401
 from unicore_tpu_torch.examples.lm.generate import generate, init_cache
 from unicore_tpu_torch.examples.lm.model import TransformerLMModel
 from unicore_tpu_torch.modules.multihead_attention import (
@@ -23,18 +24,6 @@ V, D, H, F, L, T = 29, 32, 4, 64, 2, 12
 PAD = 0
 TOL = 2e-4  # tests/test_decode.py's own
 VARIANTS = ["abs_pos", "rotary"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for the module: when test workers share the
-    cores, each parallel region of torch's CPU ops waits for all its
-    threads to be scheduled, and the draws over [B, 30522] tensors here
-    slow down by orders of magnitude."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def dims(variant, **over):

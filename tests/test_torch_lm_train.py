@@ -225,7 +225,8 @@ def _batches(task, split, epoch, bsz, n):
 
 def test_lm_task_batches_equal_the_jax_task(corpus):
     """Records longer than max_seq_len - 1 clipped, bos/eos, right pad:
-    every batch of the train split equals the JAX task's bit for bit."""
+    every batch of the train split equals the JAX task's bit for bit, and
+    so do the packed rows under ``--pack-sequences``."""
     jtask, task = both_tasks(task_args(corpus))
     assert len(task.dictionary) == len(jtask.dictionary) == V
     for t in (jtask, task):
@@ -242,9 +243,19 @@ def test_lm_task_batches_equal_the_jax_task(corpus):
         assert a.shape == (8, T)
     lengths = [(b["target"] != PAD).sum(1) for b in got]
     assert max(int(n.max()) for n in lengths) == T   # a clipped record
-    with pytest.raises(NotImplementedError, match="A11"):
-        LMTask.setup_task(task_args(corpus, pack_sequences=True)) \
-            .load_dataset("train")
+    # --pack-sequences (no longer refused): the packed rows, with their
+    # segment ids and positions, equal the JAX task's too
+    jtask, task = both_tasks(task_args(corpus, pack_sequences=True,
+                                       pack_max_segments=3))
+    for t in (jtask, task):
+        t.load_dataset("train")
+    got = _batches(task, "train", 1, 8, 3)
+    want = _batches(jtask, "train", 1, 8, 3)
+    for g, w in zip(got, want):
+        for key in ("src_tokens", "segment_ids", "positions"):
+            a, b = g["net_input"][key], w["net_input"][key]
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+        assert g["target"].tobytes() == w["target"].tobytes()
 
 
 # -------------------------------------------------------------- losses --

@@ -25,6 +25,7 @@ import torch
 
 from test_torch_evoformer import (FWD_TOL, GRAD_TOL, assert_close,
                                   make_args, randomize)
+from torch_threads import one_thread_module  # noqa: F401
 from unicore_tpu_torch import trainer as port_trainer
 from unicore_tpu_torch.data import IndexedRecordWriter
 from unicore_tpu_torch.examples.pair import make_data
@@ -35,15 +36,6 @@ from unicore_tpu_torch.examples.pair.model import EvoformerPairModel
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, N, BINS = 2, 12, 8
 TINY = dict(pair_layers=1, pair_embed_dim=16, pair_attention_heads=2)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: test workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def jax_make_data():

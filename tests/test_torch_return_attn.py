@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_thread_module  # noqa: F401
 from unicore_tpu_torch.examples.bert import convert
 from unicore_tpu_torch.modules import (SelfMultiheadAttention,
                                        TransformerEncoderLayer)
@@ -25,15 +26,6 @@ from unicore_tpu_torch.modules import multihead_attention as mha
 
 D, H, F, T, B = 32, 4, 64, 16, 3
 PREFIX = "sentence_encoder.layers.0."
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: test workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def perturbed(params):

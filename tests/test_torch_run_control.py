@@ -87,6 +87,30 @@ DATA_PARALLEL_FLAGS = (
     "--zero1", "--comms-overlap")
 
 
+# A11's flags: the anomaly guard and its ladder, the snapshot ring, the
+# trajectory file, the data guard and packing (their A11 refusals left
+# NOT_PARSED and the trainer's UNPORTED with them)
+A11_FLAGS = (
+    "--anomaly-guard", "--anomaly-backoff-after", "--anomaly-rewind-after",
+    "--anomaly-abort-after", "--loss-spike-factor", "--loss-spike-margin",
+    "--loss-spike-window", "--loss-spike-warmup",
+    "--snapshot-interval-updates", "--snapshot-ring-size",
+    "--trajectory-file", "--data-guard", "--data-retries",
+    "--data-retry-backoff", "--data-corrupt-budget",
+    "--data-resample-attempts", "--pack-max-segments", "--pack-sequences")
+
+
+@pytest.mark.parametrize("flag", A11_FLAGS)
+def test_a11_flag_parses_as_the_jax_parser_does(flag):
+    """Each A11 flag parses with the JAX parser's option strings, action,
+    default, type, choices, nargs and const, and nothing refuses it."""
+    from unicore_tpu_torch import trainer as port_trainer
+
+    assert flag not in port_options.NOT_PARSED
+    assert flag not in [f for _, _, f, _ in port_trainer.UNPORTED]
+    test_flag_parses_as_the_jax_parser_does(flag)
+
+
 @pytest.mark.parametrize("flag", DATA_PARALLEL_FLAGS)
 def test_data_parallel_flag_parses_as_the_jax_parser_does(flag):
     """Each data-parallel flag parses with the JAX parser's option

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_thread_module  # noqa: F401
 from unicore_tpu_torch.serve import threefry as tf
 from unicore_tpu_torch.serve.sampling import (
     _top_k_mask,
@@ -26,18 +27,6 @@ SEEDS = [0, 1, 7, 123456789, 2**31 - 1]
 STEPS = [0, 1, 3, 10**6]
 SHAPES = [(29,), (4, 29), (30522,), (2, 30522)]
 V = 29
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for the module: when test workers share the
-    cores, each parallel region of torch's CPU ops waits for all its
-    threads to be scheduled, and the draws over [B, 30522] tensors here
-    slow down by orders of magnitude."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

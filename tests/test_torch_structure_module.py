@@ -29,6 +29,7 @@ import pytest
 import torch
 
 from test_torch_evoformer import FWD_TOL, GRAD_TOL, assert_close, randomize
+from torch_threads import one_thread_module  # noqa: F401
 from unicore_tpu_torch.examples.evoformer import make_data
 from unicore_tpu_torch.examples.evoformer.convert import state_dict_from_flax
 from unicore_tpu_torch.examples.evoformer.model import EvoformerModel
@@ -41,15 +42,6 @@ B, S, R, C, CZ, H, A, F = 2, 4, 8, 16, 8, 2, 5, 6
 TINY = dict(evoformer_layers=1, msa_embed_dim=C, pair_embed_dim=CZ,
             msa_attention_heads=H, pair_attention_heads=H, opm_hidden_dim=4,
             structure_module=True, structure_layers=2)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: test workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def random_rigid(rng, shape):

@@ -36,9 +36,10 @@ save.  A shard file holds ``{"process_index", "token", "entries"}``,
 pieces and, where the piece it needs is not there (another world size),
 every shard file of the save (:class:`ShardReader`).
 
-Not ported: the chaos hooks (``ROADMAP.md`` A11); a file of the layouts
-only A13 writes (fsdp, tensor or sequence parallelism) is refused by
-name.
+The chaos tool's crash windows (``UNICORE_TPU_CHAOS_WRITE_FAIL``,
+``UNICORE_TPU_CHAOS_WRITE_HOLD``) are the JAX package's.  Not ported: a
+file of the layouts only A13 writes (fsdp, tensor or sequence
+parallelism) is refused by name.
 """
 
 import ast
@@ -129,6 +130,51 @@ class CheckpointFormatError(ValueError):
 
 
 # ----------------------------------------------------------------------
+# the chaos tool's crash windows (``unicore_tpu_torch/tools/chaos.py``,
+# the JAX package's variables): inert without their environment
+# variable, and each fires at most once a process, so a resumed run is
+# unaffected
+# ----------------------------------------------------------------------
+
+_CHAOS = {"writes": 0, "holds": 0, "held": False}
+
+
+def _chaos_take_write_fail():
+    """``UNICORE_TPU_CHAOS_WRITE_FAIL=K``: the K-th ``atomic_save`` of this
+    process fails (every retry) with an injected OSError."""
+    spec = os.environ.get("UNICORE_TPU_CHAOS_WRITE_FAIL")
+    if not spec:
+        return False
+    _CHAOS["writes"] += 1
+    return _CHAOS["writes"] == int(spec)
+
+
+def _chaos_finalize_hold(dst):
+    """``UNICORE_TPU_CHAOS_WRITE_HOLD=<substr>:<sentinel>:<secs>``: while
+    finalizing a destination whose name contains ``<substr>``, touch
+    ``<sentinel>`` and sleep between the data copy and the ``.sum`` copy
+    (the kill-between-data-and-marker window), at the
+    ``UNICORE_TPU_CHAOS_WRITE_HOLD_AT``-th such finalize (default 1)."""
+    spec = os.environ.get("UNICORE_TPU_CHAOS_WRITE_HOLD")
+    if not spec or _CHAOS["held"]:
+        return
+    substr, _, rest = spec.partition(":")
+    sentinel, _, secs = rest.rpartition(":")
+    if substr not in os.path.basename(dst):
+        return
+    _CHAOS["holds"] += 1
+    if _CHAOS["holds"] != int(
+            os.environ.get("UNICORE_TPU_CHAOS_WRITE_HOLD_AT", "1")):
+        return
+    _CHAOS["held"] = True
+    with open(sentinel, "w") as f:
+        f.write(dst)
+    logger.warning("CHAOS: holding %ss inside the data->marker copy window "
+                   "of %s", secs, dst)
+    time.sleep(float(secs))
+
+
+# ----------------------------------------------------------------------
 # low-level IO
 # ----------------------------------------------------------------------
 
@@ -165,8 +211,12 @@ def atomic_save(obj, filename, retries=3, backoff=0.5):
     into place first, the sidecar second, so a crash between the two
     leaves a data file whose sidecar mismatches (or is missing), which
     verified reads treat as torn."""
+    inject_fail = _chaos_take_write_fail()
     for attempt in range(retries):
         try:
+            if inject_fail:
+                raise OSError("chaos: injected checkpoint writer IO failure "
+                              "(UNICORE_TPU_CHAOS_WRITE_FAIL)")
             with open(filename + ".tmp", "wb") as f:
                 w = _HashingWriter(f)
                 if has_markers(obj):
@@ -760,6 +810,7 @@ class CheckpointManager:
                 # data first, .sum last: a crash mid-copy leaves a
                 # destination that verified reads reject
                 shutil.copyfile(src, dst)
+                _chaos_finalize_hold(dst)
                 shutil.copyfile(_sum_path(src), _sum_path(dst))
                 copied_any = True
                 logger.info("copied %s -> %s", src, dst)

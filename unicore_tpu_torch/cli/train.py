@@ -64,6 +64,10 @@ class TrainLoop:
         self.shutdown = shutdown  # GracefulShutdown, or None
         self._runs_without_improvement = 0
         self._patience_best = None
+        # the --data-guard counters at the last boundary; None until the
+        # first one takes a baseline (a resumed run's restored skip log is
+        # no fresh skip)
+        self._data_seen = None
 
     def _hit_hard_limits(self):
         """--max-update and --stop-time-hours, checked after every
@@ -127,9 +131,20 @@ class TrainLoop:
         update_freq = freqs[min(epoch_itr.epoch, len(freqs)) - 1]
         grouped = iterators.GroupedIterator(itr, update_freq)
         progress = self._progress(grouped, epoch_itr.epoch)
+        # the baseline before the first pull: a skip in the first batch
+        # still counts
+        self._log_data_health(epoch_itr)
+        # the watchdog's timeout dump names this epoch's pipeline state
+        self.trainer.attach_input_pipeline(getattr(epoch_itr, "status", None))
         self.trainer.begin_epoch(epoch_itr.epoch)
         valid_losses, stop = [None], False
-        for samples in progress:
+        stream = iter(progress)
+        while True:
+            # the pull is armed: a wedged worker is a hang like any other
+            with self.trainer.input_wait():
+                samples = next(stream, None)
+            if samples is None:
+                break
             with metrics.aggregate("train_inner"):
                 self.trainer.train_step(samples)
             n = self.trainer.get_num_updates()
@@ -157,6 +172,7 @@ class TrainLoop:
         # a background write that failed since the last boundary surfaces
         # here, before anything else
         self.ckpt.poll()
+        self._log_data_health(epoch_itr)
         if preempted:
             logger.warning("preemption: checkpointing and exiting at this "
                            "step boundary")
@@ -185,6 +201,34 @@ class TrainLoop:
         self.ckpt.save(self.trainer, epoch_itr, valid_losses[0],
                        do_save=save_now or stop)
         return valid_losses, stop
+
+    def _log_data_health(self, epoch_itr):
+        """The ``--data-guard`` metrics, read on the loop's thread each
+        boundary: the skips and retries since the last one
+        (``data_skipped``, ``data_retries``) and the corrupt-rate gauge
+        the budget watches."""
+        counters_fn = getattr(epoch_itr.dataset, "data_counters", None)
+        c = counters_fn() if counters_fn is not None else None
+        if c is None:
+            return
+        if self._data_seen is None:  # first boundary: baseline only
+            self._data_seen = {k: c[k] for k in ("skipped", "retries")}
+            return
+        d_skip = c["skipped"] - self._data_seen["skipped"]
+        d_retry = c["retries"] - self._data_seen["retries"]
+        # into the epoch's meters, as the JAX loop's train aggregate
+        with metrics.aggregate("train"):
+            if d_skip > 0:
+                metrics.log_scalar("data_skipped", d_skip, priority=612,
+                                   round=0)
+            if d_retry > 0:
+                metrics.log_scalar("data_retries", d_retry, priority=613,
+                                   round=0)
+            if d_skip > 0 or d_retry > 0:
+                metrics.log_scalar("data_corrupt_rate", c["corrupt_rate"],
+                                   priority=614, round=5, weight=0)
+        if d_skip > 0 or d_retry > 0:
+            self._data_seen = {k: c[k] for k in ("skipped", "retries")}
 
     def validate(self, epoch_itr):
         """Every validation subset; returns the checkpoint-metric values."""
@@ -295,6 +339,7 @@ def main(args):
         # the data workers and the prefetch pump go within a deadline, so
         # a preempted run leaves no worker process behind
         epoch_itr.close()
+        trainer.close_trajectory()
         if shutdown is not None:
             shutdown.uninstall()
     if shutdown is not None and shutdown.requested:

@@ -24,6 +24,14 @@ from .lmdb_dataset import LMDBDataset  # noqa
 from .mask_tokens_dataset import MaskTokensDataset  # noqa
 from .misc_datasets import LRUCacheDataset, NumelDataset, NumSamplesDataset  # noqa
 from .nested_dictionary_dataset import NestedDictionaryDataset  # noqa
+from .packing import PackedTokenDataset, pack_lengths  # noqa
+from .resilient import (  # noqa
+    DataGuardConfig,
+    GuardedDataset,
+    SkipLog,
+    maybe_guard,
+    resample_index,
+)
 from .pad_dataset import (  # noqa
     LeftPadDataset,
     PadDataset,

@@ -475,17 +475,20 @@ class DataParallel:
         comm_stats["calls"] += 1
         return t
 
-    def sum_stats(self, sample_size, logs):
-        """The sample size and logging outputs summed across ranks (one
-        collective): the global batch's, as the JAX step gives them."""
+    def sum_stats(self, sample_size, logs, loss_sum):
+        """The sample size, logging outputs and scaled loss summed across
+        ranks (one collective): the global batch's, as the JAX step gives
+        them (the anomaly guard reads the loss, so every rank decides
+        alike)."""
         keys = sorted(logs)
         packed = torch.stack(
-            [sample_size.float().reshape(())]
+            [sample_size.float().reshape(()), loss_sum.float().reshape(())]
             + [torch.as_tensor(logs[k], dtype=torch.float32,
                                device=sample_size.device).reshape(())
                for k in keys])
         self.all_reduce(packed)
-        return packed[0], {k: packed[1 + j] for j, k in enumerate(keys)}
+        return (packed[0], {k: packed[2 + j] for j, k in enumerate(keys)},
+                packed[1])
 
     def agree_slots(self, weights, device):
         """The micro-batch slots every rank has real data in: the min of

@@ -173,9 +173,12 @@ class TransformerLMModel(BaseUnicoreModel):
         self.out_bias.zero_()
 
     def features(self, src_tokens, positions=None, paged=None,
-                 generator=None, cache=None):
+                 generator=None, cache=None, segment_ids=None):
         """Decoder output before the head, [B, T, D].  Without ``paged``
-        or ``cache`` this is the causal full forward over ``src_tokens``;
+        or ``cache`` this is the causal full forward over ``src_tokens``
+        (with ``segment_ids`` [B, T], a packed batch: segment-causal
+        attention, ``positions`` [B, T] reset per segment, -1 at pad,
+        driving the learned positions and rotary);
         with ``paged``, one ragged serve step (``positions`` [B, T], -1 =
         padded column); with ``cache`` (a :class:`~unicore_tpu_torch.
         modules.multihead_attention.DecodeCache`), one dense-cache decode
@@ -191,7 +194,8 @@ class TransformerLMModel(BaseUnicoreModel):
                 # -1 marks an inactive column: gather row 0 for it
                 x = x + pos[positions.long().clamp(min=0)].to(x.dtype)
         return self.decoder(x, padding_mask=padding_mask, generator=generator,
-                            positions=positions, paged=paged, cache=cache)
+                            positions=positions, paged=paged, cache=cache,
+                            segment_ids=segment_ids)
 
     def head_features(self, x):
         """The head's features before the tied projection."""
@@ -205,10 +209,11 @@ class TransformerLMModel(BaseUnicoreModel):
             + self.out_bias
 
     def forward(self, src_tokens, positions=None, paged=None, generator=None,
-                fused_head=False, cache=None):
+                fused_head=False, cache=None, segment_ids=None):
         """Logits [B, T, V]; with ``cache``, ``(logits, cache)`` as the
         JAX model's ``apply(..., mutable=["cache"])`` returns them."""
-        x = self.features(src_tokens, positions, paged, generator, cache)
+        x = self.features(src_tokens, positions, paged, generator, cache,
+                          segment_ids)
         if cache is not None:
             return self.head(x), cache
         if fused_head:

@@ -35,9 +35,13 @@ output features are laid out q-block, k-block, v-block, each
 ``[D, 3, H, Dh]`` is ``in_proj.weight.T`` reshaped.  The cross-attention
 has separate ``q_proj``, ``k_proj``, ``v_proj`` and ``out_proj`` and the
 same dispatch as the full forward, Tq and Tk apart.  Packed
-``segment_ids`` are not ported yet (ROADMAP.md A11); with a decode cache
-they, ``return_attn``, a bias and a key padding mask meet the JAX
-refusals.
+``segment_ids`` [B, T] (nonzero per segment, 0 = pad) take the
+materialized path, as the JAX ``_attend`` sends them: the segment bias
+(:func:`_segment_bias`, fp32 ``[B, 1, T, T]``, -1e30 where query and key
+are not in one segment), then the causal mask, added to it in that
+order, go to ``softmax_dropout`` as its bias.  With a decode cache
+``segment_ids``, ``return_attn``, a bias and a key padding mask meet the
+JAX refusals.
 """
 
 import dataclasses
@@ -71,20 +75,31 @@ def _padding_bias(key_padding_mask):
         key_padding_mask.bool(), float("-inf"))[:, None, None, :]
 
 
+def _segment_bias(segment_ids, tk):
+    """Additive fp32 [B, 1, T, tk] span mask of packed rows: query q may
+    attend key k iff both lie in the same nonzero segment; elsewhere the
+    -1e30 fill, whose softmax terms underflow to 0."""
+    seg_q = segment_ids[:, None, :, None]
+    seg_k = segment_ids[:, None, None, :tk]
+    ok = (seg_q == seg_k) & (seg_k != 0)
+    return torch.zeros(ok.shape, dtype=torch.float32,
+                       device=segment_ids.device).masked_fill(~ok, -1e30)
+
+
 def _attend(q, k, v, scaling, dropout, key_padding_mask, bias, training,
-            generator, causal=False, return_attn=False):
+            generator, causal=False, return_attn=False, segment_ids=None):
     """Core attention, q [B, Tq, H, D] and k/v [B, Tk, H, D] -> [B, Tq, H,
-    D]: the JAX ``_attend``'s dispatch without its sequence-parallel and
-    segment paths.  With ``return_attn``, ``(o, attn_weights, probs)``:
-    the scores with the padding and the bias (the causal mask folded in)
-    added in their own type, and softmax_dropout's output, called with no
-    bias; this never takes flash."""
+    D]: the JAX ``_attend``'s dispatch without its sequence-parallel path
+    (``segment_ids`` bypass flash).  With ``return_attn``, ``(o,
+    attn_weights, probs)``: the scores with the padding and the bias (the
+    causal mask folded in) added in their own type, and softmax_dropout's
+    output, called with no bias; this never takes flash."""
     bias4 = bias
     if bias4 is not None and bias4.dim() < 4:
         bias4 = bias4.reshape((1,) * (4 - bias4.dim()) + tuple(bias4.shape))
     qs = (q.shape[0], q.shape[2], q.shape[1], q.shape[3])
     ks = (k.shape[0], k.shape[2], k.shape[1], k.shape[3])
-    if not return_attn and eligible(
+    if segment_ids is None and not return_attn and eligible(
             qs, ks, None if bias4 is None else tuple(bias4.shape)):
         return flash_attention(
             q, k, v, bias=bias4, key_padding_mask=key_padding_mask,
@@ -95,6 +110,9 @@ def _attend(q, k, v, scaling, dropout, key_padding_mask, bias, training,
                      q * rounded_constant(scaling, q.dtype), k)
     if key_padding_mask is not None:
         s = s + _padding_bias(key_padding_mask).to(q.dtype)
+    if segment_ids is not None:
+        sb = _segment_bias(segment_ids, k.shape[1])
+        bias = sb if bias is None else bias + sb
     if causal:
         # fp32 -1e30 fill, as the reference's _causal_bias: a bias of x's
         # type promotes to fp32 with it
@@ -214,10 +232,6 @@ class SelfMultiheadAttention(nn.Module):
                 raise NotImplementedError(DECODE_SEGMENT_REFUSAL)
             if positions is None and self.rotary:
                 raise ValueError(DECODE_ROTARY_REFUSAL)
-        elif segment_ids is not None:
-            raise NotImplementedError(
-                "segment_ids is not ported to unicore_tpu_torch yet "
-                "(ROADMAP.md A11)")
         bsz, tgt_len, _ = query.shape
         qkv = self.in_proj(query).view(bsz, tgt_len, 3, self.num_heads,
                                        self.head_dim)
@@ -239,7 +253,7 @@ class SelfMultiheadAttention(nn.Module):
                         key_padding_mask,
                         _canon_bias(attn_bias, bsz, self.num_heads),
                         self.training, generator, causal=causal,
-                        return_attn=return_attn)
+                        return_attn=return_attn, segment_ids=segment_ids)
             if return_attn:
                 o, attn_weights, probs = o
         out = self.out_proj(o.reshape(bsz, tgt_len, self.embed_dim))

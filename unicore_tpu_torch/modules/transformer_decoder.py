@@ -31,8 +31,9 @@ as the JAX decoder does: ``paged`` (the serve engine's pool) and
 dense cache, advanced in place); there the cross-attention runs over the
 whole ``encoder_out`` at every step, as the JAX decoder's does.  The
 decoder refuses what the JAX one refuses: decoding with the
-relative-position bias, and packed ``segment_ids`` with it; packing
-itself is not ported (ROADMAP.md A11).
+relative-position bias, and packed ``segment_ids`` with it.  Packed
+``segment_ids`` [B, T] (the full forward) go to every self-attention,
+which masks across segments; ``positions`` then drive rotary per segment.
 """
 
 import torch
@@ -85,7 +86,7 @@ class TransformerDecoderLayer(nn.Module):
     def forward(self, x, attn_bias=None, padding_mask=None, generator=None,
                 positions=None, paged=None, kv=None, cache=None,
                 encoder_out=None, encoder_padding_mask=None,
-                encoder_attn_bias=None, causal=True):
+                encoder_attn_bias=None, causal=True, segment_ids=None):
         decode = paged is not None or cache is not None
         residual = x
         if not self.post_ln:
@@ -94,6 +95,7 @@ class TransformerDecoderLayer(nn.Module):
             x, key_padding_mask=None if decode else padding_mask,
             attn_bias=attn_bias, causal=causal, generator=generator,
             positions=positions, paged=paged, kv=kv, cache=cache,
+            segment_ids=segment_ids,
         )
         x = residual + self._drop(x, self.dropout, generator)
         if self.post_ln:
@@ -161,16 +163,12 @@ class TransformerDecoder(nn.Module):
         (True/1 = pad) and ``encoder_attn_mask`` (broadcastable to [B, H,
         T, S], or [B*H, T, S]) feed every layer's cross-attention."""
         rel_pos = self.relative_attention_bias is not None
-        if segment_ids is not None:
-            if rel_pos:
-                raise NotImplementedError(
-                    "sequence packing (segment_ids) with rel_pos=True: the "
-                    "relative-position bias is global-offset-indexed and "
-                    "cannot reset per segment — build the decoder with "
-                    "rel_pos=False (rotary or absolute positions)")
+        if segment_ids is not None and rel_pos:
             raise NotImplementedError(
-                "sequence packing (segment_ids) is not ported to "
-                "unicore_tpu_torch yet (ROADMAP.md A11)")
+                "sequence packing (segment_ids) with rel_pos=True: the "
+                "relative-position bias is global-offset-indexed and "
+                "cannot reset per segment — build the decoder with "
+                "rel_pos=False (rotary or absolute positions)")
         if (paged is not None or cache is not None) and rel_pos:
             raise NotImplementedError(DECODE_REL_POS_REFUSAL)
         bsz, seq_len = emb.shape[:2]
@@ -191,7 +189,8 @@ class TransformerDecoder(nn.Module):
         layer_kw = dict(encoder_out=encoder_out,
                         encoder_padding_mask=encoder_padding_mask,
                         encoder_attn_bias=encoder_attn_mask,
-                        causal=self.auto_regressive)
+                        causal=self.auto_regressive,
+                        segment_ids=segment_ids)
         recompute = (self.checkpoint_activations and self.training
                      and torch.is_grad_enabled() and paged is None
                      and cache is None)

@@ -37,14 +37,6 @@ def eval_str_list_int(x):
 NOT_PARSED = {
     **dict.fromkeys(("--stats-lag", "--pipeline-depth"), "ROADMAP.md A6(a)"),
     **dict.fromkeys((
-        "--anomaly-guard", "--anomaly-backoff-after",
-        "--anomaly-rewind-after", "--anomaly-abort-after",
-        "--loss-spike-factor", "--loss-spike-margin", "--loss-spike-window",
-        "--loss-spike-warmup", "--snapshot-interval-updates",
-        "--snapshot-ring-size", "--trajectory-file", "--data-guard",
-        "--data-retries", "--data-retry-backoff", "--data-corrupt-budget",
-        "--data-resample-attempts", "--pack-max-segments"), "ROADMAP.md A11"),
-    **dict.fromkeys((
         "--pipeline-parallel-size", "--expert-parallel-size",
         "--seq-parallel-impl", "--seq-parallel-skip-attention-dropout"),
         "ROADMAP.md A13"),
@@ -208,7 +200,13 @@ def get_training_parser(input_args=None):
     g.add_argument("--curriculum", default=0, type=int, metavar="N",
                    help="keep the batch order unshuffled for the first N "
                         "epochs")
-    g.add_argument("--pack-sequences", action="store_true")
+    g.add_argument("--pack-sequences", action="store_true",
+                   help="bin-pack variable-length samples into fixed [B, T] "
+                        "rows with per-segment metadata: attention is "
+                        "segment-causal and positions reset per segment "
+                        "(the LM task; needs --rel-pos False)")
+    g.add_argument("--pack-max-segments", default=0, type=int, metavar="K",
+                   help="cap segments per packed row (0 = unlimited)")
 
     add_distributed_training_args(p)
 
@@ -249,6 +247,71 @@ def get_training_parser(input_args=None):
     g.add_argument("--no-graceful-shutdown", action="store_true",
                    help="do NOT install the SIGTERM/SIGINT handlers that "
                         "checkpoint and exit at the next step boundary")
+    g.add_argument("--anomaly-guard", action="store_true",
+                   help="the full escalation ladder: an anomalous step "
+                        "(non-finite gradients, or a loss spike past the "
+                        "EMA threshold) is skipped, consecutive anomalies "
+                        "back off the fp16 loss scale, rewind to the "
+                        "last-good snapshot and abort after "
+                        "--anomaly-abort-after; without it fp16 skips "
+                        "overflows, bf16/fp32 abort on the first "
+                        "non-finite step, and spikes are only counted")
+    g.add_argument("--loss-spike-factor", default=4.0, type=float,
+                   metavar="K",
+                   help="a step whose loss exceeds the EMA by K sigma is a "
+                        "spike (0 disables detection)")
+    g.add_argument("--loss-spike-margin", default=0.0, type=float,
+                   metavar="D", help="absolute floor of the spike threshold")
+    g.add_argument("--loss-spike-window", default=64, type=int, metavar="N",
+                   help="EMA horizon, in clean updates, of the loss "
+                        "baseline")
+    g.add_argument("--loss-spike-warmup", default=16, type=int, metavar="N",
+                   help="clean updates before the spike rule may fire")
+    g.add_argument("--anomaly-backoff-after", default=2, type=int,
+                   metavar="N",
+                   help="consecutive anomalies before the ladder halves "
+                        "the fp16 loss scale once more")
+    g.add_argument("--anomaly-rewind-after", default=3, type=int,
+                   metavar="N",
+                   help="consecutive anomalies before a rewind to the "
+                        "last-good snapshot (needs "
+                        "--snapshot-interval-updates > 0)")
+    g.add_argument("--anomaly-abort-after", default=6, type=int,
+                   metavar="N",
+                   help="consecutive anomalies before the run aborts "
+                        "(the NaN detector names the module first)")
+    g.add_argument("--snapshot-interval-updates", default=0, type=int,
+                   metavar="N",
+                   help="host-copy the training state every N clean "
+                        "updates into the last-good ring (0 = off)")
+    g.add_argument("--snapshot-ring-size", default=2, type=int, metavar="N",
+                   help="how many last-good snapshots to keep in host "
+                        "memory")
+    g.add_argument("--data-guard", action="store_true",
+                   help="the input pipeline's fault ladder: transient IO "
+                        "errors retry with backoff, a corrupt sample is "
+                        "replaced by a seeded resample (the decisions ride "
+                        "the checkpoint), and a corrupt-rate budget warns, "
+                        "then aborts; without it a corrupt record raises "
+                        "DataIntegrityError")
+    g.add_argument("--data-retries", default=2, type=int, metavar="N",
+                   help="transient-IO retries per dataset read")
+    g.add_argument("--data-retry-backoff", default=0.05, type=float,
+                   metavar="SEC",
+                   help="base backoff between dataset-read retries "
+                        "(doubles per attempt)")
+    g.add_argument("--data-corrupt-budget", default=0.01, type=float,
+                   metavar="RATE",
+                   help="abort once unique skips / samples fetched exceeds "
+                        "RATE; warn at half of it (0 disables the abort)")
+    g.add_argument("--data-resample-attempts", default=8, type=int,
+                   metavar="N",
+                   help="seeded replacement draws per corrupt sample")
+    g.add_argument("--trajectory-file", default=None, metavar="FILE",
+                   help="append one JSON line per processed update (exact "
+                        "loss, skip and escalation action): what the chaos "
+                        "tool compares between a killed-and-resumed run "
+                        "and its uninterrupted oracle")
     return p
 
 

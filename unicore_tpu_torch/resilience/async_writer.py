@@ -1,8 +1,8 @@
 """Background checkpoint writer: saves stream to disk off the step path
 (copy-and-adapt of ``unicore_tpu/resilience/async_writer.py``, which has
-no framework in it, without the capture ownership and status line that
-serve its anomaly-guard rewind and watchdog, which the port does not
-have).
+no framework in it, without the capture ownership its rewind checks:
+the port's snapshots are copies of their own, so the rewind waits on
+:meth:`in_flight` alone).
 
 The synchronous part of a save is only the device->host capture.
 Pickling, sha256 hashing, the final-dir copies and retention run here,
@@ -150,6 +150,11 @@ class AsyncCheckpointWriter:
         if queued:
             return f"background checkpoint writer: {queued} job(s) queued"
         return "background checkpoint writer: idle"
+
+    def in_flight(self):
+        """True while a save is being written or waits in the queue."""
+        with self._lock:
+            return self._active is not None or bool(self._jobs)
 
     def drain(self):
         """Block until every submitted job has finished (FIFO order).

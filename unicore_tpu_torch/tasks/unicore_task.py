@@ -6,7 +6,7 @@ fixed batch size, whole batches shuffled per epoch)."""
 
 import logging
 
-from ..data import UnicoreDataset, data_utils, iterators
+from ..data import UnicoreDataset, data_utils, iterators, resilient
 
 logger = logging.getLogger(__name__)
 
@@ -89,6 +89,13 @@ class UnicoreTask:
         ``disable_iterator_cache``."""
         if not isinstance(dataset, UnicoreDataset):
             raise TypeError(f"expected a UnicoreDataset, got {type(dataset)}")
+        # --data-guard: the guarded fetch at the top of the stack, one
+        # wrapper per dataset (kept on the task), so the skip log and the
+        # budget survive the per-epoch iterator rebuilds
+        if not hasattr(self, "_guarded_datasets"):
+            self._guarded_datasets = {}
+        dataset = resilient.maybe_guard(dataset, self.args, seed=seed,
+                                        cache=self._guarded_datasets)
         cacheable = (not disable_iterator_cache
                      and self.can_reuse_epoch_itr(dataset))
         if cacheable:

@@ -52,6 +52,27 @@ whose outputs are non-finite on the step's first micro-batch, then the
 non-finite leaves of the params and the optimizer's state, by their
 flax paths.
 
+The anomaly guard (``resilience/anomaly.py``) runs on every step, as the
+JAX trainer's does: the step's mean loss (the summed scaled loss over the
+divisor of the gradients) and the overflow verdict go through
+:func:`~unicore_tpu_torch.resilience.anomaly.guard_update` on the device,
+and its ``anomalous`` flag, not the overflow alone, decides the skip.  Its
+scalars join the step's one stats read.  Without ``--anomaly-guard`` a
+spike is only counted (``--loss-spike-factor`` 4 by default); with it a
+spike skips too, and consecutive anomalies walk the ladder of
+:class:`~unicore_tpu_torch.resilience.anomaly.EscalationPolicy`: skip,
+backoff (under ``--fp16`` the scale halves once more while an overflow
+streak reaches ``--anomaly-backoff-after``), rewind to the newest host
+snapshot that ``--snapshot-interval-updates`` took (after the checkpoint
+writer drains; the ladder's counters carry over, the dispatch counter and
+the dropout generator do not rewind), abort (the NaN detector first).
+``--trajectory-file`` appends one JSON line per processed step.  Under
+data parallelism the guard takes the loss and sample size summed across
+ranks, so every rank takes the same decision.
+``UNICORE_TPU_CHAOS_INJECT=nonfinite:K`` (or ``spike:K``), read at
+construction, multiplies dispatch K's gradients by NaN (or the guard's
+loss by 1001): the chaos tool's faults, absent when it is unset.
+
 ``--step-timeout SEC`` arms a :class:`~unicore_tpu_torch.resilience.
 watchdog.StepWatchdog` around the step's two host syncs, where a hung
 kernel shows: the stats ``tolist`` (forward, backward and the gradient
@@ -68,8 +89,8 @@ goes on.  Validation batches hold ``--batch-size-valid`` examples.
 Checkpoints (:meth:`Trainer.state_dict`, :meth:`Trainer.load_checkpoint`)
 hold the JAX trainer's tree: ``"model"`` is ``{"step", "params",
 "opt_state", "guard"}`` of numpy arrays in the flax layout (the model's
-``flax_tree``), with ``"ema"`` beside them under ``--ema-decay``, so
-either package resumes the other's file.  ``opt_state`` is the
+``flax_tree``; the guard's six live scalars), with ``"ema"`` beside them
+under ``--ema-decay``, so either package resumes the other's file.  ``opt_state`` is the
 optimizer's state in the JAX shape, each per-parameter entry a flax
 tree; a file of another optimizer loads as the JAX trainer merges it
 (``_load_opt_state``).  The port's
@@ -125,6 +146,9 @@ from .optim.dynamic_loss_scaler import scaler_init, scaler_update
 from .optim.fp16_optimizer import (default_scale_window, grads_finite,
                                    sync_master_to_model)
 from .optim.lr_scheduler import build_lr_scheduler
+from .resilience import (GUARD_CARRY_KEYS, AnomalyGuardConfig,
+                         EscalationPolicy, SnapshotRing, TrajectoryWriter,
+                         guard_init, guard_update, restore_state)
 from .resilience.watchdog import StepWatchdog
 
 logger = logging.getLogger(__name__)
@@ -135,7 +159,6 @@ UNPORTED = (
     ("fsdp", False, "--fsdp", "A13"),
     ("tensor_parallel_size", 1, "--tensor-parallel-size", "A13"),
     ("seq_parallel_size", 1, "--seq-parallel-size", "A13"),
-    ("pack_sequences", False, "--pack-sequences", "A11"),
 )
 
 
@@ -298,10 +321,40 @@ class Trainer:
         # a kernel's build at its first launch (minutes of nvcc on a cold
         # run) never reads as a hung step
         self._ckpt_writer = None
+        self._input_status = None
         self._watchdog = StepWatchdog(
             float(getattr(args, "step_timeout", 0) or 0),
             context=self._watchdog_context)
+        self._init_resilience(args)
         metrics.log_start_time("wall", priority=790, round=0)
+
+    def _init_resilience(self, args):
+        """The anomaly guard, its ladder, the snapshot ring, the
+        trajectory file and the chaos tool's injection."""
+        self._guard_cfg = AnomalyGuardConfig.from_args(args)
+        self.guard = guard_init(self.device)
+        interval = int(getattr(args, "snapshot_interval_updates", 0) or 0)
+        self._snapshot_interval = interval
+        self._snapshot_ring = (SnapshotRing(int(getattr(
+            args, "snapshot_ring_size", 2) or 2)) if interval > 0 else None)
+        self._escalation = EscalationPolicy(
+            self._guard_cfg, has_scaler=self.use_scaler,
+            has_ring=self._snapshot_ring is not None)
+        path = getattr(args, "trajectory_file", None)
+        self._trajectory = TrajectoryWriter(path) if path else None
+        # host seconds of the last snapshot capture and rewind restore
+        self.snapshot_seconds = self.restore_seconds = None
+        self._chaos_inject = None
+        inject = os.environ.get("UNICORE_TPU_CHAOS_INJECT")
+        if inject:
+            kind, _, at = inject.partition(":")
+            if kind not in ("nonfinite", "spike") or not at.isdigit():
+                raise ValueError(
+                    f"UNICORE_TPU_CHAOS_INJECT={inject!r}: expected "
+                    f"'nonfinite:<dispatch>' or 'spike:<dispatch>'")
+            self._chaos_inject = (kind, int(at))
+            logger.warning("CHAOS: will inject %s at dispatch %d", kind,
+                           int(at))
 
     def _build_optimizer(self):
         """The optimizer over the master params, or under ZeRO-1 over this
@@ -319,10 +372,22 @@ class Trainer:
         background write must not read as a hung device step)."""
         self._ckpt_writer = writer
 
+    def attach_input_pipeline(self, status_fn):
+        """Wire the epoch iterator's ``status`` in: a timeout that fires
+        while the loop waits on a batch names the worker impl and the
+        dataset indices it waits for."""
+        self._input_status = status_fn
+
+    def input_wait(self, phase="train/data-wait"):
+        """The watchdog armed around the loop's pull of the next batch
+        group: a wedged data worker trips it as a hung step does."""
+        return self._watchdog.armed(phase)
+
     def _watchdog_context(self):
-        if self._ckpt_writer is not None:
-            return str(self._ckpt_writer.status())
-        return "no context sources attached"
+        parts = [str(source()) for source in (
+            getattr(self._ckpt_writer, "status", None), self._input_status)
+            if source is not None]
+        return " | ".join(parts) or "no context sources attached"
 
     # -- one update --------------------------------------------------------
 
@@ -384,6 +449,7 @@ class Trainer:
                         "update")
             return []
         self.compute_model.train()
+        dispatch = self._dispatch_count  # this step's id, from 0
         self._dispatch_count += 1
         if self.dp is not None:
             # this rank's own elementwise dropout masks: a stream of its
@@ -397,7 +463,8 @@ class Trainer:
         if not self.bf16_sr:
             self._sync_compute_params()
         try:
-            sample_size, logs = self._accumulate_grads(samples, scale)
+            sample_size, loss_sum, logs = self._accumulate_grads(samples,
+                                                                 scale)
         except Exception:
             # the JAX trainer logs the device's memory when a step fails
             self.log_memory_stats(level=logging.ERROR)
@@ -407,11 +474,17 @@ class Trainer:
         else:
             grads = [p.grad for p in self.model.parameters()
                      if p.grad is not None]
+        inject = (self._chaos_inject[0] if self._chaos_inject is not None
+                  and dispatch == self._chaos_inject[1] else None)
+        if inject == "nonfinite":
+            torch._foreach_mul_(grads, float("nan"))
         # unscale and normalize in one divide, as the reference
         denom = torch.clamp(sample_size, min=1.0)
         if scale is not None:
             denom = denom * scale
         torch._foreach_div_(grads, denom)
+        # the guard's statistic: the mean loss per sample unit, unscaled
+        loss_mean = loss_sum / denom
         finite = None
         if self.dp is not None:
             grad_norm, finite = self.dp.global_norm(grads)
@@ -427,34 +500,32 @@ class Trainer:
         if finite is None:
             finite = grads_finite(grads)
         overflow = ~(finite & torch.isfinite(grad_norm))
-        stats = [grad_norm.float(), overflow.float()]
+        guard_loss = (loss_mean * loss_mean.new_full((), 1001.0)
+                      if inject == "spike" else loss_mean)
+        self.guard, anomalous, spike = guard_update(
+            self.guard, guard_loss, overflow, self._guard_cfg)
+        stats = [grad_norm.float(), overflow.float(), anomalous.float(),
+                 spike.float(), self.guard["streak"].float(), loss_mean]
         if self.use_scaler:
-            self.scaler = scaler_update(self.scaler, overflow,
-                                        self.scale_window,
-                                        min_scale=self.min_loss_scale / 2.0)
+            self.scaler = self._update_scaler(overflow, anomalous)
             stats.append(scale)  # the scale this step used
         stats = torch.stack(stats)
         # the step's first host sync (the JAX trainer's dispatch and its
         # stats sync in one), armed
         with self._watchdog.armed("train_step/stats-sync"):
-            grad_norm, overflow, *used = stats.tolist()
+            grad_norm, overflow, anomalous, spike, streak, loss_mean, \
+                *used = stats.tolist()
         scale = used[0] if used else None
+        overflow, anomalous, streak = bool(overflow), bool(anomalous), \
+            int(streak)
         self._log_memory_gauge()
         logging_outputs = [logs]
-        if overflow:
-            metrics.log_scalar("n_skipped", 1, priority=600, round=0)
-            if not self.use_scaler:
-                self._detect_nonfinite(samples[0])
-                raise FloatingPointError(
-                    f"Non-finite gradients detected (grad norm {grad_norm})"
-                    " and no fp16 loss scaler to absorb them; the update "
-                    "was skipped; see NanDetector log above.")
-            if scale <= self.min_loss_scale:
-                raise FloatingPointError(
-                    f"Minimum loss scale reached ({scale}). Your loss is "
-                    "probably exploding.")
-            logger.info("non-finite gradients detected at loss scale %s, "
-                        "skipping update", scale)
+        action = self._escalation.decide(anomalous, streak, overflow=overflow)
+        record = dict(dispatch=dispatch, loss=loss_mean, grad_norm=grad_norm,
+                      skipped=anomalous, action=action, streak=streak)
+        if anomalous:
+            self._skip(samples[0], record, overflow, bool(spike), scale,
+                       grad_norm)
         else:
             if getattr(self.optimizer, "wants_update_rng", False):
                 self.optimizer.step(generator=self.generator)
@@ -471,11 +542,156 @@ class Trainer:
             with self._watchdog.armed("train_step/update-sync"):
                 sample_size = float(sample_size)
             self.set_num_updates(self._num_updates + 1)
+            self._record_trajectory(record)
+            self._maybe_snapshot()
             self._reduce_and_log_stats(logging_outputs, sample_size,
                                        grad_norm)
         if self.use_scaler:
             metrics.log_scalar("loss_scale", scale, priority=700, round=4)
         return logging_outputs
+
+    def _update_scaler(self, overflow, anomalous):
+        """The loss scaler after this step: halved on an overflow (the
+        JAX ``scaler_update``), and under ``--anomaly-guard`` halved once
+        more while an overflow streak reaches ``--anomaly-backoff-after``
+        (its floor ``--min-loss-scale / 2``)."""
+        floor = self.min_loss_scale / 2.0
+        scaler = scaler_update(self.scaler, overflow, self.scale_window,
+                               min_scale=floor)
+        if self._guard_cfg.escalate:
+            s = scaler["scale"]
+            backoff = anomalous & overflow & (
+                self.guard["streak"] >= self._guard_cfg.backoff_after)
+            scaler = dict(scaler, scale=torch.maximum(
+                torch.where(backoff, s * 0.5, s), s.new_full((), floor)))
+        return scaler
+
+    def _skip(self, sample, record, overflow, spike, scale, grad_norm):
+        """Host side of an anomalous step (its update was not applied):
+        abort (after the NaN detector) where the ladder or the missing
+        scaler says so, else count the skip, record it, and rewind when
+        the ladder's rung is reached."""
+        action, streak = record["action"], record["streak"]
+        reason = "non-finite gradients" if overflow else "loss spike"
+        if action == "abort" or (overflow and not self.use_scaler
+                                 and not self._guard_cfg.escalate):
+            self._detect_nonfinite(sample)
+            self._record_trajectory(record)
+            if action == "abort":
+                self._escalation.aborts += 1
+                raise FloatingPointError(
+                    f"anomaly escalation exhausted: {streak} consecutive "
+                    f"anomalous steps ({reason}); see NanDetector log "
+                    "above.")
+            raise FloatingPointError(
+                f"Non-finite gradients detected (grad norm {grad_norm}) and "
+                "no fp16 loss scaler to absorb them; the update was "
+                "skipped; see NanDetector log above.")
+        if overflow and self.use_scaler and scale <= self.min_loss_scale:
+            raise FloatingPointError(
+                f"Minimum loss scale reached ({scale}). Your loss is "
+                "probably exploding.")
+        logger.info("%s detected (streak %d), %s", reason, streak, {
+            "skip": "skipping update",
+            "backoff": "skipping update + loss-scale backoff",
+            "rewind": "rewinding to last-good snapshot"}[action])
+        metrics.log_scalar("n_skipped", 1, priority=600, round=0)
+        metrics.log_scalar(f"anomaly_{action}", 1, priority=610, round=0)
+        if spike:
+            metrics.log_scalar("loss_spikes", 1, priority=620, round=0)
+        self._record_trajectory(record)
+        if action == "rewind":
+            self._rewind_to_snapshot()
+
+    # -- resilience: trajectory, snapshot ring, rewind ----------------------
+
+    def _record_trajectory(self, record):
+        if self._trajectory is not None:
+            self._trajectory.record(update=self._num_updates, **record)
+
+    def close_trajectory(self):
+        """Close the ``--trajectory-file`` (later steps record nothing)."""
+        if self._trajectory is not None:
+            self._trajectory.close()
+            self._trajectory = None
+
+    def _live_state(self):
+        """The tensors a snapshot holds, as this rank holds them: the
+        master params (slices under ``--comms-overlap``; ZeRO-1's optimizer
+        slices beside the whole params), the optimizer's state, the EMA,
+        the scaler and the guard."""
+        opt = self.optimizer.state_dict()
+        state = {"params": self._master_params(),
+                 "opt_state": {k: v for k, v in opt.items() if k != "step"},
+                 "opt_step": int(opt["step"]),
+                 "guard": dict(self.guard)}
+        if self.dp is not None and self.dp.zero1 and not self.dp.overlap:
+            state["shards"] = [self.dp.shards[i]
+                               for i in sorted(self.dp.shards)]
+        if self.ema is not None:
+            state["ema"] = self.ema
+        if self.use_scaler:
+            state["scaler"] = dict(self.scaler)
+        return state
+
+    def _maybe_snapshot(self):
+        """A host copy of the state every ``--snapshot-interval-updates``
+        clean updates (the rewind's last-good ring)."""
+        if self._snapshot_ring is None:
+            return
+        updates = self._num_updates
+        if updates > 0 and updates % self._snapshot_interval == 0:
+            t0 = time.perf_counter()
+            self._snapshot_ring.take(self._live_state(), updates,
+                                     self._dispatch_count)
+            self.snapshot_seconds = time.perf_counter() - t0
+            logger.info("anomaly guard: took last-good snapshot @ %d updates "
+                        "(ring holds %d)", updates, len(self._snapshot_ring))
+
+    @torch.no_grad()
+    def _rewind_to_snapshot(self):
+        """The ladder's rewind: the newest snapshot written back in place
+        (after the checkpoint writer's in-flight saves land), the ladder's
+        counters carried from the live guard, the update count restored.
+        The dispatch counter and the dropout generator go on: the steps
+        after a rewind draw fresh masks, as in the JAX trainer."""
+        entry = self._snapshot_ring.latest() if self._snapshot_ring else None
+        if entry is None:
+            raise FloatingPointError(
+                "anomaly escalation reached the rewind stage with no "
+                "snapshot available (raise --snapshot-interval-updates "
+                "frequency or --anomaly-abort-after)")
+        snap_updates, _, snap = entry
+        writer = self._ckpt_writer
+        if writer is not None and writer.in_flight():
+            t0 = time.perf_counter()
+            writer.drain()
+            waited = time.perf_counter() - t0
+            metrics.log_scalar("anomaly_rewind_writer_wait_s", waited,
+                               priority=640, round=2, weight=0)
+            logger.warning("anomaly guard: rewind waited %.2fs for the "
+                           "background checkpoint writer", waited)
+        t0 = time.perf_counter()
+        live = self._live_state()
+        carry = {k: self.guard[k] for k in GUARD_CARRY_KEYS}
+        for key in ("params", "opt_state", "shards", "ema"):
+            if key in live:
+                restore_state(live[key], snap[key])
+        self.optimizer.step_count = snap["opt_step"]
+        self.guard = {k: v.to(self.device) for k, v in snap["guard"].items()}
+        self.guard.update(carry)
+        if self.use_scaler:
+            self.scaler = {k: v.to(self.device)
+                           for k, v in snap["scaler"].items()}
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.set_num_updates(snap_updates)
+        self.restore_seconds = time.perf_counter() - t0
+        self._escalation.rewinds += 1
+        metrics.log_scalar("anomaly_rewind_updates", 1, priority=630, round=0)
+        logger.warning("anomaly guard: rewound to last-good snapshot @ %d "
+                       "updates (anomaly streak %d carried); continuing with "
+                       "fresh batches", snap_updates, int(carry["streak"]))
 
     def _agreed_samples(self, samples):
         """The micro-batches to run: all of them on one rank; under data
@@ -497,15 +713,16 @@ class Trainer:
         example at a time under ``--per-sample-clip-norm``); the summed
         fp32 gradients land in the master params' ``.grad`` (under data
         parallelism summed across ranks: the masters', or this rank's
-        slices' under ``--zero1``).  Returns the summed sample size (a
-        device scalar) and logging output (summed across ranks).  No host
-        sync on one rank."""
+        slices' under ``--zero1``).  Returns the summed sample size and
+        scaled loss (device scalars) and logging output (summed across
+        ranks).  No host sync on one rank."""
         for p in self.model.parameters():
             p.grad = None
         if self.dp is not None:
             for p in self.dp.optimizer_params():
                 p.grad = None
         sample_size = torch.zeros((), device=self.device)
+        loss_sum = torch.zeros((), device=self.device)
         logs = {}
         clipped = None
         runs = [batch for sample in samples
@@ -518,10 +735,11 @@ class Trainer:
             # --per-sample-clip-norm, which needs its whole gradient)
             last = (self.dp is not None and i == len(runs) - 1
                     and self.per_sample_clip_norm <= 0)
-            ss, log = self._forward_backward(batch, scale, last)
+            loss, ss, log = self._forward_backward(batch, scale, last)
             if self.per_sample_clip_norm > 0:
                 clipped = self._add_clipped(clipped, scale)
             sample_size = sample_size + ss
+            loss_sum = loss_sum + loss
             for k, v in log.items():
                 logs[k] = logs.get(k, 0.0) + v
         if clipped is not None:
@@ -529,15 +747,17 @@ class Trainer:
                 p.grad = g
         if self.dp is not None:
             self.dp.finish_grads()
-            sample_size, logs = self.dp.sum_stats(sample_size, logs)
-        return sample_size, logs
+            sample_size, logs, loss_sum = self.dp.sum_stats(
+                sample_size, logs, loss_sum)
+        return sample_size, loss_sum, logs
 
     def _forward_backward(self, sample, scale, last=False):
         """Forward and backward of one batch on the compute copy (after
         its stochastic rounding under ``--bf16-sr``); the fp32 gradients
         add into the master params' ``.grad``.  ``last``: the group's
         last backward, whose hooks start the reductions across ranks.
-        Returns the sample size and the logging output."""
+        Returns the scaled fp32 loss (detached), the sample size and the
+        logging output."""
         if self.bf16_sr:
             self._sync_compute_params(stochastic=True)
         sample = _to_device(sample, self.device)
@@ -550,7 +770,7 @@ class Trainer:
             self.dp.arm()
         loss.backward()
         self._fold_compute_grads()
-        return ss, log
+        return loss.detach(), ss, log
 
     @torch.no_grad()
     def _add_clipped(self, clipped, scale):
@@ -928,12 +1148,8 @@ class Trainer:
         model = {
             "step": np.asarray(self._num_updates, np.int32),
             "params": self._tree(self._master_params(), "params", overlap),
-            # the JAX trainer's anomaly-guard scalars (its guard_init); the
-            # port has no guard, and zeros load there without a warning
-            "guard": {"loss_ema": np.zeros((), np.float32),
-                      "loss_emsq": np.zeros((), np.float32),
-                      **{k: np.zeros((), np.int32)
-                         for k in ("count", "streak", "skips", "spikes")}},
+            # the anomaly guard's live scalars (the JAX trainer's slot)
+            "guard": {k: v.cpu().numpy() for k, v in self.guard.items()},
         }
         if self.ema is not None:
             model["ema"] = self._tree(self.ema, "ema", overlap)
@@ -1040,6 +1256,8 @@ class Trainer:
                                "keeping fresh init", filename)
             self._load_scaler(model_state.get("scaler"), reset_optimizer,
                               filename)
+            self._load_guard(model_state.get("guard"), reset_optimizer,
+                             filename)
         if not reset_lr_scheduler:
             self.lr_scheduler.load_state_dict(
                 last.get("lr_scheduler_state", {}))
@@ -1105,6 +1323,22 @@ class Trainer:
             "growth_tracker": torch.tensor(
                 np.asarray(saved["growth_tracker"], np.int32),
                 device=self.device)}
+
+    def _load_guard(self, saved, reset_optimizer, filename):
+        """The anomaly guard's slot, as the JAX trainer merges it: restored
+        from the file (either package's), fresh with ``--reset-optimizer``
+        or from a file that has none."""
+        if reset_optimizer:
+            self.guard = guard_init(self.device)
+            return
+        if saved is None:
+            logger.warning("checkpoint: %s holds no anomaly guard; keeping "
+                           "the fresh one", filename)
+            return
+        fresh = guard_init(self.device)
+        self.guard = {k: torch.tensor(np.asarray(saved[k]), dtype=v.dtype,
+                                      device=self.device)
+                      for k, v in fresh.items()}
 
     def _load_generator(self, saved):
         """Restore the dropout generator's bytes.  A JAX-written file holds
