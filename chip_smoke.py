@@ -145,6 +145,16 @@ tracing the host took tens of seconds a window to sum.
    backward) and T=2048 with a [1, H, T, T] bias (two-pass dq, dk/dv and
    the dbias pass), bf16 and fp16, dropout 0.1, against the plain
    version and SDPA, the two types also in turns.
+   flash_causal_multiblock — the same checks under ``causal`` at the LM's
+   calls past T = 512: B 8 at T = 1024 with and without the [1, 12, T,
+   T] bias, B 4 at T = 2048 with it (H 12, D 64, dropout 0.1, batch row
+   0's keys all padded), each in bf16, fp16 and fp32, routed as the
+   reference routes it (T = 1024 with a 2-byte bias or none: the joint
+   backward, rows 2 and 4; with fp32's bias or at 2048: the two-pass
+   backward, rows 2 and 5-7); the forward's keep bits read back exactly
+   at that geometry, dbias exactly 0 above the diagonal; times beside
+   the causal bounds, the plain versions and SDPA (cuDNN among its
+   backends).
 9. head — the BERT masked-LM head at bert_base's shape (2,048 slots x
    768, tied vocab 30,522, bias, bf16): the chunked cross-entropy's fp32
    product of bf16 operands, the kernels it ran, the nll within 1e-3
@@ -204,7 +214,7 @@ tracing the host took tens of seconds a window to sum.
    2 each way, one SR table launch per example, one EMA launch, no
    flash, no plain route), each update's EMA bit for bit the CPU
    formula on the same tensors, the update-5 file's EMA the trainer's;
-   step time, samples/s, peak memory, then a profile window of 2 updates
+   step time, samples/s, peak memory, then a profile window of 1 update
    with the EMA's and the per-sample clip's device and host time.  The
    file resumed in a fresh trainer ends at update 10 with params and EMA
    bit-equal to the first run's; a ``--load-from-ema`` start holds the
@@ -298,6 +308,12 @@ tracing the host took tens of seconds a window to sum.
    After it, guard_cost: ``guard_update``'s launches, host and device ms
    a call on the card, and the host ms as a share of train's and
    lm_train's step medians.
+   lm_long — the lm_train model and flags at ``--max-seq-len 1024``,
+   batch 8 (lm_train's slots), 6 updates on records of 640-1022 tokens:
+   the first loss in 9-11.5 nats and the last below it, the bf16
+   forward and both backward kernels once a layer an update in the
+   reference's joint-backward geometry, softmax_dropout never; step
+   median, tokens/s and peak memory.
    data_guard — the LM unpacked under ``--data-guard`` with 2 worker
    processes on 128 records, 3 torn: exactly the 3 skipped, equal to
    the chaos tool's ``predict_skips``, the log carried into a resume.
@@ -315,7 +331,7 @@ tracing the host took tens of seconds a window to sum.
    lm_generate — inside lm_serve_checkpoint, on the same loaded model:
    ``examples/lm/generate.py`` ``generate()`` (the dense KV-cache decode,
    fp32) on those 8 prompts right-padded (the ragged prefill) and on an
-   unpadded 8 x 64 batch, 32 greedy tokens at capacity 512: every row
+   unpadded 8 x 64 batch, 16 greedy tokens at capacity 512: every row
    equal to ``solo_greedy`` and to the engine's greedy stream (ties as
    above), no flash or paged kernel inside ``generate()``; a sampled
    call (temperature 0.8, top-k 40, ``PRNGKey(18)``) twice the same.
@@ -341,6 +357,22 @@ tracing the host took tens of seconds a window to sum.
    watchdog fired, TTFT p50/p99 and decode tokens/s, then the
    decode-step median with the watchdog off and armed (engines in turns
    off, on, on, off).
+   fleet_autoscale — inside lm_serve_checkpoint, on the update-5 file:
+   (a) ``unicore_tpu_torch.serve --fleet --replicas 1 --autoscale
+   --min-replicas 1 --max-replicas 3`` in process on the 8 prompts (a
+   replica booted through its canary, every finish eos/length/capacity,
+   pools idle, the card's bytes back when it returns); (b) one replica
+   (the serve phase's pool) under ``FleetAutoscaler`` with a pinned 2 ms
+   virtual step replays the seeded flash_crowd and then diurnal traces
+   (24 requests each), twice: a join within 8 fleet steps of the
+   crowd's first arrival, the booted replicas served, each retirement
+   zero-drop with its pool idle and the card's bytes back at their
+   value before the first boot, every request ``solo_greedy``'s tokens,
+   both replays' decision logs, autoscale reports, steps and tokens
+   equal, paged launches = 12 x dispatches; (c) two fixed replicas with
+   queues bound to 2 shed a 40-request crowd's overflow, the same
+   requests in two runs, the waiting queue within its bound.  Boot seconds, TTFT p50/p99
+   and decode tokens/s through the crowd beside two fixed replicas.
    watchdog — two children started together, each with a 3 s step
    timeout and one step's sync hung about 10 s by the smoke's own
    ``torch.cuda._sleep``: a serve engine (its first steps healthy while
@@ -424,7 +456,10 @@ tracing the host took tens of seconds a window to sum.
    each rank's slice of every sharded bert_base leaf (its window in the
    leaf) against the plain version, bit for bit.
 16. the ``kernels`` line (rows 1-11 of the TPU kernel table, row 1's
-   launches from serve, serve_sampling and fleet_deploy, rows 2-10
+   launches from serve, serve_sampling, fleet_deploy and
+   fleet_autoscale, rows 2 and 4 again for the LM's causal call at
+   T = 1024, launches from lm_long, with every flash_causal_multiblock
+   case beside them, rows 2-10
    once for the bf16 kernels and once for the fp16 ones, the flash rows'
    launches from the train and train_fp16 phases, the softmax_dropout
    rows' from evoformer_train (bf16) and mol_train_fp16 (fp16), rows
@@ -994,14 +1029,15 @@ def serve_sampling_phase(model, pa, first, second, greedy_results):
 
 
 def flash_operands(rng, dtype, shape=(FLASH_B, FLASH_H, FLASH_T, FLASH_D),
-                   with_bias=True, tk=None):
+                   with_bias=True, tk=None, dead_row=False):
     """Operands of one attention layer of the BERT training path: q/k/v
     as the fused projection's strided views, the batch-broadcast rel-pos
     bias, 0-200 padded keys per row, per-row dropout seeds, and dO.
     With ``tk`` (cross-attention, Tq = shape[2] queries over tk keys): q
     from the query side's projection and k/v from the encoder side's,
     each a contiguous [B, T, H, D], a [1, H, Tq, Tk] bias, and up to 40%
-    of each row's keys padded."""
+    of each row's keys padded.  ``dead_row``: batch row 0's keys all
+    padded."""
     B, H, T, D = shape
 
     def dev(a):
@@ -1019,6 +1055,8 @@ def flash_operands(rng, dtype, shape=(FLASH_B, FLASH_H, FLASH_T, FLASH_D),
     bias = (dev(rng.standard_normal((1, H, T, tk), dtype=np.float32))
             if with_bias else None)
     npad = rng.integers(0, most + 1, size=B)
+    if dead_row:
+        npad[0] = tk
     pad = np.zeros((B, tk), np.int32)
     for b in range(B):
         pad[b, tk - npad[b]:] = 1
@@ -1163,7 +1201,7 @@ def sdpa_yardsticks(sdpa, sdpa_fwd_bwd, operands, flush, iters):
 
 
 def flash_case(flush, dtype, shape, with_bias, rng, iters, causal=False,
-               tk=None, yardsticks=True):
+               tk=None, yardsticks=True, dead_row=False):
     """The flash kernels of one call vs their plain versions on the same
     tensors — in bf16 and fp16 the plain versions round p, p_drop and dS
     as the kernels do: the forward (out within 1e-4 in fp32, and within
@@ -1180,15 +1218,16 @@ def flash_case(flush, dtype, shape, with_bias, rng, iters, causal=False,
     partials of the key tiles it skips are written 0).  ``tk``:
     cross-attention's key count, Tq = shape[2] (see ``flash_operands``).
     ``yardsticks`` False: SDPA with its default backend and cuDNN's are
-    not timed (the pinned backend is)."""
+    not timed (the pinned backend is).  ``dead_row``: batch row 0's keys
+    all padded (see ``flash_operands``)."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from unicore_tpu_torch.ops import flash_attention as fa
 
     B, H, T, D = shape
-    q, k, v, bias, pad, seed, dout, npad = flash_operands(rng, dtype, shape,
-                                                          with_bias, tk)
+    q, k, v, bias, pad, seed, dout, npad = flash_operands(
+        rng, dtype, shape, with_bias, tk, dead_row)
     tk = T if tk is None else tk
     label = f"{dtype} {shape}" + ("" if tk == T else f" Tk={tk}")
     geom = fa.geometry(T, tk, bias)
@@ -1402,18 +1441,13 @@ def flash_multiblock_phase(flush):
     """The flash kernels at the shapes that take the JAX package's
     multi-block kernels (rows 2 and 4-7), bf16 and fp16, dropout 0.1;
     returns {case: report}, the fp16 cases' names ending in _fp16."""
-    from unicore_tpu_torch.ops import flash_attention as fa
-
     reports = {}
     for dtype, suffix in ((torch.bfloat16, ""), (torch.float16, "_fp16")):
         for name, shape, with_bias in MB_CASES:
-            T, D = shape[2], shape[3]
-            geom = fa.pick_blocks(T, T, 2 if with_bias else 0)
-            n_q, n_k = T // geom[0], T // geom[1]
-            # the JAX backward's routing
-            # (ops/pallas/flash_attention.py:870-896)
-            joint = n_k == 1 and n_q > 1 and 2 * T * D * 4 <= (6 << 20)
-            if n_q == 1 or joint == with_bias:
+            T = shape[2]
+            geom, route = reference_route(T, shape[3], 2 if with_bias else 0)
+            joint = route == "joint"
+            if route == "head_batched" or joint == with_bias:
                 raise AssertionError(f"{name}: reference blocks {geom} do "
                                      "not take the multi-block kernels "
                                      "meant")
@@ -1440,7 +1474,8 @@ CAUSAL_CASES = (("bf16_bias", torch.bfloat16, True, (10, 5, 10)),
                 ("bf16_nobias", torch.bfloat16, False, (10, 5, 10)),
                 ("fp16_bias", torch.float16, True, (5, 3, 5)),
                 ("fp32_bias", torch.float32, True, (5, 3, 5)))
-def keep_bits(dtype, shape, with_bias, seed_rng, causal=True, tk=None):
+def keep_bits(dtype, shape, with_bias, seed_rng, causal=True, tk=None,
+              dead_row=False):
     """The forward kernel's keep bits read back exactly
     (``fa.kernel_keep_bits``) under the case's tail padding and per-row
     seeds (and causal, or at cross-attention's ``tk`` keys).  Returns the
@@ -1453,7 +1488,7 @@ def keep_bits(dtype, shape, with_bias, seed_rng, causal=True, tk=None):
     tk = T if tk is None else tk
     _, _, _, bias, pad, seed, _, _ = flash_operands(
         np.random.default_rng(seed_rng), dtype, shape, with_bias,
-        None if tk == T else tk)
+        None if tk == T else tk, dead_row)
     bits, admitted = fa.kernel_keep_bits((B, T, H, D), tk, dtype, bias, pad,
                                          seed, FLASH_P, causal)
     want = fa.keep_mask(seed, H, T, tk, fa.geometry(T, tk, bias),
@@ -1483,6 +1518,76 @@ def flash_causal_phase(flush):
         report["keep_bits"] = keep
         emit("flash_causal", case=name, card=card(), **report)
         reports[name] = report
+    return reports
+
+
+# the LM's causal call past T = 512 (B2(iv)): (name, (B, H, T, D), with
+# the [1, H, T, T] rel-pos bias, timing iters); 8 x 1024 and 4 x 2048
+# hold lm_train's 16 x 512 tokens.  The reference's geometry routes
+# T = 1024 with a 2-byte bias or none to one key block (its joint
+# backward, rows 2 and 4) and with fp32's 4-byte bias, like T = 2048
+# with any bias, to two or more (its two-pass dq and dk/dv and the dbias
+# pass, rows 2 and 5-7); every case in bf16, fp16 and fp32, batch row 0's
+# keys all padded
+CMB_CASES = (("t1024_bias", (8, 12, 1024, 64), True, (5, 3, 5)),
+             ("t1024_nobias", (8, 12, 1024, 64), False, (5, 3, 5)),
+             ("t2048_bias", (4, 12, 2048, 64), True, (5, 2, 5)))
+CMB_TYPES = (torch.bfloat16, torch.float16, torch.float32)
+
+
+def reference_route(T, D, bias_itemsize):
+    """The reference's (block_q, block_k) at a self-attention call and
+    the backward it takes (``unicore_tpu/ops/pallas/flash_attention.py``
+    :870-896): one query and key block the head-batched pair, one key
+    block the joint backward, more the two-pass dq, dk/dv and dbias."""
+    from unicore_tpu_torch.ops import flash_attention as fa
+
+    geom = fa.pick_blocks(T, T, bias_itemsize)
+    n_q, n_k = T // geom[0], T // geom[1]
+    if n_q == 1 and n_k == 1:
+        return geom, "head_batched"
+    joint = n_k == 1 and n_q > 1 and 2 * T * D * 4 <= (6 << 20)
+    return geom, "joint" if joint else "two_pass"
+
+
+def flash_causal_multiblock_phase(flush):
+    """Rows 2 and 4-7 under ``causal`` at the LM's calls past T = 512
+    (``CMB_CASES``): each case in bf16, fp16 and fp32 held against its
+    plain version as ``flash_case`` holds it (out and lse, dq, dk, dv and
+    dbias; two calls bit for bit; dbias exactly 0 above the diagonal;
+    batch row 0's keys all padded), its forward's keep bits read back
+    exactly at the reference's multi-block geometry, the geometry and
+    route each case takes (the fp32 bias's item size moves T = 1024 to
+    the two-pass route), times beside the causal bounds, the plain
+    versions and SDPA, cuDNN among its backends; returns {case: report},
+    a case's name ending in its type."""
+    t0 = time.perf_counter()
+    reports = {}
+    for name, shape, with_bias, iters in CMB_CASES:
+        T, D = shape[2], shape[3]
+        for dtype in CMB_TYPES:
+            itemsize = torch.empty((), dtype=dtype).element_size()
+            geom, route = reference_route(T, D, itemsize if with_bias else 0)
+            want = ("joint" if T == 1024 and (not with_bias or itemsize == 2)
+                    else "two_pass")
+            if route != want:
+                raise AssertionError(f"{name} {dtype}: reference blocks "
+                                     f"{geom} take {route}, not {want}")
+            # SDPA's default backend and cuDNN only for the 2-byte types:
+            # cuDNN refuses fp32, whose default is the pinned backend
+            report = flash_case(flush, dtype, shape, with_bias,
+                                np.random.default_rng(T + 7), iters,
+                                causal=True, dead_row=True,
+                                yardsticks=dtype != torch.float32)
+            keep = keep_bits(dtype, shape, with_bias, T + 7, dead_row=True)
+            if keep["bits_differ"] or keep["excluded_read_nonzero"]:
+                raise AssertionError(f"{name} {dtype}: keep bits {keep}")
+            report.update(route=route, keep_bits=keep,
+                          dead_row_padded_keys=T)
+            case = f"{name}_{report['dtype']}"
+            emit("flash_causal_multiblock", case=case, card=card(), **report)
+            reports[case] = report
+    emit("flash_causal_multiblock_time", seconds=time.perf_counter() - t0)
     return reports
 
 
@@ -2681,6 +2786,110 @@ def lm_train_phase():
             **{k: v for k, v in prof.items() if k != "top_kernels"}}
 
 
+# lm_long (B2(iv)): the lm_train flags at --max-seq-len 1024, batch 8,
+# so an update holds lm_train's 16 x 512 slots; records of 640-1022
+# tokens (with eos at most 1023: every row needs T = 1024)
+LONG_T, LONG_BATCH, LONG_UPDATES, LONG_RECORDS = 1024, 8, 6, 64
+
+
+def lm_long_phase():
+    """The port's CLI trains full-width transformer_lm_base (rel-pos bias
+    and learned positions) under --bf16 at ``--max-seq-len 1024``, batch
+    8, for 6 updates: the causal flash call in the reference's multi-block
+    geometry (one key block under the bf16 bias: its joint backward).
+    Raises unless the first loss lies in 9-11.5 nats and the last is
+    below it, every update launches the bf16 forward and both backward
+    kernels once a layer each (12 + 12 + 12) and no other flash kernel,
+    and softmax_dropout runs neither its kernels nor its plain route.
+    Reports the geometry and route, step median, tokens/s and peak
+    memory; returns the launch counts."""
+    from unicore_tpu_torch import trainer as trainer_mod
+    from unicore_tpu_torch.cli.train import cli_main
+    from unicore_tpu_torch.examples.lm import make_data
+    from unicore_tpu_torch.ops import flash_attention as fa
+    from unicore_tpu_torch.ops import softmax_dropout as sd
+
+    t_phase = time.perf_counter()
+    Trainer = trainer_mod.Trainer
+    train_step = Trainer.train_step
+    steps = []
+
+    def step(self, samples):
+        before = dict(fa.launches)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = train_step(self, samples)
+        torch.cuda.synchronize()
+        steps.append({
+            "s": time.perf_counter() - t,
+            "nats": float(out[0]["loss"]) / float(out[0]["sample_size"]),
+            "tokens": float(out[0]["sample_size"]),
+            "launches": {k: fa.launches[k] - before[k] for k in before}})
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        make_data.write_corpus(tmp, train=LONG_RECORDS, valid=8,
+                               min_len=640, max_len=LONG_T - 2, seed=1024)
+        zero_counts(fa.launches, sd.launches, sd.plain_route)
+        Trainer.train_step = step
+        start_gb = reset_peak_memory()
+        try:
+            t0 = time.perf_counter()
+            run = cli_main(lm_args(
+                tmp, os.path.join(tmp, "log"), LONG_UPDATES, "--max-seq-len",
+                str(LONG_T), "--batch-size", str(LONG_BATCH), "--no-save"))
+            run_s = time.perf_counter() - t0
+        finally:
+            Trainer.train_step = train_step
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches = dict(fa.launches)
+        model = run.trainer.model
+        layers = model.decoder_layers
+        if model.decoder.relative_attention_bias is None \
+                or model.max_seq_len != LONG_T:
+            raise AssertionError("the long LM lacks its rel-pos bias or "
+                                 f"runs at max_seq_len {model.max_seq_len}")
+        if any(sd.launches.values()) or any(sd.plain_route.values()):
+            raise AssertionError(f"softmax_dropout ran: {sd.launches}, "
+                                 f"plain {sd.plain_route}")
+        per_update = {n: layers if n in TRAIN_FLASH else 0
+                      for n in fa.launches}
+        for u, r in enumerate(steps):
+            if r["launches"] != per_update:
+                raise AssertionError(
+                    f"update {u + 1}: flash launches {r['launches']}, "
+                    f"want {per_update}")
+        nats = [r["nats"] for r in steps]
+        if len(nats) != LONG_UPDATES or not np.isfinite(nats).all():
+            raise AssertionError(f"losses {nats}")
+        if not 9.0 <= nats[0] <= 11.5 or not nats[-1] < nats[0]:
+            raise AssertionError(f"loss did not start in 9-11.5 nats and "
+                                 f"fall: {nats}")
+        geom, route = reference_route(LONG_T, model.decoder_embed_dim
+                                      // model.decoder_attention_heads, 2)
+        warm = np.array([r["s"] for r in steps[2:]])
+        med_s = float(np.median(warm))
+        tokens = sum(r["tokens"] for r in steps[2:])
+        del run, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"model": "transformer_lm_base", "dtype": "bf16",
+            "batch": LONG_BATCH, "seq_len": LONG_T, "updates": LONG_UPDATES,
+            "reference_blocks": list(geom), "route": route,
+            "losses_nats": nats, "flash_launches_per_update": per_update,
+            "launches": launches,
+            "softmax_dropout_launches": dict(sd.launches),
+            "step_ms_median": med_s * 1e3,
+            "step_ms_all": [r["s"] * 1e3 for r in steps],
+            "samples_per_s": LONG_BATCH / med_s,
+            "tokens_per_s": tokens / float(warm.sum()),
+            "tokens_per_update": tokens / len(warm),
+            "padded_slots_per_s": LONG_BATCH * LONG_T / med_s,
+            "peak_mem_gb": peak_gb, "mem_at_start_gb": start_gb,
+            "run_s": run_s, "card": card(),
+            "seconds": time.perf_counter() - t_phase}
+
+
 def lm_serve_checkpoint_phase():
     """10 ``--rotary True`` updates of the lm_train phase's model and
     flags, saved at 5 and 10 without the optimizer state and each save
@@ -2825,6 +3034,10 @@ def lm_serve_checkpoint_phase():
             os.path.join(save, f"checkpoint_1_{LM_SERVE_UPDATES}.pt"),
             dict_path, pub, prompt_file)
         emit("fleet_deploy", **fleet)
+        autoscale = fleet_autoscale_phase(
+            os.path.join(save, "checkpoint_1_5.pt"), dict_path,
+            prompt_file, os.path.join(tmp, "autoscale.json"))
+        emit("fleet_autoscale", **autoscale)
         emit("watchdog", **watchdog_phase(tmp))
     return {"model": "transformer_lm_base", "rotary": True,
             "updates": LM_SERVE_UPDATES, "train_s": train_s,
@@ -2834,17 +3047,20 @@ def lm_serve_checkpoint_phase():
             "manifests": manifests,
             "fleet_paged_launches": fleet["paged_launches"],
             "fleet_cli_paged_launches": fleet["cli"]["paged_launches"],
+            "autoscale_paged_launches": autoscale["paged_launches"],
+            "autoscale_cli_paged_launches":
+                autoscale["cli"]["paged_launches"],
             "stats": served["stats"], "solo_checks": checks,
             "oracle_vs_plain": oracle, "relpos_refusal": refusal}
 
 
-GEN_NEW, GEN_CAP, GEN_BATCH = 32, 512, 8
+GEN_NEW, GEN_CAP, GEN_BATCH = 16, 512, 8
 
 
 def lm_generate_case(model, prompts):
     """``generate()`` (the dense-cache decode) on the served checkpoint's
     fp32 model: the 8 right-padded prompts of 16-200 tokens (the ragged
-    prefill) and an unpadded 8 x 64 batch (``_prefill``), 32 greedy
+    prefill) and an unpadded 8 x 64 batch (``_prefill``), 16 greedy
     tokens each at capacity 512.  Every row equals ``solo_greedy`` of its
     prompt and the engine's greedy stream (a divergence passes only at a
     top-2 gap below 1e-4); no flash or paged kernel runs inside
@@ -3275,6 +3491,345 @@ def fleet_deploy_phase(tmp, ckpt5, ckpt10, dict_path, pub, prompt_file):
         "after_rollback": after, "watchdog": fired,
         "decode_step_median_ms": armed, "cli": cli,
         "phase_s": time.perf_counter() - t_phase}
+
+
+# fleet_autoscale: the update-5 file's replicas under the autoscaler, the
+# knobs of tests/test_torch_fleet.py's replay: a pinned 2 ms virtual step
+# (each replay step advances the clock by it too), so a decision is a
+# function of the queues alone (scale up above a mean of 4 requests a
+# serving replica, down below 1/3)
+AS_STEP_MS = 2.0
+AS_KNOBS = dict(min_replicas=1, max_replicas=3, high_watermark_ms=12.0,
+                low_watermark_ms=1.0, hysteresis_steps=2, cooldown_steps=4,
+                step_time_ms=AS_STEP_MS)
+AS_REQUESTS = 24        # each scenario's arrivals (the saturated runs: 40)
+AS_REACTION_BUDGET = 8  # fleet steps from the crowd's first arrival to a join
+AS_TAIL_STEPS = 60      # idle fleet steps in which the booted replicas retire
+AS_MAX_WAITING = 2      # the saturated runs' bounded queue a replica
+
+
+def autoscale_traces(seed, requests=AS_REQUESTS):
+    """The replay's two traces, each clipped to the pool's context: the
+    seeded ``flash_crowd`` and then ``diurnal`` scenarios, ``requests``
+    each of 16 greedy new tokens over the served vocabulary."""
+    from unicore_tpu_torch.fleet import clip_trace, scenario_trace
+
+    kw = dict(num_requests=requests, vocab=30522,
+              max_new_tokens=(FLEET_NEW, FLEET_NEW), body_len_clip=(1, 136))
+    return [(name, clip_trace(scenario_trace(name, seed + i, **kw),
+                              CONTEXT - FLEET_NEW))
+            for i, name in enumerate(("flash_crowd", "diurnal"))]
+
+
+def autoscale_run(model, knobs, replicas, traces, max_waiting=None):
+    """Replay ``traces`` one after the other through ``replicas`` engines
+    of ``model`` (the serve phase's pool each), under a
+    ``FleetAutoscaler`` with ``knobs`` (None: a fixed fleet); after each
+    trace the idle fleet steps until the booted replicas have retired
+    (at most ``AS_TAIL_STEPS``).  Returns the router, the scaler, every
+    engine's stats (retired ones too; their engines are released), the
+    paged-attention launches and a record per trace: fleet steps, the
+    fleet step of its first crowd arrival, the replicas it booted, each
+    boot's wall seconds
+    (factory plus canary) and factory seconds, the card's allocated bytes
+    before the first boot and after the tail, and its requests'
+    results."""
+    from unicore_tpu_torch.fleet import (FleetAutoscaler, FleetRouter,
+                                         replay_trace)
+    from unicore_tpu_torch.ops import paged_attention as pa
+    from unicore_tpu_torch.serve.engine import ServeEngine
+
+    stats, factory_s = {}, {}
+
+    def factory(rid):
+        t0 = time.perf_counter()
+        eng = ServeEngine(model, device="cuda", num_pages=NUM_PAGES,
+                          page_size=PAGE_SIZE, max_batch=FLEET_BATCH,
+                          max_waiting=max_waiting)
+        factory_s[rid] = time.perf_counter() - t0
+        stats[rid] = eng.stats
+        return eng
+
+    router = FleetRouter({f"r{i}": factory(f"r{i}") for i in range(replicas)},
+                         factory=factory)
+    scaler = (None if knobs is None
+              else router.attach_autoscaler(FleetAutoscaler(router, **knobs)))
+    booting, boots, marks = {}, {}, {}
+    scale_up, submit = router.scale_up, router.submit
+
+    def timed_scale_up(rid):
+        if "allocated" not in marks:
+            torch.cuda.synchronize()
+            marks["allocated"] = torch.cuda.memory_allocated()
+        marks["booted"].append(rid)
+        booting[rid] = time.perf_counter()
+        return scale_up(rid)
+
+    def noted_submit(request, session_key=None):
+        if str(session_key).startswith("crowd.") and "onset" not in marks:
+            marks["onset"] = router._fleet_step
+        return submit(request, session_key=session_key)
+
+    def on_step(i, router):
+        for rid in [r for r in booting if r in router.engines]:
+            boots[rid] = time.perf_counter() - booting.pop(rid)
+
+    router.scale_up, router.submit = timed_scale_up, noted_submit
+    pa.ragged_paged_attention.launches = 0
+    records = []
+    for name, events in traces:
+        marks.pop("onset", None)
+        marks.pop("allocated", None)
+        marks["booted"] = []
+        t0 = time.perf_counter()
+        steps = replay_trace(router, events, step_ms=AS_STEP_MS,
+                             on_step=on_step)
+        tail = 0
+        while scaler is not None and tail < AS_TAIL_STEPS and (
+                len(router.engines) > knobs["min_replicas"]
+                or router._retiring or router._probation):
+            router.step()
+            on_step(steps + tail, router)
+            tail += 1
+        router.collect()
+        wall_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.synchronize()
+        results = router.results()
+        records.append({
+            "trace": name, "requests": len(events), "steps": steps,
+            "tail_steps": tail, "wall_s": wall_s,
+            "onset_step": marks.get("onset"),
+            "booted": marks["booted"],
+            "allocated_before_boot": marks.get("allocated"),
+            "allocated_end": torch.cuda.memory_allocated(),
+            "replicas_end": sorted(router.engines),
+            # cumulative over every engine so far, retired ones included
+            "decode_tokens": sum(s["decode_tokens"] for s in stats.values()),
+            "decode_time_s": sum(s["decode_time_s"] for s in stats.values()),
+            "results": {e.request.request_id:
+                        results[e.request.request_id] for e in events
+                        if e.request.request_id in results}})
+    return {"router": router, "scaler": scaler, "stats": stats,
+            "launches": pa.ragged_paged_attention.launches,
+            "boot_s": boots, "factory_s": factory_s, "records": records}
+
+
+def serve_figures(run, trace):
+    """TTFT p50/p99 of one trace's requests and its decode tokens/s, the
+    fleet's and an engine's (retired engines included)."""
+    i = next(i for i, r in enumerate(run["records"]) if r["trace"] == trace)
+    rec = run["records"][i]
+    prev = run["records"][i - 1] if i else {"decode_tokens": 0,
+                                            "decode_time_s": 0.0}
+    ttft = np.array([r.ttft_ms for r in rec["results"].values()
+                     if r.ttft_ms is not None])
+    tokens = rec["decode_tokens"] - prev["decode_tokens"]
+    secs = rec["decode_time_s"] - prev["decode_time_s"]
+    return {"ttft_p50_ms": float(np.percentile(ttft, 50)),
+            "ttft_p99_ms": float(np.percentile(ttft, 99)),
+            # the fleet's: decode tokens over the replay's wall time
+            "decode_tokens_per_s": tokens / rec["wall_s"],
+            # an engine's: over the engines' summed decode-step time
+            "engine_decode_tokens_per_s": tokens / secs,
+            "wall_s": rec["wall_s"]}
+
+
+def fleet_autoscale_cli_case(ckpt5, dict_path, prompt_file, out):
+    """``python -m unicore_tpu_torch.serve --fleet --autoscale
+    --min-replicas 1 --max-replicas 3``, in process: one replica of the
+    update-5 file takes the 8 prompts, the autoscaler boots a replica
+    through its canary, and every request settles within
+    eos/length/capacity with the pools idle.  When the CLI returns no
+    watchdog thread is left and the card's allocated bytes are back at
+    their value before it."""
+    from unicore_tpu_torch.ops import paged_attention as pa
+    from unicore_tpu_torch.serve.cli import main as serve_main
+
+    gc.collect()
+    torch.cuda.synchronize()
+    allocated0 = torch.cuda.memory_allocated()
+    pa.ragged_paged_attention.launches = 0
+    t0 = time.perf_counter()
+    serve_main(["--checkpoint", ckpt5, "--dict", dict_path, "--prompts",
+                prompt_file, "--fleet", "--replicas", "1", "--autoscale",
+                "--min-replicas", "1", "--max-replicas", "3",
+                "--scale-cooldown-steps", "4", "--max-new-tokens",
+                str(FLEET_NEW), "--num-pages", str(NUM_PAGES),
+                "--page-size", str(PAGE_SIZE), "--max-batch",
+                str(FLEET_BATCH), "--device", "cuda", "--json", out])
+    wall_s = time.perf_counter() - t0
+    launches = pa.ragged_paged_attention.launches
+    gc.collect()
+    torch.cuda.synchronize()
+    allocated1 = torch.cuda.memory_allocated()
+    if abs(allocated1 - allocated0) > FREED_SLACK_B or watchdog_threads():
+        raise AssertionError(
+            f"--fleet --autoscale left {allocated1 - allocated0} B "
+            f"allocated and {watchdog_threads()} watchdog thread(s)")
+    with open(out) as f:
+        rep = json.load(f)
+    auto = rep["fleet"]["autoscale"]
+    actions = [d["action"] for d in auto["decisions"]]
+    reasons = Counter(r["finish_reason"] for r in rep["results"])
+    if ("scale_up" not in actions or "joined" not in actions
+            or not set(reasons) <= FLEET_OK or not rep["pool_clean"]
+            or auto["max_replicas"] != 3 or auto["min_replicas"] != 1):
+        raise AssertionError(f"--fleet --autoscale: decisions "
+                             f"{auto['decisions']}, reasons "
+                             f"{dict(reasons)}, pool clean "
+                             f"{rep['pool_clean']}")
+    return {"wall_s": wall_s, "decisions": auto["decisions"],
+            "finish_reasons": dict(reasons), "paged_launches": launches,
+            "replicas_end": rep["fleet"]["replicas"],
+            "allocated_before": allocated0, "allocated_after": allocated1}
+
+
+def fleet_autoscale_phase(ckpt5, dict_path, prompt_file, out):
+    """The autoscaled fleet of the update-5 file (fp32, rotary, the serve
+    phase's pool a replica).  (a) The CLI (``fleet_autoscale_cli_case``).
+    (b) In process, one replica under ``AS_KNOBS`` replays the seeded
+    ``flash_crowd`` and then ``diurnal`` traces, twice: a scale-up joins
+    within ``AS_REACTION_BUDGET`` fleet steps of the crowd's first
+    arrival, every booted replica passed its canary and in each trace the
+    booted replicas served requests,
+    every scale-down retires with zero shed or expired, its pool idle,
+    and the card's allocated bytes back at their value before the first
+    boot (within ``FREED_SLACK_B``); every request settles within
+    eos/length/capacity, and each equals ``solo_greedy`` of the model
+    (a divergence passes only at an fp32 tie); the two replays give the
+    same decision logs, ``fleet_report()["autoscale"]``, steps and
+    tokens; paged attention launched layers x ragged dispatches.  (c)
+    Saturated: two fixed replicas (``max_replicas`` 2), each queue bound
+    to ``AS_MAX_WAITING``, shed the overflow of a 40-request crowd, the
+    same requests in two runs, the waiting queue within its bound.  Reports each
+    boot's seconds, TTFT p50/p99 and decode tokens/s through the crowd
+    beside the same trace at a fixed 2 replicas."""
+    from unicore_tpu_torch.deploy import load_serve_model
+    from unicore_tpu_torch.examples.lm.model import solo_greedy
+
+    t_phase = time.perf_counter()
+    cli = fleet_autoscale_cli_case(ckpt5, dict_path, prompt_file, out)
+    torch.cuda.empty_cache()
+    model = load_serve_model(ckpt5, dict_path).cuda()
+    layers = model.decoder_layers
+    runs = [autoscale_run(model, AS_KNOBS, 1, autoscale_traces(2626))
+            for _ in range(2)]
+    for run in runs:  # no engine outlives its fleet
+        run["router"].close()
+    a, b = runs
+    same = {
+        "decisions": a["scaler"].decisions == b["scaler"].decisions,
+        "autoscale": (a["router"].fleet_report()["autoscale"]
+                      == b["router"].fleet_report()["autoscale"]),
+        "steps": ([(r["steps"], r["tail_steps"]) for r in a["records"]]
+                  == [(r["steps"], r["tail_steps"]) for r in b["records"]]),
+        "tokens": all(
+            {k: (r.finish_reason, r.tokens) for k, r in ra["results"].items()}
+            == {k: (r.finish_reason, r.tokens)
+                for k, r in rb["results"].items()}
+            for ra, rb in zip(a["records"], b["records"]))}
+    if not all(same.values()):
+        raise AssertionError(f"two autoscaled replays differ: {same}")
+    decisions = a["scaler"].decisions
+    joins = [d for d in decisions if d["action"] == "joined"]
+    downs = [d for d in decisions if d["action"] == "scale_down"]
+    crowd = a["records"][0]
+    first_join = next((d["fleet_step"] for d in joins), None)
+    reaction = (None if first_join is None or crowd["onset_step"] is None
+                else first_join - crowd["onset_step"])
+    if reaction is None or reaction > AS_REACTION_BUDGET or not downs:
+        raise AssertionError(f"scale-up joined {reaction} fleet steps "
+                             f"after the crowd (budget "
+                             f"{AS_REACTION_BUDGET}); decisions {decisions}")
+    # every boot joined through its canary; in each trace the booted
+    # replicas served requests beyond their canaries' one token each
+    served = {rid: a["stats"][rid]["generated_tokens"] for rid in a["boot_s"]}
+    for rec in a["records"]:
+        beyond = sum(served.get(rid, 0) - 1 for rid in rec["booted"])
+        if not rec["booted"] or set(rec["booted"]) - set(served) or \
+                beyond <= 0 or a["scaler"].describe()["boot_failures"]:
+            raise AssertionError(
+                f"{rec['trace']}: booted {rec['booted']}, joined "
+                f"{sorted(a['boot_s'])}, served {served} tokens (1 is a "
+                "canary's)")
+    retired = a["router"].fleet_report()["retired"]
+    for rid, rec in retired.items():
+        if rec["died"] or not rec["pool_idle"] or rec["drain"]["shed"] \
+                or rec["drain"]["expired"]:
+            raise AssertionError(f"retirement of {rid}: {rec}")
+    for rec in a["records"]:
+        back = rec["allocated_end"] - (rec["allocated_before_boot"] or 0)
+        if rec["allocated_before_boot"] is None or \
+                abs(back) > FREED_SLACK_B or len(rec["replicas_end"]) != 1:
+            raise AssertionError(
+                f"{rec['trace']}: after the tail {rec['replicas_end']} "
+                f"serve and {back} B more are allocated than before the "
+                "first boot")
+    dispatches = sum(s["ragged_dispatches"] for s in a["stats"].values())
+    if a["launches"] != layers * dispatches or not dispatches:
+        raise AssertionError(f"{a['launches']} paged launches for "
+                             f"{dispatches} ragged dispatches")
+    checks, reasons = [], Counter()
+    for rec in a["records"]:
+        if len(rec["results"]) != rec["requests"]:
+            raise AssertionError(f"{rec['trace']}: {len(rec['results'])} "
+                                 f"of {rec['requests']} settled")
+        for rid, res in rec["results"].items():
+            reasons[res.finish_reason] += 1
+            if res.finish_reason not in FLEET_OK:
+                raise AssertionError(f"{rid} finished {res.finish_reason}")
+            solo, margins = solo_greedy(model, res.prompt, FLEET_NEW)
+            n = len(res.tokens)
+            checks.append(held_to_solo(rid, res.tokens, solo[:n],
+                                       margins[:n]))
+    fixed = autoscale_run(model, None, 2, autoscale_traces(2626)[:1])
+    fixed["router"].close()
+    saturated = [autoscale_run(model, dict(AS_KNOBS, min_replicas=2,
+                                           max_replicas=2), 2,
+                               autoscale_traces(2626, 40)[:1],
+                               max_waiting=AS_MAX_WAITING)
+                 for _ in range(2)]
+    sheds = []
+    for run in saturated:
+        run["router"].close()
+        res = run["records"][0]["results"]
+        sheds.append(sorted(k for k, r in res.items()
+                            if r.finish_reason == "shed"))
+        if not set(r.finish_reason for r in res.values()) <= \
+                FLEET_OK | {"shed"}:
+            raise AssertionError(f"saturated run finished "
+                                 f"{Counter(r.finish_reason for r in res.values())}")
+    bound = AS_MAX_WAITING + FLEET_BATCH
+    peak = max(s["peak_waiting"] for s in saturated[0]["stats"].values())
+    if not sheds[0] or sheds[0] != sheds[1] or peak > bound or \
+            saturated[0]["scaler"].describe()["scale_ups"]:
+        raise AssertionError(f"saturated runs shed {sheds}, peak waiting "
+                             f"{peak} (bound {bound})")
+    report = {
+        "model": "transformer_lm_base", "card": card(), "cli": cli,
+        "knobs": AS_KNOBS, "requests": [r["requests"] for r in a["records"]],
+        "decisions": decisions, "autoscale": a["router"].fleet_report()[
+            "autoscale"], "retired": retired, "replays_equal": same,
+        "traces": [{k: v for k, v in r.items() if k != "results"}
+                   for r in a["records"]],
+        "reaction_steps": reaction, "reaction_budget": AS_REACTION_BUDGET,
+        "boot_s": a["boot_s"], "factory_s": a["factory_s"],
+        "booted_generated_tokens": served,
+        "finish_reasons": dict(reasons),
+        "solo_equal": sum(c["equal"] for c in checks),
+        "solo_ties": [c for c in checks if not c["equal"]],
+        "paged_launches": a["launches"], "ragged_dispatches": dispatches,
+        "crowd_autoscaled": serve_figures(a, "flash_crowd"),
+        "crowd_fixed_2": serve_figures(fixed, "flash_crowd"),
+        "saturated": {"shed": len(sheds[0]), "shed_equal": True,
+                      "peak_waiting": peak, "waiting_bound": bound,
+                      "replicas": 2},
+        "seconds": time.perf_counter() - t_phase}
+    del runs, a, b, fixed, saturated, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
 
 
 def watchdog_turns(model, requests):
@@ -4194,7 +4749,7 @@ def evoformer_unifold_phase():
             return out
 
         itr = trainer.get_train_iterator(epoch=2).next_epoch_itr()
-        groups = [[next(itr) for _ in range(UNIFOLD_FREQ)] for _ in range(5)]
+        groups = [[next(itr) for _ in range(UNIFOLD_FREQ)] for _ in range(4)]
         clean_ms = []
         Trainer._add_clipped, trainer_mod.ema_update_ = clip_timed, ema_timed
         try:
@@ -4209,7 +4764,7 @@ def evoformer_unifold_phase():
                 real["ema"]
 
         # where a step's time goes, and the EMA's and the clip's shares:
-        # 2 more updates under the profiler, both parts in named ranges
+        # 1 more update under the profiler, both parts in named ranges
         def clip(self, *args):
             with record_function("per_sample_clip"):
                 return real["clip"](self, *args)
@@ -4245,7 +4800,7 @@ def evoformer_unifold_phase():
                     "device_ms": e.device_time_total / 1e3}
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
         emit("evoformer_unifold_profile", card=card(),
-             window="2 updates, 2 examples each, S=128 x R=256, bf16, SR",
+             window="1 update, 2 examples, S=128 x R=256, bf16, SR",
              clean_step_ms=clean_ms, clean_host_ms=host,
              wall_ms=wall_ms, device_busy_ms=busy_ms,
              device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
@@ -6859,7 +7414,11 @@ def kernels_line(res):
                               "serve_sampling": res["sampling_launches"],
                               "fleet_deploy": res["fleet_launches"],
                               "fleet_deploy (--fleet CLI)":
-                                  res["fleet_cli_launches"]},
+                                  res["fleet_cli_launches"],
+                              "fleet_autoscale (replay)":
+                                  res["autoscale_launches"],
+                              "fleet_autoscale (--autoscale CLI)":
+                                  res["autoscale_cli_launches"]},
         "max_abs_err": max(c["max_abs_err"] for c in res["cases"].values()),
         "ms": decode["ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
@@ -6944,6 +7503,34 @@ def kernels_line(res):
                "sdpa_fwd_bwd_ms": r["sdpa_fwd_bwd_ms"],
                "max_abs_err": r["max_abs_err"]}
         for case, r in res["causal"].items()}
+    # the LM's causal call at T = 1024 (B2(iv)): row 2's forward and row
+    # 4's joint backward, launched by lm_long
+    lead = res["causal_multiblock"]["t1024_bias_bfloat16"]
+    for row, name, replaces in (
+            (2, "flash_fwd_bf16", "flash_attention.py:241"),
+            (4, "flash_bwd_dkdv", "flash_attention.py:406"),
+            (4, "flash_bwd_dq", "flash_attention.py:406")):
+        entry = flash_row(row, name, replaces, lead,
+                          res["lm_long_launches"][name])
+        entry["causal"] = True
+        entry["launches_by_phase"] = {
+            f"lm_long ({LONG_UPDATES} updates, batch {LONG_BATCH} x "
+            f"{LONG_T})": res["lm_long_launches"][name]}
+        rows.append(entry)
+    # every causal multi-block case and type (rows 2 and 4-7), once, on
+    # the forward's row
+    rows[-3]["causal_multiblock_cases"] = {
+        case: {"shape": r["shape"], "reference_blocks": r["reference_blocks"],
+               "route": r["route"], "kernels": r["kernels"],
+               "plain_fwd_ms": r["plain_fwd_ms"],
+               "plain_bwd_ms": r["plain_bwd_ms"],
+               "bwd_kernels_ms": r["bwd_kernels_ms"],
+               "bwd_bound_ms": r["bwd_bound_ms"],
+               "sdpa_fwd_ms": r["sdpa_fwd_ms"],
+               "sdpa_fwd_bwd_ms": r["sdpa_fwd_bwd_ms"],
+               "sdpa_other": r["sdpa_other"], "max_abs_err": r["max_abs_err"],
+               "keep_bits": r["keep_bits"]}
+        for case, r in res["causal_multiblock"].items()}
     # cross-attention's call at Tq != Tk: Tq 256 over Tk 512 keys (rows 3
     # and 8), launched by cross_decoder's cross-attention
     lead = res["cross"]["q256_k512"]["bfloat16"]
@@ -7159,6 +7746,7 @@ def main():
     res["causal"] = flash_causal_phase(flush)
     res["cross"] = flash_cross_phase(flush)
     res["multiblock"] = flash_multiblock_phase(flush)
+    res["causal_multiblock"] = flash_causal_multiblock_phase(flush)
     emit("head", **head_phase(flush))
     res["sd"] = softmax_dropout_phase(flush)
     res["packed_sd"] = softmax_dropout_packed_case(flush)
@@ -7192,6 +7780,10 @@ def main():
     res["lm_launches"] = lm_report["launches"]
     torch.cuda.empty_cache()
     res["lm_packed"] = lm_packed_phase(lm_report)
+    torch.cuda.empty_cache()
+    lm_long = lm_long_phase()
+    emit("lm_long", **lm_long)
+    res["lm_long_launches"] = lm_long["launches"]
     guard_cost_case({"train": train["step_ms_median"],
                      "lm_train": lm_report["step_ms_median"]})
     torch.cuda.empty_cache()
@@ -7202,6 +7794,8 @@ def main():
     res["rotary_launches"] = lm_serve["flash_launches"]
     res["fleet_launches"] = lm_serve["fleet_paged_launches"]
     res["fleet_cli_launches"] = lm_serve["fleet_cli_paged_launches"]
+    res["autoscale_launches"] = lm_serve["autoscale_paged_launches"]
+    res["autoscale_cli_launches"] = lm_serve["autoscale_cli_paged_launches"]
     torch.cuda.empty_cache()
     res["lm_fp16_launches"] = lm_optim_fp16_phase()
     torch.cuda.empty_cache()

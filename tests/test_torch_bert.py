@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_thread_module  # noqa: F401
 from unicore_tpu_torch.examples.bert.convert import state_dict_from_flax
 from unicore_tpu_torch.examples.bert.model import BertModel
 from unicore_tpu_torch.modules import FlaxDense

@@ -36,6 +36,7 @@ import pytest
 import torch
 
 from test_torch_train import PAD, make_args, make_batches, model_kwargs
+from torch_threads import one_thread_module  # noqa: F401
 from unicore_tpu_torch import checkpoint_utils as cu
 from unicore_tpu_torch import trainer as port_trainer
 from unicore_tpu_torch.data import iterators
@@ -84,6 +85,22 @@ def test_flipped_byte_is_torn(tmp_path, monkeypatch):
     assert cu.file_integrity(path) == "torn"
     with pytest.raises(cu.CheckpointIntegrityError, match="torn"):
         cu.load_checkpoint_to_cpu(path)
+
+
+def test_unreadable_marker_is_torn(tmp_path, monkeypatch):
+    """A kill while the ``.sum`` marker is copied to its final name leaves
+    it empty or cut: the file is torn (``CheckpointIntegrityError``, which
+    the restore falls back past), not a JSON error that stops the run."""
+    _no_sleep(monkeypatch)
+    path = str(tmp_path / "c.pt")
+    cu.atomic_save({"w": np.arange(16, dtype=np.float32)}, path)
+    marker = open(path + ".sum", "rb").read()
+    for cut in (b"", marker[:len(marker) // 2]):
+        with open(path + ".sum", "wb") as f:
+            f.write(cut)
+        assert cu.file_integrity(path) == "torn"
+        with pytest.raises(cu.CheckpointIntegrityError, match="marker"):
+            cu.load_checkpoint_to_cpu(path)
 
 
 def test_torch_zip_is_refused(tmp_path):

@@ -22,6 +22,7 @@ import pytest
 
 from test_torch_data_workers import (assert_batches_equal, bert_args,
                                      write_bert_corpus)
+from torch_threads import one_thread_module  # noqa: F401
 from unicore_tpu_torch.data import Dictionary, iterators, resilient
 from unicore_tpu_torch.examples.bert.task import BertTask
 from unicore_tpu_torch.tools import chaos

@@ -23,6 +23,7 @@ from argparse import Namespace
 import numpy as np
 import pytest
 
+from torch_threads import one_thread_module  # noqa: F401
 from unicore_tpu_torch.data import (BertTokenizeDataset, DataIntegrityError,
                                     IndexedRecordDataset, IndexedRecordWriter,
                                     LMDBDataset, best_record_dataset,

@@ -39,6 +39,7 @@ from argparse import Namespace
 import numpy as np
 import pytest
 
+from torch_threads import one_thread_module  # noqa: F401
 from unicore_tpu_torch import options as port_options
 from unicore_tpu_torch.data import (Dictionary, IndexedRecordWriter,
                                     UnicoreDataset, iterators)

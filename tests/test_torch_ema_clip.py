@@ -33,7 +33,7 @@ import pytest
 import torch
 from test_torch_evoformer import TINY, make_args, make_batches, trajectories
 
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import one_thread_module  # noqa: F401
 from unicore_tpu_torch import trainer as port_trainer
 from unicore_tpu_torch.ops.ema import ema_update_, fma_fp32
 
@@ -562,7 +562,6 @@ def recipe_cli(data, logdir, save, *extra):
         "--required-batch-size-multiple", "1", "--device", "cpu", *extra])
 
 
-@pytest.mark.usefixtures("one_thread")
 def test_cli_runs_the_unifold_recipe(tmp_path):
     """8 updates with a save every 4: finite losses, the lr of the
     closed form at each update, the file's EMA the trainer's; a resume

@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import one_thread_module  # noqa: F401
 from unicore_tpu_torch import trainer as port_trainer
 from unicore_tpu_torch.examples.evoformer import make_data
 from unicore_tpu_torch.examples.evoformer.convert import state_dict_from_flax
@@ -421,7 +421,6 @@ def test_sr_sync_draws_fresh_seeds_each_micro_batch():
     assert float(err.max()) <= 2 ** -7  # within one bf16 ulp of |x| <= 1
 
 
-@pytest.mark.usefixtures("one_thread")
 def test_cli_trains_tiny_evoformer_on_cpu(tmp_path):
     """``python -m unicore_tpu_torch.cli.train`` in process with the
     slice's flags (--bf16 --bf16-sr --optim-bf16-moments, dropout 0.1) at

@@ -17,14 +17,22 @@ Exact, against the JAX package:
   (all but the measured step times).  Every token
   equals the port's solo decode, and every compared step's top-2 logit
   gap exceeds 1e-3 (the serve tests' fp32-tie rule), so a flipped
-  argmax reads as a failure, not as a tie.
+  argmax reads as a failure, not as a tie;
+- an autoscaled replay of the seeded ``flash_crowd`` and ``diurnal``
+  scenarios over two replicas (a scale-up through the canary, a
+  scale-down through the zero-drop drain): the decision log,
+  ``fleet_report()["autoscale"]`` and ``["retired"]``, the router's
+  counters and every request's finish reason and tokens; and the
+  autoscale report's keys.
 
 On the port alone: ``--fleet`` serves the CLI demo on the CPU with the
-solo path's tokens (``--progress-file`` a line a decode step), the split
-dispatch of ``unified=False`` the unified tokens, a device fault in a
-replica's step goes past the router, an evicted replica's watchdog
-stops and its engine is collected, and the autoscaler's hook and flags
-name ROADMAP.md A12.
+solo path's tokens (``--progress-file`` a line a decode step), with
+``--autoscale`` too, the split dispatch of ``unified=False`` the
+unified tokens, a device fault in a replica's step goes past the router,
+an evicted or retired replica's watchdog stops and its engine is
+collected, a scale-up boots off the ring through its canary, a failed
+boot counts against the boot budget and is not retried by the breaker,
+and the autoscaler's envelope and the CLI's flags are validated.
 """
 
 import dataclasses
@@ -40,8 +48,9 @@ import torch
 
 from torch_threads import one_thread_module  # noqa: F401
 from unicore_tpu_torch.examples.lm.model import TransformerLMModel, solo_greedy
-from unicore_tpu_torch.fleet import (SCENARIOS, CircuitBreaker, FleetRouter,
-                                     HashRing, ReplicaHealth, clip_trace,
+from unicore_tpu_torch.fleet import (SCENARIOS, CircuitBreaker,
+                                     FleetAutoscaler, FleetRouter, HashRing,
+                                     ReplicaHealth, clip_trace,
                                      generate_trace, replay_trace,
                                      scenario_trace)
 from unicore_tpu_torch.ops.build import KernelError
@@ -346,10 +355,220 @@ def test_evicted_replica_is_freed(pair):
     assert not dogs["r1"]._thread.is_alive()
 
 
-def test_autoscaler_names_its_item(pair):
-    fleet = FleetRouter(port_engines(pair, 1, Clock()))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A12"):
-        fleet.attach_autoscaler(object())
+# -- elastic scaling --------------------------------------------------------
+
+# the knobs of tests/test_fleet.py's autoscaled replay: a virtual step of
+# 2 ms, so the policy's pressure is a function of the queues alone
+AUTOSCALE = dict(min_replicas=1, max_replicas=3, high_watermark_ms=12.0,
+                 low_watermark_ms=1.0, hysteresis_steps=2, cooldown_steps=4,
+                 step_time_ms=2.0)
+
+
+def _autoscale_run(pair, port, scenario):
+    """Two replicas under ``AUTOSCALE`` replay the seeded ``scenario``
+    (18 requests), then run out.  Returns the decision log, the
+    autoscale and retired reports, the router's counters and each
+    request's (finish reason, tokens)."""
+    if port:
+        from unicore_tpu_torch.fleet import autoscaler, router, trace
+        engines, req_type = port_engines, Request
+    else:
+        from unicore_tpu.fleet import autoscaler, router, trace
+        from unicore_tpu.serve.scheduler import Request as req_type
+        engines = jax_engines
+    clock = Clock()
+    fleet = router.FleetRouter(
+        engines(pair, 2, clock),
+        factory=lambda rid: engines(pair, 1, clock)["r0"])
+    scaler = fleet.attach_autoscaler(
+        autoscaler.FleetAutoscaler(fleet, **AUTOSCALE))
+    events = clip_trace(scenario_trace(scenario, 5, num_requests=18,
+                                       vocab=V, body_len_clip=(1, 16)),
+                        MAX_CONTEXT)
+    for e in events:
+        e.request = req_type(**dataclasses.asdict(e.request))
+
+    def on_step(step, fleet):
+        clock.now += 0.002
+
+    trace.replay_trace(fleet, events, on_step=on_step)
+    fleet.run_until_complete()
+    report = fleet.fleet_report()
+    return (scaler.decisions, report["autoscale"], report["retired"],
+            report["router"],
+            {rid: (r.finish_reason, list(r.tokens))
+             for rid, r in fleet.results().items()}, events)
+
+
+@pytest.fixture(scope="module")
+def autoscaled(pair):
+    return {scenario: (_autoscale_run(pair, True, scenario),
+                       _autoscale_run(pair, False, scenario))
+            for scenario in ("flash_crowd", "diurnal")}
+
+
+@pytest.mark.parametrize("scenario", ["flash_crowd", "diurnal"])
+def test_autoscaled_replay_equals_jax(pair, autoscaled, scenario):
+    """Event for event the JAX fleet's: the decision log (a scale-up,
+    its join, a scale-down), the autoscale report, the retirement
+    record (zero shed, the pool idle), the router's counters and every
+    request's tokens, which are the solo decode's; a second port replay
+    decides the same."""
+    got, want = autoscaled[scenario]
+    decisions, auto, retired, router, results, events = got
+    assert decisions == want[0]
+    assert auto == want[1]
+    assert retired == want[2]
+    assert router == want[3]
+    assert results == want[4]
+    assert [d["action"] for d in decisions][:2] == ["scale_up", "joined"]
+    assert "scale_down" in [d["action"] for d in decisions]
+    assert router["scale_ups"] == 1 and router["retired"] == 1
+    for rec in retired.values():
+        assert rec["died"] is False and rec["pool_idle"] is True
+        assert rec["drain"]["shed"] == 0 and rec["drain"]["expired"] == 0
+    assert len(results) == len(events)
+    for e in events:
+        reason, tokens = results[e.request.request_id]
+        assert reason in ("eos", "length"), e.request.request_id
+        solo, _ = solo_greedy(pair[2], e.request.prompt,
+                              e.request.max_new_tokens)
+        assert tokens == solo[:len(tokens)], e.request.request_id
+    again = _autoscale_run(pair, True, scenario)
+    assert again[:5] == got[:5]
+
+
+def test_autoscale_report_keys_equal_jax(pair):
+    """``fleet_report()``'s autoscale keys are the JAX report's, None
+    without an autoscaler, and the retirement keys start empty."""
+    from unicore_tpu.fleet import FleetRouter as FlaxRouter
+    from unicore_tpu.fleet.autoscaler import FleetAutoscaler as FlaxScaler
+
+    reports = []
+    for router, scaler, engines in (
+            (FleetRouter, FleetAutoscaler, port_engines),
+            (FlaxRouter, FlaxScaler, jax_engines)):
+        fleet = router(engines(pair, 2, Clock()))
+        rep = fleet.fleet_report()
+        assert rep["autoscale"] is None
+        assert rep["retiring"] == [] and rep["retired"] == {}
+        fleet.attach_autoscaler(scaler(fleet, min_replicas=1,
+                                       max_replicas=3))
+        reports.append(fleet.fleet_report())
+    got, want = reports
+    assert list(got) == list(want)
+    assert got["autoscale"] == want["autoscale"]
+    assert got["autoscale"]["serving"] == 2
+    assert got["autoscale"]["decisions"] == []
+
+
+def test_scale_up_boots_through_canary_off_ring(pair):
+    clock = Clock()
+    fleet = FleetRouter(port_engines(pair, 2, clock),
+                        factory=lambda rid: port_engines(pair, 1,
+                                                         clock)["r0"])
+    assert fleet.scale_up("a0") is True
+    # OFF-RING while probing: no traffic can route to the canary slot
+    assert "a0" in fleet._probation and "a0" not in fleet.engines
+    assert "a0" not in fleet.ring.members()
+    for _ in range(fleet.probe_budget_steps + 2):
+        fleet.step()
+        if "a0" in fleet.engines:
+            break
+    assert "a0" in fleet.engines and "a0" in fleet.ring.members()
+    assert fleet.stats["scale_ups"] == 1 and fleet.stats["rejoins"] == 1
+    with pytest.raises(ValueError):
+        fleet.scale_up("a0")  # a joined slot's id is taken
+    with pytest.raises(RuntimeError, match="factory"):
+        FleetRouter(port_engines(pair, 1, clock)).scale_up("a1")
+
+
+def test_failed_boot_is_the_autoscalers_to_retry(pair):
+    """A boot whose factory fails never takes traffic, counts against
+    the boot budget, and the breaker's tick does not retry the slot: the
+    exhausted budget stops the policy booting."""
+    def broken(rid):
+        raise RuntimeError("chaos: factory down")
+
+    fleet = FleetRouter(port_engines(pair, 1, Clock()), factory=broken)
+    scaler = fleet.attach_autoscaler(FleetAutoscaler(
+        fleet, max_replicas=3, high_watermark_ms=0.5, low_watermark_ms=0.1,
+        hysteresis_steps=1, cooldown_steps=0, boot_budget=2,
+        step_time_ms=2.0))
+    for i in range(3):
+        fleet.submit(Request(prompt=[3, 4 + i], max_new_tokens=8,
+                             request_id=f"q{i}"))
+    fleet.run_until_complete()
+    assert [d["action"] for d in scaler.decisions] == ["boot_failed"] * 2
+    assert scaler.describe()["boot_failures"] == 2
+    assert sorted(fleet.engines) == ["r0"] and not fleet._probation
+    assert fleet.stats["scale_ups"] == 0
+    assert {r.finish_reason for r in fleet.results().values()} == {"length"}
+
+
+def test_retire_replica_zero_drop_under_load_frees_it(pair):
+    """A retirement under load drops nothing: every request finishes
+    with the solo decode's tokens, the victim's pool ends idle, its
+    child is marked retired, and its watchdog stops and its engine is
+    collected (the JAX router keeps retired engines)."""
+    fleet = FleetRouter(port_engines(pair, 3, Clock(), step_timeout=30))
+    reqs = [Request(prompt=[1 + (i % 7), 2, 3], max_new_tokens=4,
+                    seed=i, request_id=f"q{i}") for i in range(9)]
+    for i, req in enumerate(reqs):
+        fleet.submit(req, session_key=f"s{i % 4}")
+    fleet.step()
+    victim = sorted(fleet.engines)[0]
+    dog = fleet.engines[victim].watchdog
+    child = fleet._children[victim]
+    gone = weakref.ref(fleet.engines[victim])
+    fleet.retire_replica(victim)
+    assert victim not in fleet.ring.members()
+    assert fleet.fleet_report()["retiring"] == [victim]
+    with pytest.raises(ValueError, match="already retiring"):
+        fleet.retire_replica(victim)
+    fleet.run_until_complete()
+    results = fleet.results()
+    assert len(results) == len(reqs)
+    for req in reqs:
+        res = results[req.request_id]
+        assert res.finish_reason in ("eos", "length"), res
+        solo, _ = solo_greedy(pair[2], req.prompt, req.max_new_tokens)
+        assert res.tokens == solo, req.request_id
+    assert victim not in fleet.engines and fleet.stats["retired"] == 1
+    rec = fleet.fleet_report()["retired"][victim]
+    assert rec["died"] is False and rec["pool_idle"] is True
+    assert rec["drain"]["shed"] == 0 and rec["drain"]["expired"] == 0
+    assert child.retired and child.requested
+    child.clear()
+    assert child.requested  # a retired slot never re-opens
+    assert not dog._thread.is_alive()
+    gc.collect()
+    assert gone() is None
+    fleet.close()
+
+
+def test_autoscaler_envelope_validation(pair):
+    fleet = FleetRouter(port_engines(pair, 2, Clock()))
+    with pytest.raises(ValueError):
+        FleetAutoscaler(fleet, min_replicas=0)
+    with pytest.raises(ValueError):
+        FleetAutoscaler(fleet, min_replicas=3, max_replicas=2)
+    with pytest.raises(ValueError):
+        FleetAutoscaler(fleet, high_watermark_ms=4.0, low_watermark_ms=4.0)
+    with pytest.raises(ValueError):
+        FleetAutoscaler(fleet, hysteresis_steps=0)
+
+
+def test_serve_cli_autoscale_flag_validation():
+    from unicore_tpu_torch.serve.cli import main
+
+    with pytest.raises(SystemExit, match="needs --fleet"):
+        main(["--demo", "--device", "cpu", "--autoscale",
+              "--num-requests", "2"])
+    with pytest.raises(SystemExit, match="envelope is empty"):
+        main(["--demo", "--device", "cpu", "--fleet", "--autoscale",
+              "--min-replicas", "3", "--max-replicas", "2",
+              "--num-requests", "2"])
 
 
 def test_split_dispatch_serves_the_unified_tokens(pair):
@@ -378,7 +597,9 @@ def test_cli_fleet_demo_serves_the_solo_tokens(tmp_path):
     for mode, extra in (("solo", []), ("fleet", [
             "--fleet", "--replicas", "2", "--sessions", "3",
             "--step-timeout", "60", "--progress-file",
-            str(tmp_path / "progress")])):
+            str(tmp_path / "progress")]), ("autoscale", [
+            "--fleet", "--replicas", "1", "--autoscale", "--min-replicas",
+            "1", "--max-replicas", "3", "--scale-cooldown-steps", "4"])):
         out = tmp_path / f"{mode}.json"
         assert main(argv + extra + ["--json", str(out)]) == 0
         reports[mode] = json.loads(out.read_text())
@@ -397,5 +618,11 @@ def test_cli_fleet_demo_serves_the_solo_tokens(tmp_path):
             for r in fleet["results"]] == [
         (r["request_id"], r["tokens"], r["finish_reason"])
         for r in reports["solo"]["results"]]
-    with pytest.raises(SystemExit, match="A12"):
-        main(argv + ["--fleet", "--autoscale"])
+    auto = reports["autoscale"]
+    assert auto["pool_clean"] is True
+    assert auto["fleet"]["autoscale"]["min_replicas"] == 1
+    assert auto["fleet"]["autoscale"]["max_replicas"] == 3
+    assert [(r["request_id"], r["tokens"], r["finish_reason"])
+            for r in auto["results"]] == [
+        (r["request_id"], r["tokens"], r["finish_reason"])
+        for r in reports["solo"]["results"]]

@@ -32,6 +32,7 @@ import pytest
 import torch
 
 from test_torch_train import PAD, make_args, make_batches, model_kwargs
+from torch_threads import one_thread_module  # noqa: F401
 from unicore_tpu_torch import trainer as port_trainer
 from unicore_tpu_torch.optim import dynamic_loss_scaler as port_dls
 from unicore_tpu_torch.optim import fp16_optimizer as port_fp16

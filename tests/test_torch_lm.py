@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from examples.lm.model import TransformerLMModel as FlaxLM
+from torch_threads import one_thread_module  # noqa: F401
 from unicore_tpu.serve.attention import PagedMeta as FlaxPagedMeta
 from unicore_tpu.tools.convert_torch_checkpoint import arch_flax_params
 from unicore_tpu_torch.examples.lm.model import TransformerLMModel

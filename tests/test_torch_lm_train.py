@@ -27,6 +27,7 @@ import torch
 from test_torch_mol import _poison
 from test_torch_mol import _step as scaled_step
 
+from torch_threads import one_thread_module  # noqa: F401
 from unicore_tpu_torch import trainer as port_trainer
 from unicore_tpu_torch.examples.lm import make_data
 from unicore_tpu_torch.examples.lm.loss import LMCrossEntropyLoss

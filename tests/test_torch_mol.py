@@ -43,7 +43,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import one_thread_module  # noqa: F401
 from unicore_tpu_torch import trainer as port_trainer
 from unicore_tpu_torch.examples.mol import make_data
 from unicore_tpu_torch.examples.mol.loss import UniMolLoss
@@ -669,7 +669,6 @@ def mol_cli_argv(corpus, logdir, save):
         "--save-interval-updates", "12", "--num-workers", "0"]
 
 
-@pytest.mark.usefixtures("one_thread")
 def test_cli_trains_tiny_unimol_on_cpu(tmp_path, corpus):
     """``python -m unicore_tpu_torch.cli.train`` in process, ``--task mol
     --loss unimol --arch unimol`` at the tiny config under ``--fp16``
@@ -695,7 +694,6 @@ def test_cli_trains_tiny_unimol_on_cpu(tmp_path, corpus):
     assert steps[-1] == 13 and len(steps) == 13
 
 
-@pytest.mark.usefixtures("one_thread")
 def test_cli_logs_skipped_fp16_steps(tmp_path, corpus):
     """From a loss scale of 2**30 the first dispatches overflow and are
     skipped; the CLI logs them without a loss or ``coord_rmsd`` (the JAX

@@ -25,6 +25,7 @@ import torch
 from test_torch_ema_clip import flax_params, flax_trainer, tiny_port_trainer
 from test_torch_evoformer import TINY, make_args, make_batches
 
+from torch_threads import one_thread_module  # noqa: F401
 from unicore_tpu_torch import nan_detector as nd
 from unicore_tpu_torch import trainer as port_trainer
 

@@ -43,6 +43,7 @@ import torch
 from test_torch_checkpoint import _jax_trainer, _losses, _port_trainer
 from test_torch_train import make_args, make_batches
 
+from torch_threads import one_thread_module  # noqa: F401
 import unicore_tpu_torch.optim as port_optim
 from unicore_tpu_torch import checkpoint_utils as cu
 from unicore_tpu_torch import nan_detector as nd

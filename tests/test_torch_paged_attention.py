@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_thread_module  # noqa: F401
 from unicore_tpu_torch.ops import build
 from unicore_tpu_torch.ops import paged_attention as pa
 

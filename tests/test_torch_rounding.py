@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_thread_module  # noqa: F401
 from unicore_tpu_torch.ops import rounding
 
 SPECIALS = np.array([np.nan, -np.nan, np.inf, -np.inf, 0.0, -0.0,

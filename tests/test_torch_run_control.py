@@ -39,6 +39,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_thread_module  # noqa: F401
 from unicore_tpu_torch import options as port_options
 from unicore_tpu_torch.cli import train as port_cli
 from unicore_tpu_torch.examples.lm import make_data
@@ -580,7 +581,7 @@ def test_sigterm_saves_the_jax_checkpoint_and_exits_0(corpus, init_file,
         on_dispatch=_sigterm_at_3)
     assert signal.getsignal(signal.SIGTERM) is before
     assert want["saved"] == [3] and not want["validated"]
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     child = subprocess.run(
         [sys.executable, "-c", CHILD,
          json.dumps(lm_argv("port", corpus, port_save, *flags,

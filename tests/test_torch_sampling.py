@@ -258,7 +258,8 @@ def test_engine_sampling_matches_jax_engine(pair):
 
 def test_cli_demo_samples_and_keeps_refusals(tmp_path):
     """``--demo --temperature 0.7 --top-k 5`` serves, twice with the same
-    tokens; the autoscaler's flags still exit naming A12."""
+    tokens, and under ``--fleet --autoscale`` with them too; the
+    autoscaler's impossible envelopes still exit."""
     from unicore_tpu_torch.serve.cli import main
 
     argv = ["--demo", "--device", "cpu", "--num-requests", "5",
@@ -273,9 +274,19 @@ def test_cli_demo_samples_and_keeps_refusals(tmp_path):
     assert len(reports[0]["results"]) == 5
     assert [r["tokens"] for r in reports[0]["results"]] == \
         [r["tokens"] for r in reports[1]["results"]]
-    for flag in (["--fleet", "--autoscale"], ["--min-replicas", "2"],
-                 ["--max-replicas", "8"], ["--scale-cooldown-steps", "4"]):
-        with pytest.raises(SystemExit, match="A12"):
+    out = tmp_path / "autoscale.json"
+    assert main(argv + ["--fleet", "--autoscale", "--min-replicas", "2",
+                        "--max-replicas", "8", "--scale-cooldown-steps", "4",
+                        "--json", str(out)]) == 0
+    fleet = json.loads(out.read_text())
+    assert fleet["pool_clean"] is True
+    assert fleet["fleet"]["autoscale"]["max_replicas"] == 8
+    assert [r["tokens"] for r in fleet["results"]] == \
+        [r["tokens"] for r in reports[0]["results"]]
+    for flag, why in ((["--autoscale"], "needs --fleet"),
+                      (["--fleet", "--autoscale", "--min-replicas", "5"],
+                       "envelope is empty")):
+        with pytest.raises(SystemExit, match=why):
             main(argv + flag)
 
 

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_thread_module  # noqa: F401
 from unicore_tpu.serve.kv_pool import PagedKVPool as FlaxPool
 from unicore_tpu_torch.examples.lm.model import (
     TransformerLMModel,
@@ -293,6 +294,7 @@ def test_cli_demo_on_cpu(tmp_path):
          "--page-size", "4", "--num-pages", "24", "--max-batch", "4",
          "--json", str(out)],
         cwd=REPO, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, OMP_NUM_THREADS="1"),
     )
     assert proc.returncode == 0, proc.stderr
     report = json.loads(out.read_text())

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_thread_module  # noqa: F401
 from unicore_tpu_torch.ops import softmax_dropout as sd
 
 # name: (x shape, mask shape, bias shape)

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_thread_module  # noqa: F401
 from unicore_tpu_torch import trainer as port_trainer
 
 V, PAD, D, H, F, L, T = 33, 1, 32, 4, 64, 2, 32

@@ -62,7 +62,8 @@ def model():
 
 
 def _child(code, timeout=45):
-    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu",
+               OMP_NUM_THREADS="1")
     t0 = time.monotonic()
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=timeout,

@@ -296,17 +296,28 @@ def read_verified(filename, retries=3, backoff=0.5):
                                "checkpoint); loading UNVERIFIED", filename)
                 return payload
             with open(_sum_path(filename), "rb") as f:
-                marker = json.loads(f.read().decode())
-            if (len(payload) == marker.get("size")
+                raw = f.read()
+            try:
+                marker = json.loads(raw.decode())
+            except ValueError:
+                # a kill while the marker was copied leaves it empty or
+                # cut: the file is torn and the restore falls back
+                marker = None
+            if marker is None:
+                last = CheckpointIntegrityError(
+                    f"{filename} is torn: its .sum marker "
+                    f"({len(raw)} bytes) is unreadable")
+            elif (len(payload) == marker.get("size")
                     and _digest(payload) == marker.get("digest")):
                 return payload
-            last = CheckpointIntegrityError(
-                f"{filename} is torn: {len(payload)} bytes, sha256 "
-                f"{_digest(payload)[:12]}… does not match its .sum marker "
-                f"({marker.get('size')} bytes, "
-                f"{str(marker.get('digest'))[:12]}…). If you edited the "
-                f"checkpoint intentionally, delete the stale "
-                f"{_sum_path(filename)}")
+            else:
+                last = CheckpointIntegrityError(
+                    f"{filename} is torn: {len(payload)} bytes, sha256 "
+                    f"{_digest(payload)[:12]}… does not match its .sum "
+                    f"marker ({marker.get('size')} bytes, "
+                    f"{str(marker.get('digest'))[:12]}…). If you edited "
+                    f"the checkpoint intentionally, delete the stale "
+                    f"{_sum_path(filename)}")
         except FileNotFoundError:
             raise  # not transient: nothing to back off for
         except OSError as e:

@@ -42,13 +42,24 @@
 - **Deploy.**  :meth:`attach_deploy` wires a :class:`~unicore_tpu_
   torch.deploy.rollout.RolloutController`, polled once per fleet step
   at the step boundary, where a weight swap is legal.
+- **Elasticity.**  :meth:`scale_up` boots a new replica slot OFF-RING
+  through the same breaker+canary probe a failover replacement uses (an
+  armed, never-tripped breaker, so a scale-up boot is no failure in the
+  flap window), and :meth:`retire_replica` retires a replica through
+  the zero-drop drain a rolling restart uses, but NON-BLOCKING: the
+  victim leaves the ring, its waiting requests reroute, its running work
+  finishes over the following fleet steps, and :meth:`step` finalizes
+  the retirement once the victim is idle.  The decisions live in
+  :class:`~unicore_tpu_torch.fleet.autoscaler.FleetAutoscaler`, attached
+  with :meth:`attach_autoscaler` and polled at the step boundary.  A
+  retired replica's engine is closed and released, as an evicted one's
+  is (the JAX router keeps every retired engine); its record stays in
+  ``fleet_report()["retired"]``.
 
 The router is single-threaded and cooperative: :meth:`step` advances
 every replica by one ``serve_step`` (never the batch-blocking
 ``generate()``), so the whole fleet is deterministic under a seeded
-trace replay (:mod:`~unicore_tpu_torch.fleet.trace`).  Not ported: the
-autoscaler and its scale-up and retire paths (ROADMAP.md A12);
-:meth:`attach_autoscaler` raises.
+trace replay (:mod:`~unicore_tpu_torch.fleet.trace`).
 """
 
 import logging
@@ -138,6 +149,9 @@ class FleetRouter:
         self._lost = {}           # rid -> eviction record (most recent)
         self.step_ewma_alpha = float(step_ewma_alpha)
         self._step_ewma = {}      # rid -> smoothed step_ms (EWMA)
+        self._retiring = {}       # rid -> in-flight scale-down record
+        self._retired = {}        # rid -> completed retirement record
+        self._managed = set()     # slots whose retry the autoscaler owns
         self.stats = {
             "routed": 0, "overflow_routed": 0, "rerouted": 0,
             "restarts": 0, "failovers": 0, "replica_lost": 0,
@@ -146,6 +160,7 @@ class FleetRouter:
         }
         self._auto_id = 0
         self._deploy = None  # RolloutController hook
+        self._autoscaler = None  # FleetAutoscaler hook
 
     def attach_deploy(self, controller):
         """Wire a deploy :class:`~unicore_tpu_torch.deploy.rollout.
@@ -158,11 +173,13 @@ class FleetRouter:
         return controller
 
     def attach_autoscaler(self, scaler):
-        """The JAX package's elastic scaling hook
-        (``unicore_tpu/fleet/autoscaler.py``): not ported."""
-        raise NotImplementedError(
-            "the fleet autoscaler is not ported to unicore_tpu_torch yet "
-            "(ROADMAP.md A12)")
+        """Wire a :class:`~unicore_tpu_torch.fleet.autoscaler.
+        FleetAutoscaler` into the router: polled once per fleet step at
+        the step boundary (after retirements finalize, before the deploy
+        hook), its :meth:`describe` rides out through
+        ``fleet_report()["autoscale"]``."""
+        self._autoscaler = scaler
+        return scaler
 
     def _make_child(self, rid):
         if self.shutdown is not None:
@@ -306,15 +323,21 @@ class FleetRouter:
                 busy = True
         if self._step_probation():
             busy = True
+        self._finalize_retirements()
         self._tick_breakers()
+        if self._autoscaler is not None:
+            # the same step boundary as the deploy hook: every replica
+            # has stepped and retirements just finalized, so the gauges
+            # the policy reads describe a settled fleet
+            self._autoscaler.on_step(self._fleet_step)
         if self._deploy is not None:
             # the STEP BOUNDARY: every replica has stepped, nothing is
             # mid-dispatch — the only point where a weight swap is legal
             self._deploy.on_step(self._fleet_step)
         # a probe launched by the tick above has not stepped yet: keep
-        # the drive loop alive until its canary settles; an active
-        # rollout likewise holds the loop open
-        return (busy or bool(self._probation)
+        # the drive loop alive until its canary settles; an in-flight
+        # retirement or an active rollout likewise holds the loop open
+        return (busy or bool(self._probation) or bool(self._retiring)
                 or (self._deploy is not None and self._deploy.active()))
 
     def _step_replica(self, rid):
@@ -404,6 +427,18 @@ class FleetRouter:
         every routing decision goes through the same ``_route``."""
         eng = self.engines.pop(rid)
         reason = self.health.reason(rid) or "dead"
+        if rid in self._retiring:
+            # the victim died MID-RETIRE: the fleet already decided it
+            # does not need this capacity, so the slot must not probe a
+            # replacement on its own: record the retirement as died and
+            # leave any retry to the autoscaler
+            rec = self._retiring.pop(rid)
+            self._managed.add(rid)
+            self._retired[rid] = {
+                "fleet_step": self._fleet_step, "since": rec["since"],
+                "rerouted": rec["rerouted"], "drain": None,
+                "pool_idle": False, "died": True,
+            }
         self.ring.discard(rid)
         self._step_ewma.pop(rid, None)
         child = self._children.pop(rid, None)
@@ -514,6 +549,11 @@ class FleetRouter:
         for rid in sorted(self._breakers):
             if rid in self.engines or rid in self._probation:
                 continue
+            if rid in self._managed:
+                # an autoscaler-owned slot: whether and when to retry
+                # the boot is the policy's call, bounded by its boot
+                # budget; the router must not retry behind its back
+                continue
             if self._breakers[rid].ready(self._fleet_step):
                 self._start_probation(rid)
 
@@ -603,11 +643,131 @@ class FleetRouter:
         self.health.reset(rid)
         self._step_ewma.pop(rid, None)  # fresh engine, fresh estimate
         self._breakers[rid].succeed(self._fleet_step)
+        was_scale_up = rid in self._managed
+        self._managed.discard(rid)  # a full member retries like any slot
+        if was_scale_up:
+            self.stats["scale_ups"] += 1
         self.stats["rejoins"] += 1
         logger.warning(
             "replica %r REJOINED the ring at fleet step %d (canary "
             "completed; breaker closed)", rid, self._fleet_step,
         )
+
+    # -- elasticity -----------------------------------------------------
+
+    def scale_up(self, rid):
+        """Boot a new replica slot OFF-RING through the breaker's canary
+        probe path: the slot gets an armed, never-tripped breaker
+        (:meth:`~unicore_tpu_torch.fleet.health.CircuitBreaker.arm`:
+        probe-ready at once, an empty flap window), ``factory(rid)``
+        boots off the ring, and only a completed canary joins it
+        (:meth:`_rejoin`).  A replica that fails its canary never takes
+        traffic; whether to retry is the autoscaler's call (the slot is
+        managed, so :meth:`_tick_breakers` does not retry it).  Returns
+        True while the boot is in flight (canary pending), False if the
+        factory failed outright."""
+        if self.factory is None:
+            raise RuntimeError("scale_up needs a replacement factory")
+        if (rid in self.engines or rid in self._probation
+                or rid in self._retiring):
+            raise ValueError(f"replica id {rid!r} already in use")
+        breaker = self._breakers.get(rid)
+        if breaker is None:
+            breaker = self._breakers[rid] = self._breaker_factory(rid)
+            breaker.arm(self._fleet_step)
+        elif not breaker.ready(self._fleet_step):
+            raise RuntimeError(
+                f"scale_up({rid!r}): slot breaker not ready (state "
+                f"{breaker.state!r}) — a failed boot must serve its "
+                "cooldown before a retry"
+            )
+        self._managed.add(rid)
+        self._retired.pop(rid, None)
+        self._start_probation(rid)
+        return rid in self._probation
+
+    def retire_replica(self, rid, *, signum=_signal.SIGTERM):
+        """Begin retiring replica ``rid`` (scale-down) through the
+        zero-drop drain a rolling restart uses, but NON-BLOCKING: leave
+        the ring (its sessions remap minimally), request the drain
+        through its ChildShutdown, reroute its reclaimed waiting
+        requests (they hold no pool pages), and return.  The victim's
+        running work finishes over the following fleet steps while the
+        rest of the fleet keeps serving, and :meth:`step` finalizes the
+        retirement once the victim is idle."""
+        if rid not in self.engines:
+            raise ValueError(f"no live replica {rid!r} to retire")
+        if rid in self._retiring:
+            raise ValueError(f"replica {rid!r} is already retiring")
+        eng = self.engines[rid]
+        self.ring.remove(rid)
+        # drain FIRST: the victim's snapshot then reports draining, so
+        # the reroute below can never route back onto it
+        self._children[rid].request(signum)
+        rerouted = eng.reclaim_waiting()
+        for req in rerouted:
+            self._replica_of.pop(req.request_id, None)
+            sess = self._session_of.pop(req.request_id, None)
+            self.submit(req, session_key=sess)
+            self.stats["rerouted"] += 1
+        self._retiring[rid] = {
+            "since": self._fleet_step, "rerouted": len(rerouted),
+        }
+        logger.warning(
+            "replica %r RETIRING at fleet step %d: off the ring, %d "
+            "waiting request(s) rerouted, running work draining",
+            rid, self._fleet_step, len(rerouted),
+        )
+
+    def _finalize_retirements(self):
+        """Complete every in-flight scale-down whose victim has gone
+        idle: finalize its drain report, verify that its pool ends idle
+        (pages leaked across a retirement would be invisible forever),
+        harvest its last results, and remove the replica.  The engine is
+        then closed and released, as an evicted one is: its pool and
+        watchdog leave the card.  A victim that died mid-drain was
+        recorded by :meth:`_evict_replica` (failover salvaged it)."""
+        for rid in sorted(self._retiring):
+            eng = self.engines.get(rid)
+            if eng is None:
+                continue  # died mid-retire; eviction recorded it
+            if eng.has_work():
+                continue
+            self._step_replica(rid)  # idle call finalizes the drain report
+            if rid not in self.engines:
+                continue  # declared dead on its very last step
+            rep = eng.drain_report
+            if rep is None:
+                # idle when the drain landed: the zero report of the same
+                # shape, so every retirement records its drain
+                rep = self._zero_drain_report(eng)
+            for res in eng.collect_finished():
+                self._settle_result(res)
+            if not eng.pool.is_idle():
+                raise RuntimeError(
+                    f"replica {rid!r} retired but its pool is not idle "
+                    "— pages leaked across the scale-down"
+                )
+            eng.pool.check_invariants()
+            rec = self._retiring.pop(rid)
+            del self.engines[rid]
+            self._step_ewma.pop(rid, None)
+            child = self._children.pop(rid, None)
+            if child is not None:
+                child.mark_retired()
+            self.health.reset(rid)
+            eng.close()  # its watchdog thread must not outlive the replica
+            self.stats["retired"] += 1
+            self._retired[rid] = {
+                "fleet_step": self._fleet_step, "since": rec["since"],
+                "rerouted": rec["rerouted"], "drain": rep,
+                "pool_idle": True, "died": False,
+            }
+            logger.warning(
+                "replica %r RETIRED at fleet step %d (drained in %d "
+                "fleet step(s), pool idle)", rid, self._fleet_step,
+                self._fleet_step - rec["since"],
+            )
 
     # -- rolling restart ------------------------------------------------
 
@@ -739,9 +899,9 @@ class FleetRouter:
         """ONE report for the whole fleet: per-replica stats rolled up
         (sums for counters, maxes for peaks) plus the router's own
         routing/affinity/failover counters and the health + breaker
-        surfaces.  ``retiring``, ``retired`` and ``autoscale`` keep the
-        JAX report's keys: they stay empty until the autoscaler is
-        ported."""
+        surfaces, the scale-downs in flight and done, and the
+        autoscaler's :meth:`~unicore_tpu_torch.fleet.autoscaler.
+        FleetAutoscaler.describe`."""
         agg = {k: 0 for k in SUM_STATS}
         agg.update({k: 0 for k in MAX_STATS})
         for eng in self.engines.values():
@@ -773,9 +933,11 @@ class FleetRouter:
             "breakers": {str(rid): br.describe()
                          for rid, br in sorted(self._breakers.items())},
             "probation": sorted(map(str, self._probation)),
-            "retiring": [],
-            "retired": {},
+            "retiring": sorted(map(str, self._retiring)),
+            "retired": {str(rid): dict(rec)
+                        for rid, rec in sorted(self._retired.items())},
             "deploy": (None if self._deploy is None
                        else self._deploy.describe()),
-            "autoscale": None,
+            "autoscale": (None if self._autoscaler is None
+                          else self._autoscaler.describe()),
         }

@@ -117,9 +117,13 @@ class ChildShutdown:
     lost child's flag is permanent — ``clear()`` no longer re-opens it
     — so a wedged engine that later "wakes up" finds its drain flag set
     and sheds instead of serving stale ring traffic; the replacement
-    replica always gets a FRESH child.  (The JAX package's
-    ``mark_retired``, the autoscaler's scale-down state, comes with the
-    autoscaler: ROADMAP.md A12.)"""
+    replica always gets a FRESH child.
+
+    :meth:`mark_retired` is the SCALE-DOWN terminal state: the
+    autoscaler retires a replica through the zero-drop drain, and once
+    the drain completes the slot is gone for good — the same permanent
+    flag as ``lost``, another label, so the report can tell a planned
+    retirement from a crash eviction."""
 
     def __init__(self, parent=None, name=None):
         self.parent = parent
@@ -127,6 +131,7 @@ class ChildShutdown:
         self._requested = False
         self._signum = None
         self.lost = False
+        self.retired = False
 
     @property
     def requested(self):
@@ -154,16 +159,25 @@ class ChildShutdown:
         self.lost = True
         self._requested = True
 
+    def mark_retired(self):
+        """Permanently drain this child: the replica it guards was
+        RETIRED by a scale-down.  Like :meth:`mark_lost`, the flag can
+        never be cleared — a retired engine that is somehow stepped
+        again must shed, not serve — but the label tells the operator
+        this was a planned, zero-drop exit."""
+        self.retired = True
+        self._requested = True
+
     def clear(self):
         """Reset the CHILD's own flag (post-restart re-open).  The
         parent's fleet-wide request, if any, still reads through; a LOST
-        child stays drained forever (an eviction is not a restart — a
-        comeback gets a fresh child)."""
-        if self.lost:
+        or RETIRED child stays drained forever (neither eviction nor
+        retirement is a restart — a comeback gets a fresh child)."""
+        if self.lost or self.retired:
             logger.warning(
-                "ChildShutdown.clear() on lost replica %r ignored — an "
-                "evicted replica cannot re-open its own drain flag",
-                self.name,
+                "ChildShutdown.clear() on %s replica %r ignored — an "
+                "evicted/retired replica cannot re-open its own drain "
+                "flag", "lost" if self.lost else "retired", self.name,
             )
             return
         self._requested = False

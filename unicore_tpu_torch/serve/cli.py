@@ -24,9 +24,12 @@ in-process engines that share the model (session keys ``s{i mod
 --sessions}``), with failover and circuit-breaker rejoin; with
 ``--publish-dir`` a :class:`~unicore_tpu_torch.deploy.rollout.
 RolloutController` watches the directory and rolls each verified
-manifest out canary-first.  The autoscaler's flags (``--autoscale``,
-``--min-replicas``, ``--max-replicas``, ``--scale-cooldown-steps``)
-parse and exit naming ROADMAP.md A12.
+manifest out canary-first.  ``--autoscale`` attaches a
+:class:`~unicore_tpu_torch.fleet.autoscaler.FleetAutoscaler` that boots
+replicas off-ring through the canary under load and retires the
+least-loaded one through the zero-drop drain when idle, between
+``--min-replicas`` and ``--max-replicas``, ``--scale-cooldown-steps``
+fleet steps apart in each direction.
 
 Output: one JSON object (``--json FILE`` or stdout) with per-request
 generated ids, finish reasons, TTFT, and the engine's aggregate stats
@@ -47,12 +50,6 @@ from .engine import ServeEngine
 from .scheduler import DEFAULT_REQUEST_RETRIES, Request
 
 logger = logging.getLogger("unicore_tpu_torch.serve.cli")
-
-NOT_PORTED = "is not ported to unicore_tpu_torch yet"
-# flag -> (the ROADMAP.md item that ports it, the parsed value that
-# leaves it off)
-ITEMS = {"--autoscale": ("A12", False), "--min-replicas": ("A12", 1),
-         "--max-replicas": ("A12", 4), "--scale-cooldown-steps": ("A12", 16)}
 
 
 def make_parser():
@@ -122,13 +119,23 @@ def make_parser():
                      help="trips inside the flap window that hold a replica "
                           "slot quarantined (default: 3)")
     flt.add_argument("--autoscale", action="store_true",
-                     help=f"elastic scaling policy ({NOT_PORTED})")
+                     help="fleet mode: attach the deterministic elastic "
+                          "scaling policy: scale-up boots replicas "
+                          "off-ring through the breaker's canary, "
+                          "scale-down retires the least-loaded replica "
+                          "through the zero-drop drain")
     flt.add_argument("--min-replicas", type=int, default=1,
-                     help=f"autoscale floor ({NOT_PORTED})")
+                     help="autoscale: never retire below this many "
+                          "serving replicas (default: 1)")
     flt.add_argument("--max-replicas", type=int, default=4,
-                     help=f"autoscale ceiling ({NOT_PORTED})")
+                     help="autoscale: never boot above this many "
+                          "serving+booting replicas; at saturation the "
+                          "engines shed deterministically instead of "
+                          "growing (default: 4)")
     flt.add_argument("--scale-cooldown-steps", type=int, default=16,
-                     help=f"autoscale refractory period ({NOT_PORTED})")
+                     help="autoscale: per-direction refractory period "
+                          "between scaling decisions, in fleet steps "
+                          "(default: 16)")
     flt.add_argument("--publish-dir", default=None,
                      help="deploy: watch this directory for published "
                           "weight manifests and roll them out live, "
@@ -280,6 +287,14 @@ def _fleet_main(args, model, requests, shutdown):
             cooldown_steps=args.breaker_cooldown,
             flap_limit=args.flap_limit),
     )
+    if args.autoscale:
+        from ..fleet.autoscaler import FleetAutoscaler
+
+        # its describe() rides out through fleet_report()["autoscale"]
+        router.attach_autoscaler(FleetAutoscaler(
+            router, min_replicas=args.min_replicas,
+            max_replicas=args.max_replicas,
+            cooldown_steps=args.scale_cooldown_steps))
     if args.publish_dir:
         from ..deploy import DeploySubscriber, RolloutController
 
@@ -302,6 +317,9 @@ def _fleet_main(args, model, requests, shutdown):
         results = router.results()
     finally:
         router.close()
+    # every pool the run still holds: the originals and the replicas the
+    # autoscaler booted; a retired replica's pool was held idle when it
+    # retired (its record in the fleet report) and is released
     audited = dict(engines)
     audited.update(router.engines)
     pool_clean = all(e.pool.is_idle() for e in audited.values())
@@ -335,11 +353,17 @@ def main(argv=None):
         level="INFO", stream=sys.stderr,
     )
     args = make_parser().parse_args(argv)
-    for flag, (item, off) in ITEMS.items():
-        if getattr(args, flag[2:].replace("-", "_")) != off:
-            raise SystemExit(f"{flag} {NOT_PORTED} (ROADMAP.md {item})")
     if not args.demo and not args.checkpoint:
         raise SystemExit("need --checkpoint (with --dict) or --demo")
+    # an impossible autoscale envelope fails at the parser, not mid-run
+    if args.autoscale and not args.fleet:
+        raise SystemExit("--autoscale needs --fleet (the scaling "
+                         "policy steps with the fleet router)")
+    if args.min_replicas > args.max_replicas:
+        raise SystemExit(
+            f"--min-replicas {args.min_replicas} > --max-replicas "
+            f"{args.max_replicas}: the autoscale envelope is empty"
+        )
 
     if args.demo:
         model = _demo_model(args.seed, args.device)
